@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive horovod_tpu_torch on one NVIDIA GPU and hold its kernel to the
-plain PyTorch version.
+"""Drive horovod_tpu_torch on one NVIDIA GPU and hold its kernels to
+their plain PyTorch versions.
 
     python3 chip_smoke.py             # from the root of a checkout
-    python3 chip_smoke.py --profile   # also profile one steady step
+    python3 chip_smoke.py --profile   # also profile steady steps
 
 Phases (a failure in any one exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the CUDA kernel library from ``horovod_tpu_torch/ops/csrc``
-   with nvcc for sm_90a;
+2. build the two CUDA kernel libraries from
+   ``horovod_tpu_torch/ops/csrc`` (``scale_cast.cu``,
+   ``flash_attention.cu``) with nvcc for sm_90a, both at once;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
    single tensors of 1, 4095, 4097 and 25.6 M elements in five dtype
    pairs at three factors, and a pack/unpack round trip over the 161
@@ -27,12 +28,41 @@ Phases (a failure in any one exits non-zero):
    torch step on the same 128 images as the overhead yardstick;
 5. ``MeshExecutor`` in process-group mode over NCCL at world size 1:
    the ResNet-50 gradient list as one fused bucket with pre/post scale,
-   against the plain version.
+   against the plain version;
+6. the three flash-attention kernels (forward, dq, dk/dv) against their
+   plain versions: f32 and bf16, head dims 64 and 128, S 128, 1000 and
+   2048, BH 3 and 40, windows None, 1, 100 and S-1, each output held
+   elementwise and in relative L2 to the bounds of
+   ``flash_attention.error_ratio``; then each kernel's time at the LM's
+   shape (B 5, S 2048, H 8, D 128, bf16, causal), its bound, its plain
+   version's time and, as the library yardstick,
+   ``scaled_dot_product_attention`` forward (for the forward kernel) and
+   PyTorch's flash backward, one call for dq, dk and dv (for both
+   backward kernels);
+7. the LM path: ``make_lm_train_step(attention_impl="flash")`` trains
+   the full-width 436M transformer LM (24 x 1024, 8 heads x 128, d_ff
+   4096, vocab 32000, random weights from one numpy seed) on 5 x 2048
+   tokens for 6 steps.  Checks: finite losses, step 1's loss within 0.1
+   of ln 32000 + 1024 * 0.02**2 / 2 (the expected cross entropy of the
+   init's logits), 24 launches of each flash kernel per step, and one
+   step of the dense model (``attention_impl="ring"``) on the same
+   weights and tokens giving step 1's loss within 2e-3 and every
+   gradient within a relative L2 of max(2e-2, twice the dense step's own
+   distance from the f32 gradient of the same step, which an f32 dense
+   model in plain torch computes), with the flash step
+   no further from the f32 gradients, over all parameters, than 1.25 x
+   the dense step (bf16 rounding alone puts either bf16 step about 3%
+   from f32).  Then the same LM at 2 layers trains at np=2 through
+   ``DistributedOptimizer(AdamW)`` (2 x 2048 tokens per rank, 3 steps):
+   step 1's averaged gradients equal the plain average bit for bit and
+   both ranks' parameters are bit-identical at the end.
 
 The two lines before the last are the card line and a JSON summary of
-the kernels; the last line is ``{"ok": true, "device": {...}}``.
+the kernels; the last line is ``{"ok": true, "device": {...}}``.  With
+``--profile`` phases 4 and 7 also profile one steady step each.
 """
 
+import gc
 import json
 import math
 import os
@@ -41,6 +71,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 6
@@ -51,6 +82,15 @@ SEED = 0
 # cores (both at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# the 436M LM of benchmarks/lm_mfu_bench.py:37-39, bf16 activations
+LM = dict(vocab_size=32000, d_model=1024, n_layers=24, n_heads=8,
+          d_ff=4096, max_seq_len=2048)
+LM_BATCH = 5
+LM_HVD_LAYERS, LM_HVD_BATCH, LM_HVD_STEPS = 2, 2, 3
+FLASH = (("flash_fwd", "horovod_tpu/ops/pallas_kernels.py:453"),
+         ("flash_bwd_dq", "horovod_tpu/ops/pallas_kernels.py:498"),
+         ("flash_bwd_dkv", "horovod_tpu/ops/pallas_kernels.py:514"))
 
 
 def log(*a):
@@ -456,6 +496,397 @@ def phase_nccl(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6
+
+def flash_bound_ms(BH, S, D, itemsize):
+    """Each kernel's least time on the card for causal attention: the
+    larger of its tensor-core flops over the S(S+1)/2 visible pairs of
+    each row at the bf16 peak, and its bytes (each input read once, each
+    output written once) at the HBM rate."""
+    pairs = BH * S * (S + 1) // 2
+    tile, rows = BH * S * D * itemsize, BH * S * 4
+    work = {"flash_fwd": (4 * D * pairs, 3 * tile + tile + rows),
+            "flash_bwd_dq": (6 * D * pairs, 4 * tile + 2 * rows + tile),
+            "flash_bwd_dkv": (8 * D * pairs, 4 * tile + 2 * rows + 2 * tile)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_op, t_mem = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_op, t_mem) * 1e3,
+                     "operations" if t_op >= t_mem else "bytes")
+    return out
+
+
+def phase_flash_kernels(dev):
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    cases, failures, main_err = 0, [], {}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 128):
+            for S in (128, 1000, 2048):
+                for BH in (3, 40):
+                    q, k, v, do = (torch.randn(BH, S, D, generator=g)
+                                   .to(dev, dtype) for _ in range(4))
+                    for window in (None, 1, 100, S - 1):
+                        out, lse = FA.flash_fwd(q, k, v, window)
+                        r_out, r_lse = FA.plain_flash_fwd(q, k, v, window)
+                        delta = (do.float() * r_out.float()).sum(-1)
+                        dq = FA.flash_bwd_dq(q, k, v, do, r_lse, delta,
+                                             window)
+                        dk, dv = FA.flash_bwd_dkv(q, k, v, do, r_lse,
+                                                  delta, window)
+                        r_dq = FA.plain_flash_bwd_dq(q, k, v, do, r_lse,
+                                                     delta, window)
+                        r_dk, r_dv = FA.plain_flash_bwd_dkv(
+                            q, k, v, do, r_lse, delta, window)
+                        sc = FA.plain_error_scales(q, k, v, do, r_out,
+                                                   r_lse, delta, window)
+                        torch.cuda.synchronize()
+                        errs = {}
+                        for name, got, want, t_dtype, rss, noise in (
+                                ("out", out, r_out, dtype, sc["rss_out"],
+                                 None),
+                                # f32 for every input dtype
+                                ("lse", lse, r_lse, torch.float32, None,
+                                 None),
+                                ("dq", dq, r_dq, dtype, sc["rss_dq"],
+                                 sc["noise_dq"]),
+                                ("dk", dk, r_dk, dtype, sc["rss_dk"],
+                                 sc["noise_dk"]),
+                                ("dv", dv, r_dv, dtype, sc["rss_dv"],
+                                 None)):
+                            err, ratio = FA.error_ratio(got, want, t_dtype,
+                                                        rss, noise)
+                            errs[name] = err
+                            worst[dtype] = max(worst[dtype], ratio)
+                            if not ratio <= 1.0:
+                                failures.append(
+                                    f"{dtype} D={D} S={S} BH={BH} "
+                                    f"window={window} {name}: max |diff| "
+                                    f"{err}, {ratio} of its bound")
+                        del sc
+                        cases += 1
+                        if (dtype, D, S, BH, window) == (
+                                torch.bfloat16, 128, 2048, 40, None):
+                            main_err = {
+                                "flash_fwd": errs["out"],
+                                "flash_bwd_dq": errs["dq"],
+                                "flash_bwd_dkv": max(errs["dk"],
+                                                     errs["dv"])}
+                    del q, k, v, do, out, lse, r_out, r_lse, delta
+                    del dq, dk, dv, r_dq, r_dk, r_dv
+    torch.cuda.empty_cache()
+    log(f"phase 6: {cases} cases x 3 kernels against their plain "
+        f"versions, {len(failures)} failures; worst error / bound "
+        f"(elementwise or relative L2, see FA.error_ratio): f32 "
+        f"{worst[torch.float32]:.4f}, bf16 {worst[torch.bfloat16]:.4f}; "
+        f"max |kernel - plain| at the LM's shape (bf16): {main_err}")
+    for f in failures[:20]:
+        log(f"  MISMATCH {f}")
+    if failures:
+        raise SystemExit("phase 6 failed: a flash kernel disagrees with "
+                         "its plain version")
+
+    # timing at the LM's shape
+    B, S, H, D = LM_BATCH, LM["max_seq_len"], LM["n_heads"], \
+        LM["d_model"] // LM["n_heads"]
+    q, k, v, do = (torch.randn(B * H, S, D, generator=g)
+                   .to(dev, torch.bfloat16) for _ in range(4))
+    out, lse = FA.flash_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    calls = {
+        "flash_fwd": (lambda: FA.flash_fwd(q, k, v),
+                      lambda: FA.plain_flash_fwd(q, k, v)),
+        "flash_bwd_dq": (
+            lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta),
+            lambda: FA.plain_flash_bwd_dq(q, k, v, do, lse, delta)),
+        "flash_bwd_dkv": (
+            lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta),
+            lambda: FA.plain_flash_bwd_dkv(q, k, v, do, lse, delta))}
+    bounds = flash_bound_ms(B * H, S, D, 2)
+    res = {}
+    for name, (kern, plain) in calls.items():
+        ms, _ = cuda_ms(kern)
+        plain_ms, _ = cuda_ms(plain, iters=5, warmup=1)
+        res[name] = {"ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1],
+                     "max_abs_err": main_err[name], "library_ms": None}
+    q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
+    sdpa_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    sdpa_fb_ms, _ = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+        do4))
+    # PyTorch's flash backward alone: one call gives dq, dk and dv from
+    # the output and logsumexp of its own forward on the same q, k, v
+    aten = torch.ops.aten
+    o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
+    sdpa_b_ms, _ = cuda_ms(
+        lambda: aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed,
+            offset))
+    res["flash_fwd"]["library_ms"] = sdpa_ms
+    res["flash_bwd_dq"]["library_ms"] = sdpa_b_ms
+    res["flash_bwd_dkv"]["library_ms"] = sdpa_b_ms
+    for name, r in res.items():
+        log(f"phase 6 timing {name} (BH {B * H}, S {S}, D {D}, bf16, "
+            f"causal): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+    total = sum(r["ms"] for r in res.values())
+    log(f"phase 6 timing: the three kernels {total:.4f} ms; "
+        f"scaled_dot_product_attention forward {sdpa_ms:.4f} ms, "
+        f"forward+backward {sdpa_fb_ms:.4f} ms; flash backward alone "
+        f"(dq, dk and dv in one call) {sdpa_b_ms:.4f} ms")
+    FA.reset_launches()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+
+def lm_flops_per_token(cfg):
+    """benchmarks/lm_mfu_bench.py:42-49: 6 x (block + logits matmul
+    params) + the causal attention matmuls, forward and backward."""
+    d, f, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    n_block = L * (4 * d * d + 3 * d * f)
+    attn = 6 * L * cfg.max_seq_len * d * 0.5
+    return 6 * (n_block + V * d) + attn
+
+
+def phase_lm(dev, profile=False):
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, lm_loss, numpy_init)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel import make_lm_train_step
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    with torch.device("meta"):
+        shell = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    weights = numpy_init(shell, SEED)
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, cfg.max_seq_len))
+    tok = torch.from_numpy(tokens).to(dev)
+    names = [n for n, _ in FLASH]
+
+    init, step = make_lm_train_step(cfg, attention_impl="flash", device=dev)
+    state = init(weights)
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step, grads = [], [], [], None
+    prev = [0, 0, 0]
+    FA.reset_launches()
+    for i in range(STEPS):
+        prof = None
+        if profile and i == STEPS - 2:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, loss = step(state, tok)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            profile_summary(prof, times[-1])
+        losses.append(float(loss))
+        cur = [FA.launches[n] for n in names]
+        per_step.append([c - p for c, p in zip(cur, prev)])
+        prev = cur
+        if i == 0:
+            grads = {n: p.grad.detach().cpu() for n, p in
+                     state["model"].named_parameters()}
+    launches = dict(FA.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 7: non-finite loss {losses}")
+    # random init: unit-RMS hidden states against a normal(0.02)
+    # embedding give logits of variance d_model * 0.02**2, whose expected
+    # cross entropy is ln V + variance / 2
+    want = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    if abs(losses[0] - want) > 0.1:
+        raise AssertionError(f"phase 7: step 1 loss {losses[0]} is not "
+                             f"within 0.1 of {want:.4f}")
+    if any(c != [cfg.n_layers] * 3 for c in per_step):
+        raise AssertionError(f"phase 7: flash launches per step {per_step}, "
+                             f"want {cfg.n_layers} of each")
+    timed = [t for i, t in enumerate(times)
+             if i > 0 and not (profile and i == STEPS - 2)]
+    steady = sum(timed) / len(timed)
+    tok_s = LM_BATCH * cfg.max_seq_len / steady
+    tflops = lm_flops_per_token(cfg) * tok_s / 1e12
+    log(f"phase 7: {n_params} parameters (numpy init {init_s:.1f} s); "
+        f"losses {losses}; flash launches per step {per_step[0]} "
+        f"(all steps equal); {launches}")
+    log(f"phase 7: step times (s) {[round(t, 4) for t in times]}; steady "
+        f"{steady * 1e3:.2f} ms/step = {tok_s:.1f} tok/s = {tflops:.1f} "
+        f"model TFLOP/s ({lm_flops_per_token(cfg) / 1e9:.3f} GFLOP/token); "
+        f"peak memory {peak / 2**30:.2f} GiB")
+
+    # the dense model, one step from the same weights and tokens
+    del state, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_d, step_d = make_lm_train_step(cfg, attention_impl="ring",
+                                        device=dev)
+    state = init_d(weights)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss_d = step_d(state, tok)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated()
+    loss_d = float(loss_d)
+    grads_d = {n: p.grad.detach() for n, p in
+               state["model"].named_parameters()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same step's f32 gradients (dense attention in plain torch, no
+    # TF32, none of the port's kernels): the yardstick of the two bf16
+    # steps' own noise
+    with torch.device("meta"):
+        ref = TransformerLM(TransformerConfig(dtype=torch.float32, **LM))
+    ref.to_empty(device=dev)
+    ref.load_state_dict(weights)
+    torch.cuda.reset_peak_memory_stats()
+    loss_r = lm_loss(ref(tok)[:, :-1], tok[:, 1:])
+    loss_r.backward()
+    loss_r = float(loss_r.detach())
+    ref_peak = torch.cuda.max_memory_allocated()
+    fd, f_ref, d_ref, sq = {}, {}, {}, [0.0, 0.0, 0.0]
+    for n, p in ref.named_parameters():
+        r, gf, gd = p.grad, grads[n].to(dev).float(), grads_d[n].float()
+        rn = float(r.norm())
+        fd[n] = float((gf - gd).norm() / gd.norm())
+        f_ref[n] = float((gf - r).norm()) / rn
+        d_ref[n] = float((gd - r).norm()) / rn
+        for j, x in enumerate((gf - r, gd - r, r)):
+            sq[j] += float(x.norm()) ** 2
+    glob_f, glob_d = math.sqrt(sq[0] / sq[2]), math.sqrt(sq[1] / sq[2])
+    bad = [n for n in fd if fd[n] > max(2e-2, 2 * d_ref[n])]
+    worst = max(fd, key=lambda n: fd[n] / max(2e-2, 2 * d_ref[n]))
+    log(f"phase 7 dense step (batch {LM_BATCH}): loss {loss_d} vs flash "
+        f"{losses[0]} (|diff| {abs(loss_d - losses[0]):.3g}, bound 2e-3), "
+        f"f32 dense loss {loss_r}; first step {dense_s * 1e3:.1f} ms, "
+        f"peak memory {dense_peak / 2**30:.2f} GiB (f32 dense step "
+        f"{ref_peak / 2**30:.2f} GiB)")
+    log(f"phase 7 gradients, relative L2 per tensor: flash vs dense worst "
+        f"{fd[worst]:.4g} ({worst}; bound max(2e-2, 2 x dense vs f32 = "
+        f"{2 * d_ref[worst]:.4g})), median "
+        f"{sorted(fd.values())[len(fd) // 2]:.4g}; "
+        f"against f32, all parameters: flash {glob_f:.4g}, dense "
+        f"{glob_d:.4g} (bound flash <= 1.25 x dense); worst tensor flash "
+        f"{max(f_ref.values()):.4g}, dense {max(d_ref.values()):.4g}")
+    if abs(loss_d - losses[0]) > 2e-3 or bad or glob_f > 1.25 * glob_d:
+        raise AssertionError(f"phase 7: the flash step disagrees with the "
+                             f"dense step beyond bf16 noise: {bad[:5]}")
+    del ref, grads, grads_d, loss_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steady_s": steady, "tok_s": tok_s,
+            "tflops": tflops, "peak": peak}
+
+
+def phase_lm_hvd(dev):
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, lm_loss, numpy_init)
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel.train import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16,
+                            **{**LM, "n_layers": LM_HVD_LAYERS})
+    with torch.device("meta"):
+        shell = TransformerLM(cfg)
+    weights = numpy_init(shell, SEED + 5)
+    rng = np.random.default_rng(SEED + 6)
+    toks = [rng.integers(0, cfg.vocab_size,
+                         size=(LM_HVD_BATCH, cfg.max_seq_len))
+            for _ in range(NP)]
+    barrier = threading.Barrier(NP)
+    local, losses = {}, {}
+
+    def train():
+        r = hvd.rank()
+        with torch.device("meta"):
+            model = TransformerLM(cfg, attention_fn=FA.flash_attention)
+        model.to_empty(device=dev)
+        model.load_state_dict({k: v if r == 0 else v + 1.0
+                               for k, v in weights.items()})
+        hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+        params = list(model.parameters())
+        capture = [p.register_post_accumulate_grad_hook(
+            lambda p, i=i: local.setdefault(r, {}).__setitem__(
+                i, p.grad.clone())) for i, p in enumerate(params)]
+        opt = hvd_torch.DistributedOptimizer(
+            adamw(1e-3)(params), named_parameters=model.named_parameters())
+        t = torch.from_numpy(toks[r]).to(dev)
+        for step in range(LM_HVD_STEPS):
+            opt.zero_grad()
+            loss = lm_loss(model(t)[:, :-1], t[:, 1:])
+            loss.backward()
+            opt.synchronize()
+            if step == 0:
+                for h in capture:
+                    h.remove()
+                barrier.wait()
+                bad = sum(not torch.equal(
+                    p.grad, (local[0][i] + local[1][i]) * 0.5)
+                    for i, p in enumerate(params))
+                if bad:
+                    raise AssertionError(
+                        f"rank {r}: {bad} averaged LM gradients differ "
+                        f"from the plain average of the ranks' local "
+                        f"gradients")
+            with opt.skip_synchronize():
+                opt.step()
+            losses.setdefault(r, []).append(float(loss.detach()))
+        return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    K.reset_launches()
+    FA.reset_launches()
+    results = hvd.run(train, np=NP, device=dev)
+    flash = dict(FA.launches)
+    packs = K.launches["pack_scale_cast"]
+    diff = [k for k in results[0]
+            if not torch.equal(results[0][k], results[1][k])]
+    if diff:
+        raise AssertionError(f"phase 7 np={NP}: ranks' LM parameters "
+                             f"differ after {LM_HVD_STEPS} steps: {diff[:5]}")
+    want = LM_HVD_LAYERS * NP * LM_HVD_STEPS
+    if any(flash[n] != want for n, _ in FLASH) or packs < LM_HVD_STEPS * NP:
+        raise AssertionError(f"phase 7 np={NP}: flash launches {flash} "
+                             f"(want {want} each), {packs} packs")
+    if not all(math.isfinite(x) for v in losses.values() for x in v):
+        raise AssertionError(f"phase 7 np={NP}: non-finite loss {losses}")
+    log(f"phase 7 np={NP}: {LM_HVD_LAYERS}-layer full-width LM through "
+        f"DistributedOptimizer(AdamW), {LM_HVD_STEPS} steps; losses "
+        f"{losses}; step 1 averaged gradients equal the plain average; "
+        f"parameters of both ranks bit-identical; flash launches {flash}, "
+        f"{packs} pack launches")
+    del results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -479,12 +910,23 @@ def main():
         f"{torch.__version__}; CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}; TF32 off (cudnn and matmul)")
 
-    from horovod_tpu_torch.ops import _build, cuda_kernels
-    cuda_kernels._lib()
-    info = _build.build_info["hvd_scale_cast"]
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    log(f"phase 2: built {os.path.basename(info['path'])} in "
-        f"{info['seconds']:.2f} s; ptxas: {regs[:1]}")
+    from horovod_tpu_torch.ops import _build, cuda_kernels, flash_attention
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(cuda_kernels._lib),
+                  pool.submit(flash_attention._lib)]:
+            f.result()
+    log(f"phase 2: both libraries built in {time.perf_counter() - t0:.2f} s")
+    for name in ("hvd_scale_cast", "hvd_flash"):
+        info = _build.build_info[name]
+        lines = info["log"].splitlines()
+        regs = [ln.split(":", 1)[1].strip() for ln in lines
+                if "registers" in ln]
+        spills = [ln.strip() for ln in lines
+                  if "spill" in ln and not ln.strip().startswith("0 bytes")]
+        log(f"phase 2: built {os.path.basename(info['path'])} in "
+            f"{info['seconds']:.2f} s; ptxas, per kernel: {regs}; "
+            f"spills: {spills}")
 
     kern = phase_kernel(dev)
 
@@ -511,17 +953,33 @@ def main():
         finally:
             sys.setswitchinterval(old)
     phase_nccl(dev)
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = phase_flash_kernels(dev)
+    lm = phase_lm(dev, profile="--profile" in sys.argv[1:])
+    phase_lm_hvd(dev)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     log(card)
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "scale_cast_batched", "route": "cuda",
         "source": "horovod_tpu_torch/ops/csrc/scale_cast.cu",
         "replaces": "horovod_tpu/ops/pallas_kernels.py:67",
         "launches": main_path["launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": "bytes", "library_ms": kern["library_ms"]}]}))
+        "bound_by": "bytes", "library_ms": kern["library_ms"]}]
+    for name, replaces in FLASH:
+        r = flash[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": lm["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

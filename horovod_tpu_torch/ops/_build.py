@@ -48,32 +48,34 @@ def _nvcc() -> str:
 
 def load(name: str, sources) -> ctypes.CDLL:
     """Build (once per source hash) and load ``lib<name>.so`` from
-    ``sources`` (file names under ``ops/csrc``)."""
+    ``sources`` (file names under ``ops/csrc``).  nvcc runs outside the
+    lock, so libraries called for from several threads build at once."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        paths = [CSRC / s for s in sources]
-        digest = hashlib.sha256()
-        for p in paths:
-            digest.update(p.read_bytes())
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-            t0 = time.monotonic()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.monotonic() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {so.name}:\n"
-                    f"{' '.join(cmd)}\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        build_info[name] = {"seconds": seconds, "log": log, "path": str(so)}
-        _libs[name] = lib
-        return lib
+        if name in _libs:
+            return _libs[name]
+    paths = [CSRC / s for s in sources]
+    digest = hashlib.sha256()
+    for p in paths:
+        digest.update(p.read_bytes())
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.monotonic() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {so.name}:\n"
+                f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, so)
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(so))
+            build_info[name] = {"seconds": seconds, "log": log,
+                                "path": str(so)}
+        return _libs[name]
