@@ -8,9 +8,10 @@ their plain PyTorch versions.
 Phases (a failure in any one exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the two CUDA kernel libraries from
+2. build the three CUDA kernel libraries from
    ``horovod_tpu_torch/ops/csrc`` (``scale_cast.cu``,
-   ``flash_attention.cu``) with nvcc for sm_90a, both at once;
+   ``flash_attention.cu``, ``quantize.cu``) with nvcc for sm_90a, all
+   at once;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
    single tensors of 1, 4095, 4097 and 25.6 M elements in five dtype
    pairs at three factors, and a pack/unpack round trip over the 161
@@ -28,7 +29,10 @@ Phases (a failure in any one exits non-zero):
    torch step on the same 128 images as the overhead yardstick;
 5. ``MeshExecutor`` in process-group mode over NCCL at world size 1:
    the ResNet-50 gradient list as one fused bucket with pre/post scale,
-   against the plain version;
+   against the plain version; then the same bucket through
+   ``allreduce_quantized`` on the int8 and the int4 wire (encode on the
+   card, codes and bf16 scales gathered over NCCL, decode), against the
+   plain codec bit for bit;
 6. the three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions: f32 and bf16, head dims 64 and 128, S 128, 1000 and
    2048, BH 3 and 40, windows None, 1, 100 and S-1, each output held
@@ -55,11 +59,33 @@ Phases (a failure in any one exits non-zero):
    from f32).  Then the same LM at 2 layers trains at np=2 through
    ``DistributedOptimizer(AdamW)`` (2 x 2048 tokens per rank, 3 steps):
    step 1's averaged gradients equal the plain average bit for bit and
-   both ranks' parameters are bit-identical at the end.
+   both ranks' parameters are bit-identical at the end;
+8. the wire codec kernels B2-B5 (``quantize.cu``: int8 and int4 encode
+   and decode) against their plain versions, bit for bit: 1, 255, 256,
+   257, 70,000 and 25,557,032 elements (the ResNet-50 gradient) in f32,
+   bf16 and f16, decoded to f32 and bf16, plus zero, subnormal-scale,
+   tie and clip blocks and blocks holding NaN or +-inf (all-NaN after
+   decode on both sides); then each kernel's time on the 25,557,032 f32
+   elements, its bound, its plain version's time and, for the int8
+   decode, one ``torch.mul`` of the codes by their scales as the library
+   yardstick;
+9. the main path over the quantized wire: phase 4's run (full-width
+   ResNet-50, 2 rank threads, 6 steps) through
+   ``DistributedOptimizer(compression=Compression.int8)`` and then
+   ``.int4``.  Checks: finite losses; both ranks' parameters
+   bit-identical at the end; at step 1 every bucket's encoded rows and
+   ``allreduce_quantized`` result, and every error-feedback residual,
+   equal the plain codec applied to the recorded fusion rows and local
+   gradients, bit for bit; the encode and decode launches of every step
+   equal buckets x 2 ranks + 161 parameters x 2 ranks (error feedback);
+   logical / actual wire bytes above 3.9 (int8) and 7.5 (int4).  It
+   prints step 1's averaged gradient's relative L2 distance from the
+   exact f32 average (gross sanity: below 0.05 for int8, 0.5 for int4)
+   and the steady step time beside phase 4's.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels; the last line is ``{"ok": true, "device": {...}}``.  With
-``--profile`` phases 4 and 7 also profile one steady step each.
+``--profile`` phases 4, 7 and 9 also profile one steady step each.
 """
 
 import gc
@@ -88,6 +114,19 @@ LM = dict(vocab_size=32000, d_model=1024, n_layers=24, n_heads=8,
           d_ff=4096, max_seq_len=2048)
 LM_BATCH = 5
 LM_HVD_LAYERS, LM_HVD_BATCH, LM_HVD_STEPS = 2, 2, 3
+# the four codec kernels: (name, TPU kernel it replaces, wire)
+CODEC = (("quantize_blockwise", "horovod_tpu/ops/pallas_kernels.py:129",
+          "int8"),
+         ("dequantize_blockwise", "horovod_tpu/ops/pallas_kernels.py:149",
+          "int8"),
+         ("quantize_blockwise_int4",
+          "horovod_tpu/ops/pallas_kernels.py:222", "int4"),
+         ("dequantize_blockwise_int4",
+          "horovod_tpu/ops/pallas_kernels.py:244", "int4"))
+# gross sanity bounds on step 1's averaged gradient's relative L2
+# distance from the exact f32 average
+WIRE_REL_L2 = {"int8": 0.05, "int4": 0.5}
+WIRE_RATIO = {"int8": 3.9, "int4": 7.5}
 FLASH = (("flash_fwd", "horovod_tpu/ops/pallas_kernels.py:453"),
          ("flash_bwd_dq", "horovod_tpu/ops/pallas_kernels.py:498"),
          ("flash_bwd_dkv", "horovod_tpu/ops/pallas_kernels.py:514"))
@@ -456,11 +495,26 @@ def phase_plain_threads(dev, state, batches):
 # ---------------------------------------------------------------------------
 # phase 5
 
+def plain_encode(x, wire):
+    from horovod_tpu_torch.ops import quantize as qz
+    return qz.plain_quantize_blockwise_int4(x) if wire == "int4" \
+        else qz.plain_quantize_blockwise(x)
+
+
+def plain_decode(q, scales, n, wire, out_dtype=None):
+    import torch
+    from horovod_tpu_torch.ops import quantize as qz
+    dec = qz.plain_dequantize_blockwise_int4 if wire == "int4" \
+        else qz.plain_dequantize_blockwise
+    return dec(q, scales, n, out_dtype or torch.float32)
+
+
 def phase_nccl(dev):
     import torch
     import torch.distributed as dist
     from horovod_tpu_torch.core.message import ReduceOp
     from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import quantize_kernels as QK
     from horovod_tpu_torch.ops.dist_ops import MeshExecutor
 
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
@@ -471,6 +525,7 @@ def phase_nccl(dev):
         offsets.append(total)
         total += t.numel()
     pre, post = 1.0 / 3.0, 0.25
+    wired = {}
     with tempfile.TemporaryDirectory() as tmp:
         store = dist.FileStore(os.path.join(tmp, "store"), 1)
         dist.init_process_group("nccl", store=store, rank=0, world_size=1)
@@ -481,6 +536,16 @@ def phase_nccl(dev):
             (y,) = ex.reduce([buf], ReduceOp.SUM)
             outs = [torch.empty_like(t) for t in grads]
             K.unpack_scale_cast(y, outs, offsets, post)
+            # the same bucket on the quantized wires: packed with factor
+            # 1, encoded on the card, gathered, decoded, scaled in f32
+            raw = torch.empty(total, device=dev)
+            K.pack_scale_cast(grads, raw, offsets, 1.0)
+            for bits, wire in ((8, "int8"), (4, "int4")):
+                q, sc = QK.encode(raw, wire)
+                (yq,) = ex.allreduce_quantized([q], [sc], ReduceOp.AVERAGE,
+                                               pre, post, nbits=bits,
+                                               n_elems=total)
+                wired[wire] = (q, sc, yq)
             torch.cuda.synchronize()
         finally:
             dist.destroy_process_group()
@@ -490,9 +555,18 @@ def phase_nccl(dev):
     if bad:
         raise AssertionError(f"phase 5: {bad} tensors differ from the plain "
                              f"pre/post-scaled allreduce")
+    for wire, (q, sc, yq) in wired.items():
+        pq, ps = plain_encode(raw, wire)
+        want = plain_decode(pq, ps, total, wire) * (pre * post)
+        if not (torch.equal(q, pq) and torch.equal(sc, ps)
+                and torch.equal(yq, want)):
+            raise AssertionError(f"phase 5: the {wire} allreduce over NCCL "
+                                 f"differs from the plain codec")
     log(f"phase 5: NCCL allreduce of {len(grads)} tensors ({total} f32) "
         f"as one fused bucket, pre {pre} post {post}: equal to the plain "
-        f"version")
+        f"version; allreduce_quantized of the same bucket on the int8 and "
+        f"int4 wires (Average): codes, scales and result equal to the "
+        f"plain codec")
 
 
 # ---------------------------------------------------------------------------
@@ -887,6 +961,346 @@ def phase_lm_hvd(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8
+
+def codec_inputs(n, seed):
+    """n normal values whose scale varies over six decades across blocks."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    nb = -(-n // 256)
+    scale = np.repeat(10.0 ** rng.uniform(-3, 3, nb).astype(np.float32),
+                      256)[:n]
+    return torch.from_numpy(rng.standard_normal(n, dtype=np.float32) * scale)
+
+
+def codec_edge_blocks(qmax):
+    """Zero, subnormal-scale, tie and clip blocks and a ragged tail (the
+    edge blocks of tests/test_torch_quantize.py)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    ties = ((np.arange(256) % (2 * qmax)) - qmax + 0.5) * 0.25
+    ties[0] = qmax * 0.25
+    clip = np.linspace(-1.0, 1.0, 256) * (qmax + 1) * 2.0 ** -133
+    blocks = [np.zeros(256), rng.standard_normal(256) * 1e-38, ties, clip,
+              rng.standard_normal(100)]
+    return torch.from_numpy(np.concatenate(blocks).astype(np.float32))
+
+
+def codec_bound_ms(n, bits, decode):
+    """Least time of one encode or decode of n f32 elements: its bytes
+    (f32 values, codes of the nb padded blocks, f32 scales; each read or
+    written once) at the HBM rate, against its f32 operations (encode:
+    abs, max, divide, round and two clamps; decode: one multiply) at the
+    f32 rate."""
+    nb = -(-n // 256)
+    code_bytes = nb * 256 if bits == 8 else nb * 128
+    nbytes = 4 * n + code_bytes + 4 * nb
+    ops = n * (1 if decode else 6)
+    t_mem, t_op = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_mem, t_op) * 1e3, "bytes" if t_mem >= t_op else "operations"
+
+
+def _bits_equal(a, b):
+    import torch
+    if a.dtype.is_floating_point:
+        iv = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.view(iv), b.view(iv)
+    return torch.equal(a, b)
+
+
+def phase_codec(dev):
+    import torch
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+
+    n_main = sum(math.prod(s) for s in resnet50_grad_shapes())
+    names = {8: ("quantize_blockwise", "dequantize_blockwise"),
+             4: ("quantize_blockwise_int4", "dequantize_blockwise_int4")}
+    cases, failures = 0, []
+    err = {name: 0.0 for name, _, _ in CODEC}
+    inputs = [(n, codec_inputs(n, n)) for n in
+              (1, 255, 256, 257, 70_000, n_main)]
+    for bits, wire in ((8, "int8"), (4, "int4")):
+        enc_name, dec_name = names[bits]
+        edge = codec_edge_blocks(127 if bits == 8 else 7)
+        nonfinite = codec_inputs(1024, 4)
+        nonfinite[256 + 17] = float("nan")
+        nonfinite[512 + 200] = float("inf")
+        nonfinite[768 + 3] = float("-inf")
+        for label, base in inputs + [("edge", edge),
+                                     ("nan/inf", nonfinite)]:
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                if label == "nan/inf" and dt != torch.float32:
+                    continue
+                x = base.to(dt).to(dev)
+                n = x.numel()
+                q, s = QK.encode(x, wire)
+                pq, ps = plain_encode(x, wire)
+                outs = [(od, QK.decode(q, s, n, bits, od),
+                         plain_decode(pq, ps, n, wire, od))
+                        for od in (torch.float32, torch.bfloat16)]
+                torch.cuda.synchronize()
+                cases += 1
+                tag = f"{wire} {label} {dt}"
+                if label == "nan/inf":
+                    # codes of a NaN or inf block are not compared; every
+                    # decoded value of those blocks is NaN on both sides
+                    ok = (torch.equal(q[:q.numel() // 4], pq[:q.numel() // 4])
+                          and all(_bits_equal(g.view(4, 256)[0],
+                                              w.view(4, 256)[0])
+                                  and g.view(4, 256)[1:].isnan().all()
+                                  and w.view(4, 256)[1:].isnan().all()
+                                  for _, g, w in outs))
+                    if not ok:
+                        failures.append(tag)
+                    continue
+                err[enc_name] = max(err[enc_name], float(
+                    (q.int() - pq.int()).abs().max()) if n else 0.0,
+                    float((s - ps).abs().max()) if n else 0.0)
+                if not (torch.equal(q, pq) and _bits_equal(s, ps)):
+                    failures.append(f"{tag} encode")
+                for od, got, want in outs:
+                    if n:
+                        err[dec_name] = max(err[dec_name], float(
+                            (got.float() - want.float()).abs().max()))
+                    if not _bits_equal(got, want):
+                        failures.append(f"{tag} decode to {od}")
+    log(f"phase 8: {cases} codec cases (encode, decode to f32 and bf16) "
+        f"against the plain versions, {len(failures)} failures; max "
+        f"|kernel - plain| {err}")
+    for f in failures[:20]:
+        log(f"  MISMATCH {f}")
+    if failures:
+        raise SystemExit("phase 8 failed: a codec kernel disagrees with its "
+                         "plain version")
+
+    # timing on the ResNet-50 gradient's length, f32
+    x = inputs[-1][1].to(dev)
+    res = {}
+    for bits, wire in ((8, "int8"), (4, "int4")):
+        enc_name, dec_name = names[bits]
+        q, s = QK.encode(x, wire)
+        calls = {
+            enc_name: (lambda: QK.encode(x, wire),
+                       lambda: plain_encode(x, wire), False),
+            dec_name: (lambda: QK.decode(q, s, n_main, bits),
+                       lambda: plain_decode(q, s, n_main, wire), True)}
+        for name, (kern, plain, decode) in calls.items():
+            ms, host_ms = cuda_ms(kern)
+            plain_ms, _ = cuda_ms(plain, iters=5, warmup=1)
+            bound, by = codec_bound_ms(n_main, bits, decode)
+            res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "max_abs_err": err[name],
+                         "library_ms": None, "host_ms": host_ms}
+        if bits == 8:
+            rows, sc = q.view(-1, 256), s.unsqueeze(1)
+            res[dec_name]["library_ms"], _ = cuda_ms(
+                lambda: torch.mul(rows, sc))
+    for name, r in res.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms (torch.mul of the codes by the scales)"
+        log(f"phase 8 timing {name} ({n_main} f32 elements): kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
+            f"{lib}; wrapper host {r['host_ms']:.4f} ms")
+    del x, q, s
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+
+def phase_wire_path(dev, state, batches, wire, profile=False):
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import quantize as qz
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+
+    xs, ys = batches
+    enc_name, dec_name = [name for name, _, w in CODEC if w == wire]
+    barrier = threading.Barrier(NP)
+    local, residuals, averaged, wire_bytes = {}, {}, {}, []
+    rec = {"on": True}
+    records = []
+
+    def train():
+        r = hvd.rank()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict({k: v if r == 0 else v + 1.0
+                               for k, v in state.items()})
+        hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+        params = list(model.parameters())
+        capture = [p.register_post_accumulate_grad_hook(
+            lambda p, i=i: local.setdefault(r, {}).__setitem__(
+                i, p.grad.clone())) for i, p in enumerate(params)]
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters(),
+            compression=getattr(hvd_torch.Compression, wire))
+        x = torch.from_numpy(xs[r]).to(dev)
+        y = torch.from_numpy(ys[r]).to(dev)
+        eng = hvd.engine()
+        if r == 0:
+            # record step 1's buckets: the packed rows and their codes as
+            # the engine encodes them, and the executor's result
+            encode = eng._encode_quantized_rows
+            ex = eng.get_process_set(0).executor
+            reduce_q = ex.allreduce_quantized
+
+            def encode_spy(rows, logical, w):
+                out = encode(rows, logical, w)
+                if rec["on"]:
+                    records.append({"rows": [t.clone() for t in rows],
+                                    "q": out[0], "s": out[1]})
+                return out
+
+            def reduce_spy(q_rows, s_rows, op, pre, post, **kw):
+                out = reduce_q(q_rows, s_rows, op, pre, post, **kw)
+                if rec["on"]:
+                    records[-1].update(y=out[0], post=(op, pre, post))
+                return out
+            eng._encode_quantized_rows = encode_spy
+            ex.allreduce_quantized = reduce_spy
+        losses, times, counts = [], [], []
+        for step in range(STEPS):
+            barrier.wait()
+            prof = None
+            if profile and r == 0 and step == STEPS - 2:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            if step == 0:
+                opt.synchronize()
+                for h in capture:
+                    h.remove()
+                averaged[r] = [p.grad.clone() for p in params]
+                residuals[r] = [opt._residuals[p].clone() for p in params]
+                barrier.wait()
+                rec["on"] = False
+                with opt.skip_synchronize():
+                    opt.step()
+            else:
+                opt.step()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                log(f"profile: phase 9 {wire}, one steady step of rank 0")
+                profile_summary(prof, times[-1])
+            barrier.wait()
+            if r == 0:
+                counts.append((eng.allreduce_buckets, QK.launches[enc_name],
+                               QK.launches[dec_name]))
+            barrier.wait()
+        if r == 0:
+            wire_bytes.append((eng.logical_wire_bytes, eng.actual_wire_bytes,
+                               eng.quantized_bucket_runs))
+        return losses, times, counts, \
+            {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    QK.reset_launches()
+    results = hvd.run(train, np=NP, device=dev)
+    launches = dict(QK.launches)
+    torch.cuda.synchronize()
+
+    for r, (losses, *_rest) in enumerate(results):
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase 9 {wire}: rank {r} non-finite loss "
+                                 f"{losses}")
+    diff = [k for k in results[0][3]
+            if not torch.equal(results[0][3][k], results[1][3][k])]
+    if diff:
+        raise AssertionError(f"phase 9 {wire}: ranks' parameters differ "
+                             f"after {STEPS} steps: {diff[:5]}")
+    # step 1 against the plain codec
+    n_params = len(local[0])
+    for b, rc in enumerate(records):
+        n = rc["rows"][0].numel()
+        decoded = []
+        for row, q, s in zip(rc["rows"], rc["q"], rc["s"]):
+            pq, ps = plain_encode(row, wire)
+            if not (torch.equal(q, pq) and torch.equal(s, ps)):
+                raise AssertionError(f"phase 9 {wire}: bucket {b}'s codes "
+                                     f"differ from the plain codec")
+            decoded.append(plain_decode(pq, ps, n, wire))
+        op, pre, post = rc["post"]
+        want = (decoded[0] + decoded[1]) * (pre * post / NP)
+        if not torch.equal(rc["y"], want):
+            raise AssertionError(f"phase 9 {wire}: bucket {b}'s "
+                                 f"allreduce_quantized result differs from "
+                                 f"the plain codec's")
+    bad = sum(not torch.equal(residuals[r][i], local[r][i]
+                              - qz.plain_fake_quantize_wire(local[r][i],
+                                                            wire))
+              for r in range(NP) for i in range(n_params))
+    if bad:
+        raise AssertionError(f"phase 9 {wire}: {bad} error-feedback "
+                             f"residuals differ from the plain codec's")
+    # launches: per step, one encode and one decode per bucket and rank
+    # on the wire, and per parameter and rank for the residual
+    counts = results[0][2]
+    prev = (0, 0, 0)
+    per_step = []
+    for step, cur in enumerate(counts):
+        nb, n_enc, n_dec = (c - p for c, p in zip(cur, prev))
+        per_step.append(nb)
+        want = nb * NP + n_params * NP
+        if nb < 1 or n_enc != want or n_dec != want:
+            raise AssertionError(
+                f"phase 9 {wire} step {step}: {nb} buckets but {n_enc} "
+                f"encode and {n_dec} decode launches (want {want})")
+        prev = cur
+    logical, actual, runs = wire_bytes[0]
+    ratio = logical / actual
+    if ratio <= WIRE_RATIO[wire] or runs != sum(per_step):
+        raise AssertionError(f"phase 9 {wire}: wire ratio {ratio} (floor "
+                             f"{WIRE_RATIO[wire]}), {runs} quantized runs "
+                             f"for {sum(per_step)} buckets")
+    exact_sq = err_sq = 0.0
+    for i in range(n_params):
+        exact = (local[0][i] + local[1][i]) * 0.5
+        exact_sq += float(exact.double().norm()) ** 2
+        err_sq += float((averaged[0][i] - exact).double().norm()) ** 2
+    rel = math.sqrt(err_sq / exact_sq)
+    if not rel < WIRE_REL_L2[wire]:
+        raise AssertionError(f"phase 9 {wire}: step 1's averaged gradient is "
+                             f"{rel} (relative L2) from the exact average")
+    step_s = [max(results[r][1][i] for r in range(NP)) for i in range(STEPS)]
+    # steady: after the warm-up step, without the profiled step
+    timed = [t for i, t in enumerate(step_s)
+             if i > 0 and not (profile and i == STEPS - 2)]
+    steady = sum(timed) / len(timed)
+    log(f"phase 9 {wire}: losses rank0 {results[0][0]}")
+    log(f"phase 9 {wire}: buckets per step {per_step}; {enc_name} and "
+        f"{dec_name} launches {launches[enc_name]} and {launches[dec_name]} "
+        f"(buckets x {NP} + {n_params} x {NP} per step); step 1's "
+        f"{len(records)} buckets and {NP * n_params} residuals equal the "
+        f"plain codec; parameters of both ranks bit-identical; wire bytes "
+        f"logical {logical} / actual {actual} = {ratio:.4f}; step 1's "
+        f"averaged gradient is {rel:.6f} (relative L2) from the exact f32 "
+        f"average")
+    log(f"phase 9 {wire}: step times (s) {[round(t, 4) for t in step_s]}; "
+        f"steady {steady * 1e3:.2f} ms/step = {NP * BATCH / steady:.1f} "
+        f"img/s")
+    del records, local, residuals, averaged, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steady_s": steady, "ratio": ratio,
+            "rel_l2": rel}
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -910,14 +1324,16 @@ def main():
         f"{torch.__version__}; CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}; TF32 off (cudnn and matmul)")
 
-    from horovod_tpu_torch.ops import _build, cuda_kernels, flash_attention
+    from horovod_tpu_torch.ops import (_build, cuda_kernels, flash_attention,
+                                       quantize_kernels)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(cuda_kernels._lib),
-                  pool.submit(flash_attention._lib)]:
+    libs = (cuda_kernels._lib, flash_attention._lib, quantize_kernels._lib)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib) for lib in libs]:
             f.result()
-    log(f"phase 2: both libraries built in {time.perf_counter() - t0:.2f} s")
-    for name in ("hvd_scale_cast", "hvd_flash"):
+    log(f"phase 2: {len(libs)} libraries built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in ("hvd_scale_cast", "hvd_flash", "hvd_quantize"):
         info = _build.build_info[name]
         lines = info["log"].splitlines()
         regs = [ln.split(":", 1)[1].strip() for ln in lines
@@ -953,12 +1369,19 @@ def main():
         finally:
             sys.setswitchinterval(old)
     phase_nccl(dev)
-    del state, batches
-    gc.collect()
     torch.cuda.empty_cache()
     flash = phase_flash_kernels(dev)
     lm = phase_lm(dev, profile="--profile" in sys.argv[1:])
     phase_lm_hvd(dev)
+    codec = phase_codec(dev)
+    wired = {wire: phase_wire_path(dev, state, batches, wire,
+                                   profile="--profile" in sys.argv[1:])
+             for wire in ("int8", "int4")}
+    for wire, w in wired.items():
+        log(f"phase 9: steady step {wire} {w['steady_s'] * 1e3:.2f} ms vs "
+            f"phase 4's f32 wire {main_path['steady_s'] * 1e3:.2f} ms "
+            f"(x {w['steady_s'] / main_path['steady_s']:.3f})")
+    del state, batches
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     log(card)
@@ -976,6 +1399,16 @@ def main():
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": replaces, "launches": lm["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, replaces, wire in CODEC:
+        r = codec[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/quantize.cu",
+            "replaces": replaces,
+            "launches": wired[wire]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -5,12 +5,19 @@
 import logging
 import os
 
+from ..ops.quantize import normalize_wire_dtype
+
 HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
 HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
 HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
 HOROVOD_LOCAL_RANK = "HOROVOD_LOCAL_RANK"
+# default wire of float Sum/Average allreduces: f32|fp16|bf16|int8|int4.
+# OUTER (the cross-host hop, the only hop of a flat collective) wins
+# over the uniform WIRE_DTYPE shorthand
+HOROVOD_WIRE_DTYPE = "HOROVOD_WIRE_DTYPE"
+HOROVOD_WIRE_OUTER = "HOROVOD_WIRE_OUTER"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -64,3 +71,8 @@ class Config:
             HOROVOD_STALL_CHECK_TIME_SECONDS, DEFAULT_STALL_WARNING_SECS)
         self.stall_shutdown_secs = get_float(
             HOROVOD_STALL_SHUTDOWN_TIME_SECONDS, 0.0)
+        # process-wide default wire (per-request wire_dtype= overrides;
+        # None = full width), normalized: an unknown spelling raises
+        self.wire_dtype = normalize_wire_dtype(
+            os.environ.get(HOROVOD_WIRE_OUTER)
+            or os.environ.get(HOROVOD_WIRE_DTYPE))

@@ -12,6 +12,12 @@ single-process part of ``horovod_tpu/core/engine.py``).
   on the way in), reduced, and unpacked by the same kernel straight
   into the output tensors (postscale on the way out) -- the reference's
   batched-D2D memcpy and ScaleBuffer kernels in one launch per pass.
+* An allreduce bucket may ride a narrower wire (``_dispatch_allreduce``,
+  the flat branch of ``engine.py:2338-2398``): a 16-bit cast, or the
+  block-scaled int8/int4 codec, whose encode (kernels B2/B4) runs on the
+  device over each rank's packed fusion row and whose decode (B3/B5)
+  runs in the executor.  The quantized branch packs with factor 1 and
+  applies the pre/post scale to the f32 sum, as the JAX engine does.
 * On the card the engine works on its own CUDA stream.  A submission
   carries an event recorded on the submitter's stream (the reference's
   ready event); the engine stream waits on it before the pack.  Each
@@ -39,8 +45,10 @@ from ..common.exceptions import (
     TensorShapeMismatchError,
 )
 from ..ops import cuda_kernels, dist_ops
+from ..ops import quantize as qz
+from ..ops import quantize_kernels
 from .handles import Handle
-from .message import Request, RequestType
+from .message import ReduceOp, Request, RequestType
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -65,12 +73,15 @@ class Submission:
 class NegotiationEntry:
     """Readiness table row (reference controller.cc:1115-1140)."""
 
-    __slots__ = ("key", "subs", "first_time")
+    __slots__ = ("key", "subs", "first_time", "wire_default")
 
-    def __init__(self, key):
+    def __init__(self, key, wire_default=None):
         self.key = key
         self.subs: Dict[int, Submission] = {}
         self.first_time = time.monotonic()
+        # the process-wide wire default, latched when the first local
+        # rank arrives, so every rank of one negotiation sees one default
+        self.wire_default = wire_default
 
 
 class ProcessSetState:
@@ -128,6 +139,13 @@ class Engine:
         #: allreduce buckets executed (each packs and unpacks once per
         #: local rank)
         self.allreduce_buckets = 0
+        #: wire accounting under the JAX engine's names (engine.py:621-638):
+        #: per allreduce bucket, the full-width bytes, the bytes the wire
+        #: encoding puts on the interconnect per rank, and the buckets
+        #: that rode the int8/int4 codec
+        self.logical_wire_bytes = 0
+        self.actual_wire_bytes = 0
+        self.quantized_bucket_runs = 0
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
@@ -170,8 +188,16 @@ class Engine:
             key = self._negotiation_key(ps, sub)
             entry = ps.pending.get(key)
             if entry is None:
-                entry = NegotiationEntry(key)
+                entry = NegotiationEntry(key, self.config.wire_dtype)
                 ps.pending[key] = entry
+            req = sub.request
+            if (req.wire_dtype is None and entry.wire_default
+                    and req.request_type == RequestType.ALLREDUCE
+                    and req.reduce_op in (ReduceOp.SUM, ReduceOp.AVERAGE)):
+                # the latched default goes INTO the request before
+                # negotiation (engine.py:903-926): ranks whose defaults
+                # differ fail the cross-rank wire check
+                req.wire_dtype = entry.wire_default
             if sub.rank in entry.subs:
                 sub.handle.set_error(DuplicateNameError(
                     f"tensor {sub.names} submitted twice by rank "
@@ -328,6 +354,11 @@ class Engine:
                     or r.postscale_factor != first.postscale_factor):
                 return TensorShapeMismatchError(
                     f"Mismatched prescale/postscale for {first.tensor_name}")
+            if r.wire_dtype != first.wire_dtype:
+                return TensorShapeMismatchError(
+                    f"Mismatched wire dtypes for {first.tensor_name}: "
+                    f"rank {sub.rank} sent {r.wire_dtype}, rank "
+                    f"{subs[0].rank} sent {first.wire_dtype}")
             if rt == RequestType.BROADCAST and r.root_rank != first.root_rank:
                 return TensorShapeMismatchError(
                     f"Mismatched broadcast root for {first.tensor_name}: "
@@ -365,8 +396,9 @@ class Engine:
 
     def _fuse(self, ps, entries):
         """FuseResponses analogue: pack consecutive ready allreduce
-        entries with matching (dtype, op, scales) into buckets up to the
-        fusion threshold.  Other ops run one per bucket (allgather
+        entries with matching (dtype, op, scales, wire) into buckets up
+        to the fusion threshold: quantized and full-width tensors never
+        share a fusion buffer.  Other ops run one per bucket (allgather
         fusion is a later slice's work)."""
         threshold = self.config.fusion_threshold_bytes
         buckets, cur, cur_bytes, cur_sig = [], [], 0, None
@@ -380,7 +412,8 @@ class Engine:
                 buckets.append([entry])
                 continue
             sig = (req.request_type, req.dtype, req.reduce_op,
-                   req.prescale_factor, req.postscale_factor)
+                   req.prescale_factor, req.postscale_factor,
+                   req.wire_dtype)
             nbytes = sum(p.numel() * p.element_size()
                          for p in first.payloads)
             if cur and (sig != cur_sig or cur_bytes + nbytes > threshold):
@@ -450,28 +483,38 @@ class Engine:
             return out
         return torch.empty(shape, dtype=dtype, device=device)
 
-    def _run_allreduce_bucket(self, ps, bucket):
-        """Fused allreduce: per local rank, one kernel launch packs the
-        bucket's tensors into the device fusion buffer with prescale;
-        one reduction over the buffers; per local rank, one launch
-        unpacks into the outputs with postscale (MemcpyInFusionBuffer /
-        MemcpyOutFusionBuffer, collective_operations.h:38-343).
-        Joined/missing local ranks contribute zeros."""
-        first = next(iter(bucket[0].subs.values()))
-        req = first.request
-        dtype = first.payloads[0].dtype
-        op = req.reduce_op
-        pre, post = req.prescale_factor, req.postscale_factor
-        layout, total = bucket_layout(bucket)
-        R = ps.size
-        float_path = dist_ops.is_float(dtype)
-        red_op, post_f, scaled = dist_ops.allreduce_plan(op, dtype, pre,
-                                                          post, R)
+    @staticmethod
+    def _wire_for(req, dtype, op):
+        """Effective wire of a float reduction (engine.py:2204-2224): the
+        request's wire (the process-wide default was latched into it at
+        submit), except that min/max/product and non-float payloads ship
+        full width, as does a 16-bit wire for an already-16-bit tensor;
+        'f32' is the explicit full-width override."""
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE) \
+                or not dtype.is_floating_point:
+            return None
+        wire = req.wire_dtype
+        if wire == "f32":
+            return None
+        if wire in ("fp16", "bf16") and dtype.itemsize <= 2:
+            return None
+        return wire
+
+    def _account_wire(self, logical, actual):
+        self.logical_wire_bytes += int(logical)
+        self.actual_wire_bytes += int(actual)
+
+    def _pack_rows(self, ps, bucket, layout, total, buf_dtype, factor,
+                   scaled=False):
+        """Per local rank, the bucket's members packed into the rank's
+        device fusion buffer: one kernel launch for floats
+        (``out_dtype(f32(x) * factor)``), integer scaling otherwise.
+        Missing (joined) ranks' members stay zero."""
         rows = []
         for idx, r in enumerate(ps.local_ranks):
             subs = [e.subs[r] for e in bucket if r in e.subs]
             self._await_inputs(subs)
-            buf = self._fusion_buffer(idx, dtype, total)
+            buf = self._fusion_buffer(idx, buf_dtype, total)
             srcs, offs = [], []
             for entry, i, off, _n, _shape in layout:
                 sub = entry.subs.get(r)
@@ -480,17 +523,25 @@ class Engine:
                     offs.append(off)
             if len(srcs) < len(layout):
                 buf.zero_()
-            if float_path:
-                cuda_kernels.pack_scale_cast(srcs, buf, offs, pre)
+            if dist_ops.is_float(buf_dtype):
+                cuda_kernels.pack_scale_cast(srcs, buf, offs, factor)
             else:
                 for src, off in zip(srcs, offs):
                     seg = buf[off:off + src.numel()]
-                    seg.copy_(dist_ops.int_prescale(src.view(-1), pre)
+                    seg.copy_(dist_ops.int_prescale(src.view(-1), factor)
                               if scaled else src.view(-1))
             rows.append(buf)
-        reduced = ps.executor.reduce(rows, red_op)
+        return rows
+
+    def _unpack_rows(self, ps, bucket, layout, ys, dtype, factor,
+                     int_post=None):
+        """Each local rank's result ``y`` unpacked into its outputs: one
+        kernel launch for floats (``dst_dtype(f32(y) * factor)``); an f64
+        output of a narrower wire is a plain widening copy (``factor`` is
+        1 there); ``int_post`` = (op, R, postscale) scales integers.
+        Returns {(id(entry), rank): [outputs]}."""
         results = {}
-        for r, y in zip(ps.local_ranks, reduced):
+        for r, y in zip(ps.local_ranks, ys):
             dsts, offs = [], []
             for entry, i, off, n, shape in layout:
                 sub = entry.subs.get(r)
@@ -500,14 +551,86 @@ class Engine:
                 results.setdefault((id(entry), r), []).append(out)
                 dsts.append(out)
                 offs.append(off)
-            if float_path:
-                cuda_kernels.unpack_scale_cast(y, dsts, offs, post_f)
+            if dist_ops.is_float(dtype) and (
+                    y.dtype == dtype or dtype != torch.float64):
+                cuda_kernels.unpack_scale_cast(y, dsts, offs, factor)
             else:
                 for dst, off in zip(dsts, offs):
                     seg = y[off:off + dst.numel()]
-                    dst.view(-1).copy_(
-                        dist_ops.int_postscale(seg, op, R, post)
-                        if scaled else seg)
+                    if int_post is not None:
+                        seg = dist_ops.int_postscale(seg, *int_post)
+                    dst.view(-1).copy_(seg)
+        return results
+
+    def _encode_quantized_rows(self, rows, logical_nbytes, wire):
+        """Block-quantize each rank's packed row on the device (kernels
+        B2/B4; an f64 row is narrowed to f32 first, as the numpy codec
+        does) and account the wire: codes plus one bf16 scale per block
+        (engine.py:2276-2296).  Returns (q_rows, s_rows)."""
+        q_rows, s_rows = [], []
+        for row in rows:
+            q, s = quantize_kernels.encode(
+                row if row.dtype in quantize_kernels.FLOAT_DTYPES
+                else row.float(), wire)
+            q_rows.append(q)
+            s_rows.append(s)
+        self._account_wire(logical_nbytes, q_rows[0].numel()
+                           + s_rows[0].numel() * qz.SCALE_BYTES)
+        self.quantized_bucket_runs += 1
+        return q_rows, s_rows
+
+    def _run_allreduce_bucket(self, ps, bucket):
+        """Fused allreduce (MemcpyInFusionBuffer / MemcpyOutFusionBuffer,
+        collective_operations.h:38-343) over the bucket's wire, the flat
+        branch of ``engine.py:2338-2398``:
+
+        * full width: per local rank one kernel launch packs the members
+          into the device fusion buffer with prescale; one reduction over
+          the buffers; one launch per rank unpacks with postscale;
+        * fp16/bf16: the pack casts to the wire dtype (factor 1), the
+          executor's allreduce scales and reduces in it, the unpack casts
+          back;
+        * int8/int4: the pack keeps the dtype (factor 1), each row is
+          encoded on the device, the executor decodes, sums and scales in
+          f32, and the unpack casts back: the pre/post scale applies to
+          the decoded sum, never before the encode.
+
+        Joined/missing local ranks contribute zeros."""
+        first = next(iter(bucket[0].subs.values()))
+        req = first.request
+        dtype = first.payloads[0].dtype
+        op = req.reduce_op
+        pre, post = req.prescale_factor, req.postscale_factor
+        layout, total = bucket_layout(bucket)
+        nbytes = total * dtype.itemsize
+        wire = self._wire_for(req, dtype, op)
+        if wire is None:
+            self._account_wire(nbytes, nbytes)
+            red_op, post_f, scaled = dist_ops.allreduce_plan(
+                op, dtype, pre, post, ps.size)
+            rows = self._pack_rows(ps, bucket, layout, total, dtype, pre,
+                                   scaled)
+            ys = ps.executor.reduce(rows, red_op)
+            results = self._unpack_rows(
+                ps, bucket, layout, ys, dtype, post_f,
+                (op, ps.size, post) if scaled else None)
+        elif wire in qz.WIRE_TORCH_DTYPES:
+            wdt = qz.WIRE_TORCH_DTYPES[wire]
+            self._account_wire(nbytes, total * 2)
+            if dtype == torch.float64:
+                rows = [row.to(wdt) for row in self._pack_rows(
+                    ps, bucket, layout, total, dtype, 1.0)]
+            else:
+                rows = self._pack_rows(ps, bucket, layout, total, wdt, 1.0)
+            ys = ps.executor.allreduce(rows, op, pre, post)
+            results = self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
+        else:
+            rows = self._pack_rows(ps, bucket, layout, total, dtype, 1.0)
+            q_rows, s_rows = self._encode_quantized_rows(rows, nbytes, wire)
+            ys = ps.executor.allreduce_quantized(
+                q_rows, s_rows, op, pre, post,
+                nbits=4 if wire == "int4" else 8, n_elems=total)
+            results = self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
         self.allreduce_buckets += 1
         done = self._done_event()
         for entry in bucket:

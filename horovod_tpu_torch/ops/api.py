@@ -3,6 +3,10 @@ ops of this slice): sync, ``*_async`` handle and in-place variants of
 allreduce, grouped allreduce, allgather and broadcast, plus
 ``synchronize``/``poll`` and ``broadcast_object``.
 
+Allreduces take ``wire_dtype=`` (None, 'f32', 'fp16', 'bf16', 'int8',
+'int4' and their aliases), normalized at the call: the wire the payload
+rides (``ops/quantize.py``).
+
 Tensors stay on the runtime's device end to end: a payload is handed to
 the engine as it is (made contiguous if it is not), and results come
 back as tensors on the same device.  On the card ``synchronize()``
@@ -21,6 +25,7 @@ from ..core.handles import Handle
 from ..core.message import (
     Average, Sum, Min, Max, Product, ReduceOp, Request, RequestType,
 )
+from .quantize import normalize_wire_dtype
 
 __all__ = [
     "allreduce", "allreduce_async", "allreduce_", "allreduce_async_",
@@ -110,7 +115,9 @@ def _wire_name(ctx, op_type, name):
 
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
-                    process_set=global_process_set, _target=None):
+                    process_set=global_process_set, wire_dtype=None,
+                    _target=None):
+    wire_dtype = normalize_wire_dtype(wire_dtype)
     t = _stage(tensor)
     ctx = basics.context()
     op = _resolve_op(op, average)
@@ -119,36 +126,37 @@ def allreduce_async(tensor, average=None, name=None, op=None,
         request_type=RequestType.ALLREDUCE, tensor_name=name, rank=ctx.rank,
         dtype=dtype_name(t.dtype), shape=tuple(t.shape), reduce_op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        process_set_id=_ps_id(process_set))
+        process_set_id=_ps_id(process_set), wire_dtype=wire_dtype)
     outputs = [_inplace_output(_target, t)] if _target is not None else None
     return _submit(req, [t], [name], outputs)
 
 
 def allreduce(tensor, average=None, name=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0,
-              process_set=global_process_set):
+              process_set=global_process_set, wire_dtype=None):
     return synchronize(allreduce_async(tensor, average, name, op,
                                        prescale_factor, postscale_factor,
-                                       process_set))
+                                       process_set, wire_dtype))
 
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
-                     process_set=global_process_set):
+                     process_set=global_process_set, wire_dtype=None):
     """In-place variant: the result is written into ``tensor`` (by the
     unpack itself when ``tensor`` is contiguous)."""
     h = allreduce_async(tensor, average, name, op, prescale_factor,
-                        postscale_factor, process_set, _target=tensor)
+                        postscale_factor, process_set, wire_dtype,
+                        _target=tensor)
     h.inplace_target = tensor
     return h
 
 
 def allreduce_(tensor, average=None, name=None, op=None,
                prescale_factor=1.0, postscale_factor=1.0,
-               process_set=global_process_set):
+               process_set=global_process_set, wire_dtype=None):
     return synchronize(allreduce_async_(tensor, average, name, op,
                                         prescale_factor, postscale_factor,
-                                        process_set))
+                                        process_set, wire_dtype))
 
 
 class _MultiHandle:
@@ -184,12 +192,14 @@ class _MultiHandle:
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             prescale_factor=1.0, postscale_factor=1.0,
-                            process_set=global_process_set, _targets=None):
+                            process_set=global_process_set, wire_dtype=None,
+                            _targets=None):
     """Grouped ops negotiate and execute as one unit (reference
     EnqueueTensorAllreduces).  Mixed-dtype groups partition into one
     fused submission per dtype, in sorted dtype order."""
     if not tensors:
         raise ValueError("grouped_allreduce requires at least one tensor")
+    wire_dtype = normalize_wire_dtype(wire_dtype)
     ts = [_stage(t) for t in tensors]
     ctx = basics.context()
     op = _resolve_op(op, average)
@@ -206,7 +216,8 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
             prescale_factor=prescale_factor,
             postscale_factor=postscale_factor,
             process_set_id=_ps_id(process_set), group_id=0,
-            group_shapes=tuple(tuple(ts[i].shape) for i in idxs))
+            group_shapes=tuple(tuple(ts[i].shape) for i in idxs),
+            wire_dtype=wire_dtype)
         outputs = None
         if _targets is not None:
             outputs = [_inplace_output(_targets[i], ts[i]) for i in idxs]
@@ -226,17 +237,18 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
 
 def grouped_allreduce(tensors, average=None, name=None, op=None,
                       prescale_factor=1.0, postscale_factor=1.0,
-                      process_set=global_process_set):
+                      process_set=global_process_set, wire_dtype=None):
     return synchronize(grouped_allreduce_async(
         tensors, average, name, op, prescale_factor, postscale_factor,
-        process_set))
+        process_set, wire_dtype))
 
 
 def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
-                             process_set=global_process_set):
+                             process_set=global_process_set,
+                             wire_dtype=None):
     h = grouped_allreduce_async(tensors, average, name, op, prescale_factor,
-                                postscale_factor, process_set,
+                                postscale_factor, process_set, wire_dtype,
                                 _targets=list(tensors))
     h.inplace_targets = list(tensors)
     return h
@@ -244,10 +256,10 @@ def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
 
 def grouped_allreduce_(tensors, average=None, name=None, op=None,
                        prescale_factor=1.0, postscale_factor=1.0,
-                       process_set=global_process_set):
+                       process_set=global_process_set, wire_dtype=None):
     return synchronize(grouped_allreduce_async_(
         tensors, average, name, op, prescale_factor, postscale_factor,
-        process_set))
+        process_set, wire_dtype))
 
 
 # ----------------------------------------------------------------------------

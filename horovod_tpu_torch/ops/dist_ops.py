@@ -22,6 +22,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.message import ReduceOp
+from . import quantize as qz
+from . import quantize_kernels as qk
 from .cuda_kernels import FLOAT_DTYPES, fused_scale_cast
 
 _DIST_OPS = {
@@ -134,6 +136,52 @@ class MeshExecutor:
         if scaled:
             return [int_postscale(y, op, R, postscale) for y in ys]
         return [ys[0]] + [y.clone() for y in ys[1:]]
+
+    # -- quantized allreduce (int8 / int4 wire) ----------------------------
+
+    def allreduce_quantized(self, q_rows, s_rows, op: ReduceOp,
+                            prescale=1.0, postscale=1.0, nbits=8,
+                            n_elems=None):
+        """q_rows: per-local-rank codes (int8, or packed uint8 nibbles for
+        ``nbits=4``); s_rows: per-local-rank f32 scales (nb,), each rank
+        encoded with its own.  Decodes every rank's row (kernels B3/B5),
+        sums them in f32 in rank order and multiplies by
+        ``prescale * postscale`` (/R for Average), as
+        ``xla_ops.py:455-516`` does.  Returns per-local-rank f32 results
+        of ``n_elems`` elements (default: the whole code array).
+
+        Stacked mode decodes the local rows (one result tensor shared by
+        every local rank).  Process-group mode all-gathers the codes and
+        the scales, then decodes all R rows.  The scales travel as the
+        bytes of their bf16 values: they are bf16-rounded, so that is
+        exact, the wire bytes are the codec's (codes + 2 per block), and
+        uint8 is a type every backend gathers (gloo refuses int16, NCCL
+        has no int16)."""
+        post = float(prescale) * float(postscale)
+        if op == ReduceOp.AVERAGE:
+            post /= self.num_ranks
+        elif op != ReduceOp.SUM:
+            raise ValueError(
+                f"quantized wire supports Sum/Average allreduce, got {op!r}")
+        nb = s_rows[0].numel()
+        n = int(n_elems) if n_elems is not None else nb * qz.BLOCK
+        if self.stacked:
+            qs, ss = q_rows, s_rows
+        else:
+            R = self.num_ranks
+            qs = [torch.empty_like(q_rows[0]) for _ in range(R)]
+            self.group.allgather([qs], [q_rows[0]]).wait()
+            sb = s_rows[0].to(torch.bfloat16).view(torch.uint8)
+            sbs = [torch.empty_like(sb) for _ in range(R)]
+            self.group.allgather([sbs], [sb]).wait()
+            ss = [b.view(torch.bfloat16).float() for b in sbs]
+        y = None
+        for q, s in zip(qs, ss):
+            d = qk.decode(q, s, n, nbits)
+            y = d if y is None else y.add_(d)
+        if post != 1.0:
+            y.mul_(post)
+        return [y] * len(q_rows)
 
     # -- allgather -----------------------------------------------------------
 

@@ -7,7 +7,13 @@ accumulates gradients and launch async allreduces at once, overlapping
 communication with the rest of backward; ``step()`` synchronizes first.
 Gradients stay on their device: with no compression the engine's
 unpack kernel writes the averaged gradient straight into ``p.grad``.
-Sharded, wire-quantized, error-feedback and Adasum modes are later
+
+``compression=Compression.int8`` (or ``.int4``) sends each gradient over
+the block-scaled quantized wire with error feedback: before the submit,
+the parameter's residual from the previous step is added into the
+gradient, and the new residual ``x - fake_quantize(x)`` is kept, both
+computed on the gradient's device by the codec kernels (the JAX package
+does this on the host in numpy).  Sharded and Adasum modes are later
 slices' work.
 """
 
@@ -19,7 +25,8 @@ import torch
 from ..common import basics
 from ..common.process_sets import global_process_set
 from ..ops import api
-from ..ops.api import Average
+from ..ops import quantize_kernels
+from ..ops.api import Average, Sum
 from .compression import Compression
 
 
@@ -35,6 +42,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                    gradient_predivide_factor=1.0, groups=None,
                    process_set=global_process_set):
         self._compression = compression
+        # the int8/int4 compressors are markers: the collective quantizes
+        # the fused buffer, and this optimizer owns the error-feedback
+        # residuals (one optimizer, and so one set, per rank)
+        self._wire_dtype = getattr(compression, "wire", None)
+        self._residuals = {}
         self.op = op
         self.gradient_predivide_factor = gradient_predivide_factor
         self.process_set = process_set
@@ -150,14 +162,51 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     self.gradient_predivide_factor)
         return 1.0, 1.0
 
+    def _wire_for(self, grad):
+        """The compressor's wire for one gradient: float gradients on
+        Sum/Average, the only reductions whose math commutes with the
+        quantized decode."""
+        if self._wire_dtype is None or not grad.dtype.is_floating_point \
+                or self.op not in (Average, Sum):
+            return None
+        return self._wire_dtype
+
+    def _ef_inject(self, p, grad, wire):
+        """Error feedback (EF21) on the gradient's device: ``x = grad +
+        residual`` in f32, the new residual ``x - fake_quantize(x)``
+        through the wire's encode and decode kernels, and ``x`` returned
+        in the gradient's dtype.  It runs on the hook's thread and
+        stream, before the submit records the ready event."""
+        with torch.no_grad():
+            x = grad.float()
+            r = self._residuals.get(p)
+            if r is not None and r.shape == x.shape:
+                x = x + r
+            self._residuals[p] = x - quantize_kernels.fake_quantize_wire(
+                x, wire)
+            return x if grad.dtype == torch.float32 else x.to(grad.dtype)
+
+    def reset_wire_state(self):
+        """Drop the error-feedback residuals.  Call when the gradient
+        stream is discontinuous (a reshaped parameter, a restored
+        optimizer state), so that stale errors are never injected."""
+        self._residuals.clear()
+
     def _allreduce_grad_async(self, p):
         prescale, postscale = self._scale_factors()
         name = self._parameter_names.get(p)
-        if self._compression is Compression.none:
+        wire = self._wire_for(p.grad)
+        if wire is not None:
+            x = self._ef_inject(p, p.grad, wire)
+            if x is not p.grad:
+                with torch.no_grad():
+                    p.grad.copy_(x)
+        if wire is not None or self._compression is Compression.none:
             # in place: the unpack writes the result into p.grad
             handle = api.allreduce_async_(
                 p.grad, name=name, op=self.op, prescale_factor=prescale,
-                postscale_factor=postscale, process_set=self.process_set)
+                postscale_factor=postscale, process_set=self.process_set,
+                wire_dtype=wire)
             return handle, None
         compressed, ctx = self._compression.compress(p.grad)
         handle = api.allreduce_async(
@@ -168,15 +217,20 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def _grouped_allreduce_async(self, gi):
         group = self._groups[gi]
         tensors, ctxs = [], []
+        wire = None
         for p in group:
             t, c = self._compression.compress(p.grad)
+            w = self._wire_for(t)
+            if w is not None:
+                t = self._ef_inject(p, t, w)
+                wire = w
             tensors.append(t)
             ctxs.append(c)
         prescale, postscale = self._scale_factors()
         handle = api.grouped_allreduce_async(
             tensors, op=self.op, name=f"group.{gi}",
             prescale_factor=prescale, postscale_factor=postscale,
-            process_set=self.process_set)
+            process_set=self.process_set, wire_dtype=wire)
         for p, c in zip(group, ctxs):
             self._handles[p] = (handle, ("group", gi, c))
         self._group_pending[gi] = set()
