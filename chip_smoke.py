@@ -8,10 +8,10 @@ their plain PyTorch versions.
 Phases (a failure in any one exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the three CUDA kernel libraries from
+2. build the four CUDA kernel libraries from
    ``horovod_tpu_torch/ops/csrc`` (``scale_cast.cu``,
-   ``flash_attention.cu``, ``quantize.cu``) with nvcc for sm_90a, all
-   at once;
+   ``flash_attention.cu``, ``quantize.cu``, ``conv_bn.cu``) with nvcc for
+   sm_90a, all at once;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
    single tensors of 1, 4095, 4097 and 25.6 M elements in five dtype
    pairs at three factors, and a pack/unpack round trip over the 161
@@ -81,11 +81,31 @@ Phases (a failure in any one exits non-zero):
    logical / actual wire bytes above 3.9 (int8) and 7.5 (int4).  It
    prints step 1's averaged gradient's relative L2 distance from the
    exact f32 average (gross sanity: below 0.05 for int8, 0.5 for int4)
-   and the steady step time beside phase 4's.
+   and the steady step time beside phase 4's;
+10. the fused 1x1-conv + BN kernels B9 (forward) and B10 (backward,
+    ``conv_bn.cu``) against their plain versions: the 13 distinct (M, K,
+    N, fold) of a full-width ResNet-50 rank step (from (200704, 64, 64)
+    to (3136, 2048, 512)) in bf16 and f32, and small and odd shapes (M
+    16, 48, 96, 1040; K and N off multiples of 16) with and without the
+    fold, each output within the bounds of ``conv_bn.fwd_error`` and
+    ``conv_bn.bwd_error``, and one rerun bit-identical; then each shape's
+    time, bound, plain version's time and, labelled as the matmul part
+    only, ``torch.matmul`` on the same bf16 products, summed over the 33
+    launches of one rank step;
+11. the fused main path: phase 4's run with ``ResNet50(fused=True)`` on
+    the same weights (``fused_from_unfused``).  Checks: finite losses,
+    step 1's averaged gradients equal the plain average bit for bit,
+    both ranks' parameters bit-identical, per step 66 launches of B9 and
+    of B10 (33 per rank) and 6 calls on the plain path (the 3 strided
+    projections per rank); then one fused, one unfused and one f32
+    unfused step on rank 0's images with the BN scales drawn away from
+    zero: the loss and every gradient within the bounds of
+    ``FUSED_REL_L2``, ``FUSED_GLOBAL`` and ``FUSED_LOSS``, and the steady
+    step time beside phase 4's.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels; the last line is ``{"ok": true, "device": {...}}``.  With
-``--profile`` phases 4, 7 and 9 also profile one steady step each.
+``--profile`` phases 4, 7, 9 and 11 also profile one steady step each.
 """
 
 import gc
@@ -130,6 +150,29 @@ WIRE_RATIO = {"int8": 3.9, "int4": 7.5}
 FLASH = (("flash_fwd", "horovod_tpu/ops/pallas_kernels.py:453"),
          ("flash_bwd_dq", "horovod_tpu/ops/pallas_kernels.py:498"),
          ("flash_bwd_dkv", "horovod_tpu/ops/pallas_kernels.py:514"))
+# the fused conv+BN kernels: (name, TPU kernel it replaces)
+CONV_BN = (("conv1x1_bn_fwd", "horovod_tpu/ops/pallas_conv_bn.py:125"),
+           ("conv1x1_bn_bwd", "horovod_tpu/ops/pallas_conv_bn.py:204"))
+# fused 1x1 convolutions of one ResNet-50 rank step (16 blocks x conv1
+# and conv3, and the first block's non-strided projection)
+FUSED_CONVS = 33
+# small and odd shapes of phase 10: M off the 64-row tile, K and N off
+# multiples of 16
+CONV_BN_ODD = ((16, 64, 64), (48, 24, 40), (1040, 72, 8),
+               (1040, 256, 100), (96, 1, 3))
+# phase 11's yardstick, fused against unfused bf16 steps: every gradient
+# within a relative L2 of max(FUSED_REL_L2, twice the unfused step's own
+# distance from the f32 step), the fused step no further from the f32
+# gradients over all parameters than FUSED_GLOBAL x the unfused step, the
+# losses within max(FUSED_LOSS, twice the unfused step's distance from
+# the f32 loss).  The stem BN's bias is left out of the per-tensor bound
+# (reported, and inside the global one): its gradient is the row sum of
+# block 0's input gradient, which BN's mean removal nearly cancels, and
+# the fused backward rounds every ytot element to bf16 before that sum,
+# as the TPU kernel does (on the CPU, at 16-32 images, 1.9-3.3x the
+# unfused step's error, growing with the batch; 1.0x with ytot unrounded)
+FUSED_REL_L2, FUSED_GLOBAL, FUSED_LOSS = 3e-2, 1.25, 1e-2
+FUSED_EXEMPT = ("bn_init.bias",)
 
 
 def log(*a):
@@ -300,14 +343,21 @@ def profile_summary(prof, window_s):
     log(table.table(sort_by="self_cpu_time_total", row_limit=20))
 
 
-def phase_main_path(dev, state, batches, profile=False):
+def phase_main_path(dev, state, batches, profile=False, fused=False):
+    """Phase 4 (``fused=False``) or phase 11 (``fused=True``: the same
+    run with ``ResNet50(fused=True)`` on the same weights, moved by
+    ``fused_from_unfused``, counting the fused kernels' launches)."""
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
     import horovod_tpu_torch.torch as hvd_torch
-    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.models.resnet import ResNet50, fused_from_unfused
+    from horovod_tpu_torch.ops import conv_bn as CB
     from horovod_tpu_torch.ops import cuda_kernels as K
 
+    phase = "phase 11" if fused else "phase 4"
+    if fused:
+        state = fused_from_unfused(state)
     xs, ys = batches
     barrier = threading.Barrier(NP)
     local_grads = {}
@@ -315,7 +365,8 @@ def phase_main_path(dev, state, batches, profile=False):
 
     def train():
         r = hvd.rank()
-        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                         fused=fused).to(dev)
         # every rank but the root starts from other weights, so the
         # broadcast has work to do
         model.load_state_dict({k: v if r == 0 else v + 1.0
@@ -366,44 +417,60 @@ def phase_main_path(dev, state, batches, profile=False):
             times.append(time.perf_counter() - t0)
             if prof is not None:
                 prof.__exit__(None, None, None)
+                log(f"profile: {phase}, one steady step of rank 0")
                 profile_summary(prof, times[-1])
             barrier.wait()
             if r == 0:
                 counts.append((eng.allreduce_buckets,
                                K.launches["pack_scale_cast"],
-                               K.launches["unpack_scale_cast"]))
+                               K.launches["unpack_scale_cast"],
+                               CB.launches["conv1x1_bn_fwd"],
+                               CB.launches["conv1x1_bn_bwd"],
+                               CB.plain_calls["conv1x1_bn"]))
             barrier.wait()
         records.append((r, losses, times, counts))
         return {k: p.detach().clone() for k, p in model.named_parameters()}
 
     K.reset_launches()
+    CB.reset_launches()
     results = hvd.run(train, np=NP, device=dev)
     launches = dict(K.launches)
+    conv_launches = dict(CB.launches)
 
     by_rank = {r: (losses, times, counts) for r, losses, times, counts
                in records}
     for r in range(NP):
         if not all(math.isfinite(v) for v in by_rank[r][0]):
-            raise AssertionError(f"rank {r}: non-finite loss "
+            raise AssertionError(f"{phase} rank {r}: non-finite loss "
                                  f"{by_rank[r][0]}")
     diff = [k for k in results[0]
             if not torch.equal(results[0][k], results[1][k])]
     if diff:
-        raise AssertionError(f"ranks' parameters differ after {STEPS} "
-                             f"steps: {diff[:5]}")
+        raise AssertionError(f"{phase}: ranks' parameters differ after "
+                             f"{STEPS} steps: {diff[:5]}")
     counts = by_rank[0][2]
-    prev = (0, 0, 0)
-    per_step = []
+    prev = (0,) * 6
+    per_step, conv_per_step = [], []
+    # per rank and step: 33 fused 1x1 convolutions, 3 strided projections
+    # on the plain path (none on the unfused model)
+    want_conv = (FUSED_CONVS * NP, FUSED_CONVS * NP, 3 * NP) if fused \
+        else (0, 0, 0)
     for step, cur in enumerate(counts):
-        buckets, pack, unpack = (c - p for c, p in zip(cur, prev))
+        buckets, pack, unpack, *conv = (c - p for c, p in zip(cur, prev))
         per_step.append(buckets)
+        conv_per_step.append(conv)
         if buckets < 1 or pack != buckets * NP or unpack != buckets * NP:
             raise AssertionError(
-                f"step {step}: {buckets} buckets but {pack} pack and "
-                f"{unpack} unpack launches (want buckets x {NP} ranks)")
+                f"{phase} step {step}: {buckets} buckets but {pack} pack "
+                f"and {unpack} unpack launches (want buckets x {NP} ranks)")
+        if tuple(conv) != want_conv:
+            raise AssertionError(
+                f"{phase} step {step}: conv1x1_bn_fwd, conv1x1_bn_bwd and "
+                f"plain-path calls {conv}, want {want_conv}")
         prev = cur
     if launches["fused_scale_cast"] != 0:
-        raise AssertionError("the main path launched fused_scale_cast")
+        raise AssertionError(f"{phase}: the main path launched "
+                             f"fused_scale_cast")
     step_s = [max(by_rank[r][1][i] for r in range(NP))
               for i in range(STEPS)]
     # steady: after the warm-up step, without the profiled step
@@ -411,17 +478,22 @@ def phase_main_path(dev, state, batches, profile=False):
              if i > 0 and not (profile and i == STEPS - 2)]
     steady = sum(timed) / len(timed)
     img_s = NP * BATCH / steady
-    log(f"phase 4: losses rank0 {by_rank[0][0]}")
-    log(f"phase 4: losses rank1 {by_rank[1][0]}")
-    log(f"phase 4: buckets per step {per_step}; launches {launches}; "
+    log(f"{phase}: losses rank0 {by_rank[0][0]}")
+    log(f"{phase}: losses rank1 {by_rank[1][0]}")
+    log(f"{phase}: buckets per step {per_step}; launches {launches}; "
         f"step 1 averaged gradients equal the plain average; parameters "
         f"of both ranks bit-identical after {STEPS} steps")
-    log(f"phase 4: step times (s) {[round(t, 4) for t in step_s]}; steady "
+    if fused:
+        log(f"{phase}: per step conv1x1_bn_fwd, conv1x1_bn_bwd launches "
+            f"and plain-path calls {conv_per_step[0]} (all steps equal); "
+            f"in all {conv_launches}")
+    log(f"{phase}: step times (s) {[round(t, 4) for t in step_s]}; steady "
         f"{steady * 1e3:.2f} ms/step = {img_s:.1f} img/s on one card "
         f"({NP} ranks x {BATCH} images)")
     return {"launches": launches["pack_scale_cast"]
             + launches["unpack_scale_cast"], "steady_s": steady,
-            "img_s": img_s, "buckets": per_step}
+            "img_s": img_s, "buckets": per_step,
+            "conv_launches": conv_launches}
 
 
 def phase_plain_step(dev, state, batches):
@@ -1301,6 +1373,258 @@ def phase_wire_path(dev, state, batches, wire, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 10
+
+def fused_step_shapes(batch=BATCH):
+    """(M, K, N, fold) of each fused 1x1 convolution of one ResNet-50
+    rank step on ``batch`` images of 224 x 224, in model order: conv1 (on
+    the block's input), conv3 (after the 3x3, folding bn2) and, where it
+    is not strided, the projection."""
+    shapes, h, cin = [], 56, 64
+    for i, count in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(count):
+            stride = 2 if i > 0 and j == 0 else 1
+            m = batch * h * h
+            shapes.append((m, cin, f, False))
+            h //= stride
+            shapes.append((batch * h * h, f, 4 * f, True))
+            if cin != 4 * f and stride == 1:
+                shapes.append((m, cin, 4 * f, False))
+            cin = 4 * f
+    return shapes
+
+
+def conv_bn_bound_ms(m, k, n, backward):
+    """Least time of one B9 or B10 call: bytes (each input read once,
+    each output written once) at the HBM rate against the bf16 products'
+    flops at the tensor cores' rate.  Forward: x, w, a, b in, y, s1, s2
+    out, 2MKN flops; backward: x, w, a, b, y, dy, ds1, ds2 in, dx, dw
+    (f32), da, db out, 4MKN flops."""
+    if backward:
+        nbytes = 2 * (2 * m * k + k * n + 2 * m * n) + 4 * (k * n + 2 * n
+                                                            + 4 * k)
+        flops = 4 * m * k * n
+    else:
+        nbytes = 2 * (m * k + k * n + m * n) + 4 * (2 * k + 2 * n)
+        flops = 2 * m * k * n
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def conv_bn_problem(m, k, n, dtype, dev, seed):
+    """Seeded inputs of one B9/B10 call: x (M, K), w (K, N) at LeCun
+    scale, a in [0.5, 1.5), b, and cotangents dy, ds1, ds2 of the sizes a
+    BN backward hands over."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape, np.float32)
+                                 * np.float32(scale))).to(dev)
+    x = t(m, k).to(dtype)
+    w = t(k, n, scale=k ** -0.5).to(dtype)
+    a = torch.from_numpy(rng.uniform(0.5, 1.5, k).astype(np.float32)).to(dev)
+    b = t(k, scale=0.5)
+    return x, a, b, w, t(m, n, scale=1e-3).to(dtype), t(n, scale=1e-5), \
+        t(n, scale=1e-5)
+
+
+def phase_conv_bn_kernels(dev):
+    import torch
+    from collections import Counter
+    from horovod_tpu_torch.ops import conv_bn as CB
+
+    step = Counter(fused_step_shapes())
+    cases, failures, worst = 0, [], {}
+    main_err = {"conv1x1_bn_fwd": 0.0, "conv1x1_bn_bwd": 0.0}
+    plan = [(m, k, n, fold, dt, True) for (m, k, n, fold) in step
+            for dt in (torch.bfloat16, torch.float32)]
+    plan += [(m, k, n, fold, dt, False) for (m, k, n) in CONV_BN_ODD
+             for fold in (False, True)
+             for dt in (torch.bfloat16, torch.float32)]
+    for i, (m, k, n, fold, dt, at_step) in enumerate(plan):
+        x, a, b, w, dy, ds1, ds2 = conv_bn_problem(m, k, n, dt, dev, i)
+        fwd = CB.conv1x1_bn_fwd(x, a, b, w, fold)
+        bwd = CB.conv1x1_bn_bwd(x, a, b, w, fwd[0], dy, ds1, ds2, fold)
+        torch.cuda.synchronize()
+        errs = CB.fwd_error(x, a, b, w, fold, fwd)
+        errs.update(CB.bwd_error(x, a, b, w, fwd[0], dy, ds1, ds2, fold,
+                                 bwd))
+        cases += 1
+        for name, (err, ratio) in errs.items():
+            if ratio >= worst.get(dt, (0.0,))[0]:
+                worst[dt] = (ratio, f"{name} at M={m} K={k} N={n} "
+                                    f"fold={fold}")
+            if not ratio <= 1.0:
+                failures.append(f"{dt} M={m} K={k} N={n} fold={fold} "
+                                f"{name}: max |diff| {err}, {ratio} of its "
+                                f"bound")
+            if at_step and dt == torch.bfloat16:
+                key = "conv1x1_bn_fwd" if name in ("y", "s1", "s2") \
+                    else "conv1x1_bn_bwd"
+                main_err[key] = max(main_err[key], err)
+        if i == 0:
+            # fixed-order sums: a rerun repeats every bit
+            again = (*CB.conv1x1_bn_fwd(x, a, b, w, fold),
+                     *CB.conv1x1_bn_bwd(x, a, b, w, fwd[0], dy, ds1, ds2,
+                                        fold))
+            if not all(torch.equal(p, q) for p, q in zip(
+                    (*fwd, *bwd), again) if p is not None):
+                failures.append(f"M={m} K={k} N={n}: a rerun differs")
+        del x, a, b, w, dy, ds1, ds2, fwd, bwd, errs
+    torch.cuda.empty_cache()
+    log(f"phase 10: {cases} cases x (B9, B10) against their plain "
+        f"versions (the {len(step)} distinct step shapes in bf16 and f32, "
+        f"{len(CONV_BN_ODD)} odd shapes x fold x dtype), {len(failures)} "
+        f"failures; worst error / bound (CB.fwd_error, CB.bwd_error): "
+        f"{ {str(k): (round(v[0], 4), v[1]) for k, v in worst.items()} }; max "
+        f"|kernel - plain| at the step shapes (bf16): {main_err}; a rerun "
+        f"is bit-identical")
+    for f in failures[:20]:
+        log(f"  MISMATCH {f}")
+    if failures:
+        raise SystemExit("phase 10 failed: a conv+BN kernel disagrees with "
+                         "its plain version")
+
+    # timing: each distinct step shape (bf16), summed over one rank
+    # step's launches
+    total = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_bytes": 0.0,
+                    "bound_ops": 0.0, "bound_ms": 0.0, "matmul_ms": 0.0}
+             for name, _ in CONV_BN}
+    for i, ((m, k, n, fold), count) in enumerate(sorted(step.items())):
+        x, a, b, w, dy, ds1, ds2 = conv_bn_problem(m, k, n, torch.bfloat16,
+                                                   dev, 100 + i)
+        y = CB.conv1x1_bn_fwd(x, a, b, w, fold)[0]
+        xh = (CB._fold_input(x, a, b) if fold else x).contiguous()
+        yt = (dy.float() + ds1 + 2.0 * y.float() * ds2).to(torch.bfloat16)
+        calls = {
+            "conv1x1_bn_fwd": (
+                lambda: CB.conv1x1_bn_fwd(x, a, b, w, fold),
+                lambda: CB.reference(x, a, b, w, fold),
+                lambda: torch.matmul(xh, w), False),
+            "conv1x1_bn_bwd": (
+                lambda: CB.conv1x1_bn_bwd(x, a, b, w, y, dy, ds1, ds2, fold),
+                lambda: CB.plain_bwd(x, a, b, w, y, dy, ds1, ds2, fold),
+                lambda: (torch.matmul(yt, w.t()), torch.matmul(xh.t(), yt)),
+                True)}
+        row = []
+        for name, (kern, plain, mm, backward) in calls.items():
+            ms, _ = cuda_ms(kern, iters=10)
+            plain_ms, _ = cuda_ms(plain, iters=3, warmup=1)
+            mm_ms, _ = cuda_ms(mm, iters=10)
+            t_mem, t_op = conv_bn_bound_ms(m, k, n, backward)
+            tot = total[name]
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["matmul_ms"] += count * mm_ms
+            tot["bound_ms"] += count * max(t_mem, t_op)
+            tot["bound_bytes"] += count * t_mem
+            tot["bound_ops"] += count * t_op
+            row.append(f"{name} {ms:.4f} (bound {max(t_mem, t_op):.4f} "
+                       f"{'ops' if t_op >= t_mem else 'bytes'}, plain "
+                       f"{plain_ms:.4f}, matmul part {mm_ms:.4f})")
+        log(f"phase 10 timing M={m} K={k} N={n} fold={fold} x{count} per "
+            f"rank step, ms per call: {'; '.join(row)}")
+        del x, a, b, w, dy, ds1, ds2, y, xh, yt
+    torch.cuda.empty_cache()
+    res = {}
+    for name, tot in total.items():
+        by = "operations" if tot["bound_ops"] >= tot["bound_bytes"] \
+            else "bytes"
+        res[name] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                     "bound_ms": tot["bound_ms"], "bound_by": by,
+                     "max_abs_err": main_err[name], "library_ms": None,
+                     "matmul_ms": tot["matmul_ms"]}
+        log(f"phase 10 timing {name}, summed over the {FUSED_CONVS} "
+            f"launches of one rank step (bf16, 64 images): kernel "
+            f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (bytes "
+            f"{tot['bound_bytes']:.4f}, operations {tot['bound_ops']:.4f}; "
+            f"{by}), plain {tot['plain_ms']:.4f} ms; the matmul part alone "
+            f"(torch.matmul, cuBLAS, bf16) {tot['matmul_ms']:.4f} ms")
+    CB.reset_launches()
+    return res
+
+
+def phase_fused_yardstick(dev, state, batches):
+    """Phase 11's yardstick: one fused step, one unfused step and one f32
+    unfused step (plain torch, TF32 off) on rank 0's images and the same
+    weights, with the BN scales drawn away from zero: each block's last
+    BN from [0.1, 0.3), every other from [0.5, 1.5).  (numpy_init's zero
+    last-BN scales would zero most gradients; unit scales there make the
+    random 16-block network chaotic, its bf16 gradients nearly
+    uncorrelated with the f32 ones.)"""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models.resnet import ResNet50, fused_from_unfused
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def scale(k, v):
+        if not (k.endswith("weight") and v.dim() == 1):
+            return v
+        lo, hi = (0.1, 0.3) if ".BatchNorm_2." in k else (0.5, 1.5)
+        return torch.from_numpy(rng.uniform(lo, hi, v.shape).astype(
+            np.float32))
+    ystate = {k: scale(k, v) for k, v in state.items()}
+    x = torch.from_numpy(batches[0][0]).to(dev)
+    y = torch.from_numpy(batches[1][0]).to(dev)
+
+    def one_step(fused, dtype):
+        model = ResNet50(num_classes=1000, dtype=dtype, fused=fused).to(dev)
+        model.load_state_dict(fused_from_unfused(ystate) if fused
+                              else ystate)
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        grads = {k: p.grad.detach().float() for k, p in
+                 model.named_parameters()}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return float(loss.detach()), grads
+
+    loss_f, g_f = one_step(True, torch.bfloat16)
+    loss_u, g_u = one_step(False, torch.bfloat16)
+    loss_r, g_r = one_step(False, torch.float32)
+    g_u, g_r = fused_from_unfused(g_u), fused_from_unfused(g_r)
+    fu, u_r, f_r, sq = {}, {}, {}, [0.0, 0.0, 0.0]
+    for k, r in g_r.items():
+        gf, gu = g_f[k], g_u[k]
+        rn = float(r.norm())
+        fu[k] = float((gf - gu).norm()) / max(float(gu.norm()), 1e-30)
+        u_r[k] = float((gu - r).norm()) / max(rn, 1e-30)
+        f_r[k] = float((gf - r).norm()) / max(rn, 1e-30)
+        for j, t in enumerate((gf - r, gu - r, r)):
+            sq[j] += float(t.norm()) ** 2
+    glob_f, glob_u = math.sqrt(sq[0] / sq[2]), math.sqrt(sq[1] / sq[2])
+    bound = {k: max(FUSED_REL_L2, 2 * u_r[k]) for k in fu}
+    held = [k for k in fu if k not in FUSED_EXEMPT]
+    bad = [k for k in held if fu[k] > bound[k]]
+    worst = max(held, key=lambda k: fu[k] / bound[k])
+    loss_bound = max(FUSED_LOSS, 2 * abs(loss_u - loss_r))
+    log(f"phase 11 yardstick (rank 0's {BATCH} images, BN scales drawn "
+        f"away from zero): loss fused {loss_f}, unfused {loss_u}, f32 unfused "
+        f"{loss_r} (|fused - unfused| {abs(loss_f - loss_u):.3g}, bound "
+        f"{loss_bound:.3g})")
+    log(f"phase 11 gradients, relative L2 per tensor: fused vs unfused "
+        f"worst {fu[worst]:.4g} ({worst}; bound max({FUSED_REL_L2}, 2 x "
+        f"unfused vs f32 = {2 * u_r[worst]:.4g})), median "
+        f"{sorted(fu.values())[len(fu) // 2]:.4g}; against f32, all "
+        f"parameters: fused {glob_f:.4g}, unfused {glob_u:.4g} (bound fused "
+        f"<= {FUSED_GLOBAL} x unfused); worst tensor fused "
+        f"{max(f_r.values()):.4g}, unfused {max(u_r.values()):.4g}; not "
+        f"held per tensor: " + ", ".join(
+            f"{k} fused vs unfused {fu[k]:.4g}, fused vs f32 {f_r[k]:.4g}, "
+            f"unfused vs f32 {u_r[k]:.4g}" for k in FUSED_EXEMPT))
+    if abs(loss_f - loss_u) > loss_bound or bad \
+            or glob_f > FUSED_GLOBAL * glob_u \
+            or not all(math.isfinite(v) for v in f_r.values()):
+        raise AssertionError(f"phase 11: the fused step disagrees with the "
+                             f"unfused step beyond bf16 noise: {bad[:5]}")
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1324,16 +1648,18 @@ def main():
         f"{torch.__version__}; CUDA {torch.version.cuda}; python "
         f"{sys.version.split()[0]}; TF32 off (cudnn and matmul)")
 
-    from horovod_tpu_torch.ops import (_build, cuda_kernels, flash_attention,
-                                       quantize_kernels)
+    from horovod_tpu_torch.ops import (_build, conv_bn, cuda_kernels,
+                                       flash_attention, quantize_kernels)
     t0 = time.perf_counter()
-    libs = (cuda_kernels._lib, flash_attention._lib, quantize_kernels._lib)
+    libs = (cuda_kernels._lib, flash_attention._lib, quantize_kernels._lib,
+            conv_bn._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
     log(f"phase 2: {len(libs)} libraries built in "
         f"{time.perf_counter() - t0:.2f} s")
-    for name in ("hvd_scale_cast", "hvd_flash", "hvd_quantize"):
+    for name in ("hvd_scale_cast", "hvd_flash", "hvd_quantize",
+                 "hvd_conv_bn"):
         info = _build.build_info[name]
         lines = info["log"].splitlines()
         regs = [ln.split(":", 1)[1].strip() for ln in lines
@@ -1381,6 +1707,14 @@ def main():
         log(f"phase 9: steady step {wire} {w['steady_s'] * 1e3:.2f} ms vs "
             f"phase 4's f32 wire {main_path['steady_s'] * 1e3:.2f} ms "
             f"(x {w['steady_s'] / main_path['steady_s']:.3f})")
+    conv = phase_conv_bn_kernels(dev)
+    fused = phase_main_path(dev, state, batches,
+                            profile="--profile" in sys.argv[1:], fused=True)
+    log(f"phase 11: steady step fused {fused['steady_s'] * 1e3:.2f} ms vs "
+        f"phase 4's unfused {main_path['steady_s'] * 1e3:.2f} ms (x "
+        f"{fused['steady_s'] / main_path['steady_s']:.3f})")
+    torch.cuda.empty_cache()
+    phase_fused_yardstick(dev, state, batches)
     del state, batches
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -1409,6 +1743,16 @@ def main():
             "source": "horovod_tpu_torch/ops/csrc/quantize.cu",
             "replaces": replaces,
             "launches": wired[wire]["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, replaces in CONV_BN:
+        r = conv[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/conv_bn.cu",
+            "replaces": replaces,
+            "launches": fused["conv_launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
