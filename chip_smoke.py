@@ -10,8 +10,8 @@ Phases (a failure in any one exits non-zero):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the four CUDA kernel libraries from
    ``horovod_tpu_torch/ops/csrc`` (``scale_cast.cu``,
-   ``flash_attention.cu``, ``quantize.cu``, ``conv_bn.cu``) with nvcc for
-   sm_90a, all at once;
+   ``flash_attention.cu`` with ``flash_sm90.cu``, ``quantize.cu``,
+   ``conv_bn.cu``) with nvcc for sm_90a, all at once;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
    single tensors of 1, 4095, 4097 and 25.6 M elements in five dtype
    pairs at three factors, and a pack/unpack round trip over the 161
@@ -38,11 +38,12 @@ Phases (a failure in any one exits non-zero):
    2048, BH 3 and 40, windows None, 1, 100 and S-1, each output held
    elementwise and in relative L2 to the bounds of
    ``flash_attention.error_ratio``; then each kernel's time at the LM's
-   shape (B 5, S 2048, H 8, D 128, bf16, causal), its bound, its plain
-   version's time and, as the library yardstick,
-   ``scaled_dot_product_attention`` forward (for the forward kernel) and
-   PyTorch's flash backward, one call for dq, dk and dv (for both
-   backward kernels);
+   shape (B 5, S 2048, H 8, D 128, bf16, causal), its achieved TFLOP/s
+   and share of its bound, its plain version's time and, as the library
+   yardstick, ``scaled_dot_product_attention`` forward (for the forward
+   kernel) and PyTorch's flash backward, one call for dq, dk and dv (for
+   both backward kernels), with the CUDA kernels each yardstick ran (the
+   SDPA backend it took);
 7. the LM path: ``make_lm_train_step(attention_impl="flash")`` trains
    the full-width 436M transformer LM (24 x 1024, 8 heads x 128, d_ff
    4096, vocab 32000, random weights from one numpy seed) on 5 x 2048
@@ -150,6 +151,11 @@ WIRE_RATIO = {"int8": 3.9, "int4": 7.5}
 FLASH = (("flash_fwd", "horovod_tpu/ops/pallas_kernels.py:453"),
          ("flash_bwd_dq", "horovod_tpu/ops/pallas_kernels.py:498"),
          ("flash_bwd_dkv", "horovod_tpu/ops/pallas_kernels.py:514"))
+# the 16-bit forward and dk/dv kernels are flash_sm90.cu's (wgmma, TMA)
+FLASH_SOURCE = {
+    "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_sm90.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "horovod_tpu_torch/ops/csrc/flash_sm90.cu"}
 # the fused conv+BN kernels: (name, TPU kernel it replaces)
 CONV_BN = (("conv1x1_bn_fwd", "horovod_tpu/ops/pallas_conv_bn.py:125"),
            ("conv1x1_bn_bwd", "horovod_tpu/ops/pallas_conv_bn.py:204"))
@@ -648,7 +654,8 @@ def flash_bound_ms(BH, S, D, itemsize):
     """Each kernel's least time on the card for causal attention: the
     larger of its tensor-core flops over the S(S+1)/2 visible pairs of
     each row at the bf16 peak, and its bytes (each input read once, each
-    output written once) at the HBM rate."""
+    output written once) at the HBM rate.  ``{name: (ms, "operations" or
+    "bytes", flops)}``."""
     pairs = BH * S * (S + 1) // 2
     tile, rows = BH * S * D * itemsize, BH * S * 4
     work = {"flash_fwd": (4 * D * pairs, 3 * tile + tile + rows),
@@ -658,8 +665,20 @@ def flash_bound_ms(BH, S, D, itemsize):
     for name, (flops, nbytes) in work.items():
         t_op, t_mem = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         out[name] = (max(t_op, t_mem) * 1e3,
-                     "operations" if t_op >= t_mem else "bytes")
+                     "operations" if t_op >= t_mem else "bytes", flops)
     return out
+
+
+def cuda_kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` runs (profiled)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_time_total > 0]
 
 
 def phase_flash_kernels(dev):
@@ -753,7 +772,7 @@ def phase_flash_kernels(dev):
             lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta),
             lambda: FA.plain_flash_bwd_dkv(q, k, v, do, lse, delta))}
     bounds = flash_bound_ms(B * H, S, D, 2)
-    res = {}
+    res, tflops = {}, {}
     for name, (kern, plain) in calls.items():
         ms, _ = cuda_ms(kern)
         plain_ms, _ = cuda_ms(plain, iters=5, warmup=1)
@@ -761,6 +780,7 @@ def phase_flash_kernels(dev):
                      "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1],
                      "max_abs_err": main_err[name], "library_ms": None}
+        tflops[name] = bounds[name][2] / ms / 1e9
     q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
     sdpa_ms, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True))
@@ -782,8 +802,17 @@ def phase_flash_kernels(dev):
     res["flash_bwd_dkv"]["library_ms"] = sdpa_b_ms
     for name, r in res.items():
         log(f"phase 6 timing {name} (BH {B * H}, S {S}, D {D}, bf16, "
-            f"causal): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+            f"causal): kernel {r['ms']:.4f} ms = {tflops[name]:.1f} "
+            f"TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of its bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms")
+    fwd_names = cuda_kernel_names(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    fb_names = cuda_kernel_names(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+        do4))
+    log(f"phase 6 yardstick kernels: scaled_dot_product_attention forward "
+        f"ran {fwd_names}; forward+backward ran {fb_names}")
     total = sum(r["ms"] for r in res.values())
     log(f"phase 6 timing: the three kernels {total:.4f} ms; "
         f"scaled_dot_product_attention forward {sdpa_ms:.4f} ms, "
@@ -1731,7 +1760,7 @@ def main():
         r = flash[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": FLASH_SOURCE[name],
             "replaces": replaces, "launches": lm["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

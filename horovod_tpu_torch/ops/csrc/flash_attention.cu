@@ -1,5 +1,8 @@
 // Causal (optionally sliding-window) flash attention for Hopper: the
-// forward, the dq backward and the dk/dv backward, each one kernel.
+// forward, the dq backward and the dk/dv backward, each one kernel.  For
+// bf16 and f16 inputs the forward and dk/dv kernels are those of
+// flash_sm90.cu (wgmma, TMA, register-resident scores); this file keeps
+// the f32 kernels, the dq kernel, the entry points and the dispatch.
 //
 // Replaces the three Pallas TPU kernels of horovod_tpu/ops/pallas_kernels.py:
 //   flash_fwd      <- _flash_kernel (:282), called by _flash_fwd_call (:453)
@@ -28,10 +31,10 @@
 // inputs it is the 67 TFLOP/s of the f32 FMA units, since f32 takes no
 // TF32 here.
 //
-// What the design does about it (a simple design first; wgmma, TMA and
-// warp specialisation are later work):
-//   * bf16/f16 products run on the tensor cores through WMMA (16x16x16,
-//     f32 accumulators); f32 products on plain FMAs;
+// What the design does about it here (a simple design first; wgmma, TMA
+// and warp specialisation are flash_sm90.cu's, and later work for dq):
+//   * bf16/f16 products of dq run on the tensor cores through WMMA
+//     (16x16x16, f32 accumulators); f32 products on plain FMAs;
 //   * the TPU's sequential grid loop becomes a loop inside one CTA: one
 //     CTA per (bh, query tile) for fwd and dq, one per (bh, key tile)
 //     for dk/dv, so no CTA writes what another writes and no atomics are
@@ -53,6 +56,13 @@
 
 #include <cmath>
 #include <type_traits>
+
+// flash_sm90.cu: the forward and dk/dv kernels for 16-bit inputs
+cudaError_t hvd_flash_fwd_sm90(bool bf16, int D, const void* q, const void* k, const void* v,
+                               void* out, float* lse, int BH, int S, int window, cudaStream_t s);
+cudaError_t hvd_flash_dkv_sm90(bool bf16, int D, const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse, const float* delta, void* dk,
+                               void* dv, int BH, int S, int window, cudaStream_t s);
 
 namespace {
 
@@ -200,6 +210,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int S, int window, float scale) {
+  static_assert(std::is_same<T, float>::value, "16-bit inputs take flash_fwd_sm90_kernel");
   using C = Cfg<T, D>;
   constexpr int B = C::B;
   constexpr int TPR = kThreads / B;  // threads per score row
@@ -348,6 +359,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int S, int window, float scale) {
+  static_assert(std::is_same<T, float>::value, "16-bit inputs take flash_dkv_sm90_kernel");
   using C = Cfg<T, D>;
   constexpr int B = C::B;
   extern __shared__ __align__(128) char smem[];
@@ -438,6 +450,14 @@ cudaError_t prepare(K kernel, size_t smem, const Args& a, int B, unsigned& block
 
 template <typename T, int D>
 cudaError_t launch(int which, const Args& a, cudaStream_t s) {
+  if constexpr (!std::is_same<T, float>::value) {
+    constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    if (which == kFwd)
+      return hvd_flash_fwd_sm90(bf16, D, a.q, a.k, a.v, a.o1, a.lse_out, a.BH, a.S, a.window, s);
+    if (which == kDkv)
+      return hvd_flash_dkv_sm90(bf16, D, a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.o1, a.o2,
+                                a.BH, a.S, a.window, s);
+  }
   using C = Cfg<T, D>;
   const float scale = (float)(1.0 / sqrt((double)D));
   unsigned blocks = 0;
@@ -448,10 +468,12 @@ cudaError_t launch(int which, const Args& a, cudaStream_t s) {
   const T* dout = static_cast<const T*>(a.dout);
   switch (which) {
     case kFwd:
-      err = prepare(flash_fwd_kernel<T, D>, C::kFwdBytes, a, C::B, blocks);
-      if (err != cudaSuccess || !blocks) return err;
-      flash_fwd_kernel<T, D><<<blocks, kThreads, C::kFwdBytes, s>>>(
-          q, k, v, static_cast<T*>(a.o1), a.lse_out, a.S, a.window, scale);
+      if constexpr (std::is_same<T, float>::value) {
+        err = prepare(flash_fwd_kernel<T, D>, C::kFwdBytes, a, C::B, blocks);
+        if (err != cudaSuccess || !blocks) return err;
+        flash_fwd_kernel<T, D><<<blocks, kThreads, C::kFwdBytes, s>>>(
+            q, k, v, static_cast<T*>(a.o1), a.lse_out, a.S, a.window, scale);
+      }
       break;
     case kDq:
       err = prepare(flash_bwd_dq_kernel<T, D>, C::kDqBytes, a, C::B, blocks);
@@ -460,11 +482,13 @@ cudaError_t launch(int which, const Args& a, cudaStream_t s) {
           q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o1), a.S, a.window, scale);
       break;
     case kDkv:
-      err = prepare(flash_bwd_dkv_kernel<T, D>, C::kDkvBytes, a, C::B, blocks);
-      if (err != cudaSuccess || !blocks) return err;
-      flash_bwd_dkv_kernel<T, D><<<blocks, kThreads, C::kDkvBytes, s>>>(
-          q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.S,
-          a.window, scale);
+      if constexpr (std::is_same<T, float>::value) {
+        err = prepare(flash_bwd_dkv_kernel<T, D>, C::kDkvBytes, a, C::B, blocks);
+        if (err != cudaSuccess || !blocks) return err;
+        flash_bwd_dkv_kernel<T, D><<<blocks, kThreads, C::kDkvBytes, s>>>(
+            q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o1), static_cast<T*>(a.o2),
+            a.S, a.window, scale);
+      }
       break;
     default:
       return cudaErrorInvalidValue;

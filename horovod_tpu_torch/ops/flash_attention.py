@@ -4,7 +4,9 @@ PyTorch versions, and the differentiable ``flash_attention``.
 Port of ``horovod_tpu/ops/pallas_kernels.py::flash_attention`` and its
 three Pallas kernels (forward ``_flash_kernel``, backward
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``).  On the card
-they are the CUDA kernels of ``ops/csrc/flash_attention.cu``; the plain
+they are the CUDA kernels of ``ops/csrc/flash_attention.cu`` and, for
+bf16 and f16 inputs, the forward and dk/dv kernels of
+``ops/csrc/flash_sm90.cu`` (wgmma, TMA, scores in registers); the plain
 versions below compute the same functions, with the same casts, on
 ``(BH, S, D)`` tensors:
 
@@ -183,7 +185,7 @@ def error_ratio(got, want, dtype, rss=None, noise=None):
 # kernels
 
 def _lib():
-    lib = _build.load("hvd_flash", ["flash_attention.cu"])
+    lib = _build.load("hvd_flash", ["flash_attention.cu", "flash_sm90.cu"])
     if not getattr(lib, "_hvd_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.hvd_flash_fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i, p]
@@ -327,9 +329,9 @@ def flash_attention(q, k, v, *, block_q=512, block_k=512,
     ``block_q``, ``block_k``, ``bwd_block_q`` and ``bwd_block_k`` are
     validated as the JAX package validates them (a sequence longer than
     1024 with no block divisor of at least 8 raises), but they do not
-    set the CUDA tiles: the kernels choose their own (64 x 64 for 16-bit
-    inputs, 32 x 32 for f32) and mask a sequence the tile does not
-    divide.
+    set the CUDA tiles: the kernels choose their own (for 16-bit inputs
+    128 queries x 128 keys forward, 128 keys x 64 queries dk/dv, 64 x 64
+    dq; 32 x 32 for f32) and mask a sequence the tile does not divide.
     """
     B, S, H, D = q.shape
     if window is not None:
