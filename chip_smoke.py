@@ -14,9 +14,12 @@ Phases (a failure in any one exits non-zero):
    ``conv_bn.cu``) with nvcc for sm_90a, all at once;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
    single tensors of 1, 4095, 4097 and 25.6 M elements in five dtype
-   pairs at three factors, and a pack/unpack round trip over the 161
-   ResNet-50 gradient shapes; then its time, its bound, the plain
-   version's time and one ``torch.mul`` as the library yardstick;
+   pairs at three factors, a pack/unpack round trip over the 161
+   ResNet-50 gradient shapes, and a pack of a ragged list longer than
+   one launch holds (unaligned offsets, empty members); then its time
+   on the 161 tensors, its bound, the plain version's time, one
+   ``torch.mul`` on one flat tensor of the same size as the library
+   yardstick, and the kernel on that flat tensor;
 4. the main path: ``horovod_tpu_torch.run(train, np=2)`` on the card
    (stacked mode), each rank training full-width ResNet-50 (bf16
    compute, random weights from one numpy seed) through
@@ -151,11 +154,15 @@ WIRE_RATIO = {"int8": 3.9, "int4": 7.5}
 FLASH = (("flash_fwd", "horovod_tpu/ops/pallas_kernels.py:453"),
          ("flash_bwd_dq", "horovod_tpu/ops/pallas_kernels.py:498"),
          ("flash_bwd_dkv", "horovod_tpu/ops/pallas_kernels.py:514"))
-# the 16-bit forward and dk/dv kernels are flash_sm90.cu's (wgmma, TMA)
+# the 16-bit flash kernels are flash_sm90.cu's (wgmma, TMA): the file and
+# kernel each route takes at the main path's bf16 shapes
 FLASH_SOURCE = {
     "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_sm90.cu",
-    "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_sm90.cu",
     "flash_bwd_dkv": "horovod_tpu_torch/ops/csrc/flash_sm90.cu"}
+FLASH_KERNEL = {"flash_fwd": "flash_fwd_sm90_kernel",
+                "flash_bwd_dq": "flash_dq_sm90_kernel",
+                "flash_bwd_dkv": "flash_dkv_sm90_kernel"}
 # the fused conv+BN kernels: (name, TPU kernel it replaces)
 CONV_BN = (("conv1x1_bn_fwd", "horovod_tpu/ops/pallas_conv_bn.py:125"),
            ("conv1x1_bn_bwd", "horovod_tpu/ops/pallas_conv_bn.py:204"))
@@ -283,6 +290,25 @@ def phase_kernel(dev):
             mismatches += 1
             log(f"  MISMATCH unpack {buf_dt}: {bad} tensors")
         max_err = max(max_err, float((buf.double() - ref.double()).abs().max()))
+    # a ragged list longer than one launch holds: most offsets off the
+    # 16-byte vector alignment, every seventh member empty
+    rag = [torch.randn((i * 37) % 300 * (i % 7 != 0) + (i % 3 == 0) * 5000,
+                       generator=g).to(dev)
+           for i in range(2 * K.MAX_ENTRIES + 88)]
+    roffs, rtotal = [], 0
+    for t in rag:
+        roffs.append(rtotal)
+        rtotal += t.numel()
+    rbuf = torch.empty(rtotal, dtype=torch.bfloat16, device=dev)
+    K.pack_scale_cast(rag, rbuf, roffs, 1.0 / 3.0)
+    rref = torch.cat([K.plain_scale_cast(t, 1.0 / 3.0, torch.bfloat16)
+                      for t in rag])
+    torch.cuda.synchronize()
+    cases += 1
+    if not torch.equal(rbuf, rref):
+        mismatches += 1
+        log(f"  MISMATCH pack of {len(rag)} ragged members")
+    del rag, rbuf, rref
     log(f"phase 3: {cases} kernel-vs-plain cases, {mismatches} mismatches, "
         f"max |kernel - plain| = {max_err}")
     if mismatches:
@@ -1751,6 +1777,7 @@ def main():
     kernels = [{
         "name": "scale_cast_batched", "route": "cuda",
         "source": "horovod_tpu_torch/ops/csrc/scale_cast.cu",
+        "kernel": "scale_cast_batched",
         "replaces": "horovod_tpu/ops/pallas_kernels.py:67",
         "launches": main_path["launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
@@ -1760,7 +1787,7 @@ def main():
         r = flash[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": FLASH_SOURCE[name],
+            "source": FLASH_SOURCE[name], "kernel": FLASH_KERNEL[name],
             "replaces": replaces, "launches": lm["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

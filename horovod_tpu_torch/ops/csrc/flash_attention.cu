@@ -1,8 +1,8 @@
 // Causal (optionally sliding-window) flash attention for Hopper: the
 // forward, the dq backward and the dk/dv backward, each one kernel.  For
-// bf16 and f16 inputs the forward and dk/dv kernels are those of
-// flash_sm90.cu (wgmma, TMA, register-resident scores); this file keeps
-// the f32 kernels, the dq kernel, the entry points and the dispatch.
+// bf16 and f16 inputs all three are those of flash_sm90.cu (wgmma, TMA,
+// register-resident scores); this file keeps the f32 kernels, the entry
+// points and the dispatch.
 //
 // Replaces the three Pallas TPU kernels of horovod_tpu/ops/pallas_kernels.py:
 //   flash_fwd      <- _flash_kernel (:282), called by _flash_fwd_call (:453)
@@ -31,10 +31,9 @@
 // inputs it is the 67 TFLOP/s of the f32 FMA units, since f32 takes no
 // TF32 here.
 //
-// What the design does about it here (a simple design first; wgmma, TMA
-// and warp specialisation are flash_sm90.cu's, and later work for dq):
-//   * bf16/f16 products of dq run on the tensor cores through WMMA
-//     (16x16x16, f32 accumulators); f32 products on plain FMAs;
+// What the f32 design does about it (a simple design; wgmma, TMA and warp
+// specialisation are flash_sm90.cu's, for 16-bit inputs):
+//   * products on plain FMAs, one thread per output element;
 //   * the TPU's sequential grid loop becomes a loop inside one CTA: one
 //     CTA per (bh, query tile) for fwd and dq, one per (bh, key tile)
 //     for dk/dv, so no CTA writes what another writes and no atomics are
@@ -48,18 +47,18 @@
 //   * a sequence the tile does not divide is masked in the kernel (rows
 //     past S load as zeros and are never stored), not padded.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <cmath>
 #include <type_traits>
 
-// flash_sm90.cu: the forward and dk/dv kernels for 16-bit inputs
+// flash_sm90.cu: the three kernels for 16-bit inputs
 cudaError_t hvd_flash_fwd_sm90(bool bf16, int D, const void* q, const void* k, const void* v,
                                void* out, float* lse, int BH, int S, int window, cudaStream_t s);
+cudaError_t hvd_flash_dq_sm90(bool bf16, int D, const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* delta, void* dq,
+                              int BH, int S, int window, cudaStream_t s);
 cudaError_t hvd_flash_dkv_sm90(bool bf16, int D, const void* q, const void* k, const void* v,
                                const void* dout, const float* lse, const float* delta, void* dk,
                                void* dv, int BH, int S, int window, cudaStream_t s);
@@ -67,7 +66,6 @@ cudaError_t hvd_flash_dkv_sm90(bool bf16, int D, const void* q, const void* k, c
 namespace {
 
 constexpr int kThreads = 128;  // four warps
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 
 template <typename T> struct Cvt;
@@ -75,29 +73,19 @@ template <> struct Cvt<float> {
   __device__ static float f32(float x) { return x; }
   __device__ static float from(float x) { return x; }
 };
-template <> struct Cvt<__half> {
-  __device__ static float f32(__half x) { return __half2float(x); }
-  __device__ static __half from(float x) { return __float2half_rn(x); }
-};
-template <> struct Cvt<__nv_bfloat16> {
-  __device__ static float f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-  __device__ static __nv_bfloat16 from(float x) { return __float2bfloat16_rn(x); }
-};
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
-// Tile shapes and shared-memory strides.  16-bit tiles are 64 x 64 with
-// a pad of 8 elements (WMMA wants strides in multiples of 16 bytes and
-// 32-byte aligned tile corners); f32 tiles are 32 x 32 with a pad of 1,
-// so that the scalar loops read shared memory without bank conflicts.
+// Tile shapes and shared-memory strides of the f32 kernels: 32 x 32
+// tiles with a pad of 1, so that the scalar loops read shared memory
+// without bank conflicts.
 template <typename T, int D>
 struct Cfg {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int B = kF32 ? 32 : 64;      // rows of a q tile = of a k tile
-  static constexpr int LDT = D + (kF32 ? 1 : 8);  // T tiles, B x D
-  static constexpr int LDS = B + 4;               // f32 score tiles, B x B
-  static constexpr int LDP = B + (kF32 ? 1 : 8);  // T score tiles, B x B
-  static constexpr int LDO = D + 4;               // f32 accumulators, B x D
+  static constexpr int B = 32;       // rows of a q tile = of a k tile
+  static constexpr int LDT = D + 1;  // input tiles, B x D
+  static constexpr int LDS = B + 4;  // score tiles, B x B
+  static constexpr int LDP = B + 1;  // p / ds tiles, B x B
+  static constexpr int LDO = D + 4;  // accumulators, B x D
   static constexpr size_t kTile = align128(sizeof(T) * B * LDT);
   static constexpr size_t kScore = align128(sizeof(float) * B * LDS);
   static constexpr size_t kScoreT = align128(sizeof(T) * B * LDP);
@@ -128,13 +116,9 @@ __device__ void load_rows(T* dst, const T* __restrict__ src, int row0, int S) {
     const int r = idx / VPR, c = (idx % VPR) * V;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    if constexpr (std::is_same<T, float>::value) {
-      const float* f = reinterpret_cast<const float*>(&val);
+    const float* f = reinterpret_cast<const float*>(&val);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dst[r * LD + c + j] = f[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
+    for (int j = 0; j < 4; ++j) dst[r * LD + c + j] = f[j];
   }
 }
 
@@ -148,9 +132,8 @@ __device__ void load_row_vals(float* dst, const float* __restrict__ src, int row
 //   NT: A(i,k) = A[i*lda + k], B(k,j) = B[j*ldb + k]
 //   NN: A(i,k) = A[i*lda + k], B(k,j) = B[k*ldb + j]
 //   TN: A(i,k) = A[k*lda + i], B(k,j) = B[k*ldb + j]
-// 16-bit inputs run WMMA (one warp per 16 x 16 output tile); f32 inputs
-// run scalar FMAs (one thread per output element), adding the finished
-// sum to C as the JAX kernels add a finished dot.
+// scalar FMAs, one thread per output element, adding the finished sum to
+// C as the JAX kernels add a finished dot.
 enum class Layout { NT, NN, TN };
 
 template <Layout L, typename T>
@@ -164,35 +147,12 @@ __device__ inline float elem_b(const T* B, int ldb, int k, int j) {
 
 template <Layout L, bool ACC, int M, int N, int K, typename T>
 __device__ void mm(const T* A, int lda, const T* B, int ldb, float* C, int ldc) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int e = threadIdx.x; e < M * N; e += kThreads) {
-      const int i = e / N, j = e % N;
-      float s = 0.f;
+  for (int e = threadIdx.x; e < M * N; e += kThreads) {
+    const int i = e / N, j = e % N;
+    float s = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) s = fmaf(elem_a<L>(A, lda, i, k), elem_b<L>(B, ldb, k, j), s);
-      C[i * ldc + j] = ACC ? C[i * ldc + j] + s : s;
-    }
-  } else {
-    using namespace nvcuda;
-    using LA = typename std::conditional<L == Layout::TN, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<L == Layout::NT, wmma::col_major, wmma::row_major>::type;
-    constexpr int TN = N / 16;
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < (M / 16) * TN; t += kWarps) {
-      const int i0 = (t / TN) * 16, j0 = (t % TN) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC) wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-      else wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> b;
-        wmma::load_matrix_sync(a, L == Layout::TN ? A + k * lda + i0 : A + i0 * lda + k, lda);
-        wmma::load_matrix_sync(b, L == Layout::NT ? B + j0 * ldb + k : B + k * ldb + j0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
-    }
+    for (int k = 0; k < K; ++k) s = fmaf(elem_a<L>(A, lda, i, k), elem_b<L>(B, ldb, k, j), s);
+    C[i * ldc + j] = ACC ? C[i * ldc + j] + s : s;
   }
 }
 
@@ -298,6 +258,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int S, int window,
                     float scale) {
+  static_assert(std::is_same<T, float>::value, "16-bit inputs take flash_dq_sm90_kernel");
   using C = Cfg<T, D>;
   constexpr int B = C::B;
   extern __shared__ __align__(128) char smem[];
@@ -448,47 +409,52 @@ cudaError_t prepare(K kernel, size_t smem, const Args& a, int B, unsigned& block
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int D>
-cudaError_t launch(int which, const Args& a, cudaStream_t s) {
-  if constexpr (!std::is_same<T, float>::value) {
-    constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-    if (which == kFwd)
+// 16-bit inputs: the kernels of flash_sm90.cu
+cudaError_t launch_sm90(bool bf16, int which, int D, const Args& a, cudaStream_t s) {
+  switch (which) {
+    case kFwd:
       return hvd_flash_fwd_sm90(bf16, D, a.q, a.k, a.v, a.o1, a.lse_out, a.BH, a.S, a.window, s);
-    if (which == kDkv)
+    case kDq:
+      return hvd_flash_dq_sm90(bf16, D, a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.o1, a.BH,
+                               a.S, a.window, s);
+    case kDkv:
       return hvd_flash_dkv_sm90(bf16, D, a.q, a.k, a.v, a.dout, a.lse_in, a.delta, a.o1, a.o2,
                                 a.BH, a.S, a.window, s);
+    default:
+      return cudaErrorInvalidValue;
   }
+}
+
+template <int D>
+cudaError_t launch_f32(int which, const Args& a, cudaStream_t s) {
+  using T = float;
   using C = Cfg<T, D>;
   const float scale = (float)(1.0 / sqrt((double)D));
   unsigned blocks = 0;
   cudaError_t err;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   switch (which) {
     case kFwd:
-      if constexpr (std::is_same<T, float>::value) {
-        err = prepare(flash_fwd_kernel<T, D>, C::kFwdBytes, a, C::B, blocks);
-        if (err != cudaSuccess || !blocks) return err;
-        flash_fwd_kernel<T, D><<<blocks, kThreads, C::kFwdBytes, s>>>(
-            q, k, v, static_cast<T*>(a.o1), a.lse_out, a.S, a.window, scale);
-      }
+      err = prepare(flash_fwd_kernel<T, D>, C::kFwdBytes, a, C::B, blocks);
+      if (err != cudaSuccess || !blocks) return err;
+      flash_fwd_kernel<T, D><<<blocks, kThreads, C::kFwdBytes, s>>>(
+          q, k, v, static_cast<float*>(a.o1), a.lse_out, a.S, a.window, scale);
       break;
     case kDq:
       err = prepare(flash_bwd_dq_kernel<T, D>, C::kDqBytes, a, C::B, blocks);
       if (err != cudaSuccess || !blocks) return err;
       flash_bwd_dq_kernel<T, D><<<blocks, kThreads, C::kDqBytes, s>>>(
-          q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o1), a.S, a.window, scale);
+          q, k, v, dout, a.lse_in, a.delta, static_cast<float*>(a.o1), a.S, a.window, scale);
       break;
     case kDkv:
-      if constexpr (std::is_same<T, float>::value) {
-        err = prepare(flash_bwd_dkv_kernel<T, D>, C::kDkvBytes, a, C::B, blocks);
-        if (err != cudaSuccess || !blocks) return err;
-        flash_bwd_dkv_kernel<T, D><<<blocks, kThreads, C::kDkvBytes, s>>>(
-            q, k, v, dout, a.lse_in, a.delta, static_cast<T*>(a.o1), static_cast<T*>(a.o2),
-            a.S, a.window, scale);
-      }
+      err = prepare(flash_bwd_dkv_kernel<T, D>, C::kDkvBytes, a, C::B, blocks);
+      if (err != cudaSuccess || !blocks) return err;
+      flash_bwd_dkv_kernel<T, D><<<blocks, kThreads, C::kDkvBytes, s>>>(
+          q, k, v, dout, a.lse_in, a.delta, static_cast<float*>(a.o1),
+          static_cast<float*>(a.o2), a.S, a.window, scale);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -499,23 +465,17 @@ cudaError_t launch(int which, const Args& a, cudaStream_t s) {
 // dtype codes shared with ops/flash_attention.py (and ops/cuda_kernels.py)
 enum { kF32 = 0, kF16 = 1, kBF16 = 2 };
 
-template <typename T>
-cudaError_t dispatch_d(int which, int D, const Args& a, cudaStream_t s) {
-  switch (D) {
-    case 64: return launch<T, 64>(which, a, s);
-    case 128: return launch<T, 128>(which, a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 int run(int device, int which, int dtype, int D, const Args& a, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: err = dispatch_d<float>(which, D, a, s); break;
-    case kF16: err = dispatch_d<__half>(which, D, a, s); break;
-    case kBF16: err = dispatch_d<__nv_bfloat16>(which, D, a, s); break;
+    case kF32:
+      err = D == 64 ? launch_f32<64>(which, a, s) : D == 128 ? launch_f32<128>(which, a, s)
+                                                             : cudaErrorInvalidValue;
+      break;
+    case kF16: err = launch_sm90(false, which, D, a, s); break;
+    case kBF16: err = launch_sm90(true, which, D, a, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

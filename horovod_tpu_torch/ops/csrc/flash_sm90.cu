@@ -1,36 +1,40 @@
 // Causal (optionally sliding-window) flash attention for Hopper, 16-bit
-// inputs: the forward (B6) and the dk/dv backward (B8), redesigned around
-// wgmma, a TMA/mbarrier ring and register-resident scores.
+// inputs: the forward (B6), the dq backward (B7) and the dk/dv backward
+// (B8), designed around wgmma, a TMA/mbarrier ring and register-resident
+// scores.
 //
 // Replaces, for bf16 and f16 inputs at D = 64 and 128, the Pallas TPU
 // kernels of horovod_tpu/ops/pallas_kernels.py:
 //   flash_fwd_sm90  <- _flash_kernel (:282), called by _flash_fwd_call (:453)
+//   flash_dq_sm90   <- _flash_bwd_dq_kernel (:339), pallas_call at :498
 //   flash_dkv_sm90  <- _flash_bwd_dkv_kernel (:383), pallas_call at :514
 // with the functions, casts and masks of flash_attention.cu (which keeps
-// the f32 kernels and the dq kernel B7, and calls these for 16-bit
-// inputs): f32 scores q.k^T / sqrt(D); p cast to the input dtype before
-// p.v; T(p) and T(ds) cast before the dv and dk products; dk *= scale;
-// lse = m + log(max(l, 1e-30)) in natural log.
+// the f32 kernels and calls these for 16-bit inputs): f32 scores
+// q.k^T / sqrt(D); p cast to the input dtype before p.v; T(ds) cast
+// before the dq product, T(p) and T(ds) before the dv and dk products;
+// dq *= scale and dk *= scale at the end; lse = m + log(max(l, 1e-30)) in
+// natural log.
 //
 // Bound on this card (NVIDIA H100 SXM): operations.  Per visible (q, k)
-// pair the forward does 4*D flops and dk/dv 8*D on the tensor cores; at
-// the LM's shape (BH 40, S 2048, D 128) that is 42.96 and 85.9 GFLOP,
-// 0.0434 and 0.0869 ms at 989 TFLOP/s, against 84 and 127 MB moved
-// (chip_smoke.py's flash_bound_ms).
+// pair the forward does 4*D flops, dq 6*D and dk/dv 8*D on the tensor
+// cores; at the LM's shape (BH 40, S 2048, D 128) that is 42.96, 64.46
+// and 85.9 GFLOP, 0.0434, 0.0652 and 0.0869 ms at 989 TFLOP/s, against
+// 84, 105 and 127 MB moved (chip_smoke.py's flash_bound_ms).
 //
 // What the design does about it:
 //   * products are wgmma.mma_async (m64 nN k16, f32 accumulators in
 //     registers).  Shared operands are TMA tiles in the 128-byte swizzle
-//     the descriptors name, read K-major (q.k^T, k.q^T, v.dO^T) or
-//     MN-major (p.v, T(p^T).dO, T(ds^T).q, transpose bit set); p and ds
-//     never leave registers: the f32 accumulator of a score tile is, pair
-//     by pair, the register A operand of the next product;
+//     the descriptors name, read K-major (q.k^T, dO.v^T, k.q^T, v.dO^T)
+//     or MN-major (p.v, T(ds).k, T(p^T).dO, T(ds^T).q, transpose bit
+//     set); p and ds never leave registers: the f32 accumulator of a score
+//     tile is, pair by pair, the register A operand of the next product;
 //   * one CTA = two consumer warpgroups + one producer warpgroup (one
 //     thread issues TMA; setmaxnreg moves registers to the consumers).
-//     K/V (forward, 3 stages) or Q/dO (backward, 2 stages) tiles come
-//     through a ring of full/empty mbarriers, so the next tiles' copies
-//     are in flight while the current one computes, and the two consumer
-//     warpgroups overlap one's softmax with the other's products;
+//     K/V (forward, 3 stages; dq, 2 stages) or Q/dO (dk/dv, 2 stages)
+//     tiles come through a ring of full/empty mbarriers, so the next
+//     tiles' copies are in flight while the current one computes, and the
+//     two consumer warpgroups overlap one's elementwise work with the
+//     other's products;
 //   * forward: a CTA owns 128 query rows (64 per warpgroup) and walks
 //     128-key tiles; S, P (bf16/f16 in registers) and O stay in
 //     registers.  Each warpgroup issues S_j = Q.K_j^T and then
@@ -40,12 +44,20 @@
 //     sum reduced across the four lanes of a quad.  The softmax's
 //     exponentials and their dependent chain, not the products, bound
 //     it: hence the bare ex2 (not exp2f) and the overlap with P.V;
+//   * dq: a CTA owns 128 query rows (64 per warpgroup), loads Q and dO
+//     once and walks 128-key tiles; S = Q.K^T and dP = dO.V^T land in
+//     registers, p = exp2(fma(s, scale*log2 e, -lse*log2 e)) with the
+//     row's lse and delta held in registers, dS = p (dp - delta) is cast
+//     to T pair by pair as the A operand of dQ += T(dS).K (K read MN-major
+//     from the panels S read K-major), and dQ accumulates in registers
+//     for the whole loop, times scale once at the end;
 //   * dk/dv: a CTA owns 128 keys (64 per warpgroup) and walks 64-row
 //     query tiles; S^T = K.Q^T and dP^T = V.dO^T land in registers, the
 //     query tile's lse (times log2 e) and delta are staged in shared
 //     memory by the producer warp, and dK, dV accumulate in registers for
-//     the whole loop.  No atomics: each CTA alone writes its rows, so a
-//     rerun is bit for bit the same;
+//     the whole loop;
+//   * no atomics: each CTA alone writes its rows, so a rerun is bit for
+//     bit the same;
 //   * only tiles on the causal diagonal, at the window's edge or past S
 //     test the mask; interior tiles skip it, and tiles wholly outside the
 //     band are skipped (the loop bounds of pallas_kernels.py:323-327 and
@@ -54,11 +66,15 @@
 //     reads zeros past S and never the next head's rows;
 //   * CTAs are numbered heaviest tile first across all heads.
 // Shared memory, D = 128 (D = 64 halves the tiles): forward 32 KB of Q +
-// 3 stages x 64 KB of K and V = 224 KB; dk/dv 64 KB of K and V + 2 stages
-// x 32 KB of Q and dO + 1 KB of lse/delta = 129 KB (plus 1 KB for 1024-byte
-// alignment).  One 384-thread CTA per SM (registers: 2 x 128 x 240 for
-// the consumers + 128 x 24 for the producer; ptxas: 168 at entry, 0
-// spills).
+// 3 stages x 64 KB of K and V = 224 KB; dq 64 KB of Q and dO + 2 stages x
+// 64 KB of K and V = 192 KB (197,672 B with barriers and alignment;
+// 99,368 at D 64); dk/dv 64 KB of K and V + 2 stages x 32 KB of Q and dO
+// + 1 KB of lse/delta = 129 KB (plus 1 KB for 1024-byte alignment).  One
+// 384-thread CTA per SM (registers: 2 x 128 x 240 for the consumers +
+// 128 x 24 for the producer; ptxas: 168 at entry, 0 spills, for every
+// kernel here).  dq's key tile is 128 wide: S, dP and dQ take 3 x 64 f32
+// registers a thread at D 128, and ptxas keeps it free of spills; it ran
+// 4% faster than a 64-key tile with 3 stages on the H100.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -282,6 +298,26 @@ __device__ __forceinline__ char* align1024(char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
+// The producer thread's K/V ring (forward and dq): key tiles kt_begin,
+// kt_begin + 1, ... of K and V into stage j % ST, each stage refilled once
+// the consumers have released it
+template <int D, int BK, int ST>
+__device__ __forceinline__ void fill_kv_ring(char* sK, char* sV, const CUtensorMap* tk,
+                                             const CUtensorMap* tv, uint64_t* full,
+                                             uint64_t* empty, int kt_begin, int n_iter, int bh) {
+  constexpr int kKV = BK * D * 2;
+  for (int j = 0; j < n_iter; ++j) {
+    const int s = j % ST;
+    if (j >= ST) mbar_wait(&empty[s], (j / ST - 1) & 1);
+    mbar_expect_tx(&full[s], 2 * kKV);
+    const int k0 = (kt_begin + j) * BK;
+    for (int p = 0; p < D / 64; ++p) {
+      tma_load(sK + s * kKV + p * BK * 128, tk, &full[s], p * 64, k0, bh);
+      tma_load(sV + s * kKV + p * BK * 128, tv, &full[s], p * 64, k0, bh);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // forward (B6)
 
@@ -375,16 +411,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(qbar, C::kQ);
       for (int p = 0; p < D / 64; ++p) tma_load(sQ + p * BQ * 128, &tq, qbar, p * 64, q0, bh);
-      for (int j = 0; j < n_iter; ++j) {
-        const int s = j % ST;
-        if (j >= ST) mbar_wait(&empty[s], (j / ST - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * C::kKV);
-        const int k0 = (kt_begin + j) * BK;
-        for (int p = 0; p < D / 64; ++p) {
-          tma_load(sK + s * C::kKV + p * BK * 128, &tk, &full[s], p * 64, k0, bh);
-          tma_load(sV + s * C::kKV + p * BK * 128, &tv, &full[s], p * 64, k0, bh);
-        }
-      }
+      fill_kv_ring<D, BK, ST>(sK, sV, &tk, &tv, full, empty, kt_begin, n_iter, bh);
     }
     return;
   }
@@ -645,6 +672,151 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 }
 
 // ---------------------------------------------------------------------------
+// dq (B7)
+
+template <int D>
+struct DqCfg {
+  static constexpr int BQ = 128, BK = 128;  // query rows (64 per warpgroup), key rows
+  static constexpr int kStages = 2;         // K/V tiles in flight
+  static constexpr int kQ = BQ * D * 2;     // bytes of the Q or the dO tile
+  static constexpr int kKV = BK * D * 2;    // bytes of a K or a V tile
+  static constexpr size_t kSmem = 1024 + 2 * kQ + 2 * kStages * kKV + 8 * (1 + 2 * kStages);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dq, int BH, int S, int window, float scale,
+                     float scale_log2) {
+  using C = DqCfg<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, ST = C::kStages;
+  extern __shared__ __align__(1024) char smem_raw[];
+  char* sQ = align1024(smem_raw);
+  char* sDO = sQ + C::kQ;
+  char* sK = sDO + C::kQ;
+  char* sV = sK + ST * C::kKV;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + ST * C::kKV);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int n_q = (S + BQ - 1) / BQ, n_k = (S + BK - 1) / BK;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_q - 1 - blockIdx.x / BH) * BQ;  // heaviest tiles first
+  const int kt_end = min(n_k, (q0 + BQ - 1) / BK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_iter = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread loads Q and dO once, then keeps the K/V ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(qbar, 2 * C::kQ);
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load(sQ + p * BQ * 128, &tq, qbar, p * 64, q0, bh);
+        tma_load(sDO + p * BQ * 128, &tdo, qbar, p * 64, q0, bh);
+      }
+      fill_kv_ring<D, BK, ST>(sK, sV, &tk, &tv, full, empty, kt_begin, n_iter, bh);
+    }
+    return;
+  }
+
+  // consumers: per key tile S = Q.K^T and dP = dO.V^T into registers,
+  // p and dS elementwise there, dS cast to T pair by pair as the register
+  // A operand of dQ += T(dS).K (K read MN-major from the same panels)
+  setmaxnreg_inc<240>();
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int r0 = q0 + wg * 64;                 // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int cq = (lane % 4) * 2;               // this thread's key offset in a tile
+  const uint32_t q_tile = smem_u32(sQ) + wg * 64 * 128;
+  const uint32_t do_tile = smem_u32(sDO) + wg * 64 * 128;
+
+  // -lse * log2(e) and delta of this thread's two rows (0 past S)
+  float nl[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool in = row < S;
+    nl[h] = in ? -lse[(size_t)bh * S + row] * kLog2e : 0.f;
+    dl[h] = in ? delta[(size_t)bh * S + row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_iter; ++j) {
+    const int s = j % ST;
+    const int k0 = (kt_begin + j) * BK;
+    mbar_wait(&full[s], (j / ST) & 1);
+    const bool none = r0 >= S || k0 > r0 + 63 || (window > 0 && r0 - (k0 + BK - 1) >= window);
+    if (!none) {
+      const bool all = k0 + BK - 1 <= r0 && (window <= 0 || r0 + 63 - k0 < window);
+      const uint32_t k_tile = smem_u32(sK + s * C::kKV);
+      const uint32_t v_tile = smem_u32(sV + s * C::kKV);
+      float sc[BK / 2], dp[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<T, BK>::ss(sc, kmajor<BQ>(q_tile, kk), kmajor<BK>(k_tile, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Mma<T, BK>::ss(dp, kmajor<BQ>(do_tile, kk), kmajor<BK>(v_tile, kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p = exp2(s * scale * log2 e - lse * log2 e), 0 where masked;
+      // dS = p (dp - delta), cast to T
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; i += 2) {
+        const int h = half_of(i);
+        float p0 = ex2(fmaf(sc[i], scale_log2, nl[h]));
+        float p1 = ex2(fmaf(sc[i + 1], scale_log2, nl[h]));
+        if (!all) {
+          const int qp = row0 + 8 * h, kp = k0 + col_of(i) + cq;
+          p0 = visible(qp, kp, window) ? p0 : 0.f;
+          p1 = visible(qp, kp + 1, window) ? p1 : 0.f;
+        }
+        da[i / 8][(i % 8) / 2] = pack2<T>(p0 * (dp[i] - dl[h]), p1 * (dp[i + 1] - dl[h]));
+      }
+
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) Mma<T, D>::rs(acc, da[kk], mnmajor<BK>(k_tile, kk));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  T* out = dq + (size_t)bh * S * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = row0 + 8 * half_of(i);
+    if (row < S)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * D + col_of(i) + cq) =
+          pack2<T>(acc[i] * scale, acc[i + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -739,6 +911,28 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, void* dq, int BH, int S, int window, cudaStream_t stream) {
+  using C = DqCfg<D>;
+  unsigned blocks = 0;
+  cudaError_t err = grid(BH, (S + C::BQ - 1) / C::BQ, blocks);
+  if (err != cudaSuccess || blocks == 0) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if ((err = tensor_map<T>(&tq, q, BH, S, D, C::BQ)) != cudaSuccess) return err;
+  if ((err = tensor_map<T>(&tk, k, BH, S, D, C::BK)) != cudaSuccess) return err;
+  if ((err = tensor_map<T>(&tv, v, BH, S, D, C::BK)) != cudaSuccess) return err;
+  if ((err = tensor_map<T>(&tdo, dout, BH, S, D, C::BQ)) != cudaSuccess) return err;
+  auto kernel = flash_dq_sm90_kernel<T, D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
+  if (err != cudaSuccess) return err;
+  const double scale = 1.0 / sqrt((double)D);
+  kernel<<<blocks, kThreads, C::kSmem, stream>>>(tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq),
+                                                  BH, S, window, (float)scale,
+                                                  (float)(kLog2e * scale));
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t fwd_d(int D, const void* q, const void* k, const void* v, void* out, float* lse, int BH,
                   int S, int window, cudaStream_t s) {
@@ -760,6 +954,17 @@ cudaError_t dkv_d(int D, const void* q, const void* k, const void* v, const void
   }
 }
 
+template <typename T>
+cudaError_t dq_d(int D, const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq_out, int BH, int S, int window,
+                 cudaStream_t s) {
+  switch (D) {
+    case 64: return dq<T, 64>(q, k, v, dout, lse, delta, dq_out, BH, S, window, s);
+    case 128: return dq<T, 128>(q, k, v, dout, lse, delta, dq_out, BH, S, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Called by flash_attention.cu for 16-bit inputs (bf16 when `bf16`, else
@@ -776,4 +981,11 @@ cudaError_t hvd_flash_dkv_sm90(bool bf16, int D, const void* q, const void* k, c
                                void* dv, int BH, int S, int window, cudaStream_t s) {
   return bf16 ? dkv_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk, dv, BH, S, window, s)
               : dkv_d<__half>(D, q, k, v, dout, lse, delta, dk, dv, BH, S, window, s);
+}
+
+cudaError_t hvd_flash_dq_sm90(bool bf16, int D, const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse, const float* delta, void* dq,
+                              int BH, int S, int window, cudaStream_t s) {
+  return bf16 ? dq_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq, BH, S, window, s)
+              : dq_d<__half>(D, q, k, v, dout, lse, delta, dq, BH, S, window, s);
 }

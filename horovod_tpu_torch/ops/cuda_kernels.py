@@ -4,8 +4,10 @@ Port of ``horovod_tpu/ops/pallas_kernels.py::fused_scale_cast``: the
 function ``out_dtype(f32(x) * f32(factor))`` (``f64`` throughout for an
 ``f64`` tensor, as the engine path scales it).  On the card one CUDA
 kernel, ``scale_cast_batched`` (``ops/csrc/scale_cast.cu``), computes it
-for a whole list of tensors per launch; it is the engine's fusion-buffer
-pack (prescale on the way in) and unpack (postscale on the way out).
+for a whole list of tensors per launch (up to :data:`MAX_ENTRIES`, whose
+table travels in the launch's parameters, laid out by
+:func:`launch_tables`); it is the engine's fusion-buffer pack (prescale on
+the way in) and unpack (postscale on the way out).
 
 Dispatch is by the device of the tensors: a tensor on the CPU takes the
 plain version; a CUDA tensor launches the kernel, and a failure to build
@@ -14,6 +16,7 @@ in :data:`launches`.
 """
 
 import ctypes
+import functools
 import threading
 
 import numpy as np
@@ -25,6 +28,11 @@ from . import _build
 _CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
           torch.float64: 3}
 FLOAT_DTYPES = tuple(_CODES)
+#: entries one launch's parameter table holds (scale_cast.cu kMaxEntries)
+MAX_ENTRIES = 256
+#: input bytes one tile of the work list covers (scale_cast.cu: 512
+#: threads x one 16-byte vector)
+TILE_BYTES = 512 * 16
 
 #: kernel launches per public function, since the last reset_launches()
 launches = {"fused_scale_cast": 0, "pack_scale_cast": 0,
@@ -75,13 +83,50 @@ def _lib():
     lib = _build.load("hvd_scale_cast", ["scale_cast.cu"])
     if not getattr(lib, "_hvd_typed", False):
         lib.hvd_scale_cast_batched.argtypes = [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
         lib.hvd_scale_cast_batched.restype = ctypes.c_int
         lib.hvd_scale_cast_tile_elems.argtypes = [ctypes.c_int]
         lib.hvd_scale_cast_tile_elems.restype = ctypes.c_longlong
+        lib.hvd_scale_cast_max_entries.restype = ctypes.c_int
+        for size in (2, 4, 8):
+            if lib.hvd_scale_cast_tile_elems(size) != TILE_BYTES // size:
+                raise RuntimeError("scale_cast.cu's tile differs from "
+                                   "cuda_kernels.TILE_BYTES")
+        if lib.hvd_scale_cast_max_entries() != MAX_ENTRIES:
+            raise RuntimeError("scale_cast.cu's kMaxEntries differs from "
+                               "cuda_kernels.MAX_ENTRIES")
         lib._hvd_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_tables(rows, itemsize):
+    """The parameter tables of the launches that cover ``rows``, a tuple
+    of ``(src_ptr, dst_ptr, n)`` with inputs of ``itemsize`` bytes: a
+    tuple of read-only int64 arrays of shape (k, 4), k <= MAX_ENTRIES,
+    each row ``(src_ptr, dst_ptr, n, tile_end)`` where ``tile_end`` counts
+    the tiles of that launch's entries up to this one.  Empty members
+    take no entry.  The engine's buckets repeat every step, so a list
+    seen before is a cache hit."""
+    tile = TILE_BYTES // itemsize
+    tables, chunk, tiles = [], [], 0
+    for src, dst, n in rows:
+        if n == 0:
+            continue
+        tiles += -(-n // tile)
+        chunk.append((src, dst, n, tiles))
+        if len(chunk) == MAX_ENTRIES:
+            tables.append(chunk)
+            chunk, tiles = [], 0
+    if chunk:
+        tables.append(chunk)
+    out = []
+    for chunk in tables:
+        a = np.asarray(chunk, dtype=np.int64)
+        a.flags.writeable = False
+        out.append(a)
+    return tuple(out)
 
 
 def _check(pairs):
@@ -116,29 +161,23 @@ def _launch(pairs, factor, name):
     if device.type != "cuda":
         raise ValueError(f"scale_cast runs on cuda or cpu, not {device}")
     lib = _lib()
-    tile = lib.hvd_scale_cast_tile_elems(in_dt.itemsize)
-    rows, tiles = [], 0
-    for src, dst in pairs:
-        n = src.numel()
-        if n == 0:
-            continue
-        rows.append((src.data_ptr(), dst.data_ptr(), n, tiles))
-        tiles += -(-n // tile)
-    if not rows:
-        return
-    host = torch.empty((len(rows), 4), dtype=torch.int64, pin_memory=True)
-    host.numpy()[:] = np.asarray(rows, dtype=np.int64)
-    table = host.to(device, non_blocking=True)
+    tables = launch_tables(
+        tuple((s.data_ptr(), d.data_ptr(), s.numel()) for s, d in pairs),
+        in_dt.itemsize)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.hvd_scale_cast_batched(
-        device.index if device.index is not None else
-        torch.cuda.current_device(), table.data_ptr(), len(rows), tiles,
-        _CODES[in_dt], _CODES[out_dt], float(factor), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"scale_cast_batched launch failed: cudaError {err} "
-            f"({len(rows)} entries, {tiles} tiles, {in_dt}->{out_dt})")
-    _count(name)
+    for table in tables:
+        # the table is copied into the launch's parameters
+        err = lib.hvd_scale_cast_batched(
+            index, table.ctypes.data, len(table), _CODES[in_dt],
+            _CODES[out_dt], float(factor), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"scale_cast_batched launch failed: cudaError {err} "
+                f"({len(table)} entries, {int(table[-1, 3])} tiles, "
+                f"{in_dt}->{out_dt})")
+        _count(name)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +195,8 @@ def fused_scale_cast(x, factor, out_dtype=None):
 
 def pack_scale_cast(srcs, buf, offsets, factor):
     """``buf[off_i : off_i + n_i] = out_dtype(f32(src_i.flatten()) *
-    factor)`` for every member, in one launch on the card."""
+    factor)`` for every member, in one launch on the card per
+    :data:`MAX_ENTRIES` members."""
     pairs = [(s.reshape(-1), buf.narrow(0, int(off), s.numel()))
              for s, off in zip(srcs, offsets)]
     if pairs:

@@ -4,9 +4,9 @@ PyTorch versions, and the differentiable ``flash_attention``.
 Port of ``horovod_tpu/ops/pallas_kernels.py::flash_attention`` and its
 three Pallas kernels (forward ``_flash_kernel``, backward
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``).  On the card
-they are the CUDA kernels of ``ops/csrc/flash_attention.cu`` and, for
-bf16 and f16 inputs, the forward and dk/dv kernels of
-``ops/csrc/flash_sm90.cu`` (wgmma, TMA, scores in registers); the plain
+they are the CUDA kernels of ``ops/csrc/flash_sm90.cu`` for bf16 and f16
+inputs (wgmma, TMA, scores in registers) and of
+``ops/csrc/flash_attention.cu`` for f32; the plain
 versions below compute the same functions, with the same casts, on
 ``(BH, S, D)`` tensors:
 
@@ -330,8 +330,8 @@ def flash_attention(q, k, v, *, block_q=512, block_k=512,
     validated as the JAX package validates them (a sequence longer than
     1024 with no block divisor of at least 8 raises), but they do not
     set the CUDA tiles: the kernels choose their own (for 16-bit inputs
-    128 queries x 128 keys forward, 128 keys x 64 queries dk/dv, 64 x 64
-    dq; 32 x 32 for f32) and mask a sequence the tile does not divide.
+    128 queries x 128 keys forward and dq, 128 keys x 64 queries dk/dv;
+    32 x 32 for f32) and mask a sequence the tile does not divide.
     """
     B, S, H, D = q.shape
     if window is not None:
