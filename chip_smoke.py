@@ -3,7 +3,7 @@
 their plain PyTorch versions.
 
     python3 chip_smoke.py             # from the root of a checkout
-    python3 chip_smoke.py --profile   # also profile steady steps
+    python3 chip_smoke.py --profile   # also print profile tables
 
 Phases (a failure in any one exits non-zero):
 
@@ -11,7 +11,9 @@ Phases (a failure in any one exits non-zero):
 2. build the four CUDA kernel libraries from
    ``horovod_tpu_torch/ops/csrc`` (``scale_cast.cu``,
    ``flash_attention.cu`` with ``flash_sm90.cu``, ``quantize.cu``,
-   ``conv_bn.cu``) with nvcc for sm_90a, all at once;
+   ``conv_bn.cu`` with ``conv_bn_sm90.cu``) with nvcc for sm_90a, all at
+   once; report ptxas's registers, spills and stack per kernel of
+   ``conv_bn_sm90.cu`` and its kernels' dynamic shared memory;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
    single tensors of 1, 4095, 4097 and 25.6 M elements in five dtype
    pairs at three factors, a pack/unpack round trip over the 161
@@ -28,8 +30,10 @@ Phases (a failure in any one exits non-zero):
    losses, the first step's averaged gradients equal the plain average
    of the two ranks' local gradients bit for bit, both ranks' parameters
    bit-identical after the steps, the pack and unpack launch counts
-   equal to buckets x ranks at every step.  Then a plain single-process
-   torch step on the same 128 images as the overhead yardstick;
+   equal to buckets x ranks at every step; the device's busy share of
+   one profiled steady step of rank 0 (left out of the steady mean).
+   Then a plain single-process torch step on the same 128 images as the
+   overhead yardstick;
 5. ``MeshExecutor`` in process-group mode over NCCL at world size 1:
    the ResNet-50 gradient list as one fused bucket with pre/post scale,
    against the plain version; then the same bucket through
@@ -86,30 +90,37 @@ Phases (a failure in any one exits non-zero):
    prints step 1's averaged gradient's relative L2 distance from the
    exact f32 average (gross sanity: below 0.05 for int8, 0.5 for int4)
    and the steady step time beside phase 4's;
-10. the fused 1x1-conv + BN kernels B9 (forward) and B10 (backward,
-    ``conv_bn.cu``) against their plain versions: the 13 distinct (M, K,
-    N, fold) of a full-width ResNet-50 rank step (from (200704, 64, 64)
-    to (3136, 2048, 512)) in bf16 and f32, and small and odd shapes (M
-    16, 48, 96, 1040; K and N off multiples of 16) with and without the
-    fold, each output within the bounds of ``conv_bn.fwd_error`` and
-    ``conv_bn.bwd_error``, and one rerun bit-identical; then each shape's
-    time, bound, plain version's time and, labelled as the matmul part
-    only, ``torch.matmul`` on the same bf16 products, summed over the 33
+10. the fused 1x1-conv + BN kernels B9 (forward) and B10 (backward)
+    against their plain versions, on both routes (``conv_bn.route``):
+    the 13 distinct (M, K, N, fold) of a full-width ResNet-50 rank step
+    (from (200704, 64, 64) to (3136, 512, 2048), M = 3136 with a 64-row
+    tail) in bf16 (``conv_bn_sm90.cu``) and f32 (``conv_bn.cu``'s WMMA
+    kernels), small and odd shapes (M 16, 48, 96, 1040; K and N off
+    multiples of 16) with and without the fold, and three more bf16
+    shapes of the sm90 route (``CONV_BN_SM90_ODD``), each output within
+    the bounds of ``conv_bn.fwd_error`` and ``conv_bn.bwd_error`` (the
+    route's summation depths), each call on the route the rule names,
+    each sm90 plan equal to the library's, and four reruns
+    bit-identical; then each step shape's time, bound, plain version's
+    time, dw partial bytes and, labelled as the matmul part only,
+    ``torch.matmul`` on the same bf16 products, summed over the 33
     launches of one rank step;
 11. the fused main path: phase 4's run with ``ResNet50(fused=True)`` on
     the same weights (``fused_from_unfused``).  Checks: finite losses,
     step 1's averaged gradients equal the plain average bit for bit,
     both ranks' parameters bit-identical, per step 66 launches of B9 and
-    of B10 (33 per rank) and 6 calls on the plain path (the 3 strided
-    projections per rank); then one fused, one unfused and one f32
-    unfused step on rank 0's images with the BN scales drawn away from
-    zero: the loss and every gradient within the bounds of
-    ``FUSED_REL_L2``, ``FUSED_GLOBAL`` and ``FUSED_LOSS``, and the steady
-    step time beside phase 4's.
+    of B10 (33 per rank), every one on the sm90 route, and 6 calls on the
+    plain path (the 3 strided projections per rank); then one fused, one
+    unfused and one f32 unfused step on rank 0's images with the BN
+    scales drawn away from zero: the loss and every gradient within the
+    bounds of ``FUSED_REL_L2``, ``FUSED_GLOBAL`` and ``FUSED_LOSS``, and
+    the steady step time and the device's busy share (one profiled step
+    of rank 0, left out of the mean) beside phase 4's.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels; the last line is ``{"ok": true, "device": {...}}``.  With
-``--profile`` phases 4, 7, 9 and 11 also profile one steady step each.
+``--profile`` phases 4, 7, 9 and 11 also print the profile tables of one
+steady step each.
 """
 
 import gc
@@ -163,9 +174,15 @@ FLASH_SOURCE = {
 FLASH_KERNEL = {"flash_fwd": "flash_fwd_sm90_kernel",
                 "flash_bwd_dq": "flash_dq_sm90_kernel",
                 "flash_bwd_dkv": "flash_dkv_sm90_kernel"}
-# the fused conv+BN kernels: (name, TPU kernel it replaces)
+# the fused conv+BN kernels: (name, TPU kernel it replaces); at the main
+# path's bf16 shapes they take the sm90 route (conv_bn_sm90.cu), whose
+# per-CTA sums end in its colsum4_kernel
 CONV_BN = (("conv1x1_bn_fwd", "horovod_tpu/ops/pallas_conv_bn.py:125"),
            ("conv1x1_bn_bwd", "horovod_tpu/ops/pallas_conv_bn.py:204"))
+CONV_BN_KERNEL = {
+    "conv1x1_bn_fwd": "conv_bn_fwd_sm90_kernel + colsum4_kernel",
+    "conv1x1_bn_bwd": "conv_bn_dx_sm90_kernel + conv_bn_dw_sm90_kernel + "
+                      "colsum4_kernel"}
 # fused 1x1 convolutions of one ResNet-50 rank step (16 blocks x conv1
 # and conv3, and the first block's non-strided projection)
 FUSED_CONVS = 33
@@ -173,6 +190,11 @@ FUSED_CONVS = 33
 # multiples of 16
 CONV_BN_ODD = ((16, 64, 64), (48, 24, 40), (1040, 72, 8),
                (1040, 256, 100), (96, 1, 3))
+# bf16 shapes of phase 10 for the sm90 route beyond the step's: a 64-row
+# tail past the last 128-row tile (the second consumer warpgroup wholly
+# past M), 133 tiles (a CTA walks two), K 192 (dw's second k tile has one
+# warpgroup) with 64-wide tiles
+CONV_BN_SM90_ODD = ((320, 64, 128), (17000, 64, 64), (1000, 192, 320))
 # phase 11's yardstick, fused against unfused bf16 steps: every gradient
 # within a relative L2 of max(FUSED_REL_L2, twice the unfused step's own
 # distance from the f32 step), the fused step no further from the f32
@@ -197,6 +219,40 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(log_text, marker):
+    """``[(kernel, report)]`` of the kernels whose mangled name holds
+    ``marker`` in an ``nvcc -Xptxas -v`` log: registers, spills, stack,
+    with a template's bool and int arguments spelled out."""
+    import re
+    out, name = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if marker in ln else None
+        elif name and ("spill" in ln or "registers" in ln):
+            label = name
+            # the mangled <length><name> of the kernel, then its template
+            # arguments: Lb0E / Lb1E (bool), Li<n>E (int)
+            for m in re.finditer(r"\d+", name):
+                for j in range(len(m.group())):
+                    cand = name[m.end():m.end() + int(m.group()[j:])]
+                    if cand.endswith("_kernel"):
+                        args = re.match(r"I(Lb([01])E)?(Li(\d+)E)?",
+                                        name[m.end() + len(cand):])
+                        label = cand + ("<" + ", ".join(
+                            v for v in (args.group(2) and ("false", "true")[
+                                int(args.group(2))], args.group(4)) if v)
+                            + ">" if args else "")
+                        break
+                if label != name:
+                    break
+            if out and out[-1][0] == label:
+                out[-1] = (label, out[-1][1] + "; " + ln.split(":", 1)[-1]
+                           .strip())
+            else:
+                out.append((label, ln.split(":", 1)[-1].strip()))
+    return out
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -355,9 +411,10 @@ def make_batches(n_ranks):
     return xs, ys
 
 
-def profile_summary(prof, window_s):
+def profile_summary(prof, window_s, tables=True):
     """Device busy share of a profiled window (union of kernel
-    intervals over the wall window) and the kernels by device time."""
+    intervals over the wall window), returned, and (``tables``) the
+    kernels by device time."""
     import torch
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -370,15 +427,20 @@ def profile_summary(prof, window_s):
     log(f"profile: {len(spans)} device events; device busy "
         f"{busy / 1e3:.2f} ms of a {window_s * 1e3:.2f} ms window "
         f"(busy share {busy / 1e6 / window_s:.3f})")
-    table = prof.key_averages()
-    log(table.table(sort_by="device_time_total", row_limit=12))
-    log(table.table(sort_by="self_cpu_time_total", row_limit=20))
+    if tables:
+        table = prof.key_averages()
+        log(table.table(sort_by="device_time_total", row_limit=12))
+        log(table.table(sort_by="self_cpu_time_total", row_limit=20))
+    return busy / 1e6 / window_s
 
 
 def phase_main_path(dev, state, batches, profile=False, fused=False):
     """Phase 4 (``fused=False``) or phase 11 (``fused=True``: the same
     run with ``ResNet50(fused=True)`` on the same weights, moved by
-    ``fused_from_unfused``, counting the fused kernels' launches)."""
+    ``fused_from_unfused``, counting the fused kernels' launches and the
+    route each took).  One steady step of rank 0 runs under
+    torch.profiler for the device's busy share (its tables printed with
+    ``profile``) and is left out of the steady mean."""
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
@@ -394,6 +456,7 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
     barrier = threading.Barrier(NP)
     local_grads = {}
     records = []
+    busy_share = []
 
     def train():
         r = hvd.rank()
@@ -418,7 +481,7 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
         for step in range(STEPS):
             barrier.wait()
             prof = None
-            if profile and r == 0 and step == STEPS - 2:
+            if r == 0 and step == STEPS - 2:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA])
@@ -450,7 +513,8 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
             if prof is not None:
                 prof.__exit__(None, None, None)
                 log(f"profile: {phase}, one steady step of rank 0")
-                profile_summary(prof, times[-1])
+                busy_share.append(profile_summary(prof, times[-1],
+                                                  tables=profile))
             barrier.wait()
             if r == 0:
                 counts.append((eng.allreduce_buckets,
@@ -458,7 +522,9 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
                                K.launches["unpack_scale_cast"],
                                CB.launches["conv1x1_bn_fwd"],
                                CB.launches["conv1x1_bn_bwd"],
-                               CB.plain_calls["conv1x1_bn"]))
+                               CB.plain_calls["conv1x1_bn"],
+                               CB.route_launches["conv1x1_bn_fwd_sm90"],
+                               CB.route_launches["conv1x1_bn_bwd_sm90"]))
             barrier.wait()
         records.append((r, losses, times, counts))
         return {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -481,12 +547,14 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
         raise AssertionError(f"{phase}: ranks' parameters differ after "
                              f"{STEPS} steps: {diff[:5]}")
     counts = by_rank[0][2]
-    prev = (0,) * 6
+    prev = (0,) * 8
     per_step, conv_per_step = [], []
-    # per rank and step: 33 fused 1x1 convolutions, 3 strided projections
-    # on the plain path (none on the unfused model)
-    want_conv = (FUSED_CONVS * NP, FUSED_CONVS * NP, 3 * NP) if fused \
-        else (0, 0, 0)
+    # per rank and step: 33 fused 1x1 convolutions, every one of them on
+    # the sm90 route, 3 strided projections on the plain path (none on the
+    # unfused model)
+    want_conv = (FUSED_CONVS * NP, FUSED_CONVS * NP, 3 * NP,
+                 FUSED_CONVS * NP, FUSED_CONVS * NP) if fused \
+        else (0,) * 5
     for step, cur in enumerate(counts):
         buckets, pack, unpack, *conv = (c - p for c, p in zip(cur, prev))
         per_step.append(buckets)
@@ -497,8 +565,9 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
                 f"and {unpack} unpack launches (want buckets x {NP} ranks)")
         if tuple(conv) != want_conv:
             raise AssertionError(
-                f"{phase} step {step}: conv1x1_bn_fwd, conv1x1_bn_bwd and "
-                f"plain-path calls {conv}, want {want_conv}")
+                f"{phase} step {step}: conv1x1_bn_fwd, conv1x1_bn_bwd, "
+                f"plain-path calls, sm90-route fwd and bwd {conv}, want "
+                f"{want_conv}")
         prev = cur
     if launches["fused_scale_cast"] != 0:
         raise AssertionError(f"{phase}: the main path launched "
@@ -507,7 +576,7 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
               for i in range(STEPS)]
     # steady: after the warm-up step, without the profiled step
     timed = [t for i, t in enumerate(step_s)
-             if i > 0 and not (profile and i == STEPS - 2)]
+             if i > 0 and i != STEPS - 2]
     steady = sum(timed) / len(timed)
     img_s = NP * BATCH / steady
     log(f"{phase}: losses rank0 {by_rank[0][0]}")
@@ -516,16 +585,17 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
         f"step 1 averaged gradients equal the plain average; parameters "
         f"of both ranks bit-identical after {STEPS} steps")
     if fused:
-        log(f"{phase}: per step conv1x1_bn_fwd, conv1x1_bn_bwd launches "
-            f"and plain-path calls {conv_per_step[0]} (all steps equal); "
-            f"in all {conv_launches}")
+        log(f"{phase}: per step conv1x1_bn_fwd, conv1x1_bn_bwd launches, "
+            f"plain-path calls and sm90-route fwd, bwd launches "
+            f"{conv_per_step[0]} (all steps equal); in all {conv_launches}, "
+            f"by route {dict(CB.route_launches)}")
     log(f"{phase}: step times (s) {[round(t, 4) for t in step_s]}; steady "
         f"{steady * 1e3:.2f} ms/step = {img_s:.1f} img/s on one card "
         f"({NP} ranks x {BATCH} images)")
     return {"launches": launches["pack_scale_cast"]
             + launches["unpack_scale_cast"], "steady_s": steady,
             "img_s": img_s, "buckets": per_step,
-            "conv_launches": conv_launches}
+            "conv_launches": conv_launches, "busy_share": busy_share[0]}
 
 
 def phase_plain_step(dev, state, batches):
@@ -1492,17 +1562,39 @@ def phase_conv_bn_kernels(dev):
 
     step = Counter(fused_step_shapes())
     cases, failures, worst = 0, [], {}
+    routes = Counter()
     main_err = {"conv1x1_bn_fwd": 0.0, "conv1x1_bn_bwd": 0.0}
     plan = [(m, k, n, fold, dt, True) for (m, k, n, fold) in step
             for dt in (torch.bfloat16, torch.float32)]
     plan += [(m, k, n, fold, dt, False) for (m, k, n) in CONV_BN_ODD
              for fold in (False, True)
              for dt in (torch.bfloat16, torch.float32)]
+    plan += [(m, k, n, fold, torch.bfloat16, False)
+             for (m, k, n) in CONV_BN_SM90_ODD for fold in (False, True)]
+    # reruns: the first sm90 and WMMA cases, and the sm90 route's M tails
+    # under the fold, at a step shape and at K 192
+    rerun = {0, 1, plan.index((3136, 512, 2048, True, torch.bfloat16, True)),
+             plan.index((1000, 192, 320, True, torch.bfloat16, False))}
     for i, (m, k, n, fold, dt, at_step) in enumerate(plan):
         x, a, b, w, dy, ds1, ds2 = conv_bn_problem(m, k, n, dt, dev, i)
+        route = CB.route(dt, k, n)
+        if route == "sm90":
+            lib_route, lib_plan = CB.kernel_plan(dt, m, k, n)
+            want = CB.sm90_plan(m, k, n)
+            if lib_route != "sm90" or any(lib_plan[f] != v
+                                          for f, v in want.items()):
+                failures.append(f"M={m} K={k} N={n}: conv_bn.sm90_plan "
+                                f"{want} differs from the library's "
+                                f"{lib_route} {lib_plan}")
+        CB.reset_launches()
         fwd = CB.conv1x1_bn_fwd(x, a, b, w, fold)
         bwd = CB.conv1x1_bn_bwd(x, a, b, w, fwd[0], dy, ds1, ds2, fold)
         torch.cuda.synchronize()
+        took = {name for name, v in CB.route_launches.items() if v}
+        if took != {f"conv1x1_bn_fwd_{route}", f"conv1x1_bn_bwd_{route}"}:
+            failures.append(f"{dt} M={m} K={k} N={n}: routes {took}, want "
+                            f"{route}")
+        routes[(route, str(dt))] += 1
         errs = CB.fwd_error(x, a, b, w, fold, fwd)
         errs.update(CB.bwd_error(x, a, b, w, fwd[0], dy, ds1, ds2, fold,
                                  bwd))
@@ -1519,23 +1611,27 @@ def phase_conv_bn_kernels(dev):
                 key = "conv1x1_bn_fwd" if name in ("y", "s1", "s2") \
                     else "conv1x1_bn_bwd"
                 main_err[key] = max(main_err[key], err)
-        if i == 0:
+        if i in rerun:
             # fixed-order sums: a rerun repeats every bit
             again = (*CB.conv1x1_bn_fwd(x, a, b, w, fold),
                      *CB.conv1x1_bn_bwd(x, a, b, w, fwd[0], dy, ds1, ds2,
                                         fold))
             if not all(torch.equal(p, q) for p, q in zip(
                     (*fwd, *bwd), again) if p is not None):
-                failures.append(f"M={m} K={k} N={n}: a rerun differs")
+                failures.append(f"{dt} M={m} K={k} N={n} fold={fold}: a "
+                                f"rerun differs")
         del x, a, b, w, dy, ds1, ds2, fwd, bwd, errs
     torch.cuda.empty_cache()
     log(f"phase 10: {cases} cases x (B9, B10) against their plain "
         f"versions (the {len(step)} distinct step shapes in bf16 and f32, "
-        f"{len(CONV_BN_ODD)} odd shapes x fold x dtype), {len(failures)} "
-        f"failures; worst error / bound (CB.fwd_error, CB.bwd_error): "
+        f"{len(CONV_BN_ODD)} odd shapes x fold x dtype, "
+        f"{len(CONV_BN_SM90_ODD)} sm90-route odd shapes x fold in bf16), "
+        f"{len(failures)} failures; cases by route {dict(routes)} (every "
+        f"route as conv_bn.route says, every sm90 plan as the library's); "
+        f"worst error / bound (CB.fwd_error, CB.bwd_error): "
         f"{ {str(k): (round(v[0], 4), v[1]) for k, v in worst.items()} }; max "
-        f"|kernel - plain| at the step shapes (bf16): {main_err}; a rerun "
-        f"is bit-identical")
+        f"|kernel - plain| at the step shapes (bf16): {main_err}; "
+        f"{len(rerun)} reruns bit-identical")
     for f in failures[:20]:
         log(f"  MISMATCH {f}")
     if failures:
@@ -1580,7 +1676,10 @@ def phase_conv_bn_kernels(dev):
                        f"{'ops' if t_op >= t_mem else 'bytes'}, plain "
                        f"{plain_ms:.4f}, matmul part {mm_ms:.4f})")
         log(f"phase 10 timing M={m} K={k} N={n} fold={fold} x{count} per "
-            f"rank step, ms per call: {'; '.join(row)}")
+            f"rank step, ms per call: {'; '.join(row)}; dw partials "
+            f"{CB.dw_partial_bytes(torch.bfloat16, m, k, n) / 1e6:.2f} MB "
+            f"(the WMMA route's "
+            f"{CB.dw_partial_bytes(torch.float32, m, k, n) / 1e6:.2f})")
         del x, a, b, w, dy, ds1, ds2, y, xh, yt
     torch.cuda.empty_cache()
     res = {}
@@ -1724,6 +1823,17 @@ def main():
         log(f"phase 2: built {os.path.basename(info['path'])} in "
             f"{info['seconds']:.2f} s; ptxas, per kernel: {regs}; "
             f"spills: {spills}")
+    for kernel, report in ptxas_kernels(
+            _build.build_info["hvd_conv_bn"]["log"], "_sm90_kernel"):
+        log(f"phase 2: {kernel}: {report}")
+    for (m, k, n), (_, plan) in ((mkn, conv_bn.kernel_plan(
+            torch.bfloat16, *mkn)) for mkn in ((200704, 64, 256),
+                                               (3136, 512, 2048))):
+        log(f"phase 2: conv_bn_sm90.cu dynamic shared memory at M={m} "
+            f"K={k} N={n}: forward {plan['fwd_smem']} B (tile 128 x "
+            f"{plan['fwd_bn']}), dx {plan['dx_smem']} B (128 x "
+            f"{plan['dx_bk']}), dw {plan['dw_smem']} B (128 x "
+            f"{plan['dw_bn']}); one CTA per SM")
 
     kern = phase_kernel(dev)
 
@@ -1765,9 +1875,12 @@ def main():
     conv = phase_conv_bn_kernels(dev)
     fused = phase_main_path(dev, state, batches,
                             profile="--profile" in sys.argv[1:], fused=True)
-    log(f"phase 11: steady step fused {fused['steady_s'] * 1e3:.2f} ms vs "
-        f"phase 4's unfused {main_path['steady_s'] * 1e3:.2f} ms (x "
-        f"{fused['steady_s'] / main_path['steady_s']:.3f})")
+    log(f"phase 11: steady step fused {fused['steady_s'] * 1e3:.2f} ms "
+        f"(device busy share {fused['busy_share']:.3f}) vs phase 4's "
+        f"unfused {main_path['steady_s'] * 1e3:.2f} ms (busy share "
+        f"{main_path['busy_share']:.3f}); x "
+        f"{fused['steady_s'] / main_path['steady_s']:.3f}; fused launches "
+        f"{fused['conv_launches']} (all on the sm90 route)")
     torch.cuda.empty_cache()
     phase_fused_yardstick(dev, state, batches)
     del state, batches
@@ -1806,8 +1919,8 @@ def main():
         r = conv[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "horovod_tpu_torch/ops/csrc/conv_bn.cu",
-            "replaces": replaces,
+            "source": "horovod_tpu_torch/ops/csrc/conv_bn_sm90.cu",
+            "kernel": CONV_BN_KERNEL[name], "replaces": replaces,
             "launches": fused["conv_launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -14,9 +14,24 @@ absorbs the BatchNorm work around it:
 * backward: ``dx``, ``dw`` and, with a fold, ``da`` and ``db`` in one
   call, with the combined cotangent ``ytot = bf16(dy + ds1 + 2*y*ds2)``.
 
-On the card the forward is ``conv_bn_fwd`` (B9, replacing ``_fwd_kernel``
-/ ``_fwd_call``) and the backward ``conv_bn_bwd`` (B10, replacing
-``_bwd_kernel`` / ``_bwd_call``), both in ``ops/csrc/conv_bn.cu``.
+On the card the forward is B9 (replacing ``_fwd_kernel`` / ``_fwd_call``)
+and the backward B10 (replacing ``_bwd_kernel`` / ``_bwd_call``).  Which
+kernels a call reaches is a fixed rule on dtype and shape
+(:func:`route`, a copy of ``sm90_route`` in ``ops/csrc/conv_bn.cu``):
+
+* bf16 with K and N multiples of 64 (every fused convolution of a
+  ResNet-50 step): ``ops/csrc/conv_bn_sm90.cu``, ``conv_bn_fwd_sm90_kernel``
+  forward, ``conv_bn_dx_sm90_kernel`` and ``conv_bn_dw_sm90_kernel``
+  backward (wgmma, a TMA ring, the fold and ``ytot`` formed in registers);
+* everything else (f32, bf16 of other widths): the WMMA kernels
+  ``conv_bn_fwd_kernel``, ``conv_bn_dx_kernel`` and ``conv_bn_dw_kernel``
+  of ``ops/csrc/conv_bn.cu``.
+
+Both end in a fixed-order column sum in ``colsum_kernel``'s order (the
+sm90 route's ``colsum4_kernel`` takes four columns to a thread): 2
+launches forward, 3 backward.  The rule is never a reaction to a
+failure: a failed build or launch, or a misaligned tensor on the sm90
+route, raises.
 
 Dispatch mirrors the JAX function: ``use_kernel=False``, or a shape
 :func:`supported_m` refuses, takes :func:`reference` under autograd (the
@@ -24,7 +39,7 @@ reference's own semantics, counted in :data:`plain_calls`).  Otherwise
 the op is :class:`_Conv1x1BN`: a CPU tensor runs the plain versions
 (:func:`reference`, :func:`plain_bwd`), a CUDA tensor the kernels, and a
 failure to build or launch raises.  Each kernel wrapper counts its calls
-in :data:`launches`.
+in :data:`launches` and the route they took in :data:`route_launches`.
 """
 
 import ctypes
@@ -41,6 +56,9 @@ _CODES = {torch.float32: 0, torch.bfloat16: 2}
 #: kernel wrapper calls, since the last reset_launches(); one forward
 #: call makes 2 CUDA launches, one backward call 3 (ops/csrc/conv_bn.cu)
 launches = {"conv1x1_bn_fwd": 0, "conv1x1_bn_bwd": 0}
+#: the same calls by the route they took (:func:`route`)
+route_launches = {f"{name}_{r}": 0 for name in launches
+                  for r in ("sm90", "wmma")}
 #: calls of conv1x1_bn that took the plain path by dispatch
 plain_calls = {"conv1x1_bn": 0}
 _count_lock = threading.Lock()
@@ -48,7 +66,7 @@ _count_lock = threading.Lock()
 
 def reset_launches():
     with _count_lock:
-        for d in (launches, plain_calls):
+        for d in (launches, route_launches, plain_calls):
             for k in d:
                 d[k] = 0
 
@@ -94,6 +112,64 @@ def bn_fold(s1, s2, count, scale, bias, epsilon=1e-5):
     var = s2 / count - mean * mean
     inv = scale * torch.rsqrt(var + epsilon)
     return inv, bias - mean * inv
+
+
+# ---------------------------------------------------------------------------
+# route rule and the sm90 route's tiling (copied from ops/csrc/conv_bn.cu
+# sm90_route and ops/csrc/conv_bn_sm90.cu make_plan, which they must equal)
+
+#: conv_bn_sm90.cu: CTAs of one wave, rows of a forward/dx tile, rows of a
+#: dw chunk, and the additions on a path through one tile's column-sum
+#: tree (a thread's row pair 1, the butterfly over eight lanes 3, the
+#: eight consumer warps in order 7)
+_SM90_SMS, _SM90_ROWS, _SM90_CHUNK, _SM90_TREE = 132, 128, 64, 11
+
+
+def route(dtype, k, n):
+    """``"sm90"`` (``conv_bn_sm90.cu``) for bf16 with K and N multiples of
+    64, else ``"wmma"`` (``conv_bn.cu``'s kernels)."""
+    return "sm90" if dtype == torch.bfloat16 and k % 64 == 0 \
+        and n % 64 == 0 else "wmma"
+
+
+def _tile_width(rows, dim):
+    """The widest of 256, 128 dividing ``dim`` that gives half a wave of
+    tiles beside ``rows`` 128-row tiles, else 64."""
+    for w in (256, 128):
+        if dim % w == 0 and rows * (dim // w) >= _SM90_SMS // 2:
+            return w
+    return 64
+
+
+def sm90_plan(m, k, n):
+    """The sm90 route's tiling of an (m, k) x (k, n) problem: 128-row
+    tiles ``mt``; the forward's width ``fwd_bn`` over N and CTAs per N
+    tile ``fwd_p`` (each walks tiles p, p + fwd_p, ... and writes one
+    statistics row); dx's ``dx_bk`` and ``dx_p`` likewise over K; dw's
+    128 x ``dw_bn`` tiles ``dw_tiles`` and its M splits of ``rows_per``
+    rows (``splits`` of them)."""
+    mt = -(-m // _SM90_ROWS)
+    fwd_bn = _tile_width(mt, n)
+    dx_bk = _tile_width(mt, k)
+    dw_bn = 256 if n % 256 == 0 else 128 if n % 128 == 0 else 64
+    dw_tiles = -(-k // 128) * (n // dw_bn)
+    chunks = -(-m // _SM90_CHUNK)
+    splits = max(1, min(chunks, _SM90_SMS // dw_tiles))
+    rows_per = -(-chunks // splits) * _SM90_CHUNK
+    return {"mt": mt, "fwd_bn": fwd_bn,
+            "fwd_p": max(1, min(mt, _SM90_SMS // (n // fwd_bn))),
+            "dx_bk": dx_bk,
+            "dx_p": max(1, min(mt, _SM90_SMS // (k // dx_bk))),
+            "dw_bn": dw_bn, "dw_tiles": dw_tiles, "rows_per": rows_per,
+            "splits": -(-m // rows_per)}
+
+
+def dw_partial_bytes(dtype, m, k, n):
+    """Bytes of f32 dw partials one backward call writes (and its reduce
+    reads back): splits x K x N x 4 on either route."""
+    if route(dtype, k, n) == "sm90":
+        return sm90_plan(m, k, n)["splits"] * k * n * 4
+    return -(-m // _dw_rows_per(m, k, n)) * k * n * 4
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +230,23 @@ def _colsum_depth(rows):
     return -(-rows // _REDUCE_ROWS) + _REDUCE_ROWS
 
 
+def _depths(dtype, m, k, n):
+    """Additions on a path through the kernels' sums on the route of
+    ``(dtype, k, n)``: (s1/s2, dw, da/db).  WMMA: a 64-row tile summed in
+    order, then the tiles; sm90: one tile's tree, the CTA's tiles in
+    order, then the CTAs' rows; dw on both: the rows of a split, then the
+    splits."""
+    if route(dtype, k, n) == "sm90":
+        p = sm90_plan(m, k, n)
+        stats = [_SM90_TREE + -(-p["mt"] // rows) + _colsum_depth(rows)
+                 for rows in (p["fwd_p"], p["dx_p"])]
+        return stats[0], p["rows_per"] + _colsum_depth(p["splits"]), \
+            stats[1]
+    tile = _TILE + _colsum_depth(-(-m // _TILE))
+    rows_per = _dw_rows_per(m, k, n)
+    return tile, rows_per + _colsum_depth(-(-m // rows_per)), tile
+
+
 def _dw_rows_per(m, k, n):
     """conv_bn.cu ``dw_rows_per``: M rows of each dw split."""
     tiles = -(-k // _TILE) * -(-n // _TILE)
@@ -184,9 +277,12 @@ def fwd_error(x, a, b, w, fold, got):
     most 3*gamma(K+1)*(|xh| @ |w|); rounding y to its dtype can then
     part them by one ulp of the larger neighbour, up to eps*|want| (eps
     = 2**-7 bf16, 2**-23 f32), and the bound allows two, so that a flip
-    at a binade's edge reads 0.5 and not 1; the kernel sums a statistic in at most 64 + ceil(T/8) + 8 additions (T
-    = ceil(M/64) tiles), which adds 2*gamma(depth) of the summed
-    magnitudes.  Over the tensor, the relative L2 distance over 1e-2."""
+    at a binade's edge reads 0.5 and not 1; the kernel sums a statistic
+    in at most ``depth`` additions on any path (:func:`_depths`, by the
+    route: on the WMMA route 64 + ceil(T/8) + 8, T = ceil(M/64) tiles; on
+    the sm90 route 11 + ceil(mt/P) + ceil(P/8) + 8, P CTA rows), which
+    adds 2*gamma(depth) of the summed magnitudes.  Over the tensor, the
+    relative L2 distance over 1e-2."""
     m, k = x.shape
     out = {}
     xh = (_fold_input(x, a, b) if fold else x).float()
@@ -195,7 +291,7 @@ def fwd_error(x, a, b, w, fold, got):
     y_plain = y32.to(x.dtype)
     _ratio("y", got[0], y_plain,
            e_y + 2 * _EPS[x.dtype] * y_plain.float().abs(), out)
-    depth = _TILE + _colsum_depth(-(-m // _TILE))
+    depth = _depths(x.dtype, m, k, w.shape[1])[0]
     ya = y32.abs() + e_y
     y64 = y32.double()
     _ratio("s1", got[1], y64.sum(0), e_y.double().sum(0)
@@ -213,9 +309,10 @@ def bwd_error(x, a, b, w, y, dy, ds1, ds2, fold, got):
     same rounded operands.  Both sides form ``ytot`` and the mask with
     the same correctly rounded operations, so they share them bit for
     bit; the products over N differ by at most 3*gamma(N+1) of their
-    magnitudes (and dx by two ulps of its dtype), and the kernel's sums over M are at most rows_per +
-    ceil(S/8) + 8 (dw, S splits) or 64 + ceil(T/8) + 8 (da, db)
-    additions deep."""
+    magnitudes (and dx by two ulps of its dtype), and the kernel's sums
+    over M are at most rows_per + ceil(S/8) + 8 (dw, S splits) or the
+    statistics' depth of :func:`fwd_error` (da, db, over dx's tiles)
+    additions deep (:func:`_depths`)."""
     m, k = x.shape
     n = w.shape[1]
     out = {}
@@ -238,12 +335,11 @@ def bwd_error(x, a, b, w, y, dy, ds1, ds2, fold, got):
         e_dx = e_dxh
     _ratio("dx", got[0], dx_plain,
            e_dx + 2 * _EPS[x.dtype] * dx_plain.float().abs(), out)
-    rows_per = _dw_rows_per(m, k, n)
-    depth = rows_per + _colsum_depth(-(-m // rows_per))
+    _, depth, depth_ab = _depths(x.dtype, m, k, n)
     _ratio("dw", got[1], xh.double().t() @ yt.double(),
            2 * _gamma(depth) * (xh.abs().t() @ yt.abs()).double(), out)
     if fold:
-        depth = _TILE + _colsum_depth(-(-m // _TILE))
+        depth = depth_ab
         xf = x.float()
         dxa = (dxm.abs() + e_dxm).double()
         _ratio("da", got[2], (dxm.double() * xf.double()).sum(0),
@@ -259,12 +355,14 @@ def bwd_error(x, a, b, w, y, dy, ds1, ds2, fold, got):
 # kernels
 
 def _lib():
-    lib = _build.load("hvd_conv_bn", ["conv_bn.cu"])
+    lib = _build.load("hvd_conv_bn", ["conv_bn.cu", "conv_bn_sm90.cu"])
     if not getattr(lib, "_hvd_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hvd_conv_bn_workspace.argtypes = [
-            ll, i, i, ctypes.POINTER(ll), ctypes.POINTER(ll)]
+            i, ll, i, i, ctypes.POINTER(ll), ctypes.POINTER(ll)]
         lib.hvd_conv_bn_workspace.restype = None
+        lib.hvd_conv_bn_plan.argtypes = [i, ll, i, i, ctypes.POINTER(ll)]
+        lib.hvd_conv_bn_plan.restype = None
         lib.hvd_conv_bn_fwd.argtypes = [i, i, p, p, p, p, p, p, p,
                                         ll, i, i, i, p]
         lib.hvd_conv_bn_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p,
@@ -275,10 +373,29 @@ def _lib():
     return lib
 
 
-def _workspace(lib, m, k, n):
+def _workspace(lib, dtype, m, k, n):
     fwd, bwd = ctypes.c_longlong(), ctypes.c_longlong()
-    lib.hvd_conv_bn_workspace(m, k, n, ctypes.byref(fwd), ctypes.byref(bwd))
+    lib.hvd_conv_bn_workspace(_CODES[dtype], m, k, n, ctypes.byref(fwd),
+                              ctypes.byref(bwd))
     return fwd.value, bwd.value
+
+
+#: fields of hvd_conv_bn_plan after the route flag: sm90_plan's, then the
+#: dynamic shared memory of the forward, dx and dw kernels it launches
+PLAN_FIELDS = ("mt", "fwd_bn", "fwd_p", "dx_bk", "dx_p", "dw_bn",
+               "dw_tiles", "rows_per", "splits", "fwd_smem", "dx_smem",
+               "dw_smem")
+
+
+def kernel_plan(dtype, m, k, n):
+    """The library's own route and plan of a problem: ``("wmma", None)``
+    or ``("sm90", {field: value})`` (:data:`PLAN_FIELDS`), for checking
+    :func:`route` and :func:`sm90_plan` against it.  Builds the library."""
+    out = (ctypes.c_longlong * (1 + len(PLAN_FIELDS)))()
+    _lib().hvd_conv_bn_plan(_CODES[dtype], m, k, n, out)
+    if not out[0]:
+        return "wmma", None
+    return "sm90", dict(zip(PLAN_FIELDS, out[1:]))
 
 
 def _check(name, x, a, b, w, mn=(), rows=()):
@@ -318,17 +435,24 @@ def _check(name, x, a, b, w, mn=(), rows=()):
             raise ValueError(f"{name}: empty problem {(m, k, n)}")
         if not all(t.is_contiguous() for t in (x, a, b, w, *mn, *rows)):
             raise ValueError(f"{name}: tensors must be contiguous")
+        if route(x.dtype, k, n) == "sm90" and any(
+                t.data_ptr() % 16 for t in (x, a, b, w, *mn, *rows)):
+            raise ValueError(f"{name}: the sm90 route's TMA and vector "
+                             f"loads need 16-byte aligned tensors")
     return device, m, k, n
 
 
-def _run(name, fn, device, *args):
+def _run(name, fn, device, dtype, *args):
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    err = fn(index, *args, torch.cuda.current_stream(device).cuda_stream)
+    err = fn(index, _CODES[dtype], *args,
+             torch.cuda.current_stream(device).cuda_stream)
+    m, k, n = args[-4:-1]
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err} "
-                           f"(M, K, N = {args[-4:-1]})")
+                           f"(M, K, N = {(m, k, n)}, {dtype})")
     _count(launches, name)
+    _count(route_launches, f"{name}_{route(dtype, k, n)}")
 
 
 def conv1x1_bn_fwd(x, a, b, w, fold):
@@ -337,11 +461,11 @@ def conv1x1_bn_fwd(x, a, b, w, fold):
     if device.type == "cpu":
         return reference(x, a, b, w, fold)
     lib = _lib()
-    fwd_floats, _ = _workspace(lib, m, k, n)
+    fwd_floats, _ = _workspace(lib, x.dtype, m, k, n)
     y = torch.empty((m, n), dtype=x.dtype, device=device)
     s12 = torch.empty(2 * n, dtype=torch.float32, device=device)
     ws = torch.empty(fwd_floats, dtype=torch.float32, device=device)
-    _run("conv1x1_bn_fwd", lib.hvd_conv_bn_fwd, device, _CODES[x.dtype],
+    _run("conv1x1_bn_fwd", lib.hvd_conv_bn_fwd, device, x.dtype,
          x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
          y.data_ptr(), s12.data_ptr(), ws.data_ptr(), m, k, n, int(fold))
     return y, s12[:n], s12[n:]
@@ -355,13 +479,13 @@ def conv1x1_bn_bwd(x, a, b, w, y, dy, ds1, ds2, fold):
     if device.type == "cpu":
         return plain_bwd(x, a, b, w, y, dy, ds1, ds2, fold)
     lib = _lib()
-    _, bwd_floats = _workspace(lib, m, k, n)
+    _, bwd_floats = _workspace(lib, x.dtype, m, k, n)
     dx = torch.empty_like(x)
     dw = torch.empty((k, n), dtype=torch.float32, device=device)
     dab = torch.empty(2 * k, dtype=torch.float32, device=device)
     ytot = torch.empty((m, n), dtype=torch.bfloat16, device=device)
     ws = torch.empty(bwd_floats, dtype=torch.float32, device=device)
-    _run("conv1x1_bn_bwd", lib.hvd_conv_bn_bwd, device, _CODES[x.dtype],
+    _run("conv1x1_bn_bwd", lib.hvd_conv_bn_bwd, device, x.dtype,
          x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
          y.data_ptr(), dy.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
          dx.data_ptr(), dw.data_ptr(), dab.data_ptr(), ytot.data_ptr(),

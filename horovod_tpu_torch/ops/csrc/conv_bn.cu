@@ -1,6 +1,13 @@
 // Fused 1x1 convolution + BatchNorm statistics: the forward (B9) and the
 // backward (B10) of horovod_tpu_torch.ops.conv_bn.conv1x1_bn.
 //
+// Route, by a fixed rule on dtype and shape (ops/conv_bn.py `route`
+// copies it): bf16 problems whose K and N are multiples of 64 go to the
+// wgmma/TMA kernels of conv_bn_sm90.cu, everything else (f32, bf16 of
+// other widths) to the WMMA kernels below.  Both routes end in a
+// fixed-order column sum in colsum_kernel's order (conv_bn_sm90.cu's takes
+// four columns to a thread).
+//
 // Replaces the two Pallas TPU kernels of horovod_tpu/ops/pallas_conv_bn.py:
 //   conv_bn_fwd  <- _fwd_kernel (:85), pallas_call in _fwd_call (:125)
 //   conv_bn_bwd  <- _bwd_kernel (:149), pallas_call in _bwd_call (:204)
@@ -30,8 +37,8 @@
 // below the card's ~295 flop/byte balance point and K, N >= 256 above
 // it.  The backward does twice the forward's flops.
 //
-// What the design does about it (simple first; wgmma, TMA, cp.async
-// pipelining and vector loads are later work):
+// What the design of the kernels below does about it (the bf16 shapes
+// of a ResNet-50 step take conv_bn_sm90.cu's wgmma/TMA kernels instead):
 //   * bf16 products run on the tensor cores through WMMA 16x16x16 with
 //     f32 accumulators (four warps, a 64 x 64 output tile, 32 of depth
 //     staged in shared memory at a time); f32 inputs run plain FMAs;
@@ -505,22 +512,52 @@ cudaError_t bwd(const Bwd& g, long long M, int K, int N, int fold, cudaStream_t 
 // dtype codes shared with ops/conv_bn.py
 enum { kF32 = 0, kBF16 = 2 };
 
+bool sm90_route(int dtype, int K, int N) { return dtype == kBF16 && K % 64 == 0 && N % 64 == 0; }
+
 }  // namespace
+
+// conv_bn_sm90.cu
+void hvd_conv_bn_sm90_plan(long long M, int K, int N, long long* out);
+void hvd_conv_bn_sm90_workspace(long long M, int K, int N, long long* fwd_floats,
+                                long long* bwd_floats);
+cudaError_t hvd_conv_bn_fwd_sm90(const void* x, const float* a, const float* b, const void* w,
+                                 void* y, float* s12, float* ws, long long M, int K, int N,
+                                 bool fold, cudaStream_t s);
+cudaError_t hvd_conv_bn_bwd_sm90(const void* x, const float* a, const float* b, const void* w,
+                                 const void* y, const void* dy, const float* ds1,
+                                 const float* ds2, void* dxp, float* dwp, float* dab, void* ytot,
+                                 float* ws, long long M, int K, int N, bool fold,
+                                 cudaStream_t s);
 
 extern "C" {
 
-// Workspace sizes in f32 elements for an (M, K) x (K, N) problem: the
-// forward's per-tile statistics (tiles x 2N) and the backward's dw
-// partials (splits x K x N) followed by the per-tile da/db (tiles x 2K).
-void hvd_conv_bn_workspace(long long M, int K, int N, long long* fwd_floats,
+// The route of a problem (1: conv_bn_sm90.cu, 0: the WMMA kernels) in
+// out[0] and, on the sm90 route, its plan in out[1..12]
+// (hvd_conv_bn_sm90_plan).
+void hvd_conv_bn_plan(int dtype, long long M, int K, int N, long long* out) {
+  out[0] = sm90_route(dtype, K, N);
+  if (out[0]) hvd_conv_bn_sm90_plan(M, K, N, out + 1);
+}
+
+// Workspace sizes in f32 elements for an (M, K) x (K, N) problem in
+// `dtype`: on the WMMA route the forward's per-tile statistics (tiles x
+// 2N) and the backward's dw partials (splits x K x N) followed by the
+// per-tile da/db (tiles x 2K); on the sm90 route per CTA row instead of
+// per tile (hvd_conv_bn_sm90_workspace).
+void hvd_conv_bn_workspace(int dtype, long long M, int K, int N, long long* fwd_floats,
                            long long* bwd_floats) {
+  if (sm90_route(dtype, K, N)) {
+    hvd_conv_bn_sm90_workspace(M, K, N, fwd_floats, bwd_floats);
+    return;
+  }
   const long long tiles = cdiv(M, kTile);
   const long long splits = cdiv(M, dw_rows_per(M, K, N));
   *fwd_floats = tiles * 2LL * N;
   *bwd_floats = splits * (long long)K * N + tiles * 2LL * K;
 }
 
-// All tensors contiguous on `device`.  x (M, K) and w (K, N) in `dtype`;
+// All tensors contiguous on `device` (16-byte aligned on the sm90 route).
+// x (M, K) and w (K, N) in `dtype`;
 // a, b (K,) f32; y (M, N) in `dtype`; s12 (2N,) f32 receives [s1 | s2];
 // ws as hvd_conv_bn_workspace says.  Returns the cudaError_t of the
 // launches.
@@ -532,6 +569,8 @@ int hvd_conv_bn_fwd(int device, int dtype, const void* x, const float* a, const 
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   Fwd f{x, w, a, b, y, s12, ws};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sm90_route(dtype, K, N))
+    return (int)hvd_conv_bn_fwd_sm90(x, a, b, w, y, s12, ws, M, K, N, fold != 0, s);
   switch (dtype) {
     case kF32: return (int)fwd<float>(f, M, K, N, fold, s);
     case kBF16: return (int)fwd<bf16>(f, M, K, N, fold, s);
@@ -551,6 +590,9 @@ int hvd_conv_bn_bwd(int device, int dtype, const void* x, const float* a, const 
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   Bwd g{x, w, y, dy, a, b, ds1, ds2, dx, dw, dab, ws, static_cast<bf16*>(ytot)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sm90_route(dtype, K, N))
+    return (int)hvd_conv_bn_bwd_sm90(x, a, b, w, y, dy, ds1, ds2, dx, dw, dab, ytot, ws, M, K, N,
+                                     fold != 0, s);
   switch (dtype) {
     case kF32: return (int)bwd<float>(g, M, K, N, fold, s);
     case kBF16: return (int)bwd<bf16>(g, M, K, N, fold, s);
