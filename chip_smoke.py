@@ -26,7 +26,8 @@ Phases (a failure in any one exits non-zero):
    (stacked mode), each rank training full-width ResNet-50 (bf16
    compute, random weights from one numpy seed) through
    ``broadcast_parameters`` and ``DistributedOptimizer(SGD)`` for 6
-   steps on its own batch of 64 x 224 x 224 x 3.  Checks: finite
+   steps on its own batch of 64 x 224 x 224 x 3, rolled to new images
+   at every step (``step_batch``).  Checks: finite
    losses, the first step's averaged gradients equal the plain average
    of the two ranks' local gradients bit for bit, both ranks' parameters
    bit-identical after the steps, the pack and unpack launch counts
@@ -115,12 +116,32 @@ Phases (a failure in any one exits non-zero):
     scales drawn away from zero: the loss and every gradient within the
     bounds of ``FUSED_REL_L2``, ``FUSED_GLOBAL`` and ``FUSED_LOSS``, and
     the steady step time and the device's busy share (one profiled step
-    of rank 0, left out of the mean) beside phase 4's.
+    of rank 0, left out of the mean) beside phase 4's;
+12. the compiled step (``make_compiled_train_step``, one CUDA graph a
+    step), cuDNN on deterministic algorithms.  First the grouped reducer
+    at world size 2: the 161 ResNet-50 gradients (largest first) through
+    ``CompiledGroupedAllreduce`` grouped (B1 packs and unpacks) and
+    bucketized (4 MB buckets pushed in reverse order), full width, bf16,
+    int8 and int4 with error feedback, 2 calls each, bit for bit; then
+    (a) bench.py's configuration, ``run(train, np=1)`` on 128 images
+    staged by ``place_batch``, (b) phase 4's, 2 rank threads on 64
+    images each, a new batch every step, and (c) (b) with
+    ``ResNet50(fused=True)``, SGD momentum 0.9 at lr 0.1, 6 steps each.
+    Checks: finite losses; one program miss, one capture and 5 replays
+    a part; the 6 losses (read after the 6 steps), final parameters and
+    BN statistics equal bit for bit the same program run uncaptured;
+    (b)'s and (c)'s parameters within ``COMPILED_REL_L2`` of phases 4's
+    and 11's; in (c) the capture records phase 11's per-step B9/B10
+    launches, all on the sm90 route, and a profiled replay runs their
+    kernels.  It prints each part's steady step time, img/s, the ratios
+    to the plain step and to phase 4 (11), the busy share of one
+    profiled replay, warm-up plus capture seconds and the program
+    cache's hits and misses, and the reference's 103.55 img/s per GPU.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels; the last line is ``{"ok": true, "device": {...}}``.  With
-``--profile`` phases 4, 7, 9 and 11 also print the profile tables of one
-steady step each.
+``--profile`` phases 4, 7, 9, 11 and 12 also print the profile tables of
+one steady step each.
 """
 
 import gc
@@ -208,6 +229,17 @@ CONV_BN_SM90_ODD = ((320, 64, 128), (17000, 64, 64), (1000, 192, 320))
 # unfused step's error, growing with the batch; 1.0x with ytot unrounded)
 FUSED_REL_L2, FUSED_GLOBAL, FUSED_LOSS = 3e-2, 1.25, 1e-2
 FUSED_EXEMPT = ("bn_init.bias",)
+# phase 12: the reference's ResNet-50 rate per GPU (bench.py:35,
+# docs/benchmarks.rst:43: 1656.82 img/s on 16 Pascal GPUs), a label only
+REFERENCE_IMG_S = 1656.82 / 16
+# phase 12: bound on the relative L2 distance, over all parameters, of
+# (b)'s and (c)'s parameters after 6 steps from phases 4's and 11's eager
+# DistributedOptimizer runs on the same weights and batches.  Measured 0
+# on an H100 (the same products in the same order); the margin is for
+# cuDNN's algorithm choice, deterministic in phase 12 only
+COMPILED_REL_L2 = 1e-3
+# phase 12's grouped-reducer check: the bucket size of the bucketized leg
+COMPILED_BUCKET_BYTES = 4 << 20
 
 
 def log(*a):
@@ -411,6 +443,17 @@ def make_batches(n_ranks):
     return xs, ys
 
 
+def step_batch(x, y, step):
+    """A rank's batch at ``step`` from its base batch on the card: the
+    images rolled by 16 pixels a step along the width, the labels by one,
+    so that every step trains on new data (and a program that kept
+    reading an earlier step's inputs would be caught) while phases 4, 11
+    and 12 see the same batches."""
+    import torch
+    return (torch.roll(x, shifts=16 * step, dims=2),
+            torch.roll(y, shifts=step, dims=0))
+
+
 def profile_summary(prof, window_s, tables=True):
     """Device busy share of a profiled window (union of kernel
     intervals over the wall window), returned, and (``tables``) the
@@ -474,11 +517,12 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
         opt = hvd_torch.DistributedOptimizer(
             torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
             named_parameters=model.named_parameters())
-        x = torch.from_numpy(xs[r]).to(dev)
-        y = torch.from_numpy(ys[r]).to(dev)
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
         eng = hvd.engine()
         losses, times, counts = [], [], []
         for step in range(STEPS):
+            x, y = step_batch(x0, y0, step)
             barrier.wait()
             prof = None
             if r == 0 and step == STEPS - 2:
@@ -595,7 +639,8 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
     return {"launches": launches["pack_scale_cast"]
             + launches["unpack_scale_cast"], "steady_s": steady,
             "img_s": img_s, "buckets": per_step,
-            "conv_launches": conv_launches, "busy_share": busy_share[0]}
+            "conv_launches": conv_launches, "busy_share": busy_share[0],
+            "params": {k: v.cpu() for k, v in results[0].items()}}
 
 
 def phase_plain_step(dev, state, batches):
@@ -1779,6 +1824,295 @@ def phase_fused_yardstick(dev, state, batches):
 
 
 # ---------------------------------------------------------------------------
+# phase 12
+
+def compiled_run(dev, state, bases, fused, np_, staged, capture,
+                 profile=False):
+    """6 steps of ResNet-50 through ``make_compiled_train_step`` at
+    ``np_`` rank threads: rank r trains on ``step_batch`` of ``bases[r]``
+    (or, ``staged``, one rank on all of ``bases`` through
+    ``place_batch``).  ``capture=False`` runs the step's function
+    uncaptured.  Returns the losses (read after the 6 steps, so that a
+    loss a later replay overwrote would show), step times, final
+    parameters and statistics, the program, per-step conv+BN launch
+    counts, and (captured) one profiled replay's busy share and kernel
+    names."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import conv_bn as CB
+    from horovod_tpu_torch.parallel.train import sgd
+
+    with torch.device("meta"):
+        names = {k for k, _ in ResNet50(num_classes=1000,
+                                        fused=fused).named_parameters()}
+    params = {k: v for k, v in state.items() if k in names}
+    aux = {k: v for k, v in state.items() if k not in names}
+    barrier = threading.Barrier(np_)
+    out = {"progs": [], "counts": [], "busy": None, "kernels": set()}
+
+    def snapshot():
+        return (CB.launches["conv1x1_bn_fwd"], CB.launches["conv1x1_bn_bwd"],
+                CB.plain_calls["conv1x1_bn"],
+                CB.route_launches["conv1x1_bn_fwd_sm90"],
+                CB.route_launches["conv1x1_bn_bwd_sm90"])
+
+    def train():
+        r = hvd.rank()
+        with torch.device("meta"):
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                             fused=fused)
+
+        def loss_fn(p, a, batch):
+            x, y = batch
+            logits = torch.func.functional_call(model, {**p, **a}, (x,))
+            return F.cross_entropy(logits, y), a
+
+        step = hvd.make_compiled_train_step(
+            loss_fn, sgd(0.1, momentum=0.9), has_aux=True)
+        step.capture = capture
+        st = step.init_state(params, aux=aux)
+        feed = step.place_batch((torch.cat([x for x, _ in bases]),
+                                 torch.cat([y for _, y in bases]))) \
+            if staged else None
+        losses, times = [], []
+        for i in range(STEPS):
+            batch = feed if staged else step_batch(*bases[r], i)
+            barrier.wait()
+            before = snapshot()
+            prof = None
+            if r == 0 and capture and i == STEPS - 2:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            st, loss = step(st, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                out["busy"] = profile_summary(prof, times[-1],
+                                              tables=profile)
+                out["kernels"] = {e.name for e in prof.events()
+                                  if e.device_type
+                                  == torch.autograd.DeviceType.CUDA}
+            barrier.wait()
+            if r == 0:
+                out["counts"].append(tuple(
+                    a - b for a, b in zip(snapshot(), before)))
+        out["progs"].append(step._prog)
+        if r == 0:
+            out["losses"] = [float(v) for v in losses]
+            out["times"] = times
+            out["params"] = {k: v.detach().clone()
+                             for k, v in st["params"].items()}
+            out["aux"] = {k: v.clone() for k, v in st["aux"].items()}
+
+    from horovod_tpu_torch.ops import compiled as C
+    before = C.program_cache_stats()
+    hvd.run(train, np=np_, device=dev)
+    out["cache"] = tuple(a - b for a, b in
+                         zip(C.program_cache_stats(), before))
+    out["prog"] = next(p for p in out.pop("progs") if p is not None)
+    return out
+
+
+def phase_compiled_reducer(dev):
+    """Phase 12's reducer check at world size 2 on the card: the 161
+    ResNet-50 gradient shapes (25.6 M f32 values a rank) through
+    ``CompiledGroupedAllreduce`` grouped (B1 packs and unpacks each rank's
+    fusion buffer) and bucketized (``COMPILED_BUCKET_BYTES``, pushed in
+    reverse order through ``stream``), on the full-width, bf16, int8 and
+    int4 wires (error feedback on the quantized ones), 2 calls each: the
+    two legs bit for bit, and the full-width result bit for bit the plain
+    average."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as K
+
+    # largest first: the quantized wires close a bucket only where the
+    # running element count is a multiple of the 256-element block, which
+    # in the model's own order no 4 MB boundary is (one bucket)
+    shapes = sorted(resnet50_grad_shapes(), key=math.prod, reverse=True)
+    rng = np.random.default_rng(SEED + 12)
+    grads = [[torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                               * 1e-2).to(dev) for s in shapes]
+             for _ in range(NP)]
+    plain = [(a + b) * 0.5 for a, b in zip(*grads)]
+    wires = (None, "bf16", "int8", "int4")
+    buckets = {}
+
+    def reduce():
+        r = hvd.rank()
+        g = grads[r]
+        for wire in wires:
+            ef = wire in ("int8", "int4")
+            grouped = hvd.CompiledGroupedAllreduce(
+                wire_dtype=wire, error_feedback=ef, name=f"g{wire}",
+                bucket_bytes=0)
+            bucketed = hvd.CompiledGroupedAllreduce(
+                wire_dtype=wire, error_feedback=ef, name=f"b{wire}",
+                bucket_bytes=COMPILED_BUCKET_BYTES)
+            for call in range(2):
+                a = grouped(g)
+                st = bucketed.stream(g)
+                for i in reversed(range(len(g))):
+                    st.push(i, g[i])
+                b = st.result()
+                buckets[wire] = len(st.buckets)
+                if len(st.buckets) < 2:
+                    raise AssertionError(
+                        f"phase 12 reducer, wire {wire}: one bucket")
+                bad = [i for i, (x, y) in enumerate(zip(a, b))
+                       if not torch.equal(x, y)]
+                if bad:
+                    raise AssertionError(
+                        f"phase 12 reducer, wire {wire}, call {call}: "
+                        f"bucketized differs from grouped at {bad[:5]}")
+                if wire is None and not all(
+                        torch.equal(x, y) for x, y in zip(a, plain)):
+                    raise AssertionError(
+                        "phase 12 reducer: the full-width result differs "
+                        "from the plain average")
+        return True
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    hvd.run(reduce, np=NP, device=dev)
+    log(f"phase 12 reducer ({card_line()}): {len(shapes)} ResNet-50 "
+        f"gradients x {NP} "
+        f"ranks, wires {[w or 'f32' for w in wires]}, 2 calls each: "
+        f"bucketized ({buckets} buckets of {COMPILED_BUCKET_BYTES} B) "
+        f"equals grouped bit for bit, full width equals the plain average "
+        f"bit for bit; B1 launches {dict(K.launches)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not (K.launches["pack_scale_cast"] and K.launches["unpack_scale_cast"]):
+        raise AssertionError("phase 12 reducer: B1 was not launched")
+    del grads, plain
+
+
+def phase_compiled(dev, card, state, batches, unfused_ref, fused_ref,
+                   plain_s, profile=False):
+    """Phase 12: the compiled train step, one CUDA graph a step.  (a)
+    bench.py's configuration: ``run(train, np=1)``, BATCH 128 of
+    224 x 224 x 3 through ``place_batch``; (b) phase 4's: ``np=2``, 64
+    images a rank, a new batch every step; (c) (b) with
+    ``ResNet50(fused=True)`` on the same weights, B9/B10 inside the
+    graph.  Each part trains 6 steps captured and 6 uncaptured."""
+    import torch
+    from horovod_tpu_torch.models.resnet import fused_from_unfused
+    from horovod_tpu_torch.ops import conv_bn as CB
+
+    t_phase = time.perf_counter()
+    phase_compiled_reducer(dev)
+    bases = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+             for x, y in zip(*batches)]
+    # bit equality of a graph against the uncaptured run needs each run
+    # to be reproducible: cuDNN's deterministic algorithms, in both
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    parts = (("a", False, 1, True, unfused_ref),
+             ("b", False, NP, False, unfused_ref),
+             ("c", True, NP, False, fused_ref))
+    summary = {}
+    try:
+        for label, fused, np_, staged, ref in parts:
+            sd = fused_from_unfused(state) if fused else state
+            got = compiled_run(dev, sd, bases, fused, np_, staged, True,
+                               profile=profile)
+            want = compiled_run(dev, sd, bases, fused, np_, staged, False)
+            prog = got["prog"]
+            name = f"phase 12 ({label}, {card})"
+            if not all(math.isfinite(v) for v in got["losses"]):
+                raise AssertionError(f"{name}: non-finite loss "
+                                     f"{got['losses']}")
+            if got["cache"][1] != 1 or prog.captures != 1 \
+                    or prog.replays != STEPS - 1:
+                raise AssertionError(
+                    f"{name}: program misses {got['cache'][1]}, captures "
+                    f"{prog.captures}, replays {prog.replays} (want 1, 1, "
+                    f"{STEPS - 1})")
+            diff = [k for k in got["params"]
+                    if not torch.equal(got["params"][k], want["params"][k])]
+            diff += [k for k in got["aux"]
+                     if not torch.equal(got["aux"][k], want["aux"][k])]
+            if got["losses"] != want["losses"] or diff:
+                raise AssertionError(
+                    f"{name}: the captured step differs from the same "
+                    f"program uncaptured: losses {got['losses']} vs "
+                    f"{want['losses']}; tensors {diff[:5]}")
+            steady_i = [i for i in range(2, STEPS) if i != STEPS - 2]
+            steady = sum(got["times"][i] for i in steady_i) / len(steady_i)
+            img = NP * BATCH
+            line = (f"{name}: losses {got['losses']} (= uncaptured, bit for "
+                    f"bit, with the final parameters and BN statistics); "
+                    f"steady {steady * 1e3:.2f} ms/step = {img / steady:.1f} "
+                    f"img/s; x {steady / plain_s:.3f} the plain step; x "
+                    f"{steady / ref['steady_s']:.3f} phase "
+                    f"{'11' if fused else '4'}; busy share "
+                    f"{got['busy']:.3f} of one profiled replay; warm-up + "
+                    f"capture {prog.compile_seconds:.2f} s (step times "
+                    f"{[round(t, 4) for t in got['times']]}); program "
+                    f"cache hits, misses {got['cache']} (uncaptured "
+                    f"{want['cache']})")
+            log(line)
+            if label != "a":
+                num = sum(float((got["params"][k].cpu()
+                                 - ref["params"][k]).norm()) ** 2
+                          for k in got["params"])
+                den = sum(float(v.norm()) ** 2
+                          for v in ref["params"].values())
+                rel = math.sqrt(num / den)
+                log(f"{name}: parameters after {STEPS} steps at relative "
+                    f"L2 {rel:.3g} from phase {'11' if fused else '4'}'s "
+                    f"eager run (bound {COMPILED_REL_L2})")
+                if not rel <= COMPILED_REL_L2:
+                    raise AssertionError(
+                        f"{name}: parameters {rel:.3g} from the eager run")
+            if fused:
+                want_c = (FUSED_CONVS * NP, FUSED_CONVS * NP, 3 * NP,
+                          FUSED_CONVS * NP, FUSED_CONVS * NP)
+                counts = got["counts"]
+                if counts[1] != want_c or any(any(c) for c in counts[2:]):
+                    raise AssertionError(
+                        f"{name}: conv+BN launches per step {counts}; the "
+                        f"capture must record {want_c} (phase 11's) and a "
+                        f"replay launch nothing through the wrappers")
+                kern = {k for k in ("conv_bn_fwd_sm90_kernel",
+                                    "conv_bn_dx_sm90_kernel",
+                                    "conv_bn_dw_sm90_kernel")
+                        if any(k in n for n in got["kernels"])}
+                if len(kern) != 3:
+                    raise AssertionError(
+                        f"{name}: the profiled replay ran {sorted(kern)} "
+                        f"of the B9/B10 kernels")
+                log(f"{name}: B9/B10 recorded at capture: "
+                    f"conv1x1_bn_fwd, conv1x1_bn_bwd, plain-path calls, "
+                    f"sm90 fwd, sm90 bwd {counts[1]} (phase 11's per "
+                    f"step), none launched through the wrappers by the "
+                    f"{STEPS - 2} replays; the profiled replay ran "
+                    f"{sorted(kern)}; by route "
+                    f"{dict(CB.route_launches)}")
+            if label == "a":
+                log(f"{name}: reference (bench.py:35, 16 Pascal GPUs): "
+                    f"{REFERENCE_IMG_S:.2f} img/s per GPU; this card "
+                    f"x {img / steady / REFERENCE_IMG_S:.2f}")
+            summary[label] = {"steady_s": steady, "busy": got["busy"],
+                              "compile_s": prog.compile_seconds}
+            del got, want, prog
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    log(f"phase 12 ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1883,6 +2217,9 @@ def main():
         f"{fused['conv_launches']} (all on the sm90 route)")
     torch.cuda.empty_cache()
     phase_fused_yardstick(dev, state, batches)
+    torch.cuda.empty_cache()
+    phase_compiled(dev, card, state, batches, main_path, fused, plain_s,
+                   profile="--profile" in sys.argv[1:])
     del state, batches
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 

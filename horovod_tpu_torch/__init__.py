@@ -4,7 +4,8 @@ Horovod's data-parallel training path on PyTorch: ``init``, rank
 threads (``run``), engine negotiation and tensor fusion into device
 fusion buffers packed and unpacked by a hand-written Hopper kernel
 (``ops/csrc/scale_cast.cu``), the reduction over ``torch.distributed``
-or stacked rows, and the torch frontend's ``DistributedOptimizer``.
+or stacked rows, the torch frontend's ``DistributedOptimizer``, and the
+compiled path (``make_compiled_train_step``: one CUDA graph a step).
 
 Entry points run on the card unless the caller asks for the CPU
 (``init(device="cpu")``, ``run(fn, np, device="cpu")``).  The package
@@ -28,5 +29,10 @@ from .ops.api import (  # noqa: F401
     allgather, allgather_async, broadcast, broadcast_async, broadcast_,
     broadcast_async_, synchronize, poll, broadcast_object,
     Average, Sum, Min, Max, Product,
+)
+from .ops.compiled import (  # noqa: F401
+    compiled_allreduce, compiled_alltoall, compiled_grouped_allreduce,
+    CompiledAlltoall, CompiledGroupedAllreduce, CompiledPredict,
+    TopologyHint, make_compiled_train_step,
 )
 from .runner.thread_launcher import run  # noqa: F401

@@ -140,6 +140,10 @@ def shutdown():
     with _state_lock:
         if _engine is None:
             return
+        from ..ops.compiled import reset_compiled_state
+
+        # a re-init at another world size must never serve an old program
+        reset_compiled_state()
         _engine.shutdown()
         _engine = None
         _tls.ctx = None

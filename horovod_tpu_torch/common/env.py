@@ -18,6 +18,12 @@ HOROVOD_LOCAL_RANK = "HOROVOD_LOCAL_RANK"
 # over the uniform WIRE_DTYPE shorthand
 HOROVOD_WIRE_DTYPE = "HOROVOD_WIRE_DTYPE"
 HOROVOD_WIRE_OUTER = "HOROVOD_WIRE_OUTER"
+# max payload bytes per compiled bucket program (0 = one grouped program)
+HOROVOD_OVERLAP_BUCKET_BYTES = "HOROVOD_OVERLAP_BUCKET_BYTES"
+# wire integrity digests: on by default in the JAX package; the port has
+# none yet (ROADMAP.md A14), so only an explicit request reads it, and
+# the compiled reducer refuses it
+HOROVOD_INTEGRITY = "HOROVOD_INTEGRITY"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -76,3 +82,6 @@ class Config:
         self.wire_dtype = normalize_wire_dtype(
             os.environ.get(HOROVOD_WIRE_OUTER)
             or os.environ.get(HOROVOD_WIRE_DTYPE))
+        # latched once per compiled reducer call or stream
+        self.overlap_bucket_bytes = get_int(HOROVOD_OVERLAP_BUCKET_BYTES, 0)
+        self.integrity = get_bool(HOROVOD_INTEGRITY, False)

@@ -1,0 +1,1556 @@
+"""Compiled-step collectives and the compiled train step (port of
+``horovod_tpu/ops/compiled.py``).
+
+Where the JAX package jits a program, the port builds a *program*: on the
+CPU the plain function; on the card the same function captured once as a
+CUDA graph over static input and output tensors and replayed
+(:class:`_GraphProgram`).  Its first call runs the function for real
+(warm-up: kernel builds, library handles and optimizer buffers come into
+being outside any capture), its second call captures and replays, and
+every later call copies the inputs that are not the static tensors into
+them and replays.  Warm-up plus capture is timed as the compile.
+
+Two deliverables, as in the JAX package:
+
+* :class:`CompiledGroupedAllreduce`: a grouped allreduce as one program
+  per shape signature.  Each rank packs its tensors per dtype into a
+  fusion buffer with the pre-scale and unpacks the sum with the
+  post-scale through the scale/cast kernel B1
+  (``cuda_kernels.pack_scale_cast`` / ``unpack_scale_cast``,
+  ``ops/csrc/scale_cast.cu``); the sum over the rank rows is the
+  executor's.  The 16-bit and shared-scale int8/int4 wires are plain
+  torch ops around that sum, with error feedback outside the program.
+  The reducer runs eagerly on the card, on the engine's side stream:
+  its inputs are fresh tensors at every call, so a graph would only add
+  a copy of each.  :meth:`~CompiledGroupedAllreduce.stream` dispatches
+  it bucket by bucket as tensors arrive.
+* :func:`make_compiled_train_step`: forward, backward, the reduction
+  over the ranks and the optimizer update as one program, on the card
+  one CUDA graph.
+
+Every member rank must enter the same compiled collective in the same
+order with the same shapes: there is no negotiation on this path.  Rank
+threads of one process meet at a rendezvous, and the last to arrive
+runs the program once for all of them.
+
+Not ported yet, each raising ``NotImplementedError`` naming its
+ROADMAP.md item: ``sharded=True`` and a train-step ``wire_dtype`` (A10),
+an ``algorithm``/``topology_hint`` other than flat and
+:class:`TopologyHint` (A8), ``op=Adasum`` in the train step (A7), wire
+integrity digests (A14) and :class:`CompiledAlltoall` (A13).
+"""
+
+import contextlib
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+from torch.utils import _pytree as pytree
+
+from ..common import basics
+from ..common import env as env_mod
+from ..common.process_sets import ProcessSet, global_process_set
+from ..core.message import Adasum, Average, ReduceOp, Sum
+from . import cuda_kernels as K
+from . import quantize as qz
+from .api import dtype_name
+from .dist_ops import is_float
+
+__all__ = [
+    "CompiledAlltoall", "CompiledGroupedAllreduce", "CompiledPredict",
+    "StagedBatch", "TopologyHint", "batch_signature", "compiled_allreduce",
+    "compiled_alltoall", "compiled_grouped_allreduce",
+    "make_compiled_train_step", "program_cache_stats", "shared_program",
+]
+
+_FLAT = {None: None, "": None, "flat": "flat", "none": "flat",
+         "ring": "flat"}
+_NON_FLAT = ("hier", "hierarchical", "torus", "2d")
+
+
+def _flat_only(algorithm, topology_hint):
+    """The flat algorithm or None (unset); a decomposition raises."""
+    key = algorithm.strip().lower() if isinstance(algorithm, str) \
+        else algorithm
+    if topology_hint is not None or key in _NON_FLAT:
+        raise NotImplementedError(
+            "topology-aware (hierarchical/torus) compiled reductions are "
+            "not ported yet (ROADMAP.md A8)")
+    if key not in _FLAT:
+        raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
+    return _FLAT[key]
+
+
+class TopologyHint:
+    """The explicit 2-D decomposition of a compiled reduction: not ported
+    yet (ROADMAP.md A8)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TopologyHint (2-D compiled reductions) is not ported yet "
+            "(ROADMAP.md A8)")
+
+
+# ---------------------------------------------------------------------------
+# rank meeting point
+
+def _ps_state(process_set):
+    eng = basics.engine()
+    ps_id = 0
+    if isinstance(process_set, ProcessSet):
+        if process_set.process_set_id is None:
+            raise ValueError("process set is not registered")
+        ps_id = process_set.process_set_id
+    elif process_set is not None:
+        ps_id = int(process_set)
+    ps = eng.process_sets.get(ps_id)
+    if ps is None:
+        raise ValueError(f"unknown process set {ps_id}")
+    return eng, ps
+
+
+class _Rendezvous:
+    """Meeting point for the local rank threads of one process set: every
+    local rank delivers its operand, the LAST arrival runs ``fn`` once on
+    all of them, and all pick up its result (or its exception).
+    Equivalent per-rank objects meet at one instance through the registry
+    of :func:`_rendezvous_for`."""
+
+    # how long to wait for PEERS to arrive; once the leader runs fn
+    # (a first call builds kernels and captures) waiters wait on.  A
+    # waiter also leaves when the runtime aborts (a peer rank failed).
+    ARRIVAL_TIMEOUT = 600
+
+    def __init__(self, n):
+        self.n = n
+        self._cond = threading.Condition()
+        self._slots = {}
+        self._result = None
+        self._computing = None     # generation the leader is running
+        self._generation = 0
+
+    def run(self, pos, value, fn):
+        """Deliver ``value`` for participant ``pos``; returns ``fn``'s
+        result (computed once per generation on the full slot dict)."""
+        with self._cond:
+            gen = self._generation
+            if pos in self._slots:
+                raise RuntimeError(
+                    f"participant {pos} entered the compiled collective "
+                    "twice in one round (peer missing?)")
+            self._slots[pos] = value
+            if len(self._slots) == self.n:
+                slots, self._slots = self._slots, {}
+                self._computing = gen
+                try:
+                    self._result = (fn(slots), None)
+                except BaseException as e:  # propagate to every waiter
+                    self._result = (None, e)
+                finally:
+                    self._computing = None
+                self._generation = gen + 1
+                self._cond.notify_all()
+            else:
+                deadline = time.monotonic() + self.ARRIVAL_TIMEOUT
+                while self._generation == gen:
+                    self._cond.wait(timeout=0.5)
+                    if self._generation != gen or self._computing == gen:
+                        continue
+                    # a peer is missing (or failed, aborting the engine):
+                    # take our delivery back so a retry re-enters cleanly
+                    aborted = getattr(basics._engine, "_aborted", True)
+                    if aborted is not None \
+                            or time.monotonic() > deadline:
+                        self._slots.pop(pos, None)
+                        raise RuntimeError(
+                            "compiled collective rendezvous "
+                            + ("abandoned: the runtime aborted or shut "
+                               "down" if aborted is not None else
+                               "timed out (a local rank never arrived)"))
+            result, err = self._result
+            if err is not None:
+                raise err
+            return result
+
+
+def _caller_pos(eng, ps):
+    """Position (index into the set's rank list) of the calling rank
+    thread; None for a thread bound to no rank."""
+    try:
+        rank = basics.context().rank
+    except Exception:
+        return None
+    if rank not in ps.index:
+        raise ValueError(
+            f"rank {rank} is not a member of process set {ps.id}")
+    return ps.index[rank]
+
+
+# process-global registries, cleared by reset_compiled_state (shutdown)
+_RDV_REGISTRY = {}
+_RDV_LOCK = threading.Lock()
+_STEP_COUNTERS = {}
+# per-(ps, tag) count of distinct signatures validated across processes
+_SIG_COUNTERS = {}
+# shared program cache: whichever rank leads a round reuses the program
+# any earlier leader built (one build, and one capture, per process)
+_PROGRAM_CACHE = {}
+_PROGRAM_LOCK = threading.Lock()
+#: process-wide program-cache counters (the JAX package's telemetry
+#: families horovod_program_cache_{hits,misses}_total and
+#: horovod_compile_seconds_total; the port has no telemetry package yet,
+#: ROADMAP.md A17).  Monotonic over the process's life.
+_STATS = {"hits": 0, "misses": 0, "compile_seconds": 0.0}
+_STATS_LOCK = threading.Lock()
+_EX_UID = [0]
+
+
+def _count(name, value=1):
+    with _STATS_LOCK:
+        _STATS[name] += value
+
+
+def _ex_uid(ex):
+    """Stable unique token per executor (id() can be recycled after an
+    old executor is garbage-collected)."""
+    uid = getattr(ex, "_compiled_uid", None)
+    if uid is None:
+        with _PROGRAM_LOCK:
+            uid = getattr(ex, "_compiled_uid", None)
+            if uid is None:
+                _EX_UID[0] += 1
+                uid = _EX_UID[0]
+                ex._compiled_uid = uid
+    return uid
+
+
+def _rendezvous_for(ps, tag, n):
+    key = (ps.id, tag)
+    with _RDV_LOCK:
+        rdv = _RDV_REGISTRY.get(key)
+        if rdv is None or rdv.n != n:
+            rdv = _Rendezvous(n)
+            _RDV_REGISTRY[key] = rdv
+        return rdv
+
+
+def _validate_signature_cross_process(eng, ps, tag, sig):
+    """First-call fingerprint exchange over the coordinator's KV store:
+    process A's Nth new signature of a collective must equal process B's
+    Nth.  The port runs one process (its engine has no ``controller``
+    until the launcher lands, ROADMAP.md A4/A6), so this returns at once
+    there; the exchange is the JAX package's."""
+    ctl = getattr(eng, "controller", None)
+    if ctl is None or ctl.num_procs <= 1:
+        return
+    import hashlib
+    import json
+
+    taghash = hashlib.md5(repr(tag).encode()).hexdigest()[:12]
+    with _RDV_LOCK:
+        seq = _SIG_COUNTERS.get((ps.id, taghash), 0)
+        _SIG_COUNTERS[(ps.id, taghash)] = seq + 1
+    fp = json.dumps(sig, sort_keys=True)
+    base = f"compiled_sig/{ctl.round_id}/{ps.id}/{taghash}/{seq}"
+    ctl.client.put(f"{base}/{ctl.proc_id}", fp.encode())
+    deadline = time.monotonic() + env_mod.get_int(
+        "HOROVOD_COMPILED_SIG_TIMEOUT", 120)
+    for p in range(ctl.num_procs):
+        if p == ctl.proc_id:
+            continue
+        raw = ctl.client.get(
+            f"{base}/{p}", wait=max(deadline - time.monotonic(), 0.1))
+        if raw is None:
+            raise RuntimeError(
+                f"compiled collective signature exchange timed out "
+                f"waiting for process {p} (tag={tag}, seq={seq})")
+        if raw.decode() != fp:
+            raise ValueError(
+                "compiled collective signature mismatch across "
+                f"processes (tag={tag}, call #{seq}): this process has "
+                f"{fp} but process {p} has {raw.decode()}")
+
+
+# ---------------------------------------------------------------------------
+# programs
+
+class _TimedFirstCall:
+    """A program that is its plain function; its first call lands in the
+    compile seconds, as the JAX package times a jitted program's first
+    call."""
+
+    __slots__ = ("_fn", "_timed", "compile_seconds")
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._timed = False
+        self.compile_seconds = 0.0
+
+    def __call__(self, *args):
+        if self._timed:
+            return self._fn(*args)
+        t0 = time.perf_counter()
+        try:
+            return self._fn(*args)
+        finally:
+            self._timed = True
+            self.compile_seconds = time.perf_counter() - t0
+            _count("compile_seconds", self.compile_seconds)
+
+
+class _GraphProgram:
+    """``fn`` as one CUDA graph on the card.
+
+    Call 1 runs ``fn`` for real on the capture stream (warm-up: lazy
+    kernel builds, cuBLAS/cuDNN handles and workspaces for that stream,
+    optimizer buffers); its result is ``fn``'s own.  Call 2 captures
+    ``fn`` over that call's inputs, which become the static inputs, and
+    replays the graph.  Later calls copy every input tensor that is not
+    the static one into it (same shape and dtype, or ValueError) and
+    replay.  ``leaves(*args)`` lists the input tensors (by default the
+    pytree leaves of the arguments; non-tensor leaves must not change).
+
+    Warm-up and capture run on one thread of the program's own, whatever
+    rank thread leads the call: cuDNN and cuBLAS keep their handles per
+    thread, and a handle first made inside a capture invalidates it.
+    Capture runs in ``"thread_local"`` mode, so another thread's CUDA
+    calls (the engine's) cannot invalidate it; a failed capture raises.
+    Replays run on the caller's current stream.  The outputs of a replay
+    are the graph's static tensors, which the next replay overwrites:
+    callers copy what they keep.  Warm-up plus capture are timed as the
+    compile."""
+
+    def __init__(self, fn, device, leaves=None):
+        self._fn = fn
+        self._leaves = leaves or (lambda *args: pytree.tree_leaves(args))
+        self.device = device
+        self._stream = None
+        self._graph = None
+        self._static_in = None
+        self._static_out = None
+        self._worker = None
+        self.compile_seconds = 0.0
+        #: captures and replays so far (one capture per program)
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, *args):
+        if self._graph is None:
+            warmup = self._stream is None
+            t0 = time.perf_counter()
+            try:
+                out = self._on_own_thread(
+                    self._warmup if warmup else self._capture, args)
+            finally:
+                dt = time.perf_counter() - t0
+                self.compile_seconds += dt
+                _count("compile_seconds", dt)
+            if warmup:
+                return out
+        else:
+            self._load(self._leaves(*args))
+        self._graph.replay()
+        self.replays += 1
+        return self._static_out
+
+    def _on_own_thread(self, step, args):
+        if self._worker is None:
+            self._worker = ThreadPoolExecutor(
+                1, thread_name_prefix="hvd-graph")
+        cur = torch.cuda.current_stream(self.device)
+        ctx = getattr(basics._tls, "ctx", None)
+
+        def run():
+            torch.cuda.set_device(self.device)
+            with basics.bound_context(ctx):
+                return step(args, cur)
+        failed = True
+        try:
+            out = self._worker.submit(run).result()
+            failed = False
+            return out
+        finally:
+            if failed or self._graph is not None:
+                self._worker.shutdown()
+                self._worker = None
+
+    def _warmup(self, args, cur):
+        s = torch.cuda.Stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            out = self._fn(*args)
+        cur.wait_stream(s)
+        # tensors made on the capture stream and used on the caller's
+        for t in pytree.tree_leaves(out):
+            if torch.is_tensor(t) and t.device.type == "cuda":
+                t.record_stream(cur)
+        self._stream = s
+        return out
+
+    def _capture(self, args, cur):
+        static_in = list(self._leaves(*args))
+        graph = torch.cuda.CUDAGraph()
+        # (entering the capture synchronizes the device: the inputs the
+        # caller's stream made are ready)
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            out = self._fn(*args)
+        self._static_in, self._static_out = static_in, out
+        self._graph = graph
+        self.captures += 1
+        return out
+
+    @torch.no_grad()
+    def _load(self, leaves):
+        leaves = list(leaves)
+        if len(leaves) != len(self._static_in):
+            raise ValueError(
+                f"program captured over {len(self._static_in)} inputs "
+                f"called with {len(leaves)}")
+        for new, old in zip(leaves, self._static_in):
+            if new is old:
+                continue
+            if not torch.is_tensor(old):
+                if new != old:
+                    raise ValueError(f"program captured with the constant "
+                                     f"{old!r} called with {new!r}")
+                continue
+            if not torch.is_tensor(new) or new.shape != old.shape \
+                    or new.dtype != old.dtype:
+                raise ValueError(
+                    f"program captured over a {old.dtype} "
+                    f"{tuple(old.shape)} input called with "
+                    f"{getattr(new, 'dtype', type(new).__name__)} "
+                    f"{tuple(getattr(new, 'shape', ()))}")
+            old.copy_(new)
+
+
+def _make_program(fn, device, leaves=None, capture=True):
+    """The program of ``fn`` for ``device``: a CUDA graph on the card
+    (``capture=False`` runs the same function uncaptured, the reference a
+    graph is checked against), the plain function on the CPU."""
+    if device.type == "cuda" and capture:
+        return _GraphProgram(fn, device, leaves)
+    return _TimedFirstCall(fn)
+
+
+def _shared_program(key, builder):
+    with _PROGRAM_LOCK:
+        prog = _PROGRAM_CACHE.get(key)
+        if prog is None:
+            _count("misses")
+            prog = builder()
+            _PROGRAM_CACHE[key] = prog
+        else:
+            _count("hits")
+        return prog
+
+
+def shared_program(key, builder):
+    """Public entry to the process-wide program cache: the cached program
+    for ``key``, or ``builder()`` (a zero-argument callable returning a
+    program) built once.  Hits and misses land in
+    :func:`program_cache_stats`.  Keys are namespaced by the caller."""
+    return _shared_program(key, builder)
+
+
+def program_cache_stats():
+    """(hits, misses) of the process-wide program cache as integers, for
+    asserting zero steady-state rebuilds."""
+    with _STATS_LOCK:
+        return int(_STATS["hits"]), int(_STATS["misses"])
+
+
+# ---------------------------------------------------------------------------
+# grouped allreduce
+
+def _overlap_bucket_splits(sizes, itemsize, bucket_bytes, align=1):
+    """The bucketization rule (a copy of
+    ``horovod_tpu/core/sharded.py::overlap_bucket_splits``): split the
+    members' element counts, in plan order, into contiguous
+    ``(start, stop)`` runs; a run closes at the first member where its
+    payload reaches ``bucket_bytes`` AND the elements from member 0 are a
+    multiple of ``align`` (the quantization block, so that every bucket
+    boundary falls on the grouped buffer's block grid)."""
+    n = len(sizes)
+    if not n:
+        return []
+    if bucket_bytes is None or bucket_bytes <= 0:
+        return [(0, n)]
+    splits = []
+    start, run_elems, total_elems = 0, 0, 0
+    for i, sz in enumerate(sizes):
+        run_elems += int(sz)
+        total_elems += int(sz)
+        full = run_elems * itemsize >= bucket_bytes
+        aligned = align <= 1 or total_elems % align == 0
+        if i == n - 1 or (full and aligned):
+            splits.append((start, i + 1))
+            start, run_elems = i + 1, 0
+    return splits
+
+
+def _torch_dtype(name):
+    return getattr(torch, name)
+
+
+class CompiledGroupedAllreduce:
+    """Grouped allreduce as ONE program per shape signature (the
+    reference's ``xla_mpi_ops.cc:185-307`` role).
+
+    Call per local rank with a list of tensors on the runtime's device
+    (or anything ``torch.as_tensor`` takes); returns the reduced tensors,
+    same shapes and dtypes, new tensors per rank.  All member ranks must
+    call with the same signature.  Instances with the same (op, scales,
+    process set, name, wire) meet at one rendezvous.
+
+    ``wire_dtype`` 'bf16'/'fp16' sums the fusion buffer at half width;
+    'int8'/'int4' quantizes it against a per-256-block scale SHARED by the
+    ranks (the max of their bf16-rounded absmax), sums the integer codes
+    and decodes once; ``error_feedback`` then adds each rank's local
+    quantization error into its next payload.  ``bucket_bytes`` (or
+    ``HOROVOD_OVERLAP_BUCKET_BYTES``, latched once per call or stream)
+    splits the plan into buckets, each its own program, bit for bit the
+    grouped result."""
+
+    def __init__(self, op=Average, prescale_factor=1.0,
+                 postscale_factor=1.0, process_set=global_process_set,
+                 name=None, force_program=False, wire_dtype=None,
+                 error_feedback=False, algorithm=None,
+                 topology_hint=None, wire_inner=None,
+                 bucket_bytes=None):
+        op = ReduceOp(op)
+        if op not in (Average, Sum):
+            raise ValueError(
+                "compiled allreduce supports Average and Sum (the "
+                "reference XLA op surface, xla_mpi_ops.cc:558-603)")
+        self.op = op
+        self.prescale = float(prescale_factor)
+        self.postscale = float(postscale_factor)
+        self.process_set = process_set
+        self.name = name
+        # run the program even at world size 1 (no host-copy shortcut)
+        self.force_program = bool(force_program)
+        self.algorithm = _flat_only(algorithm, topology_hint)
+        self.wire_dtype = qz.normalize_wire_dtype(wire_dtype)
+        if self.wire_dtype == "f32":
+            self.wire_dtype = None
+        # the inner-hop wire only acts under a decomposition (A8); it
+        # stays part of the identity, as in the JAX package
+        self.wire_inner = qz.normalize_inner_wire(wire_inner)
+        self.error_feedback = bool(error_feedback) \
+            and self.wire_dtype in ("int8", "int4")
+        self.bucket_bytes = None if bucket_bytes is None \
+            else int(bucket_bytes)
+        self._residuals = {}     # (skey, pos, buf_idx) -> f32 residual
+        #: wire accounting of the most recent call
+        self.last_logical_bytes = 0
+        self.last_wire_bytes = 0
+        self.last_cross_bytes = 0
+        self.last_algorithm = "flat"
+        self._programs = {}
+        self._validated = set()  # sigs fingerprint-checked across procs
+        self._ex = None          # executor the cached programs target
+        self._lock = threading.Lock()
+
+    # -- program construction ------------------------------------------------
+
+    def _signature(self, arrays):
+        return tuple((tuple(a.shape), dtype_name(a.dtype)) for a in arrays)
+
+    def _plan(self, arrays):
+        return self._plan_from_sig(self._signature(arrays))
+
+    @staticmethod
+    def _plan_from_sig(sig):
+        """Group members by dtype: ``[(dtype, [(index, size, shape)])]``
+        in sorted dtype order (the per-dtype fusion buffers)."""
+        groups = {}
+        for i, (shape, dtype) in enumerate(sig):
+            size = 1
+            for s in shape:
+                size *= int(s)
+            groups.setdefault(str(dtype), []).append(
+                (i, size, tuple(shape)))
+        return [(d, groups[d]) for d in sorted(groups)]
+
+    def _bucketize(self, plan, bucket_bytes):
+        """Split the plan into bucket miniplans, each a contiguous
+        single-dtype slice of members dispatched as its own program;
+        block-aligned under a quantized wire, so every bucket's shared
+        scales are the grouped buffer's.  ``bucket_bytes`` <= 0 keeps one
+        bucket."""
+        if bucket_bytes is None or bucket_bytes <= 0:
+            return [plan]
+        minis = []
+        for dtype, members in plan:
+            align = qz.BLOCK if self._wire_use(dtype) in ("int8", "int4") \
+                else 1
+            for s, e in _overlap_bucket_splits(
+                    [m[1] for m in members], _torch_dtype(dtype).itemsize,
+                    bucket_bytes, align=align):
+                minis.append([(dtype, members[s:e])])
+        return minis
+
+    def _wire_use(self, dtype):
+        """Effective wire of one plan buffer: float buffers follow the
+        configured wire, a 16-bit wire is a no-op for 16-bit tensors, and
+        integer buffers ship full width."""
+        dt = _torch_dtype(dtype)
+        if not is_float(dt):
+            return None
+        use = self.wire_dtype
+        if use in ("bf16", "fp16") and dt.itemsize == 2:
+            return None
+        return use
+
+    def _build(self, ex, plan):
+        """The program of one plan: ``prog(bufs) -> [(y, factor, scales)]``
+        where ``bufs[j]`` holds the local ranks' packed rows of plan
+        buffer j, ``y`` their reduction before the post-scale, ``factor``
+        the scale the unpack applies (the post-scale, /R for Average), and
+        ``scales`` the shared block scales of a quantized buffer (for
+        error feedback), else None.  The sums are the executor's."""
+        R = ex.num_ranks
+        op, pre, post = self.op, self.prescale, self.postscale
+        post_scale = post / R if op == Average else post
+        out_scale = pre * post / R if op == Average else pre * post
+
+        def reduce_quantized(rows, bits):
+            qmax = qz.quantized_qmax(bits)
+            n = rows[0].numel()
+            nb = qz.num_blocks(n)
+            xb = []
+            for r in rows:
+                x = r.float()
+                if nb * qz.BLOCK != n:
+                    x = torch.cat([x, x.new_zeros(nb * qz.BLOCK - n)])
+                xb.append(x.view(nb, qz.BLOCK))
+            # the scale is SHARED: the max over ranks of the bf16-rounded
+            # local absmax, so every rank's codes are on one grid
+            absmax = [x.abs().amax(dim=1).to(torch.bfloat16) for x in xb]
+            shared = ex.reduce(absmax, ReduceOp.MAX)[0].float()
+            # divide by a tensor: CUDA divides by a Python number as a
+            # multiplication by its reciprocal
+            scale = (shared / shared.new_full((), float(qmax))) \
+                .to(torch.bfloat16).float()
+            safe = torch.where(scale > 0, scale, scale.new_ones(()))
+            qs = [torch.round(x / safe[:, None]).clamp_(-qmax, qmax)
+                  .to(torch.int32) for x in xb]
+            y = ex.reduce(qs, ReduceOp.SUM)[0].float() * scale[:, None]
+            return y.reshape(-1)[:n], out_scale, scale
+
+        def reduce_buf(rows, dtype):
+            dt = _torch_dtype(dtype)
+            use = self._wire_use(dtype)
+            if use in ("int8", "int4"):
+                y, factor, scales = reduce_quantized(
+                    rows, 8 if use == "int8" else 4)
+            elif use in ("bf16", "fp16"):
+                wdt = qz.WIRE_TORCH_DTYPES[use]
+                y = ex.reduce([r.to(wdt) for r in rows], ReduceOp.SUM)[0]
+                factor, scales = post_scale, None
+            else:
+                if not is_float(dt) and op == Average:
+                    raise ValueError("Average needs floating-point tensors")
+                y = ex.reduce(rows, ReduceOp.SUM)[0]
+                factor, scales = post_scale, None
+            if torch.float64 in (y.dtype, dt) and y.dtype != dt:
+                y = y.to(dt)     # B1 scales an f64 tensor only in f64
+            return y, factor, scales
+
+        def prog(bufs):
+            return [reduce_buf(rows, d) for rows, (d, _) in zip(bufs, plan)]
+
+        return prog
+
+    def _program(self, ex, sig, plan):
+        with self._lock:
+            if self._ex is not ex:
+                # the engine re-initialized: programs for the old world
+                # size would mis-average, and the residuals belong to the
+                # old run
+                self._programs.clear()
+                self._validated.clear()
+                self._residuals.clear()
+                self._ex = ex
+            entry = self._programs.get(sig)
+            if entry is None:
+                key = ("reduce", _ex_uid(ex), int(self.op), self.prescale,
+                       self.postscale, self.wire_dtype, self.wire_inner,
+                       self.error_feedback, None, sig)
+                entry = _shared_program(key, lambda: _TimedFirstCall(
+                    self._build(ex, plan)))
+                self._programs[sig] = entry
+            else:
+                _count("hits")
+            return entry
+
+    # -- packing -------------------------------------------------------------
+
+    def _pack_factor(self, dtype):
+        # a quantized buffer's pre-scale rides the decode (it is linear)
+        return 1.0 if self._wire_use(dtype) in ("int8", "int4") \
+            else self.prescale
+
+    def _pack(self, vals, plan):
+        """One fusion buffer per dtype; float members packed by B1 with
+        the pre-scale."""
+        bufs = []
+        for dtype, members in plan:
+            srcs = [vals[i] for i, _, _ in members]
+            dt = _torch_dtype(dtype)
+            if not is_float(dt):
+                bufs.append(torch.cat([s.reshape(-1) for s in srcs]))
+                continue
+            offsets, n = [], 0
+            for _, size, _ in members:
+                offsets.append(n)
+                n += size
+            buf = torch.empty(n, dtype=dt, device=srcs[0].device)
+            K.pack_scale_cast(srcs, buf, offsets, self._pack_factor(dtype))
+            bufs.append(buf)
+        return bufs
+
+    @staticmethod
+    def _unpack(outs, plan):
+        """Each member's result, by its index in the signature: float
+        members unpacked by B1 with the program's factor, integer ones
+        copied out."""
+        results = {}
+        for (y, factor, _), (dtype, members) in zip(outs, plan):
+            dt = _torch_dtype(dtype)
+            offsets, n = [], 0
+            for _, size, _ in members:
+                offsets.append(n)
+                n += size
+            if is_float(dt):
+                dsts = [torch.empty(shape, dtype=dt, device=y.device)
+                        for _, _, shape in members]
+                K.unpack_scale_cast(y, dsts, offsets, factor)
+            else:
+                dsts = [y.narrow(0, off, size).reshape(shape).clone()
+                        for (_, size, shape), off in zip(members, offsets)]
+            for (i, _, _), d in zip(members, dsts):
+                results[i] = d
+        return results
+
+    # -- execution -----------------------------------------------------------
+
+    def _validate(self, arrays):
+        """World-size-independent validation (engine api rules)."""
+        for a in arrays:
+            if not is_float(a.dtype):
+                if self.op == Average:
+                    raise ValueError(
+                        "Averaging is not supported for integer "
+                        "tensors; use op=Sum")
+                if self.prescale != 1.0 or self.postscale != 1.0:
+                    raise ValueError("prescale/postscale require "
+                                     "floating-point tensors")
+
+    def _account_wire(self, plan, num_ranks):
+        """Per-rank interconnect bytes of the flat programs.  A quantized
+        program's transport is its integer partial sums (the narrowest
+        exact accumulator) plus the bf16 absmax, as the JAX package
+        counts it."""
+        logical = wire = 0
+        for dtype, members in plan:
+            n = sum(size for _, size, _ in members)
+            itemsize = _torch_dtype(dtype).itemsize
+            logical += n * itemsize
+            use = self._wire_use(dtype)
+            if use in ("int8", "int4"):
+                per = qz.quantized_acc_dtype(
+                    8 if use == "int8" else 4, num_ranks).itemsize
+                wire += n * per + qz.num_blocks(n) * qz.SCALE_BYTES
+            else:
+                wire += qz.wire_nbytes(n, use, itemsize)
+        self.last_logical_bytes = logical
+        self.last_wire_bytes = wire
+        # one process, one host: no slow hop to attribute
+        self.last_cross_bytes = 0
+        self.last_algorithm = "flat"
+
+    def _apply_residuals(self, sig, pos, bufs, plan):
+        """Error feedback, inject side: add the previous call's local
+        quantization error into this call's payload (EF21)."""
+        out = []
+        for k, (buf, (dtype, _)) in enumerate(zip(bufs, plan)):
+            r = self._residuals.get((sig, pos, k))
+            if r is None or self._wire_use(dtype) not in ("int8", "int4"):
+                out.append(buf)
+            else:
+                out.append((buf.float() + r).to(buf.dtype))
+        return out
+
+    def _update_residuals(self, sig, pos, bufs, outs, plan):
+        """Error feedback, measure side: re-encode this rank's payload
+        against the SHARED scales the program returned and keep
+        ``x - decode(encode(x))``."""
+        for k, (buf, (y, _, scales), (dtype, _)) in enumerate(
+                zip(bufs, outs, plan)):
+            use = self._wire_use(dtype)
+            if scales is None or use not in ("int8", "int4"):
+                continue
+            qmax = qz.quantized_qmax(8 if use == "int8" else 4)
+            x = buf.float().reshape(-1)
+            n, nb = x.numel(), scales.numel()
+            xp = torch.cat([x, x.new_zeros(nb * qz.BLOCK - n)]) \
+                if nb * qz.BLOCK != n else x
+            safe = torch.where(scales > 0, scales, scales.new_ones(()))
+            q = torch.round(xp.view(nb, qz.BLOCK) / safe[:, None]) \
+                .clamp_(-qmax, qmax)
+            deq = (q * scales[:, None]).reshape(-1)[:n]
+            self._residuals[(sig, pos, k)] = x - deq
+
+    def reset_wire_state(self):
+        """Drop every error-feedback residual this reducer holds (elastic
+        resize, checkpoint restore)."""
+        with self._lock:
+            self._residuals.clear()
+
+    def stream(self, specs):
+        """Open a bucket-granular dispatch stream: declare the signature
+        up front (``specs``: tensors or ``(shape, dtype)`` templates in
+        call order), then ``push(i, tensor)`` each tensor as backward
+        produces it and ``result()`` at the end of the step.  A bucket
+        launches the moment its members are all delivered, strictly in
+        plan order."""
+        return _BucketStream(self, specs)
+
+    def __call__(self, arrays):
+        arrays = list(arrays)
+        if not arrays:
+            return []
+        # the grouped call IS a degenerate stream: everything pushed at
+        # once, one code path for both dispatch modes
+        st = _BucketStream(self, arrays)
+        for i, a in enumerate(arrays):
+            st.push(i, a)
+        return st.result()
+
+
+def _mini_sig(mp):
+    """Member-order (shape, dtype) signature of one bucket miniplan — the
+    bucket program's cache key."""
+    return tuple((shape, dtype) for dtype, members in mp
+                 for _i, _sz, shape in members)
+
+
+class _BucketStream:
+    """One bucket-granular dispatch round over a
+    :class:`CompiledGroupedAllreduce`.
+
+    Buckets launch strictly in plan order on every rank, whatever the
+    push order.  The bucket size is latched once, at construction.  On
+    the card a bucket's work (pack, sum, unpack, error feedback) runs on
+    the engine's side stream after an event of the pushing stream, and
+    ends in an event; ``result()`` makes the caller's stream wait only on
+    the buckets still in flight.  Error-feedback residuals are keyed per
+    (signature, bucket size, bucket)."""
+
+    def __init__(self, red, specs):
+        self.red = red
+        sig = []
+        for t in specs:
+            if isinstance(t, tuple) and len(t) == 2 \
+                    and not hasattr(t, "dtype"):
+                shape, dtype = t
+                sig.append((tuple(int(s) for s in shape),
+                            dtype_name(dtype)))
+            else:
+                sig.append((tuple(t.shape), dtype_name(t.dtype)))
+        self.sig = tuple(sig)
+        self.n = len(sig)
+        eng, ps = _ps_state(red.process_set)
+        if eng.config.integrity:
+            raise NotImplementedError(
+                "wire integrity digests on the compiled path are not "
+                "ported yet (ROADMAP.md A14); unset HOROVOD_INTEGRITY")
+        self.eng, self.ps = eng, ps
+        ex = ps.executor
+        self.ex = ex
+        self.device = eng.device
+        self.side = eng.stream
+        self.trivial = ex.num_ranks == 1 and not red.force_program
+        self._vals = {}        # index -> delivered tensor
+        self._inflight = []    # (results, done event)
+        self._next = 0         # next bucket to launch
+        self._done = False
+        if self.trivial:
+            self.bucket_bytes = 0
+            self.buckets = []
+            return
+        bb = red.bucket_bytes
+        if bb is None:
+            bb = eng.config.overlap_bucket_bytes
+        self.bucket_bytes = bb
+        self.plan = red._plan_from_sig(self.sig)
+        red._account_wire(self.plan, ex.num_ranks)
+        self.buckets = red._bucketize(self.plan, bb)
+        # the grouped bucket keeps the caller-order signature (the legacy
+        # cache key); buckets key on their own members
+        self._progs = []
+        for mp in self.buckets:
+            bsig = self.sig if bb <= 0 else _mini_sig(mp)
+            self._progs.append((red._program(ex, bsig, mp), bsig))
+        n_local = len(ex.local_positions)
+        if n_local == 1:
+            self.pos = ex.local_positions[0]
+            self.rdv = None
+        else:
+            self.pos = _caller_pos(eng, ps)
+            if self.pos is None:
+                raise ValueError(
+                    "unbound caller: compiled collectives need a rank "
+                    "context (call inside hvd.run)")
+            self.rdv = _rendezvous_for(ps, self._tag(), n_local)
+
+    def _tag(self):
+        # the rendezvous identity; bucket_bytes deliberately excluded
+        red = self.red
+        return ("reduce", int(red.op), red.prescale, red.postscale,
+                red.name, red.wire_dtype, red.wire_inner,
+                red.error_feedback, None)
+
+    # -- delivery ------------------------------------------------------------
+
+    def push(self, i, array):
+        """Deliver tensor ``i`` (its position in the declared signature);
+        launches every bucket whose members are now complete, in bucket
+        order."""
+        if self._done:
+            raise RuntimeError("stream already finalized")
+        if torch.is_tensor(array):
+            if array.device != self.device:
+                raise ValueError(f"tensor is on {array.device} but "
+                                 f"horovod_tpu_torch runs on {self.device}")
+            a = array.detach().contiguous()
+        else:
+            a = torch.as_tensor(array, device=self.device)
+        if (tuple(a.shape), dtype_name(a.dtype)) != self.sig[i]:
+            raise ValueError(
+                f"pushed tensor {i} has ({tuple(a.shape)}, {a.dtype}) but "
+                f"the stream declared {self.sig[i]}")
+        if i in self._vals:
+            raise RuntimeError(
+                f"tensor {i} pushed twice in one stream round")
+        self.red._validate([a])
+        self._vals[i] = a
+        if not self.trivial:
+            self._advance()
+
+    def _advance(self):
+        while self._next < len(self.buckets):
+            mp = self.buckets[self._next]
+            if any(i not in self._vals
+                   for _d, members in mp for i, _s, _sh in members):
+                return
+            self._launch_bucket(self._next, mp)
+            self._next += 1
+
+    @contextlib.contextmanager
+    def _on_side(self, members):
+        """Run the block on the engine's side stream after the caller's
+        stream, with the members' memory held for it; yields the caller's
+        stream (None on the CPU)."""
+        if self.side is None:
+            yield None
+            return
+        cur = torch.cuda.current_stream(self.device)
+        self.side.wait_stream(cur)
+        for t in members:
+            t.record_stream(self.side)
+        with torch.cuda.stream(self.side):
+            yield cur
+
+    def _launch_bucket(self, k, mp):
+        red, ex, eng, ps = self.red, self.ex, self.eng, self.ps
+        bb = self.bucket_bytes
+        prog, bsig = self._progs[k]
+        skey = (self.sig, bb, k)
+        vkey = (self.sig, bb)
+        members = [self._vals[i] for _d, ms in mp for i, _s, _sh in ms]
+
+        def launch(slot_values):
+            # slot_values: {pos: ((bsig, k), [buf per dtype])}; every
+            # local rank must bring the SAME bucket of the SAME signature
+            sigs = {p: v[0] for p, v in slot_values.items()}
+            if len(set(sigs.values())) > 1:
+                raise ValueError(
+                    "compiled collective signature mismatch across "
+                    f"local ranks: {sigs} — every member rank must call "
+                    "with identical shapes/dtypes in the same order")
+            if vkey not in red._validated:
+                _validate_signature_cross_process(
+                    eng, ps, self._tag(), (self.sig, bb))
+                with red._lock:
+                    red._validated.add(vkey)
+            rows = [[slot_values[p][1][j] for p in ex.local_positions]
+                    for j in range(len(mp))]
+            return prog(rows)
+
+        with self._on_side(members) as cur:
+            bufs = red._pack(self._vals, mp)
+            if red.error_feedback:
+                bufs = red._apply_residuals(skey, self.pos, bufs, mp)
+            if self.rdv is None:
+                outs = launch({self.pos: ((bsig, k), bufs)})
+            else:
+                outs = self.rdv.run(self.pos, ((bsig, k), bufs), launch)
+            results = red._unpack(outs, mp)
+            if red.error_feedback:
+                red._update_residuals(skey, self.pos, bufs, outs, mp)
+            done = None
+            if cur is not None:
+                done = torch.cuda.Event()
+                done.record(self.side)
+                for t in results.values():
+                    t.record_stream(cur)
+        self._inflight.append((results, done))
+
+    # -- completion ----------------------------------------------------------
+
+    def result(self):
+        """Order the caller's stream after every in-flight bucket and
+        return the reduced tensors in the declared order."""
+        if self._done:
+            raise RuntimeError("stream already finalized")
+        if len(self._vals) != self.n:
+            missing = [i for i in range(self.n) if i not in self._vals]
+            raise RuntimeError(
+                "result() called before every declared tensor was "
+                f"pushed (missing {missing})")
+        self._done = True
+        red = self.red
+        if self.trivial:
+            scale = red.prescale * red.postscale
+            return [K.fused_scale_cast(a, scale)
+                    if scale != 1.0 and is_float(a.dtype) else a.clone()
+                    for a in (self._vals[i] for i in range(self.n))]
+        results = {}
+        for res, done in self._inflight:
+            if done is not None and not done.query():
+                torch.cuda.current_stream(self.device).wait_event(done)
+            results.update(res)
+        return [results[i] for i in range(self.n)]
+
+
+class CompiledAlltoall:
+    """The alltoall with its wire codec in one program: not ported yet
+    (ROADMAP.md A13)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "CompiledAlltoall is not ported yet (ROADMAP.md A13)")
+
+
+def compiled_alltoall(*args, **kwargs):
+    """Not ported yet (ROADMAP.md A13)."""
+    raise NotImplementedError(
+        "compiled_alltoall is not ported yet (ROADMAP.md A13)")
+
+
+# ---------------------------------------------------------------------------
+# prediction
+
+def batch_signature(tree):
+    """Tree structure and leaf shapes/dtypes of a batch pytree: the batch
+    identity, and :class:`CompiledPredict`'s cache key."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return (str(spec),
+            tuple((tuple(getattr(x, "shape", ())),
+                   dtype_name(getattr(x, "dtype", type(x).__name__)))
+                  for x in leaves))
+
+
+def _device_of(tree):
+    for leaf in pytree.tree_leaves(tree):
+        if torch.is_tensor(leaf):
+            return leaf.device
+    return torch.device("cpu")
+
+
+class CompiledPredict:
+    """Inference through the shared program cache: ``predict_fn(params,
+    batch) -> outputs`` (run without autograd), one program per batch
+    signature and device, on the card one CUDA graph each.  The params
+    are taken as the same tensors for the object's life (a replica loads
+    one checkpoint), so a replay copies only the batch.  Independent of
+    the engine: it works before ``init()``."""
+
+    def __init__(self, predict_fn, name="predict"):
+        self.predict_fn = predict_fn
+        self.name = name
+        self._uid = None
+        self._programs = {}
+        self._lock = threading.Lock()
+
+    def _predict(self, params, batch):
+        with torch.no_grad():
+            return self.predict_fn(params, batch)
+
+    def _signature(self, batch):
+        return batch_signature(batch)
+
+    def _program(self, sig, device):
+        with self._lock:
+            prog = self._programs.get((sig, str(device)))
+            if prog is None:
+                if self._uid is None:
+                    self._uid = _ex_uid(self)
+                prog = _shared_program(
+                    ("predict", self._uid, self.name, sig, str(device)),
+                    lambda: _make_program(self._predict, device))
+                self._programs[(sig, str(device))] = prog
+            else:
+                _count("hits")
+            return prog
+
+    def __call__(self, params, batch):
+        prog = self._program(self._signature(batch), _device_of(batch))
+        out = prog(params, batch)
+        if isinstance(prog, _GraphProgram):
+            # the next replay overwrites the graph's outputs
+            out = pytree.tree_map(
+                lambda t: t.clone() if torch.is_tensor(t) else t, out)
+        return out
+
+    def signatures(self):
+        """Batch signatures built so far."""
+        with self._lock:
+            return [sig for sig, _ in self._programs]
+
+
+# ---------------------------------------------------------------------------
+# module functions
+
+_REDUCERS = {}
+_REDUCERS_LOCK = threading.Lock()
+
+
+def _reducer(op, prescale_factor, postscale_factor, process_set,
+             wire_dtype=None, algorithm=None, topology_hint=None,
+             wire_inner=None):
+    ps_id = process_set.process_set_id \
+        if isinstance(process_set, ProcessSet) else int(process_set or 0)
+    wire_dtype = qz.normalize_wire_dtype(wire_dtype)
+    wire_inner = qz.normalize_inner_wire(wire_inner)
+    algorithm = _flat_only(algorithm, topology_hint)
+    key = (int(ReduceOp(op)), float(prescale_factor),
+           float(postscale_factor), ps_id, wire_dtype, wire_inner,
+           algorithm, None)
+    with _REDUCERS_LOCK:
+        red = _REDUCERS.get(key)
+        if red is None:
+            red = CompiledGroupedAllreduce(
+                op=op, prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor, process_set=process_set,
+                wire_dtype=wire_dtype, algorithm=algorithm,
+                wire_inner=wire_inner)
+            _REDUCERS[key] = red
+        return red
+
+
+def compiled_grouped_allreduce(arrays, op=Average, prescale_factor=1.0,
+                               postscale_factor=1.0,
+                               process_set=global_process_set,
+                               wire_dtype=None, algorithm=None,
+                               topology_hint=None, wire_inner=None):
+    """Grouped allreduce through one program (no engine negotiation)."""
+    return _reducer(op, prescale_factor, postscale_factor,
+                    process_set, wire_dtype, algorithm,
+                    topology_hint, wire_inner)(arrays)
+
+
+def compiled_allreduce(array, op=Average, prescale_factor=1.0,
+                       postscale_factor=1.0,
+                       process_set=global_process_set, wire_dtype=None,
+                       algorithm=None, topology_hint=None,
+                       wire_inner=None):
+    """Single-tensor convenience over :func:`compiled_grouped_allreduce`."""
+    return compiled_grouped_allreduce(
+        [array], op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set,
+        wire_dtype=wire_dtype, algorithm=algorithm,
+        topology_hint=topology_hint, wire_inner=wire_inner)[0]
+
+
+def reset_compiled_state():
+    """Drop cached reducers, programs (and so their graphs) and
+    rendezvous: ``shutdown`` calls it, so that a re-``init`` at another
+    world size never serves an old program.  The counters of
+    :func:`program_cache_stats` keep counting."""
+    with _REDUCERS_LOCK:
+        _REDUCERS.clear()
+    with _RDV_LOCK:
+        _RDV_REGISTRY.clear()
+        _STEP_COUNTERS.clear()
+        _SIG_COUNTERS.clear()
+    with _PROGRAM_LOCK:
+        _PROGRAM_CACHE.clear()
+
+
+# ---------------------------------------------------------------------------
+# the compiled train step
+
+def _param_leaf(value, device):
+    t = torch.as_tensor(value).detach().to(device, copy=True)
+    return t.requires_grad_(t.is_floating_point())
+
+
+def _optimizer_tensors(state):
+    """The optimizer's state tensors, parameter by parameter in the
+    params' order, keys sorted."""
+    opt, out = state["opt_state"], []
+    for p in state["params"].values():
+        st = opt.state.get(p, {})
+        out.extend(st[k] for k in sorted(st) if torch.is_tensor(st[k]))
+    return out
+
+
+def _state_leaves(state, batch_rows):
+    """The input tensors of one step: params, optimizer state, aux and
+    the staged batch."""
+    return (list(state["params"].values()) + _optimizer_tensors(state)
+            + pytree.tree_leaves(state.get("aux", {}))
+            + pytree.tree_leaves(batch_rows))
+
+
+class _CompiledTrainStep:
+    """See :func:`make_compiled_train_step`."""
+
+    def __init__(self, loss_fn, optimizer, op, process_set, donate,
+                 has_aux=False, sharded=False, wire_dtype=None,
+                 topology_hint=None, wire_inner=None):
+        op = ReduceOp(op)
+        if op not in (Average, Sum, Adasum):
+            raise ValueError("op must be Average, Sum, or Adasum")
+        if op == Adasum:
+            raise NotImplementedError(
+                "op=Adasum in the compiled step is not ported yet "
+                "(ROADMAP.md A7)")
+        if sharded:
+            raise NotImplementedError(
+                "the weight-update-sharded compiled step (sharded=True) "
+                "is not ported yet (ROADMAP.md A10)")
+        if qz.normalize_wire_dtype(wire_dtype) not in (None, "f32"):
+            raise NotImplementedError(
+                "a gradient wire_dtype in the compiled step rides the "
+                "sharded reducescatter, not ported yet (ROADMAP.md A10)")
+        if topology_hint is not None or \
+                qz.normalize_inner_wire(wire_inner) is not None:
+            raise NotImplementedError(
+                "topology-aware compiled steps are not ported yet "
+                "(ROADMAP.md A8)")
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.op = op
+        self.process_set = process_set
+        self.donate = donate
+        self.has_aux = has_aux
+        #: False runs the step's function uncaptured on the card: the
+        #: reference a captured graph is checked against
+        self.capture = True
+        self._prog = None
+        self._ex = None
+        self._tag = None
+        self._sig_checked = False
+        self._lock = threading.Lock()
+
+    # -- program -------------------------------------------------------------
+
+    def _build(self, ex):
+        """The stacked step, JAX's ``vmap`` branch written out: each
+        rank's loss and gradient from the same params and its own copy of
+        the aux on its batch rows; the gradients' mean (Average) or sum
+        (Sum) over ranks; float aux leaves averaged, others rank 0's; one
+        optimizer update.  Params, optimizer state and aux are updated in
+        place and the state returned with the mean loss."""
+        loss_fn, op, has_aux = self.loss_fn, self.op, self.has_aux
+        R = ex.num_ranks
+
+        def prog(state, batch_rows):
+            params = state["params"]
+            train = [p for p in params.values() if p.requires_grad]
+            grads, losses, auxes = None, [], []
+            for r in range(R):
+                batch = pytree.tree_map(lambda x: x[r], batch_rows)
+                if has_aux:
+                    # BatchNorm updates its statistics in place: each
+                    # rank starts from its own copy of the same aux
+                    aux = pytree.tree_map(torch.clone, state["aux"])
+                    loss, new_aux = loss_fn(params, aux, batch)
+                    auxes.append(pytree.tree_leaves(new_aux))
+                else:
+                    loss = loss_fn(params, batch)
+                g = torch.autograd.grad(loss, train, allow_unused=True,
+                                        materialize_grads=True)
+                if grads is None:
+                    grads = list(g)
+                else:
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi)
+                losses.append(loss.detach())
+            if op == Average:
+                for acc in grads:
+                    acc.div_(R)
+            if has_aux:
+                dst = pytree.tree_leaves(state["aux"])
+                if any(len(a) != len(dst) for a in auxes):
+                    raise ValueError("loss_fn's new aux must have the "
+                                     "structure of the aux it was given")
+                with torch.no_grad():
+                    for j, t in enumerate(dst):
+                        vals = [a[j] for a in auxes]
+                        t.copy_(torch.stack(vals).mean(dim=0)
+                                if vals[0].is_floating_point() else vals[0])
+            opt = state["opt_state"]
+            for p, g in zip(train, grads):
+                p.grad = g
+            opt.step()
+            for p in train:
+                p.grad = None
+            return state, torch.stack(losses).mean()
+
+        return prog
+
+    def _program(self, ex, device):
+        # built by whichever rank leads first; later leaders (other
+        # instances) reuse it through the shared cache: one build and one
+        # capture per process
+        with self._lock:
+            if self._ex is not ex:
+                # re-init: a program for the old world would mis-average
+                self._prog = None
+                self._sig_checked = False
+                self._ex = ex
+            if self._prog is None:
+                def make():
+                    return _make_program(self._build(ex), device,
+                                         leaves=_state_leaves,
+                                         capture=self.capture)
+                if self._tag is not None:
+                    mode = None if self.capture else "uncaptured"
+                    self._prog = _shared_program(
+                        ("step", _ex_uid(ex), self._tag, mode), make)
+                else:
+                    # untagged (single-rank) steps skip the shared cache
+                    # but still count a miss
+                    _count("misses")
+                    self._prog = make()
+            else:
+                _count("hits")
+            return self._prog
+
+    def _step_tag(self, ps, rank):
+        """Creation-order identity: rank r's Nth first-called compiled
+        step pairs with rank s's Nth."""
+        with self._lock:
+            if self._tag is None:
+                with _RDV_LOCK:
+                    key = (ps.id, rank)
+                    idx = _STEP_COUNTERS.get(key, 0)
+                    _STEP_COUNTERS[key] = idx + 1
+                self._tag = ("step", idx)
+            return self._tag
+
+    def _check_step_signature(self, eng, ps, state, batch):
+        """First-step cross-process fingerprint of the (params, batch)
+        shapes and dtypes."""
+        if self._sig_checked:
+            return
+        tree = batch.tree if isinstance(batch, StagedBatch) else batch
+        sig = tuple(
+            (tuple(getattr(leaf, "shape", ())),
+             dtype_name(getattr(leaf, "dtype", type(leaf).__name__)))
+            for leaf in pytree.tree_leaves((state.get("params"), tree)))
+        _validate_signature_cross_process(
+            eng, ps, ("step_sig",) + tuple(self._tag or ()), sig)
+        self._sig_checked = True
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self, params, aux=None):
+        """The train state ``{"params", "opt_state"[, "aux"]}`` on the
+        runtime's device: ``params`` (a dict of tensors or arrays) copied
+        into leaf tensors (float ones requiring grad), ``opt_state`` the
+        ``optimizer`` built over them, ``aux`` (with ``has_aux``) copied.
+        On the card an optimizer that keeps a host-side step count (Adam
+        and its kin) is made ``capturable``."""
+        eng, ps = _ps_state(self.process_set)
+        dev = eng.device
+        params = {k: _param_leaf(v, dev) for k, v in params.items()}
+        opt = self.optimizer(list(params.values()))
+        if dev.type == "cuda":
+            for group in opt.param_groups:
+                if "capturable" in group:
+                    group["capturable"] = True
+        state = {"params": params, "opt_state": opt}
+        if self.has_aux:
+            state["aux"] = pytree.tree_map(
+                lambda x: torch.as_tensor(x).detach().to(dev, copy=True),
+                {} if aux is None else aux)
+        return state
+
+    def _clone_state(self, state):
+        """A state sharing no tensor with ``state``: cloned params, a new
+        optimizer over them holding clones of the old one's state and its
+        groups' hyperparameters, cloned aux."""
+        params = {k: v.detach().clone().requires_grad_(v.requires_grad)
+                  for k, v in state["params"].items()}
+        old = state["opt_state"]
+        opt = self.optimizer(list(params.values()))
+        for g_new, g_old in zip(opt.param_groups, old.param_groups):
+            g_new.update({k: v for k, v in g_old.items() if k != "params"})
+        for p_old, p_new in zip(state["params"].values(), params.values()):
+            st = old.state.get(p_old)
+            if st:
+                opt.state[p_new] = {
+                    k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in st.items()}
+        out = {"params": params, "opt_state": opt}
+        if "aux" in state:
+            out["aux"] = pytree.tree_map(torch.clone, state["aux"])
+        return out
+
+    def _stage_batch(self, ex, slots, device):
+        """{pos: batch_tree} for the local ranks -> one tree of (R, ...)
+        tensors on ``device``."""
+        trees = [slots[pos] for pos in ex.local_positions]
+        flat = [pytree.tree_flatten(t) for t in trees]
+        spec = flat[0][1]
+        if any(s != spec for _, s in flat):
+            raise ValueError(
+                "compiled step signature mismatch across local ranks: "
+                "batch trees differ")
+        staged = [torch.stack([torch.as_tensor(leaves[k])
+                               for leaves, _ in flat]).to(device)
+                  for k in range(len(flat[0][0]))]
+        return pytree.tree_unflatten(staged, spec)
+
+    def _run(self, prog, state, rows):
+        if not self.donate:
+            state = self._clone_state(state)
+        out, loss = prog(state, rows)
+        if isinstance(prog, _GraphProgram):
+            # the graph's outputs: the next replay overwrites them
+            loss = loss.clone()
+            if not self.donate:
+                out = self._clone_state(out)
+        return out, loss
+
+    # -- call ----------------------------------------------------------------
+
+    def place_batch(self, batch):
+        """Stage this rank's batch on the device once; the returned
+        :class:`StagedBatch` skips the per-step staging (and, in a
+        captured step, is read in place: no copy per step)."""
+        eng, ps = _ps_state(self.process_set)
+        ex = ps.executor
+        if len(ex.local_positions) != 1:
+            raise ValueError(
+                "place_batch is per-process: use it in one-rank-per-"
+                "process deployments (rank threads stage via the "
+                "rendezvous instead)")
+        return StagedBatch(self._stage_batch(
+            ex, {ex.local_positions[0]: batch}, eng.device))
+
+    def __call__(self, state, batch):
+        """Run one step with THIS rank's ``batch``; returns ``(new_state,
+        loss)``.  All member ranks call per step."""
+        eng, ps = _ps_state(self.process_set)
+        ex = ps.executor
+        n_local = len(ex.local_positions)
+        if n_local == 1:
+            self._check_step_signature(eng, ps, state, batch)
+            prog = self._program(ex, eng.device)
+            rows = batch.tree if isinstance(batch, StagedBatch) else \
+                self._stage_batch(ex, {ex.local_positions[0]: batch},
+                                  eng.device)
+            return self._run(prog, state, rows)
+        pos = _caller_pos(eng, ps)
+        if pos is None:
+            raise ValueError(
+                "unbound caller: run the compiled step from rank threads "
+                "(hvd.run)")
+        rdv = _rendezvous_for(
+            ps, self._step_tag(ps, basics.context().rank), n_local)
+
+        def launch_rdv(slots):
+            # every rank passed the same state; the leader's program runs
+            # on the first slot's
+            first = slots[sorted(slots)[0]]
+            self._check_step_signature(eng, ps, first[0], first[1])
+            rows = self._stage_batch(
+                ex, {p: slots[p][1] for p in slots}, eng.device)
+            return self._run(self._program(ex, eng.device), first[0], rows)
+
+        return rdv.run(pos, (state, batch), launch_rdv)
+
+
+class StagedBatch:
+    """Marker for a batch already staged on the step's device (see
+    ``_CompiledTrainStep.place_batch``)."""
+
+    __slots__ = ("tree",)
+
+    def __init__(self, tree):
+        self.tree = tree
+
+
+def make_compiled_train_step(loss_fn, optimizer, *, op=Average,
+                             process_set=global_process_set,
+                             donate=True, has_aux=False,
+                             sharded=False, wire_dtype=None,
+                             topology_hint=None, wire_inner=None):
+    """Build the compiled Horovod train step: forward, backward, the
+    cross-rank gradient reduction and the optimizer update as one
+    program, on the card one CUDA graph replayed every step after a
+    warm-up step and a capture.
+
+    ``loss_fn(params, batch) -> scalar tensor`` is the per-rank loss over
+    dicts of tensors (with ``has_aux=True``: ``loss_fn(params, aux,
+    batch) -> (loss, new_aux)``, threading mutable model state such as
+    BatchNorm statistics; float aux leaves are averaged over the ranks,
+    the sync-BN convention).  ``optimizer`` is a function from a list of
+    parameters to a ``torch.optim.Optimizer`` (``parallel.train.sgd``,
+    ``parallel.train.adamw``).  ``op`` is ``Average`` or ``Sum``.
+    ``donate=True`` updates the state in place; ``donate=False`` leaves
+    the caller's state untouched and returns a new one.
+
+    Example (per rank), a model through ``torch.func.functional_call``::
+
+        model = ResNet50(num_classes=1000)
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        stats = {k: b for k, b in model.named_buffers()}
+
+        def loss_fn(params, aux, batch):
+            x, y = batch
+            logits = torch.func.functional_call(model, {**params, **aux},
+                                                (x,))
+            return F.cross_entropy(logits, y), aux
+
+        step = make_compiled_train_step(loss_fn, sgd(0.1, momentum=0.9),
+                                        has_aux=True)
+        state = step.init_state(params, aux=stats)
+        for batch in shard_of_data:
+            state, loss = step(state, batch)
+
+    The captured graph reads its inputs at their capture-time addresses:
+    a batch that is not the captured one is copied in (a
+    :class:`StagedBatch` from :meth:`~_CompiledTrainStep.place_batch` is
+    read in place), the optimizer's hyperparameters are constants of the
+    graph, and the returned loss is a copy.
+
+    ``sharded=True``, a ``wire_dtype``, ``topology_hint``/``wire_inner``
+    and ``op=Adasum`` raise ``NotImplementedError`` (ROADMAP.md A10, A8,
+    A7).
+    """
+    return _CompiledTrainStep(loss_fn, optimizer, op, process_set,
+                              donate, has_aux=has_aux,
+                              sharded=sharded, wire_dtype=wire_dtype,
+                              topology_hint=topology_hint,
+                              wire_inner=wire_inner)

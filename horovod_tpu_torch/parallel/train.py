@@ -33,6 +33,16 @@ def adamw(learning_rate=1e-3):
     return build
 
 
+def sgd(learning_rate, momentum=None):
+    """``torch.optim.SGD`` as optax ``sgd(learning_rate, momentum)``:
+    ``buf = momentum * buf + g`` then ``p -= lr * buf`` (torch's dampening
+    0, no Nesterov); without momentum ``p -= lr * g``."""
+    def build(params):
+        return torch.optim.SGD(params, lr=learning_rate,
+                               momentum=momentum or 0.0)
+    return build
+
+
 def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
                        device=None, sequence_parallel: bool = False,
                        attention_impl: str = "ring",
