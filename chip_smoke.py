@@ -136,10 +136,31 @@ Phases (a failure in any one exits non-zero):
     kernels.  It prints each part's steady step time, img/s, the ratios
     to the plain step and to phase 4 (11), the busy share of one
     profiled replay, warm-up plus capture seconds and the program
-    cache's hits and misses, and the reference's 103.55 img/s per GPU.
+    cache's hits and misses, and the reference's 103.55 img/s per GPU;
+13. the weight-update sharded main path: phase 4's run (full-width
+    ResNet-50, 2 rank threads x 64 images, SGD momentum 0.9, phase 4's
+    weights and batches, 6 steps) through ``DistributedOptimizer``, a
+    dense leg and then ``sharded=True`` on the f32, bf16, int8 and int4
+    wires (gradients out by a grouped reducescatter, each rank updating
+    its half of the parameters and momentum, the parameters back by a
+    grouped allgather), cuDNN on deterministic algorithms.  Checks: on
+    the f32 wire each rank's step-1 gradient shard equals the matching
+    slice of the dense leg's averaged gradient bit for bit and the
+    parameters after 6 steps are within ``SHARDED_PARAM_BOUND`` of the
+    dense leg's (and says whether bit for bit); on every wire finite
+    losses and both ranks' parameters bit-identical; on int8/int4 step
+    1's shards within ``WIRE_REL_L2`` of the exact f32 average and the
+    logical / actual bytes of the reducescatter plus the parameter
+    allgather above ``WIRE_RATIO``; the momentum per rank half the dense
+    leg's (to one element per bucket); one sharded update per rank and
+    step; B1 launched on every leg, B2/B3 on int8, B4/B5 on int4.  It
+    prints each leg's steady step time and img/s beside the dense leg's,
+    the state bytes, the peak device memory and the launches.
 
 The two lines before the last are the card line and a JSON summary of
-the kernels; the last line is ``{"ok": true, "device": {...}}``.  With
+the kernels (with B1-B5's launches per phase-13 leg under
+``sharded_launches``); the last line is ``{"ok": true, "device":
+{...}}``.  With
 ``--profile`` phases 4, 7, 9, 11 and 12 also print the profile tables of
 one steady step each.
 """
@@ -240,6 +261,10 @@ REFERENCE_IMG_S = 1656.82 / 16
 COMPILED_REL_L2 = 1e-3
 # phase 12's grouped-reducer check: the bucket size of the bucketized leg
 COMPILED_BUCKET_BYTES = 4 << 20
+# phase 13: bound on max |delta| of the sharded f32 leg's parameters after
+# 6 steps from the dense leg's (tests/test_sharded.py's bar), where they
+# are not bit for bit
+SHARDED_PARAM_BOUND = 2e-6
 
 
 def log(*a):
@@ -2113,6 +2138,226 @@ def phase_compiled(dev, card, state, batches, unfused_ref, fused_ref,
 
 
 # ---------------------------------------------------------------------------
+# phase 13
+
+def sharded_leg(dev, state, batches, sharded, wire):
+    """One leg of phase 13: phase 4's run (full-width ResNet-50, bf16
+    compute, 2 rank threads x 64 images, SGD momentum 0.9, phase 4's
+    weights and batches, 6 steps) through ``DistributedOptimizer``, dense
+    (``sharded=False``) or ``sharded=True`` on ``wire``.  Returns the
+    losses, step times, both ranks' final parameters, the gradients the
+    update saw at step 1 (the dense leg's averaged ``p.grad`` by name;
+    the sharded leg's shard per bucket and rank), the optimizer state
+    bytes per rank, the shard plan, the engine's wire counters and
+    sharded-update count over the leg, the kernels' launches and the
+    peak device memory."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+
+    xs, ys = batches
+    barrier = threading.Barrier(NP)
+    out = {"losses": {}, "times": {}, "params": {}, "step1": {},
+           "state_bytes": {}}
+
+    def train():
+        r = hvd.rank()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict({k: v if r == 0 else v + 1.0
+                               for k, v in state.items()})
+        hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters(),
+            compression=getattr(hvd_torch.Compression, wire),
+            sharded=sharded)
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
+        eng = hvd.engine()
+        barrier.wait()
+        if r == 0:
+            # every count to 0 just before the path is driven
+            K.reset_launches()
+            QK.reset_launches()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out["wire0"] = (eng.logical_wire_bytes, eng.actual_wire_bytes,
+                            eng.sharded_update_runs)
+        barrier.wait()
+        losses, times = [], []
+        for step in range(STEPS):
+            x, y = step_batch(x0, y0, step)
+            barrier.wait()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if step == 0:
+                out["step1"][r] = (
+                    [t.grad.clone() for _, t in opt._shadow_params]
+                    if sharded else {k: p.grad.clone() for k, p in
+                                     model.named_parameters()})
+        barrier.wait()
+        if r == 0:
+            out["launches"] = {**K.launches, **QK.launches}
+            out["peak"] = torch.cuda.max_memory_allocated(dev)
+            out["wire"] = tuple(a - b for a, b in zip(
+                (eng.logical_wire_bytes, eng.actual_wire_bytes,
+                 eng.sharded_update_runs), out.pop("wire0")))
+        if sharded:
+            out["state_bytes"][r] = opt._updater.state_bytes["shard"]
+            out["plan"] = opt._updater.plan
+        else:
+            out["state_bytes"][r] = sum(
+                v.numel() * v.element_size() for st in opt.state.values()
+                for v in st.values() if torch.is_tensor(v))
+        out["losses"][r] = losses
+        out["times"][r] = times
+        out["params"][r] = {k: p.detach().clone()
+                            for k, p in model.named_parameters()}
+
+    hvd.run(train, np=NP, device=dev)
+    step_s = [max(out["times"][r][i] for r in range(NP))
+              for i in range(STEPS)]
+    out["steady_s"] = sum(step_s[1:]) / (STEPS - 1)
+    out["step_s"] = step_s
+    return out
+
+
+def phase_sharded(dev, card, state, batches):
+    """Phase 13: the weight-update sharded main path.  A dense leg, then
+    ``DistributedOptimizer(sharded=True)`` on the f32, bf16, int8 and
+    int4 wires, all under cuDNN's deterministic algorithms (the legs must
+    see the same local gradients).  Gates: on the f32 wire each rank's
+    step-1 gradient shard equals the matching slice of the dense leg's
+    averaged gradient bit for bit, and the parameters after 6 steps are
+    within ``SHARDED_PARAM_BOUND`` of the dense leg's (the line says
+    whether they are bit for bit); on every wire both ranks' parameters
+    bit-identical and the losses finite; on int8/int4 step 1's shards
+    within ``WIRE_REL_L2`` of the exact f32 average and the wire ratio of
+    the reducescatter plus the parameter allgather above ``WIRE_RATIO``;
+    the optimizer state per rank half the dense leg's to within one f32
+    element per bucket; B1 launched on every leg, B2/B3 on int8, B4/B5 on
+    int4; one sharded update per rank and step."""
+    import torch
+
+    t_phase = time.perf_counter()
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    legs = (("dense", False, "none"), ("f32", True, "none"),
+            ("bf16", True, "bf16"), ("int8", True, "int8"),
+            ("int4", True, "int4"))
+    res = {}
+    try:
+        for label, sharded, wire in legs:
+            leg = sharded_leg(dev, state, batches, sharded, wire)
+            res[label] = leg
+            name = f"phase 13 {label} ({card})"
+            if not all(math.isfinite(v) for r in range(NP)
+                       for v in leg["losses"][r]):
+                raise AssertionError(f"{name}: non-finite loss "
+                                     f"{leg['losses']}")
+            diff = [k for k in leg["params"][0] if not torch.equal(
+                leg["params"][0][k], leg["params"][1][k])]
+            if diff:
+                raise AssertionError(f"{name}: ranks' parameters differ "
+                                     f"after {STEPS} steps: {diff[:5]}")
+            launches = leg["launches"]
+            b1 = sum(launches[k] for k in ("fused_scale_cast",
+                                           "pack_scale_cast",
+                                           "unpack_scale_cast"))
+            if b1 == 0:
+                raise AssertionError(f"{name}: B1 was not launched")
+            for enc, dec, w in (("quantize_blockwise",
+                                 "dequantize_blockwise", "int8"),
+                                ("quantize_blockwise_int4",
+                                 "dequantize_blockwise_int4", "int4")):
+                if wire == w and not (launches[enc] and launches[dec]):
+                    raise AssertionError(f"{name}: {enc} {launches[enc]}, "
+                                         f"{dec} {launches[dec]} launches")
+            dense = res["dense"]
+            line = (f"{name}: losses rank0 {leg['losses'][0]}; steady "
+                    f"{leg['steady_s'] * 1e3:.2f} ms/step = "
+                    f"{NP * BATCH / leg['steady_s']:.1f} img/s (x "
+                    f"{leg['steady_s'] / dense['steady_s']:.3f} the dense "
+                    f"leg's {dense['steady_s'] * 1e3:.2f} ms); step times "
+                    f"(s) {[round(t, 4) for t in leg['step_s']]}; optimizer "
+                    f"state per rank {leg['state_bytes']} B; peak device "
+                    f"memory {leg['peak']} B; B1 launches {b1}, launches "
+                    f"{launches}")
+            if sharded:
+                plan = leg["plan"]
+                logical, actual, runs = leg["wire"]
+                if runs != STEPS * NP:
+                    raise AssertionError(f"{name}: {runs} sharded updates "
+                                         f"for {STEPS} steps x {NP} ranks")
+                slack = 4 * len(plan.buckets)
+                for r in range(NP):
+                    if abs(leg["state_bytes"][r] * NP
+                           - dense["state_bytes"][r]) > NP * slack:
+                        raise AssertionError(
+                            f"{name}: rank {r} holds "
+                            f"{leg['state_bytes'][r]} B of optimizer state "
+                            f"against the dense leg's "
+                            f"{dense['state_bytes'][r]} B")
+                num = den = 0.0
+                exact = True
+                for r in range(NP):
+                    for b, g in zip(plan.buckets, leg["step1"][r]):
+                        s, e = b.shard_slice(r)
+                        want = plan.pack(b, dense["step1"][0])[s:e]
+                        exact = exact and torch.equal(g, want)
+                        num += float((g.double() - want.double()).norm()) ** 2
+                        den += float(want.double().norm()) ** 2
+                rel = math.sqrt(num / den)
+                worst = max(float((leg["params"][0][k].float()
+                                   - dense["params"][0][k].float())
+                                  .abs().max()) for k in dense["params"][0])
+                bitwise = all(torch.equal(leg["params"][0][k],
+                                          dense["params"][0][k])
+                              for k in dense["params"][0])
+                line += (f"; {len(plan.buckets)} buckets; step 1's shards "
+                         f"{'equal' if exact else 'differ from'} the dense "
+                         f"leg's averaged gradient (relative L2 {rel:.6g}); "
+                         f"parameters after {STEPS} steps "
+                         f"{'bit for bit' if bitwise else 'not bit for bit'}"
+                         f" the dense leg's, max |delta| {worst:.3g}; wire "
+                         f"bytes logical {logical} / actual {actual} = "
+                         f"{logical / actual:.4f}")
+                if wire == "none" and (not exact
+                                       or worst > SHARDED_PARAM_BOUND):
+                    raise AssertionError(
+                        f"{name}: step 1's shards equal the dense average: "
+                        f"{exact}; parameters {worst:.3g} from the dense "
+                        f"leg's (bound {SHARDED_PARAM_BOUND})")
+                if wire in WIRE_REL_L2 and not (
+                        rel < WIRE_REL_L2[wire]
+                        and logical / actual >= WIRE_RATIO[wire]):
+                    raise AssertionError(
+                        f"{name}: step 1's shards at relative L2 {rel:.4g} "
+                        f"(bound {WIRE_REL_L2[wire]}), wire ratio "
+                        f"{logical / actual:.4f} (floor {WIRE_RATIO[wire]})")
+            log(line)
+            for k in ("params", "step1"):
+                if label != "dense":
+                    leg.pop(k)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    log(f"phase 13 ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return {label: {"launches": leg["launches"], "steady_s": leg["steady_s"]}
+            for label, leg in res.items()}
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -2220,6 +2465,8 @@ def main():
     torch.cuda.empty_cache()
     phase_compiled(dev, card, state, batches, main_path, fused, plain_s,
                    profile="--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+    shard = phase_sharded(dev, card, state, batches)
     del state, batches
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -2230,6 +2477,10 @@ def main():
         "kernel": "scale_cast_batched",
         "replaces": "horovod_tpu/ops/pallas_kernels.py:67",
         "launches": main_path["launches"],
+        "sharded_launches": {leg: sum(
+            v["launches"][k] for k in ("fused_scale_cast", "pack_scale_cast",
+                                       "unpack_scale_cast"))
+            for leg, v in shard.items()},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -2249,6 +2500,8 @@ def main():
             "source": "horovod_tpu_torch/ops/csrc/quantize.cu",
             "replaces": replaces,
             "launches": wired[wire]["launches"][name],
+            "sharded_launches": {leg: v["launches"][name]
+                                 for leg, v in shard.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -26,8 +26,11 @@ from .ops.api import (  # noqa: F401
     allreduce, allreduce_async, allreduce_, allreduce_async_,
     grouped_allreduce, grouped_allreduce_async,
     grouped_allreduce_, grouped_allreduce_async_,
-    allgather, allgather_async, broadcast, broadcast_async, broadcast_,
-    broadcast_async_, synchronize, poll, broadcast_object,
+    allgather, allgather_async, grouped_allgather, grouped_allgather_async,
+    broadcast, broadcast_async, broadcast_, broadcast_async_,
+    reducescatter, reducescatter_async,
+    grouped_reducescatter, grouped_reducescatter_async,
+    synchronize, poll, broadcast_object,
     Average, Sum, Min, Max, Product,
 )
 from .ops.compiled import (  # noqa: F401

@@ -24,6 +24,15 @@ HOROVOD_OVERLAP_BUCKET_BYTES = "HOROVOD_OVERLAP_BUCKET_BYTES"
 # none yet (ROADMAP.md A14), so only an explicit request reads it, and
 # the compiled reducer refuses it
 HOROVOD_INTEGRITY = "HOROVOD_INTEGRITY"
+# reducescatter backward convention: default matches the reference (Sum
+# grad x= size, Average unscaled); 1 = the true adjoint of the forward
+HOROVOD_EXACT_ADJOINT_REDUCESCATTER = \
+    "HOROVOD_EXACT_ADJOINT_REDUCESCATTER"
+# ZeRO-grade weight-update sharding (core/sharded.py): 1 makes
+# DistributedOptimizer default to sharded=True; the shard-bucket layout
+# is bucket (fusion-threshold buckets) or flat (one per dtype and group)
+HOROVOD_SHARDED_OPTIMIZER = "HOROVOD_SHARDED_OPTIMIZER"
+HOROVOD_SHARD_LAYOUT = "HOROVOD_SHARD_LAYOUT"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -85,3 +94,9 @@ class Config:
         # latched once per compiled reducer call or stream
         self.overlap_bucket_bytes = get_int(HOROVOD_OVERLAP_BUCKET_BYTES, 0)
         self.integrity = get_bool(HOROVOD_INTEGRITY, False)
+        # the default frontends resolve sharded=None against, and the
+        # shard-bucket layout (a malformed one fails here, at init)
+        self.sharded_optimizer = get_bool(HOROVOD_SHARDED_OPTIMIZER)
+        from ..core.sharded import normalize_shard_layout
+        self.shard_layout = normalize_shard_layout(
+            os.environ.get(HOROVOD_SHARD_LAYOUT, "").strip())

@@ -28,6 +28,7 @@ single-process part of ``horovod_tpu/core/engine.py``).
 
 import contextlib
 import logging
+import math
 import threading
 import time
 from collections import OrderedDict
@@ -146,6 +147,9 @@ class Engine:
         self.logical_wire_bytes = 0
         self.actual_wire_bytes = 0
         self.quantized_bucket_runs = 0
+        #: sharded weight-update rounds (core/sharded.ShardedUpdater's
+        #: gradient reducescatters, one per rank and step; engine.py:645)
+        self.sharded_update_runs = 0
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
@@ -166,6 +170,10 @@ class Engine:
 
     def process_set_ranks(self, ps_id):
         return list(self.get_process_set(ps_id).ranks)
+
+    def count_sharded_update(self):
+        with self._lock:
+            self.sharded_update_runs += 1
 
     # ------------------------------------------------------------------
     # submission (rank threads)
@@ -192,7 +200,8 @@ class Engine:
                 ps.pending[key] = entry
             req = sub.request
             if (req.wire_dtype is None and entry.wire_default
-                    and req.request_type == RequestType.ALLREDUCE
+                    and req.request_type in (RequestType.ALLREDUCE,
+                                             RequestType.REDUCESCATTER)
                     and req.reduce_op in (ReduceOp.SUM, ReduceOp.AVERAGE)):
                 # the latched default goes INTO the request before
                 # negotiation (engine.py:903-926): ranks whose defaults
@@ -335,8 +344,8 @@ class Engine:
 
     def _validate(self, ps, entry) -> Optional[Exception]:
         """Cross-rank consistency checks (ConstructResponse,
-        controller.cc:496-843): dtype, shape, op, scale factors and
-        root must agree across ranks."""
+        controller.cc:496-843): dtype, shape, op, scale factors, wire,
+        shard layout and root must agree across ranks."""
         subs = [entry.subs[r] for r in ps.ranks if r in entry.subs]
         first = subs[0].request
         rt = first.request_type
@@ -359,11 +368,20 @@ class Engine:
                     f"Mismatched wire dtypes for {first.tensor_name}: "
                     f"rank {sub.rank} sent {r.wire_dtype}, rank "
                     f"{subs[0].rank} sent {first.wire_dtype}")
+            if r.shard_fp != first.shard_fp:
+                # a sharded weight update (core/sharded.py): ranks whose
+                # shard layouts disagree would scatter and gather
+                # different slices against each other
+                return TensorShapeMismatchError(
+                    f"Mismatched shard layouts for {first.tensor_name}: "
+                    f"rank {sub.rank} sent {r.shard_fp}, rank "
+                    f"{subs[0].rank} sent {first.shard_fp}")
             if rt == RequestType.BROADCAST and r.root_rank != first.root_rank:
                 return TensorShapeMismatchError(
                     f"Mismatched broadcast root for {first.tensor_name}: "
                     f"{r.root_rank} vs {first.root_rank}")
-            if rt in (RequestType.ALLREDUCE, RequestType.BROADCAST):
+            if rt in (RequestType.ALLREDUCE, RequestType.BROADCAST,
+                      RequestType.REDUCESCATTER):
                 if r.shape != first.shape:
                     return TensorShapeMismatchError(
                         f"Mismatched shapes for {first.tensor_name}: rank "
@@ -396,10 +414,11 @@ class Engine:
 
     def _fuse(self, ps, entries):
         """FuseResponses analogue: pack consecutive ready allreduce
-        entries with matching (dtype, op, scales, wire) into buckets up
-        to the fusion threshold: quantized and full-width tensors never
-        share a fusion buffer.  Other ops run one per bucket (allgather
-        fusion is a later slice's work)."""
+        entries with matching (dtype, op, scales, wire, shard layout)
+        into buckets up to the fusion threshold: quantized and full-width
+        tensors never share a fusion buffer, nor does a sharded update's
+        traffic with dense or differently laid-out traffic.  Other ops
+        run one per bucket (allgather fusion is a later slice's work)."""
         threshold = self.config.fusion_threshold_bytes
         buckets, cur, cur_bytes, cur_sig = [], [], 0, None
         for entry in entries:
@@ -413,7 +432,7 @@ class Engine:
                 continue
             sig = (req.request_type, req.dtype, req.reduce_op,
                    req.prescale_factor, req.postscale_factor,
-                   req.wire_dtype)
+                   req.wire_dtype, req.shard_fp)
             nbytes = sum(p.numel() * p.element_size()
                          for p in first.payloads)
             if cur and (sig != cur_sig or cur_bytes + nbytes > threshold):
@@ -434,6 +453,8 @@ class Engine:
             self._run_allgather(ps, bucket[0])
         elif rt == RequestType.BROADCAST:
             self._run_broadcast(ps, bucket[0])
+        elif rt == RequestType.REDUCESCATTER:
+            self._run_reducescatter(ps, bucket[0])
         else:
             raise HorovodInternalError(f"unhandled op {rt}")
 
@@ -500,7 +521,9 @@ class Engine:
             return None
         return wire
 
-    def _account_wire(self, logical, actual):
+    def account_wire(self, logical, actual):
+        """Add one collective's full-width bytes and the bytes its wire
+        encoding moves (per rank) to the counters."""
         self.logical_wire_bytes += int(logical)
         self.actual_wire_bytes += int(actual)
 
@@ -574,7 +597,7 @@ class Engine:
                 else row.float(), wire)
             q_rows.append(q)
             s_rows.append(s)
-        self._account_wire(logical_nbytes, q_rows[0].numel()
+        self.account_wire(logical_nbytes, q_rows[0].numel()
                            + s_rows[0].numel() * qz.SCALE_BYTES)
         self.quantized_bucket_runs += 1
         return q_rows, s_rows
@@ -605,7 +628,7 @@ class Engine:
         nbytes = total * dtype.itemsize
         wire = self._wire_for(req, dtype, op)
         if wire is None:
-            self._account_wire(nbytes, nbytes)
+            self.account_wire(nbytes, nbytes)
             red_op, post_f, scaled = dist_ops.allreduce_plan(
                 op, dtype, pre, post, ps.size)
             rows = self._pack_rows(ps, bucket, layout, total, dtype, pre,
@@ -616,7 +639,7 @@ class Engine:
                 (op, ps.size, post) if scaled else None)
         elif wire in qz.WIRE_TORCH_DTYPES:
             wdt = qz.WIRE_TORCH_DTYPES[wire]
-            self._account_wire(nbytes, total * 2)
+            self.account_wire(nbytes, total * 2)
             if dtype == torch.float64:
                 rows = [row.to(wdt) for row in self._pack_rows(
                     ps, bucket, layout, total, dtype, 1.0)]
@@ -661,6 +684,106 @@ class Engine:
                 rows.append(buf)
             for r, g in zip(subs, ps.executor.allgather(rows, dim0, rest)):
                 results[r].append(g)
+        done = self._done_event()
+        for r, sub in subs.items():
+            outs = results[r]
+            sub.handle.set_result(outs if len(outs) > 1 else outs[0],
+                                  event=done)
+
+    def _scatter_rows(self, subs, i, chunks, rest_n, dtype, factor):
+        """Per local rank, payload ``i`` in the padded reducescatter
+        layout ``(R * max_chunk * rest,)``: destination rank j's rows at
+        ``j * max_chunk * rest``, the padding zero, ``dtype(f32(x) *
+        factor)``.  A float payload is one launch of the scale/cast
+        kernel per rank over a table of segments (one per destination,
+        merged where the source and the layout are both contiguous, which
+        leaves two at most at R = 2); integers are copied."""
+        R = len(chunks)
+        m = max(chunks) * rest_n
+        segs, src = [], 0
+        for j, c in enumerate(chunks):
+            n = c * rest_n
+            if segs and segs[-1][0] + segs[-1][2] == src \
+                    and segs[-1][1] + segs[-1][2] == j * m:
+                segs[-1][2] += n
+            elif n:
+                segs.append([src, j * m, n])
+            src += n
+        alloc = torch.empty if sum(chunks) == R * max(chunks) \
+            else torch.zeros
+        rows = []
+        for sub in subs.values():
+            flat = sub.payloads[i].reshape(-1)
+            buf = alloc(R * m, dtype=dtype, device=self.device)
+            if dist_ops.is_float(dtype) and dist_ops.is_float(flat.dtype):
+                cuda_kernels.pack_scale_cast(
+                    [flat[a:a + n] for a, _, n in segs], buf,
+                    [b for _, b, _ in segs], factor)
+            else:
+                for a, b, n in segs:
+                    buf[b:b + n].copy_(flat[a:a + n])
+            rows.append(buf)
+        return rows
+
+    def _run_reducescatter(self, ps, entry):
+        """Reducescatter (engine.py:2860-2964 of the JAX package).  Per
+        payload, each local rank's padded row (:meth:`_scatter_rows`),
+        then the payload's wire:
+
+        * full width: the pack prescales (floats), the executor reduces,
+          scatters and postscales;
+        * fp16/bf16: the pack casts to the wire dtype, the executor scales
+          and reduces in it, the result is cast back;
+        * int8/int4: each row is encoded on the device (B2/B4), the
+          executor decodes (B3/B5), sums in f32 and scales by pre * post.
+
+        Grouped entries resolve to a list per rank."""
+        subs = self._local_subs(ps, entry)
+        self._await_inputs(subs.values())
+        first = next(iter(subs.values()))
+        req = first.request
+        op, pre, post = req.reduce_op, req.prescale_factor, \
+            req.postscale_factor
+        results = {r: [] for r in subs}
+        for i, ref in enumerate(first.payloads):
+            dtype = ref.dtype
+            d0 = int(ref.shape[0]) if ref.dim() else 1
+            rest = tuple(ref.shape[1:])
+            rest_n = math.prod(rest)
+            chunks = ps.executor.chunk_sizes(d0, ps.size)
+            nbytes = ps.size * max(chunks) * rest_n * dtype.itemsize
+            wire = self._wire_for(req, dtype, op)
+            if wire is None:
+                self.account_wire(nbytes, nbytes)
+                is_f = dist_ops.is_float(dtype)
+                rows = self._scatter_rows(subs, i, chunks, rest_n, dtype,
+                                          pre if is_f else 1.0)
+                outs = ps.executor.reducescatter(
+                    rows, d0, rest, op, 1.0 if is_f else pre, post)
+            elif wire in qz.WIRE_TORCH_DTYPES:
+                wdt = qz.WIRE_TORCH_DTYPES[wire]
+                self.account_wire(nbytes, nbytes // dtype.itemsize * 2)
+                if dtype == torch.float64:
+                    rows = [row.to(wdt) for row in self._scatter_rows(
+                        subs, i, chunks, rest_n, dtype, 1.0)]
+                else:
+                    rows = self._scatter_rows(subs, i, chunks, rest_n, wdt,
+                                              1.0)
+                outs = [cuda_kernels.cast(y, dtype) for y in
+                        ps.executor.reducescatter(rows, d0, rest, op, pre,
+                                                  post)]
+            else:
+                rows = self._scatter_rows(subs, i, chunks, rest_n, dtype,
+                                          1.0)
+                q_rows, s_rows = self._encode_quantized_rows(rows, nbytes,
+                                                             wire)
+                outs = [cuda_kernels.cast(y, dtype) for y in
+                        ps.executor.reducescatter_quantized(
+                            q_rows, s_rows, d0, rest, op, pre, post,
+                            nbits=4 if wire == "int4" else 8,
+                            n_elems=s_rows[0].numel() * qz.BLOCK)]
+            for r, y in zip(subs, outs):
+                results[r].append(y)
         done = self._done_event()
         for r, sub in subs.items():
             outs = results[r]

@@ -1,11 +1,15 @@
 """Public collective-op API (port of ``horovod_tpu/ops/api.py`` for the
-ops of this slice): sync, ``*_async`` handle and in-place variants of
-allreduce, grouped allreduce, allgather and broadcast, plus
-``synchronize``/``poll`` and ``broadcast_object``.
+ops the port has): sync, ``*_async`` handle and in-place variants of
+allreduce, grouped allreduce, allgather, grouped allgather, broadcast,
+reducescatter and grouped reducescatter, plus ``synchronize``/``poll``
+and ``broadcast_object``.
 
-Allreduces take ``wire_dtype=`` (None, 'f32', 'fp16', 'bf16', 'int8',
-'int4' and their aliases), normalized at the call: the wire the payload
-rides (``ops/quantize.py``).
+Allreduces and reducescatters take ``wire_dtype=`` (None, 'f32', 'fp16',
+'bf16', 'int8', 'int4' and their aliases), normalized at the call: the
+wire the payload rides (``ops/quantize.py``).  The grouped reducescatter
+and allgather take ``shard_fp=``, the shard-layout fingerprint of a
+sharded weight update (``core/sharded.py``), which the engine validates
+across ranks.
 
 Tensors stay on the runtime's device end to end: a payload is handed to
 the engine as it is (made contiguous if it is not), and results come
@@ -32,7 +36,10 @@ __all__ = [
     "grouped_allreduce", "grouped_allreduce_async",
     "grouped_allreduce_", "grouped_allreduce_async_",
     "allgather", "allgather_async",
+    "grouped_allgather", "grouped_allgather_async",
     "broadcast", "broadcast_async", "broadcast_", "broadcast_async_",
+    "reducescatter", "reducescatter_async",
+    "grouped_reducescatter", "grouped_reducescatter_async",
     "synchronize", "poll", "broadcast_object",
     "Average", "Sum", "Min", "Max", "Product",
 ]
@@ -263,7 +270,7 @@ def grouped_allreduce_(tensors, average=None, name=None, op=None,
 
 
 # ----------------------------------------------------------------------------
-# allgather / broadcast
+# allgather / grouped allgather / broadcast
 
 def allgather_async(tensor, name=None, process_set=global_process_set):
     t = _stage(tensor)
@@ -280,6 +287,42 @@ def allgather_async(tensor, name=None, process_set=global_process_set):
 
 def allgather(tensor, name=None, process_set=global_process_set):
     return synchronize(allgather_async(tensor, name, process_set))
+
+
+def _one_dtype(op_name, ts):
+    """The joint request of a grouped op carries one dtype."""
+    dtypes = {dtype_name(t.dtype) for t in ts}
+    if len(dtypes) > 1:
+        raise ValueError(f"{op_name} requires matching dtypes, got "
+                         f"{sorted(dtypes)}")
+
+
+def grouped_allgather_async(tensors, name=None,
+                            process_set=global_process_set, shard_fp=None):
+    """Jointly negotiated allgather of several tensors of one dtype (JAX
+    ``api.py:322-357``): one submission, one handle resolving to a
+    list."""
+    if not tensors:
+        raise ValueError("grouped_allgather requires at least one tensor")
+    ts = [_stage(t) for t in tensors]
+    ts = [t.reshape(1) if t.dim() == 0 else t for t in ts]
+    _one_dtype("grouped_allgather", ts)
+    ctx = basics.context()
+    base = _wire_name(ctx, "grouped_allgather", name)
+    req = Request(
+        request_type=RequestType.ALLGATHER, tensor_name=base, rank=ctx.rank,
+        dtype=dtype_name(ts[0].dtype), shape=tuple(ts[0].shape),
+        process_set_id=_ps_id(process_set), group_id=0,
+        group_shapes=tuple(tuple(t.shape) for t in ts), shard_fp=shard_fp)
+    h = _submit(req, ts, [f"{base}.{i}" for i in range(len(ts))])
+    h.grouped = True
+    return h
+
+
+def grouped_allgather(tensors, name=None, process_set=global_process_set,
+                      shard_fp=None):
+    return synchronize(grouped_allgather_async(tensors, name, process_set,
+                                               shard_fp))
 
 
 def broadcast_async(tensor, root_rank, name=None,
@@ -309,6 +352,79 @@ def broadcast_async_(tensor, root_rank, name=None,
 def broadcast_(tensor, root_rank, name=None, process_set=global_process_set):
     return synchronize(broadcast_async_(tensor, root_rank, name,
                                         process_set))
+
+
+# ----------------------------------------------------------------------------
+# reducescatter
+
+def reducescatter_async(tensor, op=Average, name=None, prescale_factor=1.0,
+                        postscale_factor=1.0, process_set=global_process_set,
+                        wire_dtype=None):
+    """Reduce across ranks, then scatter along dim 0: rank j receives
+    chunk j, the chunks as even as possible with the larger ones on the
+    lower ranks (JAX ``api.py:455-483``)."""
+    wire_dtype = normalize_wire_dtype(wire_dtype)
+    t = _stage(tensor)
+    if t.dim() == 0:
+        raise ValueError("reducescatter requires a tensor with >=1 dim")
+    ctx = basics.context()
+    op = _resolve_op(op, None)
+    name = _wire_name(ctx, "reducescatter", name)
+    req = Request(
+        request_type=RequestType.REDUCESCATTER, tensor_name=name,
+        rank=ctx.rank, dtype=dtype_name(t.dtype), shape=tuple(t.shape),
+        reduce_op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor,
+        process_set_id=_ps_id(process_set), wire_dtype=wire_dtype)
+    return _submit(req, [t], [name])
+
+
+def reducescatter(tensor, op=Average, name=None, prescale_factor=1.0,
+                  postscale_factor=1.0, process_set=global_process_set,
+                  wire_dtype=None):
+    return synchronize(reducescatter_async(
+        tensor, op, name, prescale_factor, postscale_factor, process_set,
+        wire_dtype))
+
+
+def grouped_reducescatter_async(tensors, op=Average, name=None,
+                                prescale_factor=1.0, postscale_factor=1.0,
+                                process_set=global_process_set,
+                                wire_dtype=None, shard_fp=None):
+    """Jointly negotiated reducescatter of several tensors of one dtype
+    (JAX ``api.py:485-533``): one submission, one handle resolving to a
+    list."""
+    if not tensors:
+        raise ValueError("grouped_reducescatter requires at least one "
+                         "tensor")
+    wire_dtype = normalize_wire_dtype(wire_dtype)
+    ts = [_stage(t) for t in tensors]
+    if any(t.dim() == 0 for t in ts):
+        raise ValueError("reducescatter requires tensors with >=1 dim")
+    _one_dtype("grouped_reducescatter", ts)
+    ctx = basics.context()
+    op = _resolve_op(op, None)
+    base = _wire_name(ctx, "grouped_reducescatter", name)
+    req = Request(
+        request_type=RequestType.REDUCESCATTER, tensor_name=base,
+        rank=ctx.rank, dtype=dtype_name(ts[0].dtype),
+        shape=tuple(ts[0].shape), reduce_op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set_id=_ps_id(process_set), group_id=0,
+        group_shapes=tuple(tuple(t.shape) for t in ts),
+        wire_dtype=wire_dtype, shard_fp=shard_fp)
+    h = _submit(req, ts, [f"{base}.{i}" for i in range(len(ts))])
+    h.grouped = True
+    return h
+
+
+def grouped_reducescatter(tensors, op=Average, name=None,
+                          prescale_factor=1.0, postscale_factor=1.0,
+                          process_set=global_process_set, wire_dtype=None,
+                          shard_fp=None):
+    return synchronize(grouped_reducescatter_async(
+        tensors, op, name, prescale_factor, postscale_factor, process_set,
+        wire_dtype, shard_fp))
 
 
 # ----------------------------------------------------------------------------

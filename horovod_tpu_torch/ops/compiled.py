@@ -52,6 +52,7 @@ from ..common import basics
 from ..common import env as env_mod
 from ..common.process_sets import ProcessSet, global_process_set
 from ..core.message import Adasum, Average, ReduceOp, Sum
+from ..core.sharded import overlap_bucket_splits, torch_dtype
 from . import cuda_kernels as K
 from . import quantize as qz
 from .api import dtype_name
@@ -465,36 +466,6 @@ def program_cache_stats():
 # ---------------------------------------------------------------------------
 # grouped allreduce
 
-def _overlap_bucket_splits(sizes, itemsize, bucket_bytes, align=1):
-    """The bucketization rule (a copy of
-    ``horovod_tpu/core/sharded.py::overlap_bucket_splits``): split the
-    members' element counts, in plan order, into contiguous
-    ``(start, stop)`` runs; a run closes at the first member where its
-    payload reaches ``bucket_bytes`` AND the elements from member 0 are a
-    multiple of ``align`` (the quantization block, so that every bucket
-    boundary falls on the grouped buffer's block grid)."""
-    n = len(sizes)
-    if not n:
-        return []
-    if bucket_bytes is None or bucket_bytes <= 0:
-        return [(0, n)]
-    splits = []
-    start, run_elems, total_elems = 0, 0, 0
-    for i, sz in enumerate(sizes):
-        run_elems += int(sz)
-        total_elems += int(sz)
-        full = run_elems * itemsize >= bucket_bytes
-        aligned = align <= 1 or total_elems % align == 0
-        if i == n - 1 or (full and aligned):
-            splits.append((start, i + 1))
-            start, run_elems = i + 1, 0
-    return splits
-
-
-def _torch_dtype(name):
-    return getattr(torch, name)
-
-
 class CompiledGroupedAllreduce:
     """Grouped allreduce as ONE program per shape signature (the
     reference's ``xla_mpi_ops.cc:185-307`` role).
@@ -587,8 +558,8 @@ class CompiledGroupedAllreduce:
         for dtype, members in plan:
             align = qz.BLOCK if self._wire_use(dtype) in ("int8", "int4") \
                 else 1
-            for s, e in _overlap_bucket_splits(
-                    [m[1] for m in members], _torch_dtype(dtype).itemsize,
+            for s, e in overlap_bucket_splits(
+                    [m[1] for m in members], torch_dtype(dtype).itemsize,
                     bucket_bytes, align=align):
                 minis.append([(dtype, members[s:e])])
         return minis
@@ -597,7 +568,7 @@ class CompiledGroupedAllreduce:
         """Effective wire of one plan buffer: float buffers follow the
         configured wire, a 16-bit wire is a no-op for 16-bit tensors, and
         integer buffers ship full width."""
-        dt = _torch_dtype(dtype)
+        dt = torch_dtype(dtype)
         if not is_float(dt):
             return None
         use = self.wire_dtype
@@ -642,7 +613,7 @@ class CompiledGroupedAllreduce:
             return y.reshape(-1)[:n], out_scale, scale
 
         def reduce_buf(rows, dtype):
-            dt = _torch_dtype(dtype)
+            dt = torch_dtype(dtype)
             use = self._wire_use(dtype)
             if use in ("int8", "int4"):
                 y, factor, scales = reduce_quantized(
@@ -700,7 +671,7 @@ class CompiledGroupedAllreduce:
         bufs = []
         for dtype, members in plan:
             srcs = [vals[i] for i, _, _ in members]
-            dt = _torch_dtype(dtype)
+            dt = torch_dtype(dtype)
             if not is_float(dt):
                 bufs.append(torch.cat([s.reshape(-1) for s in srcs]))
                 continue
@@ -720,7 +691,7 @@ class CompiledGroupedAllreduce:
         copied out."""
         results = {}
         for (y, factor, _), (dtype, members) in zip(outs, plan):
-            dt = _torch_dtype(dtype)
+            dt = torch_dtype(dtype)
             offsets, n = [], 0
             for _, size, _ in members:
                 offsets.append(n)
@@ -758,7 +729,7 @@ class CompiledGroupedAllreduce:
         logical = wire = 0
         for dtype, members in plan:
             n = sum(size for _, size, _ in members)
-            itemsize = _torch_dtype(dtype).itemsize
+            itemsize = torch_dtype(dtype).itemsize
             logical += n * itemsize
             use = self._wire_use(dtype)
             if use in ("int8", "int4"):

@@ -193,6 +193,19 @@ def fused_scale_cast(x, factor, out_dtype=None):
     return out
 
 
+def cast(x, dtype):
+    """``dtype(x)``, and ``x`` itself where it is of ``dtype`` already:
+    through the kernel between the float dtypes it takes, a plain cast
+    into or out of f64 (the kernel casts f64 only to f64) or of an
+    integer tensor."""
+    if x.dtype == dtype:
+        return x
+    if torch.float64 in (x.dtype, dtype) or x.dtype not in _CODES \
+            or dtype not in _CODES:
+        return x.to(dtype)
+    return fused_scale_cast(x, 1.0, dtype)
+
+
 def pack_scale_cast(srcs, buf, offsets, factor):
     """``buf[off_i : off_i + n_i] = out_dtype(f32(src_i.flatten()) *
     factor)`` for every member, in one launch on the card per

@@ -18,6 +18,8 @@ this process hosts (ordered by global rank), and returns one result
 per such rank.
 """
 
+import math
+
 import torch
 import torch.distributed as dist
 
@@ -165,16 +167,7 @@ class MeshExecutor:
                 f"quantized wire supports Sum/Average allreduce, got {op!r}")
         nb = s_rows[0].numel()
         n = int(n_elems) if n_elems is not None else nb * qz.BLOCK
-        if self.stacked:
-            qs, ss = q_rows, s_rows
-        else:
-            R = self.num_ranks
-            qs = [torch.empty_like(q_rows[0]) for _ in range(R)]
-            self.group.allgather([qs], [q_rows[0]]).wait()
-            sb = s_rows[0].to(torch.bfloat16).view(torch.uint8)
-            sbs = [torch.empty_like(sb) for _ in range(R)]
-            self.group.allgather([sbs], [sb]).wait()
-            ss = [b.view(torch.bfloat16).float() for b in sbs]
+        qs, ss = self._gathered_codes(q_rows, s_rows)
         y = None
         for q, s in zip(qs, ss):
             d = qk.decode(q, s, n, nbits)
@@ -182,6 +175,137 @@ class MeshExecutor:
         if post != 1.0:
             y.mul_(post)
         return [y] * len(q_rows)
+
+    # -- reducescatter -------------------------------------------------------
+
+    @staticmethod
+    def chunk_sizes(d0, num_ranks):
+        """Uneven reducescatter chunking: as even as possible, larger
+        chunks on lower ranks.  THE rule lives in ``core/sharded.py``: the
+        shard planner slices by it, so one definition keeps the plan and
+        the scatter from drifting."""
+        from ..core.sharded import chunk_sizes
+        return chunk_sizes(d0, num_ranks)
+
+    def _scatter_layout(self, d0, rest_shape):
+        """(chunks, m = max_chunk * rest, rest) of a reducescatter of
+        ``d0`` rows of ``rest_shape``."""
+        chunks = self.chunk_sizes(d0, self.num_ranks)
+        rest = math.prod(int(d) for d in rest_shape)
+        return chunks, max(chunks, default=0) * rest, rest
+
+    def _reduce_tiles(self, rows, op, m):
+        """Unscaled reducescatter of rows laid out as R tiles of ``m``:
+        per local rank position ``pos``, the reduction over ranks of
+        tile ``pos``.  Stacked mode reduces every tile at once (the
+        results are views of one tensor); process-group mode runs the
+        group's ``reduce_scatter`` (NCCL's on the card; gloo has it for
+        every op and dtype on the CPU) into a new tile."""
+        R = self.num_ranks
+        if self.stacked:
+            x = torch.stack(rows).view(R, R, m)
+            if op == ReduceOp.SUM:
+                y = x.sum(0, dtype=x.dtype)
+            elif op == ReduceOp.MIN:
+                y = x.amin(0)
+            elif op == ReduceOp.MAX:
+                y = x.amax(0)
+            else:
+                y = x.prod(0, dtype=x.dtype)
+            return [y[pos] for pos in self.local_positions]
+        out = torch.empty(m, dtype=rows[0].dtype, device=rows[0].device)
+        opts = dist.ReduceScatterOptions()
+        opts.reduceOp = _DIST_OPS[op]
+        self.group.reduce_scatter(
+            [out], [list(rows[0].view(R, m).unbind(0))], opts).wait()
+        return [out]
+
+    def reducescatter(self, rows, d0, rest_shape, op: ReduceOp,
+                      prescale=1.0, postscale=1.0):
+        """rows: per-local-rank buffers in the padded layout
+        ``(R * max_chunk * rest,)``, destination rank j's rows at
+        ``[j * max_chunk * rest, ...)`` (xla_ops.py:828-939).  Returns
+        per-local-rank tensors ``(chunk_j, *rest)``, each in its own
+        memory (unscaled stacked results are views of one tensor):
+        prescale, reduce, postscale, a float Average as Sum with
+        postscale/R, integer scaling as in :meth:`allreduce`.  Float
+        scaling is the scale/cast kernel's (a factor of 1 is skipped: it
+        is the identity)."""
+        if op not in _DIST_OPS and op != ReduceOp.AVERAGE:
+            raise ValueError(f"unsupported reducescatter op {op!r}")
+        R = self.num_ranks
+        dtype = rows[0].dtype
+        chunks, m, rest = self._scatter_layout(d0, rest_shape)
+        shapes = [(chunks[pos],) + tuple(rest_shape)
+                  for pos in self.local_positions]
+        if m == 0:
+            return [torch.zeros(s, dtype=dtype, device=self.device)
+                    for s in shapes]
+        red_op, post, scaled = allreduce_plan(op, dtype, prescale,
+                                              postscale, R)
+        if is_float(dtype):
+            xs = rows if prescale == 1.0 else \
+                [fused_scale_cast(r, prescale) for r in rows]
+        else:
+            xs = [int_prescale(r, prescale) for r in rows] if scaled \
+                else rows
+        out = []
+        for tile, pos, shape in zip(self._reduce_tiles(xs, red_op, m),
+                                    self.local_positions, shapes):
+            y = tile[:chunks[pos] * rest]
+            if is_float(dtype) and post != 1.0:
+                y = fused_scale_cast(y, post)
+            elif not is_float(dtype) and scaled:
+                y = int_postscale(y, op, R, postscale)
+            out.append(y.view(shape))
+        return out
+
+    def reducescatter_quantized(self, q_rows, s_rows, d0, rest_shape,
+                                op: ReduceOp, prescale=1.0, postscale=1.0,
+                                nbits=8, n_elems=None):
+        """Quantized :meth:`reducescatter` (xla_ops.py:518-582):
+        ``q_rows``/``s_rows`` encode each rank's padded
+        ``(R * max_chunk * rest,)`` row.  Decodes every rank's row
+        (kernels B3/B5), sums the rows in f32 in rank order and multiplies
+        by ``prescale * postscale`` (/R for Average).  Returns
+        per-local-rank f32 ``(chunk_j, *rest)``.  Process-group mode
+        gathers the codes and the bf16 scales as uint8 bytes, as
+        :meth:`allreduce_quantized` does, and keeps its own tile."""
+        post = float(prescale) * float(postscale)
+        if op == ReduceOp.AVERAGE:
+            post /= self.num_ranks
+        elif op != ReduceOp.SUM:
+            raise ValueError(
+                f"quantized wire supports Sum/Average reducescatter, "
+                f"got {op!r}")
+        R = self.num_ranks
+        chunks, m, rest = self._scatter_layout(d0, rest_shape)
+        qs, ss = self._gathered_codes(q_rows, s_rows)
+        y = None
+        for q, s in zip(qs, ss):
+            d = qk.decode(q, s, R * m, nbits).view(R, m)
+            y = d if y is None else y.add_(d)
+        if post != 1.0:
+            y.mul_(post)
+        return [y[pos][:chunks[pos] * rest].view(
+                    (chunks[pos],) + tuple(rest_shape))
+                for pos in self.local_positions]
+
+    def _gathered_codes(self, q_rows, s_rows):
+        """Every rank's codes and f32 scales: the local rows in stacked
+        mode; in process-group mode gathered over the group, the scales
+        as the bytes of their bf16 values (exact: they are bf16-rounded;
+        the codec's 2 wire bytes a block; uint8 is a type every backend
+        gathers, where gloo refuses int16 and NCCL has none)."""
+        if self.stacked:
+            return q_rows, s_rows
+        R = self.num_ranks
+        qs = [torch.empty_like(q_rows[0]) for _ in range(R)]
+        self.group.allgather([qs], [q_rows[0]]).wait()
+        sb = s_rows[0].to(torch.bfloat16).view(torch.uint8)
+        sbs = [torch.empty_like(sb) for _ in range(R)]
+        self.group.allgather([sbs], [sb]).wait()
+        return qs, [b.view(torch.bfloat16).float() for b in sbs]
 
     # -- allgather -----------------------------------------------------------
 

@@ -1,8 +1,9 @@
 """Torch frontend -- ``import horovod_tpu_torch.torch as hvd``.
 
-API parity with ``horovod_tpu/torch`` for this slice: collectives over
-device tensors, ``DistributedOptimizer`` with autograd hooks,
-compression, parameter and optimizer-state broadcast.
+API parity with ``horovod_tpu/torch`` for the ported slices: collectives
+over device tensors, ``DistributedOptimizer`` (with autograd hooks, or
+weight-update sharded), compression, parameter and optimizer-state
+broadcast.
 """
 
 from ..common.basics import (  # noqa: F401
@@ -20,10 +21,14 @@ from .mpi_ops import (  # noqa: F401
     allreduce, allreduce_async, allreduce_, allreduce_async_,
     grouped_allreduce, grouped_allreduce_async,
     grouped_allreduce_, grouped_allreduce_async_,
-    allgather, allgather_async, broadcast, broadcast_async, broadcast_,
-    broadcast_async_, synchronize, poll,
+    allgather, allgather_async, grouped_allgather, grouped_allgather_async,
+    broadcast, broadcast_async, broadcast_, broadcast_async_,
+    reducescatter, reducescatter_async,
+    grouped_reducescatter, grouped_reducescatter_async,
+    synchronize, poll,
     Average, Sum, Min, Max, Product,
     HorovodAllreduce, HorovodGroupedAllreduce, HorovodAllgather,
-    HorovodBroadcast,
+    HorovodGroupedAllgather, HorovodBroadcast, HorovodReducescatter,
+    HorovodGroupedReducescatter,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401

@@ -1,26 +1,30 @@
 """Torch collective ops (port of ``horovod_tpu/torch/mpi_ops.py``: the
-allreduce, grouped allreduce, allgather and broadcast autograd
-Functions and their sync wrappers).  Unlike the JAX package's torch
-frontend, tensors stay on their device: nothing is staged through
-numpy.
+allreduce, grouped allreduce, allgather, grouped allgather, broadcast,
+reducescatter and grouped reducescatter autograd Functions and their
+sync wrappers).  Unlike the JAX package's torch frontend, tensors stay
+on their device: nothing is staged through numpy.
 
-Gradients (reference torch/mpi_ops.py:194-830):
+Gradients (reference torch/mpi_ops.py:194-1100):
 
 * allreduce grad = allreduce of the output grad (same op and scales)
 * allgather grad = average-allreduce, then this rank's row slice
 * broadcast grad = average-allreduce, zeroed on non-root ranks
+* reducescatter grad = allgather of the output grad, scaled by
+  ``common/util.reducescatter_grad_factor`` times prescale * postscale
 """
 
 import torch
 
 from ..common import basics
 from ..common.process_sets import global_process_set
+from ..common import util as _util
 from ..common.util import get_average_backwards_compatibility_fun
 from ..ops import api as _api
 from ..ops.api import (  # noqa: F401
     allreduce_async, allreduce_, allreduce_async_,
     grouped_allreduce_async, grouped_allreduce_, grouped_allreduce_async_,
-    allgather_async, broadcast_async, broadcast_, broadcast_async_,
+    allgather_async, grouped_allgather_async, broadcast_async, broadcast_,
+    broadcast_async_, reducescatter_async, grouped_reducescatter_async,
     synchronize, poll,
     Average, Sum, Min, Max, Product,
 )
@@ -39,6 +43,10 @@ def _differentiable(*tensors):
 def _ps_rank_pos(process_set):
     ranks = basics.engine().process_set_ranks(_api._ps_id(process_set))
     return ranks.index(basics.rank())
+
+
+def _ps_size(process_set):
+    return len(basics.engine().process_set_ranks(_api._ps_id(process_set)))
 
 
 class HorovodAllreduce(torch.autograd.Function):
@@ -114,6 +122,33 @@ class HorovodAllgather(torch.autograd.Function):
         return grad, None, None
 
 
+class HorovodGroupedAllgather(torch.autograd.Function):
+    """Differentiable grouped allgather (JAX torch/mpi_ops.py:155)."""
+
+    @staticmethod
+    def forward(ctx, name, process_set, *tensors):
+        ctx.scalars = [t.dim() == 0 for t in tensors]
+        ctx.dim0s = [t.shape[0] if t.dim() else 1 for t in tensors]
+        ctx.process_set = process_set
+        return tuple(_api.grouped_allgather(list(tensors), name,
+                                            process_set))
+
+    @staticmethod
+    def backward(ctx, *grad_outputs):
+        grads_reduced = grouped_allreduce(list(grad_outputs), average=True,
+                                          process_set=ctx.process_set)
+        dims = allgather(torch.tensor(ctx.dim0s,
+                                      device=grad_outputs[0].device)
+                         .view(1, -1), process_set=ctx.process_set)
+        pos = _ps_rank_pos(ctx.process_set)
+        grads = []
+        for i, g in enumerate(grads_reduced):
+            offset = int(dims[:pos, i].sum()) if pos else 0
+            g = g.narrow(0, offset, ctx.dim0s[i])
+            grads.append(g.reshape(()) if ctx.scalars[i] else g)
+        return (None, None, *grads)
+
+
 class HorovodBroadcast(torch.autograd.Function):
     """Differentiable broadcast (reference torch/mpi_ops.py:813)."""
 
@@ -130,6 +165,60 @@ class HorovodBroadcast(torch.autograd.Function):
         if basics.rank() != ctx.root_rank:
             grad_reduced = grad_reduced * 0
         return grad_reduced, None, None, None
+
+
+def _reducescatter_grad_scale(ctx):
+    """The reference's convention (or the exact adjoint, by
+    ``HOROVOD_EXACT_ADJOINT_REDUCESCATTER``), then the linear
+    prescale * postscale the forward applied."""
+    return _util.reducescatter_grad_factor(
+        ctx.op == Average, _ps_size(ctx.process_set)) \
+        * ctx.prescale_factor * ctx.postscale_factor
+
+
+class HorovodReducescatter(torch.autograd.Function):
+    """Differentiable reducescatter (JAX torch/mpi_ops.py:222)."""
+
+    @staticmethod
+    def forward(ctx, tensor, name, op, process_set, prescale_factor,
+                postscale_factor):
+        ctx.op = op
+        ctx.process_set = process_set
+        ctx.prescale_factor = prescale_factor
+        ctx.postscale_factor = postscale_factor
+        return _api.reducescatter(tensor, op, name, prescale_factor,
+                                  postscale_factor, process_set)
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        scale = _reducescatter_grad_scale(ctx)
+        if scale != 1.0:
+            grad_output = grad_output * scale
+        return (allgather(grad_output, process_set=ctx.process_set),
+                None, None, None, None, None)
+
+
+class HorovodGroupedReducescatter(torch.autograd.Function):
+    """Differentiable grouped reducescatter (JAX torch/mpi_ops.py:251)."""
+
+    @staticmethod
+    def forward(ctx, name, op, process_set, prescale_factor,
+                postscale_factor, *tensors):
+        ctx.op = op
+        ctx.process_set = process_set
+        ctx.prescale_factor = prescale_factor
+        ctx.postscale_factor = postscale_factor
+        return tuple(_api.grouped_reducescatter(
+            list(tensors), op, name, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, process_set=process_set))
+
+    @staticmethod
+    def backward(ctx, *grad_outputs):
+        scale = _reducescatter_grad_scale(ctx)
+        grads = [allgather(g * scale if scale != 1 else g,
+                           process_set=ctx.process_set)
+                 for g in grad_outputs]
+        return (None, None, None, None, None, *grads)
 
 
 # ----------------------------------------------------------------------------
@@ -178,3 +267,41 @@ def broadcast(tensor, root_rank, name=None, process_set=global_process_set):
     if _differentiable(tensor):
         return HorovodBroadcast.apply(tensor, root_rank, name, process_set)
     return _api.broadcast(tensor, root_rank, name, process_set)
+
+
+def grouped_allgather(tensors, name=None, process_set=global_process_set):
+    if _differentiable(*tensors):
+        return list(HorovodGroupedAllgather.apply(name, process_set,
+                                                  *tensors))
+    return _api.grouped_allgather(tensors, name, process_set)
+
+
+def reducescatter(tensor, name=None, compression=Compression.none,
+                  op=Average, process_set=global_process_set,
+                  prescale_factor=1.0, postscale_factor=1.0):
+    """Reducescatter; differentiable, with optional wire compression
+    (JAX torch/mpi_ops.py:355)."""
+    compressed, cctx = compression.compress(tensor)
+    if _differentiable(compressed):
+        out = HorovodReducescatter.apply(compressed, name, op, process_set,
+                                         prescale_factor, postscale_factor)
+    else:
+        out = _api.reducescatter(compressed, op, name, prescale_factor,
+                                 postscale_factor, process_set)
+    return compression.decompress(out, cctx)
+
+
+def grouped_reducescatter(tensors, name=None, compression=Compression.none,
+                          op=Average, process_set=global_process_set,
+                          prescale_factor=1.0, postscale_factor=1.0):
+    pairs = [compression.compress(t) for t in tensors]
+    compressed = [c for c, _ in pairs]
+    if _differentiable(*compressed):
+        outs = list(HorovodGroupedReducescatter.apply(
+            name, op, process_set, prescale_factor, postscale_factor,
+            *compressed))
+    else:
+        outs = _api.grouped_reducescatter(
+            compressed, op, name, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, process_set=process_set)
+    return [compression.decompress(o, cc) for o, (_, cc) in zip(outs, pairs)]
