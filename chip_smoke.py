@@ -155,14 +155,39 @@ Phases (a failure in any one exits non-zero):
     leg's (to one element per bucket); one sharded update per rank and
     step; B1 launched on every leg, B2/B3 on int8, B4/B5 on int4.  It
     prints each leg's steady step time and img/s beside the dense leg's,
-    the state bytes, the peak device memory and the launches.
+    the state bytes, the peak device memory and the launches;
+14. the weight-update sharded compiled step
+    (``make_compiled_train_step(sharded=True, wire_dtype=...)``, one CUDA
+    graph a step), cuDNN on deterministic algorithms, 6 steps a leg
+    (``SHARDED_LEGS``): (a) phase 12 (b)'s ResNet-50 configuration on the
+    f32, bf16, int8 and int4 wires; (b) the f32 and int8 legs with 4 MiB
+    segments (``HOROVOD_OVERLAP_BUCKET_BYTES``); (c)
+    ``ResNet50(fused=True)`` on the f32 wire; (d) the full-width 436M LM
+    (bf16, flash attention, AdamW 1e-3, 2 rank threads x 5 x 2048
+    tokens) through a dense compiled leg, then sharded on the f32 and
+    int8 wires.  Checks: finite losses; one program miss, one capture and
+    5 replays a leg; the losses, parameters, every rank's optimizer
+    shards and the residuals bit for bit the same program run
+    uncaptured; (a) f32's parameters within ``SHARDED_PARAM_BOUND`` of
+    phase 12 (b)'s and phase 13's f32 leg's, (d) f32's of the dense LM
+    leg's (and says whether bit for bit); (b) bit for bit (a)'s matching
+    leg; on int8/int4 step 1's reduced shards within ``WIRE_REL_L2`` of
+    the exact f32 average and step 2's residual non-zero; each rank's
+    optimizer state the dense state / 2 to within the padding; in (c)
+    and (d) the capture records the step's B9/B10 (phase 11's counts, all
+    sm90) or 24 x 2 launches of each of B6-B8, the replays launch nothing
+    through the wrappers, and a profiled replay runs their kernels.  It
+    prints each leg's steady step time, img/s or tok/s, the ratio to the
+    matching dense step, the busy share of one profiled replay, warm-up
+    plus capture seconds, the state bytes per rank and the peak device
+    memory (per step, and what the leg found held).
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
-``sharded_launches``); the last line is ``{"ok": true, "device":
-{...}}``.  With
-``--profile`` phases 4, 7, 9, 11 and 12 also print the profile tables of
-one steady step each.
+``sharded_launches``, and every kernel's launches recorded by each
+phase-14 leg's capture under ``compiled_sharded``); the last line is
+``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4, 7, 9,
+11, 12 and 14 also print the profile tables of one steady step each.
 """
 
 import gc
@@ -259,11 +284,25 @@ REFERENCE_IMG_S = 1656.82 / 16
 # on an H100 (the same products in the same order); the margin is for
 # cuDNN's algorithm choice, deterministic in phase 12 only
 COMPILED_REL_L2 = 1e-3
-# phase 12's grouped-reducer check: the bucket size of the bucketized leg
+# phase 12's grouped-reducer check: the bucket size of the bucketized
+# leg; phase 14 (b): the segment size of the sharded step's scatter and
+# gather (HOROVOD_OVERLAP_BUCKET_BYTES)
 COMPILED_BUCKET_BYTES = 4 << 20
-# phase 13: bound on max |delta| of the sharded f32 leg's parameters after
-# 6 steps from the dense leg's (tests/test_sharded.py's bar), where they
-# are not bit for bit
+# phase 14's legs: (label, model, fused, sharded, wire, segment bytes)
+SHARDED_LEGS = (("a f32", "resnet", False, True, None, 0),
+                ("a bf16", "resnet", False, True, "bf16", 0),
+                ("a int8", "resnet", False, True, "int8", 0),
+                ("a int4", "resnet", False, True, "int4", 0),
+                ("b f32", "resnet", False, True, None, COMPILED_BUCKET_BYTES),
+                ("b int8", "resnet", False, True, "int8",
+                 COMPILED_BUCKET_BYTES),
+                ("c f32", "resnet", True, True, None, 0),
+                ("d dense", "lm", False, False, None, 0),
+                ("d f32", "lm", False, True, None, 0),
+                ("d int8", "lm", False, True, "int8", 0))
+# phases 13 and 14: bound on max |delta| of the sharded f32 leg's
+# parameters after 6 steps from the dense leg's (tests/test_sharded.py's
+# bar), where they are not bit for bit
 SHARDED_PARAM_BOUND = 2e-6
 
 
@@ -1138,7 +1177,7 @@ def phase_lm(dev, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "steady_s": steady, "tok_s": tok_s,
-            "tflops": tflops, "peak": peak}
+            "tflops": tflops, "peak": peak, "weights": weights}
 
 
 def phase_lm_hvd(dev):
@@ -2127,7 +2166,9 @@ def phase_compiled(dev, card, state, batches, unfused_ref, fused_ref,
                     f"{REFERENCE_IMG_S:.2f} img/s per GPU; this card "
                     f"x {img / steady / REFERENCE_IMG_S:.2f}")
             summary[label] = {"steady_s": steady, "busy": got["busy"],
-                              "compile_s": prog.compile_seconds}
+                              "compile_s": prog.compile_seconds,
+                              "params": {k: v.cpu() for k, v in
+                                         got["params"].items()}}
             del got, want, prog
             gc.collect()
             torch.cuda.empty_cache()
@@ -2345,6 +2386,9 @@ def phase_sharded(dev, card, state, batches):
                         f"(bound {WIRE_REL_L2[wire]}), wire ratio "
                         f"{logical / actual:.4f} (floor {WIRE_RATIO[wire]})")
             log(line)
+            if label == "f32":
+                f32_params = {k: v.cpu() for k, v in
+                              leg["params"][0].items()}
             for k in ("params", "step1"):
                 if label != "dense":
                     leg.pop(k)
@@ -2354,7 +2398,430 @@ def phase_sharded(dev, card, state, batches):
         torch.backends.cudnn.deterministic = old_det
     log(f"phase 13 ({card}): {time.perf_counter() - t_phase:.1f} s")
     return {label: {"launches": leg["launches"], "steady_s": leg["steady_s"]}
-            for label, leg in res.items()}
+            for label, leg in res.items()}, f32_params
+
+
+# ---------------------------------------------------------------------------
+# phase 14
+
+def wrapper_counts():
+    """Every kernel wrapper's launch count, by kernel name (B1-B10)."""
+    from horovod_tpu_torch.ops import conv_bn as CB
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+    return {**K.launches, **QK.launches, **FA.launches,
+            **CB.launches, **CB.route_launches,
+            "conv1x1_bn_plain": CB.plain_calls["conv1x1_bn"]}
+
+
+def sharded_compiled_run(dev, build, feed, capture, bucket_bytes=0,
+                         profile=False):
+    """6 steps at ``NP`` rank threads of the compiled step ``build()``
+    returns as ``(step, state)`` (built per rank inside ``run``), rank r
+    training on ``feed(r, i)`` at step i.  ``capture=False`` runs the
+    step's function uncaptured.  ``HOROVOD_OVERLAP_BUCKET_BYTES`` is
+    ``bucket_bytes`` for the run.  Returns rank 0's losses (read after
+    the 6 steps), step times, final parameters, every tensor of the
+    optimizer state (all ranks' shards) and the residuals; the momentum
+    after step 1 (SGD: the reduced gradient of step 1) and the residuals
+    after step 2; each rank's optimizer-state bytes; the wrapper launches
+    per step; the program, the program cache's (hits, misses), peak
+    device memory and, captured, one profiled replay's busy share and
+    kernel names."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import compiled as C
+
+    barrier = threading.Barrier(NP)
+    out = {"progs": [], "counts": [], "busy": None, "kernels": set(),
+           "state_bytes": {}}
+
+    def snap_tensors(state):
+        return [t.detach().clone() for t in C._optimizer_tensors(state)]
+
+    def train():
+        r = hvd.rank()
+        step, st = build()
+        step.capture = capture
+        losses, times = [], []
+        barrier.wait()
+        if r == 0:
+            torch.cuda.synchronize()
+            out["held"] = torch.cuda.memory_allocated(dev)
+            out["peaks"] = []
+        for i in range(STEPS):
+            batch = feed(r, i)
+            barrier.wait()
+            if r == 0:
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = wrapper_counts()
+            prof = None
+            if r == 0 and capture and i == STEPS - 2:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            st, loss = step(st, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                out["busy"] = profile_summary(prof, times[-1],
+                                              tables=profile)
+                out["kernels"] = {e.name for e in prof.events()
+                                  if e.device_type
+                                  == torch.autograd.DeviceType.CUDA}
+            barrier.wait()
+            if r == 0:
+                out["peaks"].append(torch.cuda.max_memory_allocated(dev))
+                after = wrapper_counts()
+                out["counts"].append({k: after[k] - before.get(k, 0)
+                                      for k in after
+                                      if after[k] != before.get(k, 0)})
+                so = st["opt_state"]
+                if i == 0 and isinstance(so, C.ShardedOptState) \
+                        and "momentum_buffer" in so.optimizers[0].state[
+                            so.rank_params(0)[0]]:
+                    # in the parameters' own element order
+                    out["step1"] = {
+                        k: step._layout(v.numel(), NP, v.device).natural(
+                            v.view(NP, -1))[:st["params"][k].numel()].cpu()
+                        for k, v in so.flat("momentum_buffer").items()}
+                if i == 1:
+                    out["ef2"] = {k: int(v.count_nonzero()) for k, v in
+                                  st.get("grad_ef", {}).items()}
+            barrier.wait()
+        out["progs"].append(step._prog)
+        so = st["opt_state"]
+        out["state_bytes"][r] = so.state_bytes(r) \
+            if isinstance(so, C.ShardedOptState) else sum(
+                v.numel() * v.element_size() for s in so.state.values()
+                for v in s.values() if torch.is_tensor(v))
+        if r == 0:
+            out["peak"] = max(out["peaks"])
+            out["losses"] = [float(v) for v in losses]
+            out["times"] = times
+            out["params"] = {k: v.detach().clone()
+                             for k, v in st["params"].items()}
+            out["opt"] = snap_tensors(st)
+            out["ef"] = {k: v.clone() for k, v in
+                         st.get("grad_ef", {}).items()}
+            out["step"] = step
+
+    old = os.environ.get("HOROVOD_OVERLAP_BUCKET_BYTES")
+    os.environ["HOROVOD_OVERLAP_BUCKET_BYTES"] = str(bucket_bytes)
+    before = C.program_cache_stats()
+    try:
+        hvd.run(train, np=NP, device=dev)
+    finally:
+        if old is None:
+            os.environ.pop("HOROVOD_OVERLAP_BUCKET_BYTES")
+        else:
+            os.environ["HOROVOD_OVERLAP_BUCKET_BYTES"] = old
+    out["cache"] = tuple(a - b for a, b in
+                         zip(C.program_cache_stats(), before))
+    # the program's counts, then the program (and a graph's memory) goes
+    prog = next(p for p in out.pop("progs") if p is not None)
+    out["captures"] = getattr(prog, "captures", 0)
+    out["replays"] = getattr(prog, "replays", 0)
+    out["compile_s"] = prog.compile_seconds
+    out["step"]._prog = None
+    del prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady_i = [i for i in range(2, STEPS) if i != STEPS - 2]
+    out["steady_s"] = sum(out["times"][i] for i in steady_i) / len(steady_i)
+    return out
+
+
+def resnet_leg(dev, state, bases, fused, sharded, wire):
+    """(build, feed) of phase 12 (b)'s configuration: ResNet-50 (bf16
+    compute) through ``make_compiled_train_step``, SGD momentum 0.9 at lr
+    0.1, rank r on ``step_batch`` of ``bases[r]``."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.parallel.train import sgd
+
+    with torch.device("meta"):
+        names = {k for k, _ in ResNet50(num_classes=1000,
+                                        fused=fused).named_parameters()}
+    params = {k: v for k, v in state.items() if k in names}
+    aux = {k: v for k, v in state.items() if k not in names}
+
+    def build():
+        with torch.device("meta"):
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                             fused=fused)
+
+        def loss_fn(p, a, batch):
+            x, y = batch
+            logits = torch.func.functional_call(model, {**p, **a}, (x,))
+            return F.cross_entropy(logits, y), a
+
+        step = hvd.make_compiled_train_step(
+            loss_fn, sgd(0.1, momentum=0.9), has_aux=True, sharded=sharded,
+            wire_dtype=wire)
+        return step, step.init_state(params, aux=aux)
+
+    return build, lambda r, i: step_batch(*bases[r], i)
+
+
+def lm_leg(dev, weights, tokens, sharded, wire):
+    """(build, feed) of the full-width 436M LM (bf16, flash attention)
+    through ``make_compiled_train_step``, AdamW 1e-3 (the JAX package's
+    ``lm_mfu_bench.py:68-98`` without fused CE or remat), rank r on its
+    own ``tokens[r]``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, lm_loss)
+    from horovod_tpu_torch.ops.flash_attention import flash_attention
+    from horovod_tpu_torch.parallel.train import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+
+    def build():
+        with torch.device("meta"):
+            model = TransformerLM(cfg, attention_fn=flash_attention)
+
+        def loss_fn(p, t):
+            logits = torch.func.functional_call(model, p, (t,))
+            return lm_loss(logits[:, :-1], t[:, 1:])
+
+        step = hvd.make_compiled_train_step(
+            loss_fn, adamw(1e-3), sharded=sharded, wire_dtype=wire)
+        return step, step.init_state(weights)
+
+    return build, lambda r, i: tokens[r]
+
+
+def _same(a, b):
+    """Names (or indices) where two dicts (lists) of tensors differ."""
+    if isinstance(a, dict):
+        return [k for k in a if not torch_equal(a[k], b[k])]
+    return [i for i, (x, y) in enumerate(zip(a, b)) if not torch_equal(x, y)]
+
+
+def torch_equal(x, y):
+    import torch
+    return x.shape == y.shape and torch.equal(x.to(y.device), y)
+
+
+def max_delta(a, b):
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+               for k in a)
+
+
+def phase_compiled_sharded(dev, card, state, batches, refs, lm_weights,
+                           profile=False):
+    """Phase 14: the weight-update-sharded compiled step, one CUDA graph a
+    step, cuDNN on deterministic algorithms.  (a) phase 12 (b)'s ResNet-50
+    configuration ``sharded=True`` on the f32, bf16, int8 and int4 wires;
+    (b) the f32 and int8 legs again with 4 MiB segments; (c)
+    ``ResNet50(fused=True)`` on the f32 wire; (d) the 436M LM, a dense
+    compiled leg, then ``sharded=True`` on f32 and int8.  Each leg trains
+    6 steps captured and 6 uncaptured.  ``refs``: phase 12 (b)'s and
+    (c)'s dense compiled parameters and steady times and phase 13's eager
+    sharded f32 parameters."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    bases = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+             for x, y in zip(*batches)]
+    tokens = [torch.from_numpy(np.random.default_rng(SEED + 14 + r).integers(
+        0, LM["vocab_size"], size=(LM_BATCH, LM["max_seq_len"]))).to(dev)
+        for r in range(NP)]
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res, summary = {}, {}
+    try:
+        for label, kind, fused, sharded, wire, bb in SHARDED_LEGS:
+            if kind == "resnet":
+                from horovod_tpu_torch.models.resnet import fused_from_unfused
+                sd = fused_from_unfused(state) if fused else state
+                build, feed = resnet_leg(dev, sd, bases, fused, sharded,
+                                         wire)
+            else:
+                build, feed = lm_leg(dev, lm_weights, tokens, sharded, wire)
+            got = sharded_compiled_run(dev, build, feed, True, bb,
+                                       profile=profile)
+            want = sharded_compiled_run(dev, build, feed, False, bb)
+            name = f"phase 14 ({label}, {card})"
+            if not all(math.isfinite(v) for v in got["losses"]):
+                raise AssertionError(f"{name}: non-finite loss "
+                                     f"{got['losses']}")
+            if got["cache"][1] != 1 or got["captures"] != 1 \
+                    or got["replays"] != STEPS - 1:
+                raise AssertionError(
+                    f"{name}: program misses {got['cache'][1]}, captures "
+                    f"{got['captures']}, replays {got['replays']} (want 1, "
+                    f"1, {STEPS - 1})")
+            diff = _same(got["params"], want["params"])
+            odiff = _same(got["opt"], want["opt"])
+            ediff = _same(got["ef"], want["ef"])
+            if got["losses"] != want["losses"] or diff or odiff or ediff:
+                raise AssertionError(
+                    f"{name}: the captured step differs from the same "
+                    f"program uncaptured: losses {got['losses']} vs "
+                    f"{want['losses']}; params {diff[:5]}; optimizer "
+                    f"tensors {odiff[:5]}; residuals {ediff[:5]}")
+            step = got["step"]
+            n_img = NP * BATCH if kind == "resnet" \
+                else NP * LM_BATCH * LM["max_seq_len"]
+            unit = "img/s" if kind == "resnet" else "tok/s"
+            if kind == "resnet":
+                dense_s = refs["c" if fused else "b"]["steady_s"]
+                dense_label = f"phase 12 ({'c' if fused else 'b'})"
+            elif label == "d dense":
+                dense_s, dense_label = got["steady_s"], "itself"
+            else:
+                dense_s, dense_label = res["d dense"]["steady_s"], \
+                    "the dense LM leg"
+            line = (f"{name}: losses {got['losses']} (= uncaptured, bit "
+                    f"for bit, with the parameters, {len(got['opt'])} "
+                    f"optimizer tensors of both ranks and "
+                    f"{len(got['ef'])} residuals); steady "
+                    f"{got['steady_s'] * 1e3:.2f} ms/step = "
+                    f"{n_img / got['steady_s']:.1f} {unit}; x "
+                    f"{got['steady_s'] / dense_s:.3f} {dense_label} "
+                    f"({dense_s * 1e3:.2f} ms); busy share "
+                    f"{got['busy']:.3f} of one profiled replay; warm-up + "
+                    f"capture {got['compile_s']:.2f} s; step times "
+                    f"{[round(t, 4) for t in got['times']]}; program cache "
+                    f"hits, misses {got['cache']}; optimizer state per "
+                    f"rank {got['state_bytes']} B; peak device memory "
+                    f"{got['peak']} B (held at the start {got['held']} B; "
+                    f"per step {got['peaks']})")
+            # state per rank: the dense state / R, to within the padding
+            if sharded:
+                so_names = list(got["params"])
+                itemsize = {"resnet": 4, "lm": 8}[kind]
+                train = [k for k in so_names
+                         if got["params"][k].is_floating_point()]
+                n_all = sum(got["params"][k].numel() for k in train)
+                pad_all = sum(step._shard_pad(got["params"][k].numel(), NP)
+                              for k in train)
+                dense_b = itemsize * n_all
+                extra = 0 if kind == "resnet" else 4 * len(train)
+                for r in range(NP):
+                    b = got["state_bytes"][r]
+                    if not (dense_b / NP <= b - extra
+                            <= itemsize * pad_all / NP):
+                        raise AssertionError(
+                            f"{name}: rank {r} holds {b} B of optimizer "
+                            f"state; dense / {NP} = {dense_b / NP:.0f} B, "
+                            f"padded {itemsize * pad_all / NP:.0f} B")
+                line += (f"; dense state {dense_b} B, / {NP} = "
+                         f"{dense_b // NP} B, padding "
+                         f"{itemsize * (pad_all - n_all) // NP} B a rank")
+            # against the dense steps
+            if label == "a f32":
+                for ref_name, ref in (("phase 12 (b)", refs["b"]["params"]),
+                                      ("phase 13 f32", refs["13"])):
+                    d = max_delta(got["params"], ref)
+                    bit = not _same(got["params"], ref)
+                    line += (f"; parameters {'bit for bit' if bit else 'not bit for bit'} "
+                             f"{ref_name}'s, max |delta| {d:.3g}")
+                    if d > SHARDED_PARAM_BOUND:
+                        raise AssertionError(
+                            f"{name}: parameters {d:.3g} from {ref_name}'s "
+                            f"(bound {SHARDED_PARAM_BOUND})")
+            if label == "c f32":
+                d = max_delta(got["params"], refs["c"]["params"])
+                line += f"; parameters max |delta| {d:.3g} from phase 12 (c)"
+            if label == "d f32":
+                ref = res["d dense"]["params"]
+                d = max_delta(got["params"], ref)
+                bit = not _same(got["params"], ref)
+                line += (f"; parameters {'bit for bit' if bit else 'not bit for bit'} "
+                         f"the dense LM leg's, max |delta| {d:.3g}")
+                if d > SHARDED_PARAM_BOUND:
+                    raise AssertionError(
+                        f"{name}: parameters {d:.3g} from the dense LM "
+                        f"leg's (bound {SHARDED_PARAM_BOUND})")
+            # segmented against unsegmented
+            if label.startswith("b "):
+                twin = res["a " + label[2:]]
+                diff = _same(got["params"], twin["params"]) \
+                    + _same(got["ef"], twin["ef"])
+                segs = max(len(step._layout(v.numel(), NP, dev).segs)
+                           for v in got["params"].values())
+                if diff or got["losses"] != twin["losses"] or segs < 2:
+                    raise AssertionError(
+                        f"{name}: {COMPILED_BUCKET_BYTES} B segments (up to {segs} "
+                        f"a leaf) differ from the unsegmented leg: "
+                        f"{diff[:5]}")
+                line += (f"; {COMPILED_BUCKET_BYTES} B segments (up to {segs} a "
+                         f"leaf) bit for bit the unsegmented leg")
+            # the wire's error and its residual
+            if wire in ("int8", "int4") and kind == "resnet":
+                exact = res["a f32"]["step1"]
+                num = sum(float((got["step1"][k] - exact[k]).double()
+                                .norm()) ** 2 for k in exact)
+                den = sum(float(v.double().norm()) ** 2
+                          for v in exact.values())
+                rel = math.sqrt(num / den)
+                nz = sum(got["ef2"].values())
+                line += (f"; step 1's reduced shards at relative L2 "
+                         f"{rel:.4g} from the exact f32 average (bound "
+                         f"{WIRE_REL_L2[wire]}); step 2's residual non-zero "
+                         f"at {nz} elements")
+                if not rel < WIRE_REL_L2[wire] or nz == 0:
+                    raise AssertionError(f"{name}: wire error {rel:.4g}, "
+                                         f"{nz} non-zero residuals")
+            if wire == "int8" and kind == "lm":
+                nz = sum(got["ef2"].values())
+                line += f"; step 2's residual non-zero at {nz} elements"
+                if nz == 0:
+                    raise AssertionError(f"{name}: the residual is zero")
+            # the kernels inside the graph
+            cap = got["counts"][1]
+            if fused or kind == "lm":
+                if kind == "lm":
+                    want_c = {k: LM["n_layers"] * NP for k, _ in FLASH}
+                    kern = {FLASH_KERNEL[k] for k, _ in FLASH}
+                else:
+                    want_c = {"conv1x1_bn_fwd": FUSED_CONVS * NP,
+                              "conv1x1_bn_bwd": FUSED_CONVS * NP,
+                              "conv1x1_bn_fwd_sm90": FUSED_CONVS * NP,
+                              "conv1x1_bn_bwd_sm90": FUSED_CONVS * NP,
+                              "conv1x1_bn_plain": 3 * NP}
+                    kern = {"conv_bn_fwd_sm90_kernel",
+                            "conv_bn_dx_sm90_kernel",
+                            "conv_bn_dw_sm90_kernel"}
+                seen = {k for k in kern if any(k in n for n in got["kernels"])}
+                if any(cap.get(k, 0) != v for k, v in want_c.items()) \
+                        or any(c for c in got["counts"][2:]) \
+                        or seen != kern:
+                    raise AssertionError(
+                        f"{name}: launches at capture {cap} (want "
+                        f"{want_c}), through the wrappers at the replays "
+                        f"{got['counts'][2:]}; the profiled replay ran "
+                        f"{sorted(seen)} of {sorted(kern)}")
+                line += (f"; recorded at capture {cap}, none through the "
+                         f"wrappers at the {STEPS - 2} replays; the profiled "
+                         f"replay ran {sorted(seen)}")
+            log(line)
+            summary[label] = {"steady_s": got["steady_s"], "capture": cap,
+                              "peak": got["peak"]}
+            keep = {"steady_s": got["steady_s"], "losses": got["losses"]}
+            if label in ("a f32", "a int8", "d dense"):
+                keep.update(params=got["params"], ef=got["ef"],
+                            step1=got.get("step1"))
+            res[label] = keep
+            del got, want, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+    log(f"phase 14 ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -2463,11 +2930,22 @@ def main():
     torch.cuda.empty_cache()
     phase_fused_yardstick(dev, state, batches)
     torch.cuda.empty_cache()
-    phase_compiled(dev, card, state, batches, main_path, fused, plain_s,
-                   profile="--profile" in sys.argv[1:])
+    compiled = phase_compiled(dev, card, state, batches, main_path, fused,
+                              plain_s, profile="--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
-    shard = phase_sharded(dev, card, state, batches)
-    del state, batches
+    shard, shard_f32 = phase_sharded(dev, card, state, batches)
+    torch.cuda.empty_cache()
+    compiled["13"] = shard_f32
+    cs = phase_compiled_sharded(dev, card, state, batches, compiled,
+                                lm.pop("weights"),
+                                profile="--profile" in sys.argv[1:])
+    del state, batches, compiled
+
+    def at_capture(*names):
+        """Launches of the named kernels each phase-14 leg's capture
+        recorded."""
+        return {leg: sum(v["capture"].get(n, 0) for n in names)
+                for leg, v in cs.items()}
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     log(card)
@@ -2481,6 +2959,8 @@ def main():
             v["launches"][k] for k in ("fused_scale_cast", "pack_scale_cast",
                                        "unpack_scale_cast"))
             for leg, v in shard.items()},
+        "compiled_sharded": at_capture("fused_scale_cast", "pack_scale_cast",
+                                       "unpack_scale_cast"),
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -2490,6 +2970,7 @@ def main():
             "name": name, "route": "cuda",
             "source": FLASH_SOURCE[name], "kernel": FLASH_KERNEL[name],
             "replaces": replaces, "launches": lm["launches"][name],
+            "compiled_sharded": at_capture(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2502,6 +2983,7 @@ def main():
             "launches": wired[wire]["launches"][name],
             "sharded_launches": {leg: v["launches"][name]
                                  for leg, v in shard.items()},
+            "compiled_sharded": at_capture(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2512,6 +2994,7 @@ def main():
             "source": "horovod_tpu_torch/ops/csrc/conv_bn_sm90.cu",
             "kernel": CONV_BN_KERNEL[name], "replaces": replaces,
             "launches": fused["conv_launches"][name],
+            "compiled_sharded": at_capture(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -26,18 +26,28 @@ Two deliverables, as in the JAX package:
   it bucket by bucket as tensors arrive.
 * :func:`make_compiled_train_step`: forward, backward, the reduction
   over the ranks and the optimizer update as one program, on the card
-  one CUDA graph.
+  one CUDA graph.  ``sharded=True`` makes it the weight-update-sharded
+  step: the gradients reducescatter (full width, 16-bit or the
+  shared-scale int8/int4 wire with its error-feedback residual in the
+  state), each rank's optimizer updates its flat 1/R shard of the
+  parameters and holds only that shard of the optimizer state, and the
+  updated shards gather back into the replicated parameters.
 
 Every member rank must enter the same compiled collective in the same
 order with the same shapes: there is no negotiation on this path.  Rank
 threads of one process meet at a rendezvous, and the last to arrive
 runs the program once for all of them.
 
+The JAX package's sharded step needs one device per rank (its shard
+mode); the port's rank threads share one device, and each rank owns its
+shard of the optimizer state and its error-feedback residual as tensors
+of its own, which is the same call contract.
+
 Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: ``sharded=True`` and a train-step ``wire_dtype`` (A10),
-an ``algorithm``/``topology_hint`` other than flat and
-:class:`TopologyHint` (A8), ``op=Adasum`` in the train step (A7), wire
-integrity digests (A14) and :class:`CompiledAlltoall` (A13).
+ROADMAP.md item: an ``algorithm``/``topology_hint``/``wire_inner`` other
+than flat and :class:`TopologyHint` (A8), ``op=Adasum`` in the dense
+train step (A7), wire integrity digests (A14) and
+:class:`CompiledAlltoall` (A13).
 """
 
 import contextlib
@@ -45,14 +55,18 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
+from torch.optim.optimizer import _get_scalar_dtype
 from torch.utils import _pytree as pytree
 
 from ..common import basics
 from ..common import env as env_mod
 from ..common.process_sets import ProcessSet, global_process_set
 from ..core.message import Adasum, Average, ReduceOp, Sum
-from ..core.sharded import overlap_bucket_splits, torch_dtype
+from ..core.sharded import (
+    overlap_bucket_splits, overlap_segment_bounds, torch_dtype,
+)
 from . import cuda_kernels as K
 from . import quantize as qz
 from .api import dtype_name
@@ -63,6 +77,7 @@ __all__ = [
     "StagedBatch", "TopologyHint", "batch_signature", "compiled_allreduce",
     "compiled_alltoall", "compiled_grouped_allreduce",
     "make_compiled_train_step", "program_cache_stats", "shared_program",
+    "sharded_state_from_jax",
 ]
 
 _FLAT = {None: None, "": None, "flat": "flat", "none": "flat",
@@ -1174,8 +1189,11 @@ def _param_leaf(value, device):
 
 def _optimizer_tensors(state):
     """The optimizer's state tensors, parameter by parameter in the
-    params' order, keys sorted."""
+    params' order, keys sorted (with ``sharded=True``: every rank's
+    parameter shards and optimizer state, :meth:`ShardedOptState.tensors`)."""
     opt, out = state["opt_state"], []
+    if isinstance(opt, ShardedOptState):
+        return opt.tensors()
     for p in state["params"].values():
         st = opt.state.get(p, {})
         out.extend(st[k] for k in sorted(st) if torch.is_tensor(st[k]))
@@ -1183,11 +1201,142 @@ def _optimizer_tensors(state):
 
 
 def _state_leaves(state, batch_rows):
-    """The input tensors of one step: params, optimizer state, aux and
-    the staged batch."""
+    """The input tensors of one step: params, optimizer state, aux, the
+    error-feedback residuals and the staged batch."""
     return (list(state["params"].values()) + _optimizer_tensors(state)
             + pytree.tree_leaves(state.get("aux", {}))
+            + pytree.tree_leaves(state.get("grad_ef", {}))
             + pytree.tree_leaves(batch_rows))
+
+
+def _capturable(opt, device):
+    """On the card, an optimizer that keeps a host-side step count (Adam
+    and its kin) keeps it on the card instead, as a graph needs."""
+    if device.type == "cuda":
+        for group in opt.param_groups:
+            if "capturable" in group:
+                group["capturable"] = True
+    return opt
+
+
+def _init_optimizer_state(opt):
+    """Build the state of SGD with momentum and of the Adam family as the
+    optimizers' own first step would (zeros, the step count 0), so that
+    the sharded state exists as tensors from ``init_state`` on; a zero
+    momentum buffer gives the first step's ``0 * m + g = g``, the clone
+    the lazy path makes.  Other optimizers build theirs at the warm-up
+    step."""
+    adam = isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if st:
+                continue
+            if isinstance(opt, torch.optim.SGD) and group["momentum"]:
+                st["momentum_buffer"] = torch.zeros_like(p)
+            elif adam:
+                on_card = group["capturable"] or group["fused"]
+                st["step"] = torch.zeros((), dtype=_get_scalar_dtype(),
+                                         device=p.device if on_card
+                                         else "cpu")
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+                if group["amsgrad"]:
+                    st["max_exp_avg_sq"] = torch.zeros_like(p)
+
+
+class _ShardLayout:
+    """Where one parameter leaf's elements go in the sharded step.  The
+    leaf is flattened and padded to ``pad`` (:meth:`_CompiledTrainStep.
+    _shard_pad`); rank r owns ``m = pad // R`` elements: its slice of
+    every segment (``segs``, :meth:`_CompiledTrainStep._seg_bounds`),
+    concatenated in segment order, the JAX package's segment-major
+    layout.  ``perm`` (None for one segment) maps shard order to the
+    natural flat order (``shards.view(-1) = flat[perm]``), ``inv`` back."""
+
+    __slots__ = ("n", "pad", "m", "segs", "perm", "inv")
+
+    def __init__(self, n, pad, R, segs, device):
+        self.n, self.pad, self.m, self.segs = n, pad, pad // R, segs
+        self.perm = self.inv = None
+        if len(segs) > 1:
+            idx = np.empty(pad, np.int64)
+            o = 0
+            for r in range(R):
+                for s, e in segs:
+                    mi = (e - s) // R
+                    idx[o:o + mi] = np.arange(s + r * mi, s + (r + 1) * mi)
+                    o += mi
+            self.perm = torch.from_numpy(idx).to(device)
+            self.inv = torch.from_numpy(np.argsort(idx)).to(device)
+
+    def shard(self, flat):
+        """A natural-order padded flat (pad,) as the (R, m) rank shards."""
+        if self.perm is not None:
+            flat = flat.index_select(0, self.perm)
+        return flat.view(-1, self.m)
+
+    def natural(self, shards):
+        """(R, m) rank shards as the natural-order padded flat (pad,)."""
+        flat = shards.reshape(-1)
+        return flat if self.inv is None else flat.index_select(0, self.inv)
+
+    def padded(self, t):
+        """A tensor's flat elements, zero-padded to ``pad``."""
+        flat = t.reshape(-1)
+        if self.pad > self.n:
+            flat = torch.nn.functional.pad(flat, (0, self.pad - self.n))
+        return flat
+
+
+class ShardedOptState:
+    """The optimizer state of the weight-update-sharded step, in place of
+    the JAX package's flat dp-sharded optax leaves.  ``shards[i]`` is an
+    ``(R, pad // R)`` buffer of parameter leaf ``names[i]``'s dtype whose
+    row r is rank r's flat shard of that parameter (segment-major, see
+    ``_ShardLayout``); ``optimizers[r]`` is rank r's optimizer over its
+    rows, so it holds rank r's shard of every moment, and only that."""
+
+    def __init__(self, names, shards, optimizers):
+        self.names = list(names)
+        self.shards = list(shards)
+        self.optimizers = list(optimizers)
+
+    def tensors(self):
+        """The shard buffers, then each rank's state tensors in parameter
+        order, keys sorted."""
+        out = list(self.shards)
+        for r, opt in enumerate(self.optimizers):
+            for p in self.rank_params(r):
+                st = opt.state.get(p, {})
+                out.extend(st[k] for k in sorted(st)
+                           if torch.is_tensor(st[k]))
+        return out
+
+    def rank_params(self, r):
+        """Rank r's shard tensors (its optimizer's parameters), in
+        parameter order."""
+        return [p for g in self.optimizers[r].param_groups
+                for p in g["params"]]
+
+    def state_bytes(self, r):
+        """Bytes of rank r's optimizer state tensors (device and host)."""
+        opt = self.optimizers[r]
+        return sum(v.numel() * v.element_size()
+                   for p in self.rank_params(r)
+                   for v in opt.state.get(p, {}).values()
+                   if torch.is_tensor(v))
+
+    def flat(self, key):
+        """``{name: (R * m,)}``: every rank's shard of optimizer state
+        ``key`` ('momentum_buffer', 'exp_avg', ...) concatenated in rank
+        order, the layout of the JAX package's global flat leaves."""
+        out = {}
+        for i, name in enumerate(self.names):
+            rows = [opt.state[self.rank_params(r)[i]][key]
+                    for r, opt in enumerate(self.optimizers)]
+            out[name] = torch.cat([t.reshape(-1) for t in rows])
+        return out
 
 
 class _CompiledTrainStep:
@@ -1199,18 +1348,20 @@ class _CompiledTrainStep:
         op = ReduceOp(op)
         if op not in (Average, Sum, Adasum):
             raise ValueError("op must be Average, Sum, or Adasum")
+        self.sharded = bool(sharded)
+        if self.sharded and op not in (Average, Sum):
+            raise ValueError(
+                "sharded=True supports op=Average or Sum (the "
+                "reducescatter has no adasum combine)")
         if op == Adasum:
             raise NotImplementedError(
                 "op=Adasum in the compiled step is not ported yet "
                 "(ROADMAP.md A7)")
-        if sharded:
-            raise NotImplementedError(
-                "the weight-update-sharded compiled step (sharded=True) "
-                "is not ported yet (ROADMAP.md A10)")
-        if qz.normalize_wire_dtype(wire_dtype) not in (None, "f32"):
-            raise NotImplementedError(
-                "a gradient wire_dtype in the compiled step rides the "
-                "sharded reducescatter, not ported yet (ROADMAP.md A10)")
+        # the gradient wire of the sharded reducescatter; the dense step
+        # takes it and ignores it, as the JAX package's does
+        self.wire_dtype = qz.normalize_wire_dtype(wire_dtype)
+        if self.wire_dtype == "f32":
+            self.wire_dtype = None
         if topology_hint is not None or \
                 qz.normalize_inner_wire(wire_inner) is not None:
             raise NotImplementedError(
@@ -1225,6 +1376,10 @@ class _CompiledTrainStep:
         #: False runs the step's function uncaptured on the card: the
         #: reference a captured graph is checked against
         self.capture = True
+        # the sharded step's segment size, latched once (the segment
+        # layout is baked into the optimizer state's layout)
+        self._bucket_bytes_latched = None
+        self._layouts = {}
         self._prog = None
         self._ex = None
         self._tag = None
@@ -1233,58 +1388,208 @@ class _CompiledTrainStep:
 
     # -- program -------------------------------------------------------------
 
+    def _grads(self, ex, state, batch_rows, take):
+        """Each rank's loss and gradients from the same params and its own
+        copy of the aux on its batch rows, handed to ``take(r, grads)`` as
+        they come; the aux written back (float leaves averaged over the
+        ranks, others rank 0's).  Returns the trained params and the mean
+        loss."""
+        loss_fn, has_aux = self.loss_fn, self.has_aux
+        params = state["params"]
+        train = [p for p in params.values() if p.requires_grad]
+        losses, auxes = [], []
+        for r in range(ex.num_ranks):
+            batch = pytree.tree_map(lambda x: x[r], batch_rows)
+            if has_aux:
+                # BatchNorm updates its statistics in place: each rank
+                # starts from its own copy of the same aux
+                aux = pytree.tree_map(torch.clone, state["aux"])
+                loss, new_aux = loss_fn(params, aux, batch)
+                auxes.append(pytree.tree_leaves(new_aux))
+            else:
+                loss = loss_fn(params, batch)
+            take(r, torch.autograd.grad(loss, train, allow_unused=True,
+                                        materialize_grads=True))
+            losses.append(loss.detach())
+        if has_aux:
+            dst = pytree.tree_leaves(state["aux"])
+            if any(len(a) != len(dst) for a in auxes):
+                raise ValueError("loss_fn's new aux must have the "
+                                 "structure of the aux it was given")
+            with torch.no_grad():
+                for j, t in enumerate(dst):
+                    vals = [a[j] for a in auxes]
+                    t.copy_(torch.stack(vals).mean(dim=0)
+                            if vals[0].is_floating_point() else vals[0])
+        return train, torch.stack(losses).mean()
+
     def _build(self, ex):
-        """The stacked step, JAX's ``vmap`` branch written out: each
-        rank's loss and gradient from the same params and its own copy of
-        the aux on its batch rows; the gradients' mean (Average) or sum
-        (Sum) over ranks; float aux leaves averaged, others rank 0's; one
-        optimizer update.  Params, optimizer state and aux are updated in
-        place and the state returned with the mean loss."""
-        loss_fn, op, has_aux = self.loss_fn, self.op, self.has_aux
-        R = ex.num_ranks
+        """The stacked step, JAX's ``vmap`` branch written out: the ranks'
+        gradients (:meth:`_grads`) summed as they come, their mean
+        (Average) or sum (Sum) over ranks, one optimizer update.  Params,
+        optimizer state and aux are updated in place and the state
+        returned with the mean loss."""
+        op, R = self.op, ex.num_ranks
 
         def prog(state, batch_rows):
-            params = state["params"]
-            train = [p for p in params.values() if p.requires_grad]
-            grads, losses, auxes = None, [], []
-            for r in range(R):
-                batch = pytree.tree_map(lambda x: x[r], batch_rows)
-                if has_aux:
-                    # BatchNorm updates its statistics in place: each
-                    # rank starts from its own copy of the same aux
-                    aux = pytree.tree_map(torch.clone, state["aux"])
-                    loss, new_aux = loss_fn(params, aux, batch)
-                    auxes.append(pytree.tree_leaves(new_aux))
+            acc = []
+
+            def take(r, g):
+                if r == 0:
+                    acc.extend(g)
                 else:
-                    loss = loss_fn(params, batch)
-                g = torch.autograd.grad(loss, train, allow_unused=True,
-                                        materialize_grads=True)
-                if grads is None:
-                    grads = list(g)
-                else:
-                    for acc, gi in zip(grads, g):
-                        acc.add_(gi)
-                losses.append(loss.detach())
+                    for a, gi in zip(acc, g):
+                        a.add_(gi)
+            train, loss = self._grads(ex, state, batch_rows, take)
             if op == Average:
-                for acc in grads:
-                    acc.div_(R)
-            if has_aux:
-                dst = pytree.tree_leaves(state["aux"])
-                if any(len(a) != len(dst) for a in auxes):
-                    raise ValueError("loss_fn's new aux must have the "
-                                     "structure of the aux it was given")
-                with torch.no_grad():
-                    for j, t in enumerate(dst):
-                        vals = [a[j] for a in auxes]
-                        t.copy_(torch.stack(vals).mean(dim=0)
-                                if vals[0].is_floating_point() else vals[0])
+                for a in acc:
+                    a.div_(R)
             opt = state["opt_state"]
-            for p, g in zip(train, grads):
+            for p, g in zip(train, acc):
                 p.grad = g
             opt.step()
             for p in train:
                 p.grad = None
-            return state, torch.stack(losses).mean()
+            return state, loss
+
+        return prog
+
+    # -- weight-update sharding ----------------------------------------------
+
+    def _quantized(self):
+        return self.wire_dtype in ("int8", "int4")
+
+    def _shard_pad(self, n, R):
+        """Padded flat length of an ``n``-element leaf: a multiple of R so
+        the scatter divides evenly, and of BLOCK*R under a quantized wire,
+        so every rank's shard is whole quantization blocks."""
+        unit = qz.BLOCK * R if self._quantized() else R
+        return -(-n // unit) * unit
+
+    def _overlap_bucket_bytes(self):
+        """The segment size of the sharded step's scatter and gather, read
+        from the engine's config (``HOROVOD_OVERLAP_BUCKET_BYTES``) once,
+        at the first state init or program build, so one run never mixes
+        segment layouts."""
+        bb = self._bucket_bytes_latched
+        if bb is None:
+            bb = 0
+            if self.sharded:
+                eng, _ps = _ps_state(self.process_set)
+                bb = int(getattr(eng.config, "overlap_bucket_bytes", 0)
+                         or 0)
+            self._bucket_bytes_latched = bb
+        return bb
+
+    def _seg_bounds(self, pad, R):
+        """Scatter/gather segments of one padded flat leaf
+        (``core.sharded.overlap_segment_bounds``), each a whole number of
+        shard units, so the segmented reduction is bit for bit the
+        unsegmented one."""
+        unit = qz.BLOCK * R if self._quantized() else R
+        return overlap_segment_bounds(pad, 4, self._overlap_bucket_bytes(),
+                                      unit=unit)
+
+    def _layout(self, n, R, device):
+        key = (n, R, str(device))
+        lay = self._layouts.get(key)
+        if lay is None:
+            pad = self._shard_pad(n, R)
+            lay = self._layouts[key] = _ShardLayout(
+                n, pad, R, self._seg_bounds(pad, R), device)
+        return lay
+
+    def _reduce_leaf(self, rows, res, lay, R):
+        """The reducescatter of one leaf, before the shard split: the
+        reduced padded flat f32 (pad,) in natural order, from the ranks'
+        gradients ``rows``.  f32: the sum over ranks in rank order; 16-bit:
+        the rows cast to the wire and summed there (the eager
+        ``MeshExecutor.reducescatter``'s rounding); int8/int4: the JAX
+        package's shared-scale integer partials, with ``res`` (R, pad) the
+        ranks' error-feedback residuals, replaced in place.  Average
+        multiplies by the f32 1/R."""
+        n = lay.n
+        wire = self.wire_dtype
+        if self._quantized():
+            qmax = qz.quantized_qmax(8 if wire == "int8" else 4)
+            # x = g + res, the padding's gradient 0
+            x = res.clone()
+            for r, g in enumerate(rows):
+                x[r, :n].add_(g.reshape(-1))
+            x = x.view(R, -1, qz.BLOCK)
+            absmax = x.abs().amax(dim=2).to(torch.bfloat16)
+            shared = absmax.amax(dim=0).float()
+            # divide by a tensor: CUDA divides by a Python number as a
+            # multiplication by its reciprocal
+            scale = (shared / shared.new_full((), float(qmax))) \
+                .to(torch.bfloat16).float()
+            safe = torch.where(scale > 0, scale, scale.new_ones(()))
+            q = torch.round(x / safe[None, :, None]).clamp_(-qmax, qmax)
+            res.copy_((x - q * safe[None, :, None]).view(R, -1))
+            acc = qz.quantized_acc_dtype(8 if wire == "int8" else 4, R)
+            y = q.to(acc).sum(dim=0, dtype=acc).float() * safe[:, None]
+            y = y.view(-1)
+        elif wire in ("bf16", "fp16"):
+            wdt = qz.WIRE_TORCH_DTYPES[wire]
+            y = torch.stack([g.reshape(-1).to(wdt) for g in rows]) \
+                .sum(dim=0, dtype=wdt).float()
+            y = lay.padded(y)
+        else:
+            y = rows[0].reshape(-1).float()
+            for g in rows[1:]:
+                y = y + g.reshape(-1)
+            y = lay.padded(y)
+        if self.op == Average:
+            y = y * (1.0 / R)
+        return y
+
+    def _build_sharded(self, ex):
+        """The weight-update-sharded step (the JAX package's
+        ``_build_sharded``, flat decomposition): the ranks' gradients
+        (:meth:`_grads`), then per parameter leaf the reducescatter
+        (:meth:`_reduce_leaf`) into the ranks' shards, each rank's
+        optimizer stepping its shards (its rows of the shard buffers,
+        loaded from the replicated params), and the updated rows written
+        back into the one replicated parameter tensor, the allgather.
+        The rank threads of the stacked executor stand for the JAX
+        package's one device per rank."""
+        if not ex.stacked:
+            raise NotImplementedError(
+                "the sharded compiled step over a process group (one rank "
+                "per process) is not ported yet (ROADMAP.md A4/A6)")
+        R = ex.num_ranks
+
+        def prog(state, batch_rows):
+            # every rank's gradients: the shared scales of a quantized
+            # wire need all of them before any rank's codes
+            grads = []
+            train, loss = self._grads(ex, state, batch_rows,
+                                      lambda r, g: grads.append(g))
+            so = state["opt_state"]
+            efs = list(state.get("grad_ef", {}).values()) \
+                or [None] * len(train)
+            with torch.no_grad():
+                shard_grads = []
+                for i, (p, buf, res) in enumerate(
+                        zip(train, so.shards, efs)):
+                    lay = self._layout(p.numel(), R, p.device)
+                    y = self._reduce_leaf([g[i] for g in grads], res, lay,
+                                          R)
+                    shard_grads.append(lay.shard(y).to(p.dtype))
+                    # this step's shard of the replicated params
+                    buf.copy_(lay.shard(lay.padded(p.detach())))
+                del grads
+                for r, opt in enumerate(so.optimizers):
+                    shards = so.rank_params(r)
+                    for t, g in zip(shards, shard_grads):
+                        t.grad = g[r]
+                    opt.step()
+                    for t in shards:
+                        t.grad = None
+                for p, buf in zip(train, so.shards):
+                    lay = self._layout(p.numel(), R, p.device)
+                    p.copy_(lay.natural(buf)[:lay.n].view_as(p))
+            return state, loss
 
         return prog
 
@@ -1299,14 +1604,22 @@ class _CompiledTrainStep:
                 self._sig_checked = False
                 self._ex = ex
             if self._prog is None:
+                build = self._build_sharded if self.sharded else self._build
+
                 def make():
-                    return _make_program(self._build(ex), device,
+                    return _make_program(build(ex), device,
                                          leaves=_state_leaves,
                                          capture=self.capture)
                 if self._tag is not None:
-                    mode = None if self.capture else "uncaptured"
+                    # the sharded decomposition is part of the key: the
+                    # same model under another wire or segment size is
+                    # another program
+                    mode = ("sharded", self.wire_dtype, None,
+                            self._overlap_bucket_bytes(), None) \
+                        if self.sharded else None
+                    run = None if self.capture else "uncaptured"
                     self._prog = _shared_program(
-                        ("step", _ex_uid(ex), self._tag, mode), make)
+                        ("step", _ex_uid(ex), self._tag, mode, run), make)
                 else:
                     # untagged (single-rank) steps skip the shared cache
                     # but still count a miss
@@ -1350,42 +1663,82 @@ class _CompiledTrainStep:
         into leaf tensors (float ones requiring grad), ``opt_state`` the
         ``optimizer`` built over them, ``aux`` (with ``has_aux``) copied.
         On the card an optimizer that keeps a host-side step count (Adam
-        and its kin) is made ``capturable``."""
+        and its kin) is made ``capturable``.
+
+        ``sharded=True`` builds the sharded state instead: the params
+        replicated, ``opt_state`` a :class:`ShardedOptState` (per rank
+        one optimizer over that rank's flat shards, its state built as
+        tensors now), and under an int8/int4 wire ``grad_ef``, per trained
+        parameter a zero ``(R, pad)`` f32 error-feedback residual whose
+        row r is rank r's."""
         eng, ps = _ps_state(self.process_set)
         dev = eng.device
         params = {k: _param_leaf(v, dev) for k, v in params.items()}
-        opt = self.optimizer(list(params.values()))
-        if dev.type == "cuda":
-            for group in opt.param_groups:
-                if "capturable" in group:
-                    group["capturable"] = True
-        state = {"params": params, "opt_state": opt}
+        if self.sharded:
+            state = self._init_sharded(ps.executor.num_ranks, params, dev)
+        else:
+            state = {"params": params, "opt_state": _capturable(
+                self.optimizer(list(params.values())), dev)}
         if self.has_aux:
             state["aux"] = pytree.tree_map(
                 lambda x: torch.as_tensor(x).detach().to(dev, copy=True),
                 {} if aux is None else aux)
         return state
 
+    def _init_sharded(self, R, params, dev):
+        names = [k for k, p in params.items() if p.requires_grad]
+        layouts = [self._layout(params[k].numel(), R, dev) for k in names]
+        with torch.no_grad():
+            shards = [lay.shard(lay.padded(params[k])).clone()
+                      for k, lay in zip(names, layouts)]
+        opts = []
+        for r in range(R):
+            opt = _capturable(self.optimizer([b[r] for b in shards]), dev)
+            _init_optimizer_state(opt)
+            opts.append(opt)
+        state = {"params": params,
+                 "opt_state": ShardedOptState(names, shards, opts)}
+        if self._quantized():
+            state["grad_ef"] = {
+                k: torch.zeros((R, lay.pad), dtype=torch.float32,
+                               device=dev)
+                for k, lay in zip(names, layouts)}
+        return state
+
     def _clone_state(self, state):
-        """A state sharing no tensor with ``state``: cloned params, a new
-        optimizer over them holding clones of the old one's state and its
-        groups' hyperparameters, cloned aux."""
+        """A state sharing no tensor with ``state``: cloned params, new
+        optimizers over them (or over cloned shards) holding clones of the
+        old ones' state and their groups' hyperparameters, cloned aux and
+        residuals."""
         params = {k: v.detach().clone().requires_grad_(v.requires_grad)
                   for k, v in state["params"].items()}
         old = state["opt_state"]
-        opt = self.optimizer(list(params.values()))
+        if isinstance(old, ShardedOptState):
+            shards = [b.clone() for b in old.shards]
+            opts = [self._clone_optimizer(
+                o, [b[r] for b in shards], old.rank_params(r))
+                for r, o in enumerate(old.optimizers)]
+            opt = ShardedOptState(old.names, shards, opts)
+        else:
+            opt = self._clone_optimizer(old, list(params.values()),
+                                        list(state["params"].values()))
+        out = {"params": params, "opt_state": opt}
+        for key in ("aux", "grad_ef"):
+            if key in state:
+                out[key] = pytree.tree_map(torch.clone, state[key])
+        return out
+
+    def _clone_optimizer(self, old, new_params, old_params):
+        opt = self.optimizer(new_params)
         for g_new, g_old in zip(opt.param_groups, old.param_groups):
             g_new.update({k: v for k, v in g_old.items() if k != "params"})
-        for p_old, p_new in zip(state["params"].values(), params.values()):
+        for p_old, p_new in zip(old_params, new_params):
             st = old.state.get(p_old)
             if st:
                 opt.state[p_new] = {
                     k: v.clone() if torch.is_tensor(v) else v
                     for k, v in st.items()}
-        out = {"params": params, "opt_state": opt}
-        if "aux" in state:
-            out["aux"] = pytree.tree_map(torch.clone, state["aux"])
-        return out
+        return opt
 
     def _stage_batch(self, ex, slots, device):
         """{pos: batch_tree} for the local ranks -> one tree of (R, ...)
@@ -1516,12 +1869,73 @@ def make_compiled_train_step(loss_fn, optimizer, *, op=Average,
     read in place), the optimizer's hyperparameters are constants of the
     graph, and the returned loss is a copy.
 
-    ``sharded=True``, a ``wire_dtype``, ``topology_hint``/``wire_inner``
-    and ``op=Adasum`` raise ``NotImplementedError`` (ROADMAP.md A10, A8,
-    A7).
+    ``sharded=True`` builds the weight-update-sharded step (ZeRO,
+    arXiv:1909.09756) with the same call contract: each parameter's
+    gradients reducescatter over the ranks, optionally over a 16-bit or
+    shared-scale int8/int4 ``wire_dtype`` with an error-feedback residual
+    in the state (``grad_ef``), each rank's optimizer updates its flat
+    1/R shard of the parameters and holds only that shard of the
+    optimizer state (``init_state`` builds the :class:`ShardedOptState`),
+    and the updated shards gather back into the replicated parameters.
+    ``HOROVOD_OVERLAP_BUCKET_BYTES`` splits each leaf's scatter and
+    gather into segments, bit for bit the unsegmented step.  The dense
+    step ignores ``wire_dtype``, as the JAX package's does.
+
+    ``topology_hint``/``wire_inner`` and ``op=Adasum`` on the dense step
+    raise ``NotImplementedError`` (ROADMAP.md A8, A7); ``op=Adasum`` with
+    ``sharded=True`` raises ``ValueError``, as in the JAX package.
     """
     return _CompiledTrainStep(loss_fn, optimizer, op, process_set,
                               donate, has_aux=has_aux,
                               sharded=sharded, wire_dtype=wire_dtype,
                               topology_hint=topology_hint,
                               wire_inner=wire_inner)
+
+
+# optax's flat state leaves and the torch optimizer state that holds them
+_OPTAX_SLOTS = {"trace": "momentum_buffer", "mu": "exp_avg",
+                "nu": "exp_avg_sq"}
+
+
+def sharded_state_from_jax(step, params, opt_leaves, aux=None,
+                           grad_ef=None):
+    """The port's sharded train state for the JAX package's: the carrier
+    of a mid-run ``make_compiled_train_step(sharded=True)`` state.
+
+    ``step`` is the port's sharded step (its ``init_state`` runs inside
+    ``hvd.run``); ``params`` and ``aux`` are the port's named arrays;
+    ``opt_leaves`` maps an optax slot to ``{name: array}`` of the JAX
+    package's global flat leaves, ``(pad,)`` in its segment-major layout:
+    ``"trace"`` (``optax.sgd``'s momentum, into ``momentum_buffer``),
+    ``"mu"`` and ``"nu"`` (``optax.adam``/``adamw``'s moments, into
+    ``exp_avg`` and ``exp_avg_sq``), and ``"count"``, an integer (into
+    each shard's ``step``).  ``grad_ef`` maps a name to its ``(R, pad)``
+    residual.  Each JAX leaf must hold its elements in the port leaf's
+    order: a flat leaf keeps no shape, so a conv kernel (HWIO there, OIHW
+    here) or the flax LM's stacked layers would land on other elements."""
+    state = step.init_state(params, aux=aux)
+    so = state["opt_state"]
+    with torch.no_grad():
+        for slot, arrays in opt_leaves.items():
+            if slot == "count":
+                for r, opt in enumerate(so.optimizers):
+                    for p in so.rank_params(r):
+                        opt.state[p]["step"].fill_(float(arrays))
+                continue
+            key = _OPTAX_SLOTS.get(slot)
+            if key is None:
+                raise ValueError(f"unknown optax slot {slot!r}; known: "
+                                 f"{sorted(_OPTAX_SLOTS)} and 'count'")
+            for i, name in enumerate(so.names):
+                rows = torch.as_tensor(np.asarray(arrays[name])).view(
+                    so.shards[i].shape)
+                for r, opt in enumerate(so.optimizers):
+                    st = opt.state[so.rank_params(r)[i]]
+                    if key not in st:
+                        raise ValueError(
+                            f"the optimizer has no {key!r} for the optax "
+                            f"slot {slot!r}")
+                    st[key].copy_(rows[r])
+        for name, arr in (grad_ef or {}).items():
+            state["grad_ef"][name].copy_(torch.as_tensor(np.asarray(arr)))
+    return state

@@ -7,9 +7,8 @@ into one program over a mesh, the port runs them eagerly on one device:
 the mesh.  ``attention_impl="flash"`` runs attention through the flash
 kernels (``ops/flash_attention.py``); ``"ring"`` without sequence
 parallelism is the dense model, as in the JAX package.  Sequence
-parallelism, the pipeline runtime, weight-update sharding and the fused
-loss are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+parallelism, the pipeline runtime and the fused loss are not ported yet
+and raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 import torch
@@ -61,6 +60,14 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
     (state, loss)`` trains one step on the (B, S) token ids, updating
     the state in place, and returns the loss as a device scalar without
     waiting for it; the gradients of the step stay in ``p.grad``.
+
+    ``sharded`` (in the JAX package None reads
+    ``HOROVOD_SHARDED_OPTIMIZER``) shards the optimizer state over the
+    step's data-parallel ranks.  This step runs one data-parallel rank on
+    one device, where the sharded step is the dense one, as the JAX
+    package's is on a mesh with dp = 1, so every value gives the dense
+    step; the LM sharded across rank threads is
+    ``make_compiled_train_step(..., sharded=True)`` over the model's loss.
     """
     if attention_impl not in ("ring", "ulysses", "flash"):
         raise ValueError(
@@ -80,9 +87,6 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
                 "kernel; with sequence_parallel use 'ring' or 'ulysses'")
         raise NotImplementedError(
             "sequence parallelism is not ported yet (ROADMAP.md A15)")
-    if sharded:
-        raise NotImplementedError(
-            "weight-update sharding is not ported yet (ROADMAP.md A10)")
     if fused_ce:
         raise NotImplementedError(
             "the fused chunked loss is not ported yet (ROADMAP.md A11)")

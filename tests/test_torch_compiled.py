@@ -591,10 +591,21 @@ def _resnet_batches():
              for _ in range(2)] for _ in range(STEPS)]
 
 
+RESNET_BOUNDS = [(False, 1e-3, 0.1, 2e-3), (True, 1e-2, 0.2, 1e-2)]
+
+
 @pytest.mark.parametrize("fused,loss_bound,param_bound,stat_bound",
-                         [(False, 1e-3, 0.1, 2e-3), (True, 1e-2, 0.2, 1e-2)])
+                         RESNET_BOUNDS)
 def test_small_resnet_compiled_step_matches_jax(fused, loss_bound,
                                                 param_bound, stat_bound):
+    small_resnet_case(fused, loss_bound, param_bound, stat_bound)
+
+
+def small_resnet_case(fused, loss_bound, param_bound, stat_bound,
+                      **step_kw):
+    """3 compiled steps of the small ResNet in both packages at np=2
+    (``step_kw`` to both ``make_compiled_train_step`` calls) held to the
+    module docstring's bounds."""
     flax_model = FlaxResNet(fused=fused, **KW)
     shapes = jax.eval_shape(lambda: flax_model.init(
         jax.random.PRNGKey(0), jnp.zeros((BATCH, HW, HW, 3)), train=False))
@@ -613,7 +624,7 @@ def test_small_resnet_compiled_step_matches_jax(fused, loss_bound,
             loss = -jnp.mean(jnp.take_along_axis(logp, y[:, None], -1))
             return loss, mutated["batch_stats"]
         step = jhvd.make_compiled_train_step(
-            loss_fn, optax.sgd(LR, momentum=0.9), has_aux=True)
+            loss_fn, optax.sgd(LR, momentum=0.9), has_aux=True, **step_kw)
         state = step.init_state(variables["params"],
                                 aux=variables["batch_stats"])
         losses = []
@@ -641,7 +652,7 @@ def test_small_resnet_compiled_step_matches_jax(fused, loss_bound,
             return F.cross_entropy(logits, y.long()), aux
 
         step = thvd.make_compiled_train_step(
-            loss_fn, sgd(LR, momentum=0.9), has_aux=True)
+            loss_fn, sgd(LR, momentum=0.9), has_aux=True, **step_kw)
         state = step.init_state(params, aux=aux)
         losses = []
         for s in range(STEPS):
@@ -679,15 +690,16 @@ def test_small_resnet_compiled_step_matches_jax(fused, loss_bound,
     "sharded", "step_wire", "step_hint", "adasum", "algorithm",
     "topology_hint", "alltoall", "alltoall_fn", "integrity"])
 def test_not_ported_raises_naming_its_item(case, monkeypatch):
-    items = {"sharded": "A10", "step_wire": "A10", "step_hint": "A8",
+    items = {"sharded": "A8", "step_wire": "A8", "step_hint": "A8",
              "adasum": "A7", "algorithm": "A8", "topology_hint": "A8",
              "alltoall": "A13", "alltoall_fn": "A13", "integrity": "A14"}
     loss = (lambda p, b: p["w"].sum())
     calls = {
         "sharded": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), sharded=True),
+            loss, sgd(0.1), sharded=True, topology_hint=("dp", "tp")),
         "step_wire": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), wire_dtype="int8"),
+            loss, sgd(0.1), sharded=True, wire_dtype="int8",
+            wire_inner="bf16"),
         "step_hint": lambda: thvd.make_compiled_train_step(
             loss, sgd(0.1), wire_inner="bf16"),
         "adasum": lambda: thvd.make_compiled_train_step(

@@ -123,7 +123,7 @@ def test_seed_init_and_dense_default():
      "flash"),
     (dict(sequence_parallel=True), NotImplementedError, "A15"),
     (dict(pipeline=2), NotImplementedError, "A15"),
-    (dict(sharded=True), NotImplementedError, "A10"),
+    (dict(sharded=True, fused_ce=True), NotImplementedError, "A11"),
     (dict(fused_ce=True), NotImplementedError, "A11"),
 ])
 def test_refusals(kw, exc, match):
