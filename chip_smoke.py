@@ -180,14 +180,42 @@ Phases (a failure in any one exits non-zero):
     prints each leg's steady step time, img/s or tok/s, the ratio to the
     matching dense step, the busy share of one profiled replay, warm-up
     plus capture seconds, the state bytes per rank and the peak device
-    memory (per step, and what the leg found held).
+    memory (per step, and what the leg found held);
+15. the rest of the collective contract and the MoE LM: (a) an 8-expert
+    top-2 MoE at the 436M's width (``MOE``: capacity factor 1.25,
+    expert hidden 2048, 1.34 B parameters, bf16, AdamW 1e-3) trains 6
+    steps on phase 7's tokens through ``make_lm_train_step(
+    attention_impl="flash")``.  Checks: finite losses; 24 launches of
+    each of B6-B8 a step; step 1's loss within 2e-3 of the same weights'
+    dense-attention loss; phase 7's flash-against-dense rule on the same
+    model ``MOE_GATE_LAYERS`` deep; B6-B8 against their plain versions on
+    layer 0's attention inputs.  It prints the step time, tok/s, model
+    TFLOP/s at the dense twin's FLOPs, the busy share of one profiled
+    step, dropped choices per step, the peak memory, the ratio to phase
+    7's step and the loss gap to phase 7's model.  (b) At ``A2A_NP`` rank
+    threads each rank routes its own 5 x 2048 tokens through layer 0's
+    router and ``moe_dispatch``; the (8, 3200, 1024) slots, in f32 by
+    destination, cross ``hvd.alltoall`` on every wire of ``A2A_WIRES``
+    (int8/int4 with error feedback over two calls and stateless) and
+    ``CompiledAlltoall`` on int8/int4.  Checks: the f32 wire is the
+    plain permutation bit for bit, the bf16 wire its bf16 rounding; on
+    int8/int4 each received slot is the plain codec's decode of what its
+    sender sent and every residual ``padded - decode(encode(padded))``,
+    bit for bit; the wire ratios above ``WIRE_RATIO``; B2-B5 launched.
+    Then one MoE FFN at ep = 2 through ``HorovodAlltoall`` forward and
+    backward against ``capacity_moe_apply`` with all 8 experts on the
+    same tokens (``EP_REL_L2``).  (c) Phase 4's run where rank 1 joins
+    after step 3: rank 0's step-4 gradients the join rule's average bit
+    for bit, join's value, barriers; an allreduce on
+    ``add_process_set([0, 2])`` among 4 rank threads and its removal.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
-``sharded_launches``, and every kernel's launches recorded by each
-phase-14 leg's capture under ``compiled_sharded``); the last line is
-``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4, 7, 9,
-11, 12 and 14 also print the profile tables of one steady step each.
+``sharded_launches``, every kernel's launches recorded by each phase-14
+leg's capture under ``compiled_sharded``, and each kernel's launches in
+phase 15 under ``phase15_launches``); the last line is ``{"ok": true,
+"device": {...}}``.  With ``--profile`` phases 4, 7, 9, 11, 12, 14 and
+15 also print the profile tables of one steady step each.
 """
 
 import gc
@@ -304,6 +332,21 @@ SHARDED_LEGS = (("a f32", "resnet", False, True, None, 0),
 # parameters after 6 steps from the dense leg's (tests/test_sharded.py's
 # bar), where they are not bit for bit
 SHARDED_PARAM_BOUND = 2e-6
+# phase 15: the MoE LM at the 436M's width, docs/parallelism.md:219-221
+# (8 experts, top 2, capacity factor 1.25) with lm_bench.py:237's
+# per-expert hidden width 4 * d_model / K
+MOE = dict(LM, d_ff=2048, num_experts=8, expert_top_k=2,
+           moe_capacity_factor=1.25)
+# phase 15 (a): depth of the flash-against-dense gradient gate (phase 7's
+# rule: its f32 yardstick of the 24-layer MoE would not fit beside it)
+MOE_GATE_LAYERS = 4
+# phase 15 (b): rank threads of the dispatch wire (ep = 2: 4 experts a
+# rank), its wires, and the bound on the relative L2 distance of the
+# ep = 2 FFN's output and gradients from the one-rank layer (bf16: the two
+# run their expert products at other batch shapes)
+A2A_NP = 2
+A2A_WIRES = (None, "bf16", "int8", "int4")
+EP_REL_L2 = 1e-2
 
 
 def log(*a):
@@ -1177,7 +1220,8 @@ def phase_lm(dev, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "steady_s": steady, "tok_s": tok_s,
-            "tflops": tflops, "peak": peak, "weights": weights}
+            "tflops": tflops, "peak": peak, "weights": weights,
+            "losses": losses, "tokens": tokens}
 
 
 def phase_lm_hvd(dev):
@@ -2825,6 +2869,542 @@ def phase_compiled_sharded(dev, card, state, batches, refs, lm_weights,
 
 
 # ---------------------------------------------------------------------------
+# phase 15
+
+def moe_gate(dev, tokens):
+    """Phase 7's rule on the MoE at full width and MOE_GATE_LAYERS deep:
+    one flash step and one dense step (bf16) against the f32 gradients of
+    the dense model in plain torch on the same weights and tokens."""
+    import torch
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, lm_loss, numpy_init)
+    from horovod_tpu_torch.parallel import make_lm_train_step
+
+    kw = dict(MOE, n_layers=MOE_GATE_LAYERS)
+    cfg = TransformerConfig(dtype=torch.bfloat16, **kw)
+    with torch.device("meta"):
+        shell = TransformerLM(cfg)
+    weights = numpy_init(shell, SEED + 15)
+    grads, loss = {}, {}
+    for impl in ("flash", "ring"):
+        init, step = make_lm_train_step(cfg, attention_impl=impl,
+                                        device=dev)
+        state = init(weights)
+        state, l_ = step(state, tokens)
+        loss[impl] = float(l_)
+        grads[impl] = {n: p.grad.detach().float() for n, p in
+                       state["model"].named_parameters()}
+        del state
+    with torch.device("meta"):
+        ref = TransformerLM(TransformerConfig(dtype=torch.float32, **kw))
+    ref.to_empty(device=dev)
+    ref.load_state_dict(weights)
+    loss_r = lm_loss(ref(tokens)[:, :-1], tokens[:, 1:])
+    loss_r.backward()
+    fd, d_ref, sq = {}, {}, [0.0, 0.0, 0.0]
+    for n, p in ref.named_parameters():
+        r, gf, gd = p.grad, grads["flash"][n], grads["ring"][n]
+        rn = max(float(r.norm()), 1e-30)
+        fd[n] = float((gf - gd).norm()) / max(float(gd.norm()), 1e-30)
+        d_ref[n] = float((gd - r).norm()) / rn
+        for j, x in enumerate((gf - r, gd - r, r)):
+            sq[j] += float(x.norm()) ** 2
+    glob_f, glob_d = math.sqrt(sq[0] / sq[2]), math.sqrt(sq[1] / sq[2])
+    bad = [n for n in fd if fd[n] > max(2e-2, 2 * d_ref[n])]
+    worst = max(fd, key=lambda n: fd[n] / max(2e-2, 2 * d_ref[n]))
+    log(f"phase 15 (a) gate, {MOE_GATE_LAYERS} layers at full width: loss "
+        f"flash {loss['flash']} dense {loss['ring']} f32 "
+        f"{float(loss_r.detach())}; gradients flash vs dense worst "
+        f"{fd[worst]:.4g} ({worst}; bound max(2e-2, 2 x dense vs f32 = "
+        f"{2 * d_ref[worst]:.4g})), median "
+        f"{sorted(fd.values())[len(fd) // 2]:.4g}; against f32, all "
+        f"parameters: flash {glob_f:.4g}, dense {glob_d:.4g} (bound flash "
+        f"<= 1.25 x dense)")
+    if not abs(loss["flash"] - loss["ring"]) <= 2e-3 or bad \
+            or not glob_f <= 1.25 * glob_d:
+        raise AssertionError(f"phase 15 (a): the flash MoE step disagrees "
+                             f"with the dense step beyond bf16 noise: "
+                             f"{bad[:5]}")
+    del ref, grads, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_flash_check(dev, qkv):
+    """B6-B8 against their plain versions (FA.error_ratio, phase 6's rule)
+    on the q, k, v that layer 0 of the MoE LM handed its attention, with
+    a random output gradient."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    B, S, H, D = qkv[0].shape
+    q, k, v = (t.permute(0, 2, 1, 3).reshape(B * H, S, D).contiguous()
+               for t in qkv)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 16)
+    do = torch.randn(B * H, S, D, generator=g).to(dev, q.dtype)
+    out, lse = FA.flash_fwd(q, k, v)
+    r_out, r_lse = FA.plain_flash_fwd(q, k, v)
+    delta = (do.float() * r_out.float()).sum(-1)
+    dq = FA.flash_bwd_dq(q, k, v, do, r_lse, delta)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, r_lse, delta)
+    r_dq = FA.plain_flash_bwd_dq(q, k, v, do, r_lse, delta)
+    r_dk, r_dv = FA.plain_flash_bwd_dkv(q, k, v, do, r_lse, delta)
+    sc = FA.plain_error_scales(q, k, v, do, r_out, r_lse, delta)
+    ratios = {}
+    for name, got, want, t_dtype, rss, noise in (
+            ("out", out, r_out, q.dtype, sc["rss_out"], None),
+            ("lse", lse, r_lse, torch.float32, None, None),
+            ("dq", dq, r_dq, q.dtype, sc["rss_dq"], sc["noise_dq"]),
+            ("dk", dk, r_dk, q.dtype, sc["rss_dk"], sc["noise_dk"]),
+            ("dv", dv, r_dv, q.dtype, sc["rss_dv"], None)):
+        ratios[name] = FA.error_ratio(got, want, t_dtype, rss, noise)[1]
+    log(f"phase 15 (a): B6-B8 on layer 0's attention inputs (BH {B * H}, "
+        f"S {S}, D {D}, {q.dtype}) against their plain versions, error / "
+        f"bound {ratios}")
+    if not all(r <= 1.0 for r in ratios.values()):
+        raise AssertionError(f"phase 15 (a): a flash kernel disagrees with "
+                             f"its plain version on the MoE's inputs: "
+                             f"{ratios}")
+
+
+def phase_moe_lm(dev, lm, profile=False):
+    """Phase 15 (a): the MoE LM (MOE) through make_lm_train_step(
+    attention_impl="flash") for STEPS steps on phase 7's tokens."""
+    import torch
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, dense_causal_attention, lm_loss,
+        numpy_init)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel import make_lm_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = TransformerConfig(dtype=torch.bfloat16, **MOE)
+    tok = torch.from_numpy(lm["tokens"]).to(dev)
+    moe_gate(dev, tok)
+
+    with torch.device("meta"):
+        shell = TransformerLM(cfg)
+    t0 = time.perf_counter()
+    weights = numpy_init(shell, SEED + 14)
+    init_s = time.perf_counter() - t0
+    del shell
+    init, step = make_lm_train_step(cfg, attention_impl="flash", device=dev)
+    state = init(weights)
+    del weights
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if ".moe.w" in n)
+    # the full-depth loss of the dense model on the same weights (no
+    # gradient: one layer's scores at a time), before the first step
+    flash_fn = model.layers[0].attn.attention_fn
+    with torch.no_grad():
+        for blk in model.layers:
+            blk.attn.attention_fn = dense_causal_attention
+        dense_loss = float(lm_loss(model(tok)[:, :-1], tok[:, 1:]))
+        for blk in model.layers:
+            blk.attn.attention_fn = flash_fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    losses, times, drops, busy = [], [], [], None
+    for i in range(STEPS):
+        prof = None
+        if i == STEPS - 2:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, loss = step(state, tok)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            log("profile: phase 15 (a), one steady step of the MoE LM")
+            busy = profile_summary(prof, times[-1], tables=profile)
+        losses.append(float(loss))
+        drops.append(sum(int(b.moe.moe_dropped) for b in model.layers))
+    launches = {n: FA.launches[n] for n, _ in FLASH}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 15 (a): non-finite loss {losses}")
+    if any(launches[n] != STEPS * cfg.n_layers for n in launches):
+        raise AssertionError(f"phase 15 (a): flash launches {launches}, "
+                             f"want {STEPS * cfg.n_layers} of each")
+    if not abs(dense_loss - losses[0]) <= 2e-3:
+        raise AssertionError(f"phase 15 (a): step 1's flash loss "
+                             f"{losses[0]} and the dense model's "
+                             f"{dense_loss} differ by more than 2e-3")
+    timed = [t for i, t in enumerate(times) if i > 0 and i != STEPS - 2]
+    steady = sum(timed) / len(timed)
+    n_tok = LM_BATCH * cfg.max_seq_len
+    tok_s = n_tok / steady
+    dense_cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    tflops = lm_flops_per_token(dense_cfg) * tok_s / 1e12
+    cap = -(-int(cfg.moe_capacity_factor * n_tok * cfg.expert_top_k)
+            // cfg.num_experts)
+    gap = abs(losses[-1] - lm["losses"][-1]) / lm["losses"][-1]
+    log(f"phase 15 (a): MoE LM {n_params} parameters ({n_expert} in "
+        f"experts; numpy init {init_s:.1f} s), {cfg.num_experts} experts "
+        f"top {cfg.expert_top_k}, capacity {cap} slots an expert; held "
+        f"{held / 1e9:.2f} GB at the phase's start")
+    log(f"phase 15 (a): losses {losses}; step 1's loss on the dense model "
+        f"{dense_loss} (|diff| {abs(dense_loss - losses[0]):.3g}, bound "
+        f"2e-3); dropped choices per step {drops} of "
+        f"{n_tok * cfg.expert_top_k * cfg.n_layers}; flash launches "
+        f"{launches}")
+    log(f"phase 15 (a): step times (s) {[round(t, 4) for t in times]}; "
+        f"steady {steady * 1e3:.2f} ms/step = {tok_s:.1f} tok/s = "
+        f"{tflops:.1f} model TFLOP/s at the dense twin's "
+        f"{lm_flops_per_token(dense_cfg) / 1e9:.3f} GFLOP/token (the "
+        f"experts also multiply the {cfg.moe_capacity_factor}x capacity "
+        f"padding); busy share {busy:.3f}; peak memory {peak / 1e9:.2f} GB")
+    log(f"phase 15 (a): x {steady / lm['steady_s']:.3f} phase 7's dense "
+        f"step ({lm['steady_s'] * 1e3:.2f} ms); loss after {STEPS} steps "
+        f"{losses[-1]} vs phase 7's {lm['losses'][-1]} on the same "
+        f"tokens: gap {gap:.4f} (the repo's bar for a trained pair, "
+        f"docs/parallelism.md: <= 0.01; a finding, not a gate)")
+    # layer 0 and the embedding go on to (b); the rest is released
+    keep = {"embed": model.embed.detach().clone(),
+            "block": model.layers[0], "angles": model.angles(dev)}
+    qkv = []
+
+    def capture(q, k, v, **kw):
+        qkv.extend(t.detach() for t in (q, k, v))
+        return flash_fn(q, k, v, **kw)
+    with torch.no_grad():
+        keep["block"].attn.attention_fn = capture
+        model(tok)
+        keep["block"].attn.attention_fn = flash_fn
+    moe_flash_check(dev, qkv)
+    del qkv
+    for p in keep["block"].parameters():
+        p.grad = None
+    del state, model, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "keep": keep}
+
+
+def phase_moe_wire(dev, moe):
+    """Phase 15 (b): each of A2A_NP rank threads routes its own tokens
+    through layer 0's router and moe_dispatch, and the (E, C, M) slots
+    cross hvd.alltoall on every wire, CompiledAlltoall on int8/int4, and
+    HorovodAlltoall forward and backward in an ep = 2 FFN."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import compiled as CM
+    from horovod_tpu_torch.ops import quantize as qz
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+    from horovod_tpu_torch.parallel import moe as M
+
+    blk, embed = moe["keep"]["block"], moe["keep"]["embed"]
+    angles = moe["keep"]["angles"]
+    E, K, cf = MOE["num_experts"], MOE["expert_top_k"], \
+        MOE["moe_capacity_factor"]
+    rng = np.random.default_rng(SEED + 17)
+    toks = [torch.from_numpy(rng.integers(0, MOE["vocab_size"],
+                                          size=(LM_BATCH, LM["max_seq_len"])))
+            .to(dev) for _ in range(A2A_NP)]
+    experts = [getattr(blk.moe, n).detach().to(torch.bfloat16)
+               for n in ("wi_gate", "wi_up", "wo")]
+    router = blk.moe.router.weight.detach().t().contiguous()    # (M, E)
+    E_loc = E // A2A_NP
+    barrier = threading.Barrier(A2A_NP)
+    failures, report = [], {}
+
+    def plain_round(x, wire):
+        enc = qz.plain_quantize_blockwise_int4 if wire == "int4" \
+            else qz.plain_quantize_blockwise
+        dec = qz.plain_dequantize_blockwise_int4 if wire == "int4" \
+            else qz.plain_dequantize_blockwise
+        q, s = enc(x)
+        return dec(q, s, x.numel())
+
+    def hidden(r):
+        with torch.no_grad():
+            x = embed[toks[r]].to(torch.bfloat16)
+            x = x + blk.attn(blk.ln_attn(x), angles[:x.shape[1]])
+            return blk.ln_mlp(x).reshape(-1, x.shape[-1])
+
+    def fn():
+        r = hvd.rank()
+        eng = basics.engine()
+        h = hidden(r)
+        w, idx = M.top_k_gating(h.float() @ router, K)
+        cap = M.expert_capacity(h.shape[0], E, K, cf)
+        pos, keep, dropped = M.make_dispatch_plan(idx, E, cap)
+        slots = M.moe_dispatch(h, idx, pos, keep, E, cap)
+        send = slots.float().reshape(A2A_NP, -1)      # f32, by destination
+        barrier.wait()
+        # the same permutation in plain torch: what the wire must deliver
+        shared[r] = send
+        barrier.wait()
+        plain = torch.cat([shared[src][r] for src in range(A2A_NP)])
+        out = {}
+        for wire in A2A_WIRES:
+            for ef in ((True, False) if wire in ("int8", "int4")
+                       else (True,)):
+                tag = f"{wire or 'f32'}{'' if ef else ' stateless'}"
+                before = (eng.logical_wire_bytes, eng.actual_wire_bytes)
+                prev_res = None
+                got, ms = [], []
+                for call in range(2 if ef and wire in ("int8", "int4")
+                                  else 1):
+                    barrier.wait()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    y, recv = hvd.alltoall(send, wire_dtype=wire,
+                                           error_feedback=ef,
+                                           name=f"moe.{tag}.{call}")
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    res = eng._a2a_ef.get((0, r))
+                    got.append((y, res))
+                    barrier.wait()
+                    if wire in ("int8", "int4"):
+                        padded = send.reshape(-1) if prev_res is None \
+                            else send.reshape(-1) + prev_res
+                        rt = plain_round(padded, wire)
+                        shared[r] = rt.view(A2A_NP, -1)
+                        barrier.wait()
+                        want = torch.cat([shared[src][r]
+                                          for src in range(A2A_NP)])
+                        barrier.wait()
+                        if not torch.equal(y.reshape(-1), want):
+                            failures.append(f"rank {r} {tag} call {call}: "
+                                            f"received slots differ from "
+                                            f"the plain codec's decode")
+                        if ef and not torch.equal(res, padded - rt):
+                            failures.append(f"rank {r} {tag} call {call}: "
+                                            f"residual differs")
+                        if not ef and res is not None:
+                            failures.append(f"rank {r} {tag}: a stateless "
+                                            f"exchange kept a residual")
+                        prev_res = padded - rt
+                    elif wire == "bf16":
+                        if not torch.equal(
+                                y.reshape(-1),
+                                plain.to(torch.bfloat16).float()):
+                            failures.append(f"rank {r} bf16 wire differs")
+                    elif not torch.equal(y.reshape(-1), plain):
+                        failures.append(f"rank {r} f32 wire is not the "
+                                        f"plain permutation")
+                    if recv.tolist() != [1] * A2A_NP:
+                        failures.append(f"rank {r} {tag}: received splits "
+                                        f"{recv.tolist()}")
+                lg = eng.logical_wire_bytes - before[0]
+                ac = eng.actual_wire_bytes - before[1]
+                out[tag] = {"ms": ms, "ratio": lg / max(ac, 1)}
+        # CompiledAlltoall, error feedback on, two calls
+        for wire in ("int8", "int4"):
+            a2a = hvd.CompiledAlltoall(name="moe.dispatch", wire_dtype=wire,
+                                       error_feedback=True)
+            prev_res, ms = None, []
+            for call in range(2):
+                barrier.wait()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = a2a(send)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                padded = send.reshape(-1) if prev_res is None \
+                    else send.reshape(-1) + prev_res
+                rt = plain_round(padded, wire)
+                shared[r] = rt.view(A2A_NP, -1)
+                barrier.wait()
+                want = torch.cat([shared[src][r] for src in range(A2A_NP)])
+                barrier.wait()
+                key = [k for k in a2a._ef_keys][0]
+                if not torch.equal(y.reshape(-1), want) \
+                        or not torch.equal(CM._A2A_EF[key], padded - rt):
+                    failures.append(f"rank {r} CompiledAlltoall {wire} call "
+                                    f"{call} differs from the plain codec")
+                prev_res = padded - rt
+            out[f"compiled {wire}"] = {"ms": ms,
+                                       "ratio": a2a.last_logical_bytes
+                                       / a2a.last_wire_bytes}
+            a2a.reset_wire_state()
+        shared[r] = None
+        # the ep = 2 FFN: dispatch and combine through HorovodAlltoall
+        lo = r * E_loc
+        loc = [t[lo:lo + E_loc] for t in experts]
+        x = h.detach().clone().requires_grad_()
+        rw = router.clone().requires_grad_()
+        w, idx = M.top_k_gating(x.float() @ rw, K)
+        pos, keep, _ = M.make_dispatch_plan(idx, E, cap)
+        sl = M.moe_dispatch(x, idx, pos, keep, E, cap)
+        recv = hvd_torch.alltoall(sl.reshape(A2A_NP, E_loc, cap, -1))
+        mine = recv.transpose(0, 1).reshape(E_loc, A2A_NP * cap, -1)
+        y_loc = M.expert_swiglu(mine, *loc)
+        back = y_loc.reshape(E_loc, A2A_NP, cap, -1).transpose(0, 1)
+        ye = hvd_torch.alltoall(back.contiguous()).reshape(E, cap, -1)
+        y = M.moe_combine(ye, idx, pos, keep, w).to(x.dtype)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(r)
+                        ).to(dev, y.dtype)
+        # each rank's backward on its own thread: autograd's one worker
+        # thread for the card would run one rank's blocking alltoall while
+        # the other rank's waits behind it
+        with torch.autograd.set_multithreading_enabled(False):
+            (y.float() * g.float()).sum().backward()
+        x_ref = h.detach().clone().requires_grad_()
+        rw_ref = router.clone().requires_grad_()
+        y_ref, aux = M.capacity_moe_apply(x_ref, rw_ref, *experts, topk=K,
+                                          capacity_factor=cf)
+        (y_ref.float() * g.float()).sum().backward()
+
+        def rel(a, b):
+            a, b = a.detach(), b.detach()
+            return float((a.float() - b.float()).norm()
+                         / b.float().norm().clamp_min(1e-30))
+        out["ep2"] = {"y": rel(y, y_ref), "y_bits": torch.equal(y, y_ref),
+                      "dx": rel(x.grad, x_ref.grad),
+                      "drouter": rel(rw.grad, rw_ref.grad),
+                      "finite": [bool(torch.isfinite(t).all()) for t in (
+                          y, y_ref, x.grad, x_ref.grad, rw.grad,
+                          rw_ref.grad)],
+                      "dropped": int(dropped), "cap": cap}
+        return out
+
+    shared = [None] * A2A_NP
+    QK.reset_launches()
+    results = hvd.run(fn, np=A2A_NP, device=dev)
+    launches = dict(QK.launches)
+    r0 = results[0]
+    n_tok = LM_BATCH * LM["max_seq_len"]
+    for tag, v in r0.items():
+        if tag == "ep2":
+            continue
+        log(f"phase 15 (b) {tag}: ms per exchange ({A2A_NP} x {n_tok} "
+            f"tokens routed to {E} x {r0['ep2']['cap']} slots x "
+            f"{MOE['d_model']}, f32, rank 0's host clock) "
+            f"{[round(m, 3) for m in v['ms']]}; wire ratio "
+            f"{v['ratio']:.4f}")
+    for wire, floor in WIRE_RATIO.items():
+        if r0[wire]["ratio"] < floor:
+            failures.append(f"{wire} wire ratio {r0[wire]['ratio']} below "
+                            f"{floor}")
+    for r, res in enumerate(results):
+        ep = res["ep2"]
+        log(f"phase 15 (b) rank {r} ep = {A2A_NP} FFN through "
+            f"HorovodAlltoall: output vs the one-rank layer relative L2 "
+            f"{ep['y']:.3g} (bit for bit: {ep['y_bits']}), gradients of "
+            f"the tokens {ep['dx']:.3g} and the router {ep['drouter']:.3g} "
+            f"(bound {EP_REL_L2}); {ep['dropped']} dropped choices; all "
+            f"finite (y, y_ref, dx, dx_ref, dr, dr_ref): {ep['finite']}")
+        if not all(ep["finite"]) or not all(
+                v <= EP_REL_L2 for v in (ep["y"], ep["dx"], ep["drouter"])):
+            failures.append(f"rank {r}: ep = 2 FFN off the one-rank layer")
+    log(f"phase 15 (b): codec launches {launches}")
+    for f in failures[:20]:
+        log(f"  MISMATCH {f}")
+    if failures or any(launches[n] == 0 for n, _, _ in CODEC):
+        raise AssertionError("phase 15 (b) failed: the dispatch wire "
+                             "disagrees with its plain version or a codec "
+                             "kernel did not run")
+    del moe["keep"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def phase_join(dev, state, batches):
+    """Phase 15 (c): phase 4's run where rank 1 joins after step 3 and
+    rank 0 trains on to step 6, between two barriers; then an allreduce on
+    a process set of ranks 0 and 2 among 4 rank threads, and its
+    removal."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+
+    xs, ys = batches
+    last_step = {0: STEPS, 1: 3}
+    checked = []
+
+    def train():
+        r = hvd.rank()
+        hvd.barrier()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict(state)
+        params = list(model.parameters())
+        local = {}
+        capture = [p.register_post_accumulate_grad_hook(
+            lambda p, i=i: local.__setitem__(i, p.grad.clone()))
+            for i, p in enumerate(params)] if r == 0 else []
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
+        for step in range(last_step[r]):
+            x, y = step_batch(x0, y0, step)
+            opt.zero_grad()
+            F.cross_entropy(model(x), y).backward()
+            if r == 0 and step == 3:
+                # rank 1 joined: its row is zeros, the average (g + 0) / 2
+                opt.synchronize()
+                for h in capture:
+                    h.remove()
+                want = [torch.stack([local[i], torch.zeros_like(local[i])])
+                        .sum(0) * 0.5 for i in range(len(params))]
+                bad = sum(not torch.equal(p.grad, w)
+                          for p, w in zip(params, want))
+                checked.append(bad)
+                with opt.skip_synchronize():
+                    opt.step()
+            else:
+                opt.step()
+        torch.cuda.synchronize()
+        last = hvd.join()
+        hvd.barrier()
+        return last
+
+    K.reset_launches()
+    lasts = hvd.run(train, np=NP, device=dev)
+    launches = K.launches["pack_scale_cast"] + K.launches["unpack_scale_cast"]
+    if checked != [0] or lasts != [0, 0]:
+        raise AssertionError(f"phase 15 (c): {checked} averaged gradients "
+                             f"off the join rule, join returned {lasts} "
+                             f"(want the last rank to join, 0)")
+    log(f"phase 15 (c): rank 1 joined after step 3, rank 0 trained steps "
+        f"4-{STEPS}: step 4's averaged gradients equal the plain stacked "
+        f"sum with rank 1's row zero, times 1/2, bit for bit; join returned "
+        f"{lasts} (the last rank to join); barriers before and after; "
+        f"pack and unpack launches {launches}")
+
+    def subset():
+        r = hvd.rank()
+        hvd.barrier()
+        ps = hvd.add_process_set([0, 2])
+        x = torch.arange(1000, device=dev, dtype=torch.float32) * (r + 1)
+        out = hvd.allreduce(x, op=hvd.Sum, name="ps02", process_set=ps) \
+            if r in (0, 2) else None
+        removed = hvd.remove_process_set(ps)
+        sets = sorted(hvd.engine().process_sets)
+        hvd.barrier()
+        ok = out is None or torch.equal(
+            out, torch.arange(1000, device=dev, dtype=torch.float32) * 4)
+        return ok and removed and sets == [0]
+
+    oks = hvd.run(subset, np=4, device=dev)
+    if not all(oks):
+        raise AssertionError(f"phase 15 (c): process set [0, 2]: {oks}")
+    log("phase 15 (c): allreduce on add_process_set([0, 2]) among 4 rank "
+        "threads equal to ranks 0 and 2's sum, bit for bit; the set removed "
+        "by all four, its executor gone")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -2939,7 +3519,11 @@ def main():
     cs = phase_compiled_sharded(dev, card, state, batches, compiled,
                                 lm.pop("weights"),
                                 profile="--profile" in sys.argv[1:])
-    del state, batches, compiled
+    del compiled
+    moe = phase_moe_lm(dev, lm, profile="--profile" in sys.argv[1:])
+    moe_wire = phase_moe_wire(dev, moe)
+    join = phase_join(dev, state, batches)
+    del state, batches
 
     def at_capture(*names):
         """Launches of the named kernels each phase-14 leg's capture
@@ -2961,6 +3545,7 @@ def main():
             for leg, v in shard.items()},
         "compiled_sharded": at_capture("fused_scale_cast", "pack_scale_cast",
                                        "unpack_scale_cast"),
+        "phase15_launches": join["launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -2971,6 +3556,7 @@ def main():
             "source": FLASH_SOURCE[name], "kernel": FLASH_KERNEL[name],
             "replaces": replaces, "launches": lm["launches"][name],
             "compiled_sharded": at_capture(name),
+            "phase15_launches": moe["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2984,6 +3570,7 @@ def main():
             "sharded_launches": {leg: v["launches"][name]
                                  for leg, v in shard.items()},
             "compiled_sharded": at_capture(name),
+            "phase15_launches": moe_wire["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2995,6 +3582,7 @@ def main():
             "kernel": CONV_BN_KERNEL[name], "replaces": replaces,
             "launches": fused["conv_launches"][name],
             "compiled_sharded": at_capture(name),
+            "phase15_launches": 0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

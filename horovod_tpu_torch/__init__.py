@@ -4,8 +4,10 @@ Horovod's data-parallel training path on PyTorch: ``init``, rank
 threads (``run``), engine negotiation and tensor fusion into device
 fusion buffers packed and unpacked by a hand-written Hopper kernel
 (``ops/csrc/scale_cast.cu``), the reduction over ``torch.distributed``
-or stacked rows, the torch frontend's ``DistributedOptimizer``, and the
-compiled path (``make_compiled_train_step``: one CUDA graph a step).
+or stacked rows, the rest of the collective contract (alltoall with its
+int8/int4 wire, barrier, join, process sets), the torch frontend's
+``DistributedOptimizer``, and the compiled path
+(``make_compiled_train_step``: one CUDA graph a step; ``CompiledAlltoall``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``init(device="cpu")``, ``run(fn, np, device="cpu")``).  The package
@@ -21,7 +23,11 @@ from .common.basics import (  # noqa: F401
 from .common.exceptions import (  # noqa: F401
     HorovodInitError, HorovodInternalError, TensorShapeMismatchError,
 )
-from .common.process_sets import ProcessSet, global_process_set  # noqa: F401
+from .common.process_sets import (  # noqa: F401
+    ProcessSet, add_process_set, remove_process_set, global_process_set,
+    process_set_ids,
+)
+from .core.message import ReduceOp, Adasum  # noqa: F401
 from .ops.api import (  # noqa: F401
     allreduce, allreduce_async, allreduce_, allreduce_async_,
     grouped_allreduce, grouped_allreduce_async,
@@ -30,7 +36,8 @@ from .ops.api import (  # noqa: F401
     broadcast, broadcast_async, broadcast_, broadcast_async_,
     reducescatter, reducescatter_async,
     grouped_reducescatter, grouped_reducescatter_async,
-    synchronize, poll, broadcast_object,
+    alltoall, alltoall_async, barrier, join,
+    synchronize, poll, broadcast_object, allgather_object,
     Average, Sum, Min, Max, Product,
 )
 from .ops.compiled import (  # noqa: F401
@@ -39,3 +46,4 @@ from .ops.compiled import (  # noqa: F401
     TopologyHint, make_compiled_train_step,
 )
 from .runner.thread_launcher import run  # noqa: F401
+from .torch.compression import Compression  # noqa: F401

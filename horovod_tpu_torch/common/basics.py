@@ -59,9 +59,10 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def init(device=None, num_ranks=None):
+def init(device=None, num_ranks=None, process_sets=None):
     """Start the runtime (reference horovod_init): ``num_ranks`` ranks
-    hosted by this process (default 1) on ``device``."""
+    hosted by this process (default 1) on ``device``; ``process_sets``
+    (``ProcessSet`` objects) are registered at once."""
     global _engine
     with _state_lock:
         if _engine is not None:
@@ -72,6 +73,10 @@ def init(device=None, num_ranks=None):
         _engine = Engine(num_ranks or 1, resolve_device(device),
                          config=env_mod.Config())
         _bind_thread_if_unbound()
+        if process_sets:
+            from . import process_sets as ps_mod
+            for ps in process_sets:
+                ps_mod.add_process_set(ps)
 
 
 def _bind_thread_if_unbound():
@@ -141,9 +146,11 @@ def shutdown():
         if _engine is None:
             return
         from ..ops.compiled import reset_compiled_state
+        from . import process_sets as ps_mod
 
         # a re-init at another world size must never serve an old program
         reset_compiled_state()
+        ps_mod._reset()
         _engine.shutdown()
         _engine = None
         _tls.ctx = None

@@ -53,6 +53,10 @@ from .message import ReduceOp, Request, RequestType
 
 logger = logging.getLogger("horovod_tpu_torch")
 
+# process-set removal is a barrier across the local rank threads: the bound
+# on the wait for the peers' votes and for the set's in-flight collectives
+PS_REMOVAL_TIMEOUT_SECS = 60.0
+
 
 @dataclass
 class Submission:
@@ -96,7 +100,12 @@ class ProcessSetState:
             else list(self.ranks)
         self.executor = executor
         self.pending: "OrderedDict[str, NegotiationEntry]" = OrderedDict()
-        self.joined = set()
+        self.joined = set()                 # ranks that called join()
+        self.last_joined = -1
+        self.join_waiters: Dict[int, Handle] = {}
+        # entries the engine thread collected and has not finished yet
+        # (a removal drains them too)
+        self.running = 0
 
     @property
     def size(self):
@@ -132,14 +141,27 @@ class Engine:
         self._aborted: Optional[BaseException] = None
         self._hold_depth = 0
         self._stall_warned = set()
-        executor = dist_ops.MeshExecutor(self.device, num_ranks)
         self.process_sets: Dict[int, ProcessSetState] = {
-            0: ProcessSetState(0, range(num_ranks), executor)}
+            0: self._make_process_set_state(0, range(num_ranks))}
+        self._next_ps_id = 1
+        # removal barrier bookkeeping (see remove_process_set)
+        self._removal_events: Dict[int, threading.Event] = {}
+        self._removal_votes: Dict[int, set] = {}
+        self._removed_ps_ids: set = set()
+        #: alltoall error-feedback residuals, keyed (set id, rank): the
+        #: quantization error of the last exchange's padded per-peer-slot
+        #: layout, re-injected slot by slot into the next exchange with
+        #: the same layout and dropped when the layout changes
+        #: (engine.py:220-226).  The engine thread writes them; a set's
+        #: removal drops the set's.
+        self._a2a_ef = {}
         #: persistent fusion buffers, keyed (local rank index, dtype)
         self._fusion = {}
         #: allreduce buckets executed (each packs and unpacks once per
         #: local rank)
         self.allreduce_buckets = 0
+        #: fused allgather buckets (more than one entry in one gather)
+        self.fused_allgather_runs = 0
         #: wire accounting under the JAX engine's names (engine.py:621-638):
         #: per allreduce bucket, the full-width bytes, the bytes the wire
         #: encoding puts on the interconnect per rank, and the buckets
@@ -161,6 +183,109 @@ class Engine:
     @property
     def num_ranks(self):
         return self.num_local
+
+    # ------------------------------------------------------------------
+    # process sets
+
+    def _make_process_set_state(self, ps_id, ranks):
+        """A set's state with its own stacked executor over the rows of
+        its member ranks (every rank of this process is local)."""
+        ranks = sorted(ranks)
+        return ProcessSetState(
+            ps_id, ranks, dist_ops.MeshExecutor(self.device, len(ranks)))
+
+    def add_process_set(self, ranks) -> int:
+        """Register the set of ``ranks`` and return its id; registering
+        the same ranks again returns the existing id (every rank calls
+        it, engine.py:735-750)."""
+        ranks = sorted(set(int(r) for r in ranks))
+        if any(r < 0 or r >= self.num_ranks for r in ranks):
+            raise ValueError(f"process set ranks {ranks} out of range")
+        with self._lock:
+            for ps in self.process_sets.values():
+                if ps.ranks == ranks:
+                    return ps.id
+            ps_id = self._next_ps_id
+            self._next_ps_id += 1
+            self.process_sets[ps_id] = self._make_process_set_state(
+                ps_id, ranks)
+            return ps_id
+
+    def remove_process_set(self, ps_id, rank=None) -> bool:
+        """Deregister a set (engine.py:751-834).  Removal is a barrier
+        across the local rank threads: it takes effect once every local
+        rank has asked for it, then the set's fully submitted collectives
+        drain before it disappears, so a fast rank cannot kill work its
+        peers (or its own unsynchronized async handle) still have in
+        flight.  A caller bound to no rank removes at once.  Returns True
+        once the set is gone."""
+        if ps_id == 0:
+            raise ValueError("cannot remove the global process set")
+        timeout = PS_REMOVAL_TIMEOUT_SECS
+        with self._lock:
+            ps = self.process_sets.get(ps_id)
+            if ps is None:
+                return ps_id in self._removed_ps_ids
+            wait_ev = None
+            if self.num_local > 1 and rank is not None:
+                ev = self._removal_events.setdefault(ps_id, threading.Event())
+                voters = self._removal_votes.setdefault(ps_id, set())
+                voters.add(rank)
+                if len(voters) < self.num_local:
+                    wait_ev = ev
+            if wait_ev is None:
+                self._finalize_removal_locked(ps_id, ps, timeout)
+                return True
+        # the finalizer (or abort/shutdown) sets the event; waiters never
+        # touch the barrier state
+        wait_ev.wait(timeout=2 * timeout)
+        with self._lock:
+            if ps_id in self._removed_ps_ids:
+                return True
+        if self._aborted is not None:
+            raise HorovodInternalError(
+                f"a peer rank failed during remove_process_set: "
+                f"{self._aborted!r}")
+        if self._shutdown:
+            raise HorovodInternalError(
+                "engine shut down during remove_process_set")
+        raise HorovodInternalError(
+            f"remove_process_set({ps_id}) timed out waiting for peer rank "
+            f"threads to request removal")
+
+    def _finalize_removal_locked(self, ps_id, ps, timeout):
+        """Drain, then drop the set (the last voter, lock held;
+        engine.py:835-869).  Every local member has voted, so nothing
+        more arrives: entries whose non-joined ranks have all submitted
+        wait for the engine thread to run them; entries missing a live
+        rank can never complete and fail."""
+        deadline = time.monotonic() + timeout
+
+        def incomplete(entry):
+            return any(r not in entry.subs
+                       for r in ps.local_ranks if r not in ps.joined)
+
+        while (ps.pending or ps.running) \
+                and self._aborted is None and not self._shutdown:
+            for key, entry in list(ps.pending.items()):
+                if incomplete(entry) or time.monotonic() > deadline:
+                    ps.pending.pop(key, None)
+                    self._stall_warned.discard((ps_id, key))
+                    for sub in entry.subs.values():
+                        sub.handle.set_error(HorovodInternalError(
+                            f"process set {ps_id} removed while {key} "
+                            f"pending"))
+            if not (ps.pending or ps.running):
+                break
+            self._lock.wait(timeout=0.05)   # let the engine thread drain
+        self.process_sets.pop(ps_id, None)
+        for key in [k for k in list(self._a2a_ef) if k[0] == ps_id]:
+            self._a2a_ef.pop(key, None)
+        self._removed_ps_ids.add(ps_id)
+        ev = self._removal_events.pop(ps_id, None)
+        self._removal_votes.pop(ps_id, None)
+        if ev is not None:
+            ev.set()
 
     def get_process_set(self, ps_id) -> ProcessSetState:
         ps = self.process_sets.get(ps_id)
@@ -207,6 +332,12 @@ class Engine:
                 # negotiation (engine.py:903-926): ranks whose defaults
                 # differ fail the cross-rank wire check
                 req.wire_dtype = entry.wire_default
+            if (req.wire_dtype is None and entry.wire_default
+                    and req.request_type == RequestType.ALLTOALL):
+                # an exchange moves raw segments, with no accumulation to
+                # commute with, so any float payload may ride the
+                # process-wide default wire (engine.py:928-936)
+                req.wire_dtype = entry.wire_default
             if sub.rank in entry.subs:
                 sub.handle.set_error(DuplicateNameError(
                     f"tensor {sub.names} submitted twice by rank "
@@ -215,6 +346,31 @@ class Engine:
             entry.subs[sub.rank] = sub
             self._lock.notify_all()
         return sub.handle
+
+    def join(self, rank, ps_id=0) -> Handle:
+        """Join (engine.py:973-1005, operations.cc:1991-2024): the rank
+        stops submitting; pending and later allreduces on the set take it
+        as a zero contributor.  The handle completes when every rank of
+        the set has joined and the set's pending entries drained, with the
+        last rank to join as its result."""
+        handle = Handle()
+        with self._lock:
+            if self._shutdown:
+                raise HorovodInitError("horovod_tpu_torch has been shut down")
+            if self._aborted is not None:
+                handle.set_error(HorovodInternalError(
+                    f"horovod_tpu_torch aborted: {self._aborted!r}"))
+                return handle
+            ps = self.get_process_set(ps_id)
+            if rank in ps.joined:
+                handle.set_error(HorovodInternalError(
+                    f"rank {rank} already joined"))
+                return handle
+            ps.joined.add(rank)
+            ps.last_joined = rank
+            ps.join_waiters[rank] = handle
+            self._lock.notify_all()
+        return handle
 
     @staticmethod
     def _negotiation_key(ps, sub: Submission):
@@ -262,13 +418,28 @@ class Engine:
                     work = self._collect_ready_locked()
                     self._check_stalls_locked()
                 for ps, batch in work:
-                    self._execute_batch(ps, batch)
+                    try:
+                        self._execute_batch(ps, batch)
+                    finally:
+                        with self._lock:
+                            ps.running -= len(batch)
+                            self._lock.notify_all()
 
     def _collect_ready_locked(self):
         """ComputeResponseList analogue: pull entries that every
         non-joined local rank of the set has submitted."""
         work = []
         for ps in list(self.process_sets.values()):
+            if ps.joined and len(ps.joined) == ps.size \
+                    and not ps.pending and not ps.running:
+                # resolve the join barrier only once the set's pending
+                # entries drained: clearing ``joined`` earlier would strand
+                # entries submitted before the join (engine.py:1117-1128)
+                for h in ps.join_waiters.values():
+                    h.set_result(ps.last_joined)
+                ps.join_waiters.clear()
+                ps.joined.clear()
+                ps.last_joined = -1
             ready = []
             for key in list(ps.pending.keys()):
                 entry = ps.pending[key]
@@ -278,6 +449,7 @@ class Engine:
                     del ps.pending[key]
                     self._stall_warned.discard((ps.id, key))
             if ready:
+                ps.running += len(ready)
                 work.append((ps, ready))
         return work
 
@@ -316,6 +488,9 @@ class Engine:
                 for sub in entry.subs.values():
                     sub.handle.set_error(exc)
             ps.pending.clear()
+            for h in ps.join_waiters.values():
+                h.set_error(exc)
+            ps.join_waiters.clear()
 
     # ------------------------------------------------------------------
     # execution
@@ -393,7 +568,7 @@ class Engine:
                         f"{first.tensor_name}: rank {sub.rank} sent "
                         f"{r.group_shapes}, rank {subs[0].rank} sent "
                         f"{first.group_shapes}")
-            elif rt == RequestType.ALLGATHER:
+            elif rt in (RequestType.ALLGATHER, RequestType.ALLTOALL):
                 if tuple(r.shape[1:]) != tuple(first.shape[1:]):
                     return TensorShapeMismatchError(
                         f"Mismatched non-first dimensions for "
@@ -406,6 +581,21 @@ class Engine:
                     return TensorShapeMismatchError(
                         f"Mismatched group member non-first dimensions "
                         f"for {first.tensor_name}")
+            if rt == RequestType.ALLTOALL:
+                if r.splits is None or len(r.splits) != ps.size:
+                    return TensorShapeMismatchError(
+                        f"alltoall splits for {first.tensor_name} must "
+                        f"have one entry per rank of the process set")
+                if sum(r.splits) != (r.shape[0] if r.shape else 0):
+                    return TensorShapeMismatchError(
+                        f"alltoall splits for {first.tensor_name} must sum "
+                        f"to the first dimension")
+        if rt == RequestType.ALLTOALL and (
+                first.splits is None or len(first.splits) != ps.size
+                or sum(first.splits) != (first.shape[0]
+                                         if first.shape else 0)):
+            return TensorShapeMismatchError(
+                f"alltoall splits invalid for {first.tensor_name}")
         if len(subs) < ps.size and rt != RequestType.ALLREDUCE:
             return HorovodInternalError(
                 f"rank(s) {[r for r in ps.ranks if r not in entry.subs]} "
@@ -413,28 +603,38 @@ class Engine:
         return None
 
     def _fuse(self, ps, entries):
-        """FuseResponses analogue: pack consecutive ready allreduce
-        entries with matching (dtype, op, scales, wire, shard layout)
-        into buckets up to the fusion threshold: quantized and full-width
-        tensors never share a fusion buffer, nor does a sharded update's
-        traffic with dense or differently laid-out traffic.  Other ops
-        run one per bucket (allgather fusion is a later slice's work)."""
+        """FuseResponses analogue (engine.py:1853-1920): pack consecutive
+        ready allreduce entries with matching (dtype, op, scales, wire,
+        shard layout) into buckets up to the fusion threshold: quantized
+        and full-width tensors never share a fusion buffer, nor does a
+        sharded update's traffic with dense or differently laid-out
+        traffic.  Consecutive allgathers of one (dtype, shard layout) fuse
+        likewise (the threshold counts the gathered size), and consecutive
+        alltoalls of one (dtype, wire, error feedback) merge into one
+        exchange.  Other ops run one per bucket."""
         threshold = self.config.fusion_threshold_bytes
         buckets, cur, cur_bytes, cur_sig = [], [], 0, None
         for entry in entries:
             first = next(iter(entry.subs.values()))
             req = first.request
-            if req.request_type != RequestType.ALLREDUCE:
+            rt = req.request_type
+            nbytes = sum(p.numel() * p.element_size()
+                         for p in first.payloads)
+            if rt == RequestType.ALLREDUCE:
+                sig = (rt, req.dtype, req.reduce_op, req.prescale_factor,
+                       req.postscale_factor, req.wire_dtype, req.shard_fp)
+            elif rt == RequestType.ALLGATHER:
+                sig = (rt, req.dtype, req.shard_fp)
+                nbytes *= ps.size
+            elif rt == RequestType.ALLTOALL:
+                sig = (rt, req.dtype, req.wire_dtype, req.wire_inner,
+                       req.error_feedback)
+            else:
                 if cur:
                     buckets.append(cur)
                     cur, cur_bytes, cur_sig = [], 0, None
                 buckets.append([entry])
                 continue
-            sig = (req.request_type, req.dtype, req.reduce_op,
-                   req.prescale_factor, req.postscale_factor,
-                   req.wire_dtype, req.shard_fp)
-            nbytes = sum(p.numel() * p.element_size()
-                         for p in first.payloads)
             if cur and (sig != cur_sig or cur_bytes + nbytes > threshold):
                 buckets.append(cur)
                 cur, cur_bytes = [], 0
@@ -450,11 +650,19 @@ class Engine:
         if rt == RequestType.ALLREDUCE:
             self._run_allreduce_bucket(ps, bucket)
         elif rt == RequestType.ALLGATHER:
-            self._run_allgather(ps, bucket[0])
+            if len(bucket) > 1:
+                self._run_allgather_fused(ps, bucket)
+            else:
+                self._run_allgather(ps, bucket[0])
         elif rt == RequestType.BROADCAST:
             self._run_broadcast(ps, bucket[0])
+        elif rt == RequestType.ALLTOALL:
+            self._run_alltoall(ps, bucket)
         elif rt == RequestType.REDUCESCATTER:
             self._run_reducescatter(ps, bucket[0])
+        elif rt == RequestType.BARRIER:
+            for sub in bucket[0].subs.values():
+                sub.handle.set_result(None)
         else:
             raise HorovodInternalError(f"unhandled op {rt}")
 
@@ -690,6 +898,213 @@ class Engine:
             sub.handle.set_result(outs if len(outs) > 1 else outs[0],
                                   event=done)
 
+    def _run_allgather_fused(self, ps, bucket):
+        """Fused allgather bucket (engine.py:2526-2604): every entry's
+        tensors pack into ONE flat row per rank, padded to the largest
+        rank's total, and ONE gather; each output is cut back out of the
+        gathered stream by a slice table."""
+        R = ps.size
+        tables = []     # (entry, subs, n_tensors, rests, dim0s)
+        for entry in bucket:
+            subs = self._local_subs(ps, entry)
+            ref = next(iter(subs.values()))
+            n = len(ref.payloads)
+            dim0s = [[int(entry.subs[r].payloads[i].shape[0])
+                      for r in ps.ranks] for i in range(n)]
+            rests = [tuple(ref.payloads[i].shape[1:]) for i in range(n)]
+            tables.append((entry, subs, n, rests, dim0s))
+        rest_ns = [[math.prod(r) for r in rests]
+                   for _, _, _, rests, _ in tables]
+        totals = [sum(dim0s[i][pos] * rns[i]
+                      for (_, _, n, _, dim0s), rns in zip(tables, rest_ns)
+                      for i in range(n))
+                  for pos in range(R)]
+        dtype = next(iter(bucket[0].subs.values())).payloads[0].dtype
+        local = [r for r in ps.local_ranks if r in bucket[0].subs]
+        max_t = max(totals, default=0)
+        rows = []
+        for r in local:
+            parts = [subs[r].payloads[i].reshape(-1)
+                     for (_, subs, n, _, _) in tables for i in range(n)]
+            self._await_inputs([subs[r] for (_, subs, _, _, _) in tables])
+            buf = torch.zeros(max_t, dtype=dtype, device=self.device)
+            flat = torch.cat(parts) if parts else buf[:0]
+            buf[:flat.numel()] = flat
+            rows.append(buf)
+        gathered = ps.executor.allgather(rows, totals, ())
+        self.fused_allgather_runs += 1
+        starts = [sum(totals[:pos]) for pos in range(R)]
+        slices, offs = {}, list(starts)
+        for pos in range(R):
+            for e_idx, ((_, _, n, _, dim0s), rns) in enumerate(
+                    zip(tables, rest_ns)):
+                for i in range(n):
+                    sz = dim0s[i][pos] * rns[i]
+                    slices[(e_idx, i, pos)] = (offs[pos], offs[pos] + sz)
+                    offs[pos] += sz
+        results = []
+        for r, g in zip(local, gathered):
+            for e_idx, (_, subs, n, rests, dim0s) in enumerate(tables):
+                outs = []
+                for i in range(n):
+                    segs = [g[a:b].view((dim0s[i][pos],) + rests[i])
+                            for pos in range(R)
+                            for a, b in (slices[(e_idx, i, pos)],)]
+                    outs.append(torch.cat(segs, dim=0))
+                results.append((subs[r].handle, outs))
+        # the event follows every output's kernels
+        done = self._done_event()
+        for handle, outs in results:
+            handle.set_result(outs if len(outs) > 1 else outs[0], event=done)
+
+    @staticmethod
+    def _wire_for_alltoall(req, dtype):
+        """Effective wire of an exchange (engine.py:2226-2240): with no
+        accumulation to commute with, any float payload may ride a narrow
+        wire; integers, 'f32' and a 16-bit wire for a 16-bit tensor ship
+        full width."""
+        if not dist_ops.is_float(dtype):
+            return None
+        wire = req.wire_dtype
+        if wire == "f32":
+            return None
+        if wire in ("fp16", "bf16") and dtype.itemsize <= 2:
+            return None
+        return wire
+
+    def _encode_slots(self, ps, r, row, sends, seg_pad, wire, ef):
+        """One rank's int8/int4 send row (engine.py:2734-2780): each
+        destination slot padded to ``seg_pad`` (whole 256-blocks, so a
+        block never spans two peers), the previous exchange's residual
+        re-injected inside each slot's current segment when the layout is
+        unchanged, encoded (B2/B4 on the card), and the new residual
+        ``padded - decode(encode(padded))`` kept.  ``ef`` False is the
+        stateless mode: no residual injected, none kept, and an earlier
+        one dropped."""
+        R = len(sends)
+        padded = torch.zeros(R * seg_pad, dtype=torch.float32,
+                             device=self.device)
+        flat = row.float()
+        off = 0
+        for dst, ln in enumerate(sends):
+            padded[dst * seg_pad:dst * seg_pad + ln] = flat[off:off + ln]
+            off += ln
+        key = (ps.id, r)
+        if not ef:
+            self._a2a_ef.pop(key, None)
+            return quantize_kernels.encode(padded, wire)
+        prev = self._a2a_ef.get(key)
+        if prev is not None and prev.shape == padded.shape:
+            for dst, ln in enumerate(sends):
+                sl = slice(dst * seg_pad, dst * seg_pad + ln)
+                padded[sl] += prev[sl]
+        elif prev is not None:
+            del self._a2a_ef[key]       # layout changed: never carried over
+        q, s = quantize_kernels.encode(padded, wire)
+        self._a2a_ef[key] = padded - quantize_kernels.decode(
+            q, s, R * seg_pad, 4 if wire == "int4" else 8)
+        return q, s
+
+    def _run_alltoall(self, ps, bucket):
+        """Fused alltoall bucket (engine.py:2643-2859), the MoE dispatch
+        and combine wire.  The bucket's entries share one (dtype, wire,
+        error feedback): their per-destination segments merge into ONE
+        exchange.  The wire is full width, fp16/bf16 (a cast each way),
+        or int8/int4 with per-peer-slot padding to whole 256-blocks and
+        per-slot error feedback (:meth:`_encode_slots`); the receiver
+        decodes each source slot against exactly that source's scales
+        (B3/B5 on the card).  The counters take rank 0's bytes."""
+        R = ps.size
+        entries = []
+        for e in bucket:
+            subs_e = self._local_subs(ps, e)
+            first_e = next(iter(subs_e.values()))
+            rest_e = tuple(first_e.payloads[0].shape[1:])
+            splits_e = [list(e.subs[r].request.splits) for r in ps.ranks]
+            entries.append((e, subs_e, first_e, rest_e, math.prod(rest_e),
+                            splits_e))
+        subs0 = entries[0][1]
+        req = entries[0][2].request
+        local_ranks = list(subs0)
+        for (_, subs_e, *_r) in entries:
+            self._await_inputs(subs_e.values())
+        pdtype = entries[0][2].payloads[0].dtype
+        itemsize = pdtype.itemsize
+        # comb[src][dst]: elements src sends dst over the whole bucket
+        comb = [[sum(sp[src][dst] * rn for (*_h, rn, sp) in entries)
+                 for dst in range(R)] for src in range(R)]
+        rows = []
+        for r in local_ranks:
+            p = ps.index[r]
+            parts = []
+            for dst in range(R):
+                for (_, subs_e, _, _, rn, sp) in entries:
+                    flat = subs_e[r].payloads[0].reshape(-1)
+                    start = sum(sp[p][:dst]) * rn
+                    parts.append(flat[start:start + sp[p][dst] * rn])
+            rows.append(torch.cat(parts) if parts else
+                        torch.zeros(0, dtype=pdtype, device=self.device))
+        wire = self._wire_for_alltoall(req, pdtype) if R > 1 else None
+        seg = max((comb[s][d] for s in range(R) for d in range(R)),
+                  default=0)
+        if wire in ("int8", "int4") and seg == 0:
+            wire = None
+        pos0 = ps.index[local_ranks[0]]
+        logical = sum(comb[pos0]) * itemsize
+        if wire in ("int8", "int4"):
+            seg_pad = -(-seg // qz.BLOCK) * qz.BLOCK
+            q_rows, s_rows = [], []
+            for i, r in enumerate(local_ranks):
+                q, s = self._encode_slots(
+                    ps, r, rows[i], comb[ps.index[r]], seg_pad, wire,
+                    req.error_feedback)
+                q_rows.append(q)
+                s_rows.append(s)
+            self.account_wire(logical, q_rows[0].numel()
+                              + s_rows[0].numel() * qz.SCALE_BYTES)
+            self.quantized_bucket_runs += 1
+            q_res, s_res = ps.executor.alltoall_codes(q_rows, s_rows)
+            bits = 4 if wire == "int4" else 8
+            flat_recv = []
+            for i, r in enumerate(local_ranks):
+                p = ps.index[r]
+                full = quantize_kernels.decode(q_res[i], s_res[i],
+                                               R * seg_pad, bits)
+                flat_recv.append(torch.cat(
+                    [full[src * seg_pad:src * seg_pad + comb[src][p]]
+                     for src in range(R)]))
+        elif wire in qz.WIRE_TORCH_DTYPES:
+            wdt = qz.WIRE_TORCH_DTYPES[wire]
+            self.account_wire(logical, sum(comb[pos0]) * 2)
+            flat_recv, _ = ps.executor.alltoall(
+                [row.to(wdt) for row in rows], comb)
+        else:
+            self.account_wire(logical, logical)
+            flat_recv, _ = ps.executor.alltoall(rows, comb)
+        # de-interleave: per source, the bucket's segments arrive in entry
+        # order, the order the send side concatenated them
+        results = []
+        for i, r in enumerate(local_ranks):
+            p = ps.index[r]
+            buf = flat_recv[i]
+            per_entry = {id(e): [] for (e, *_rest) in entries}
+            off = 0
+            for src in range(R):
+                for (e, _, _, _, rn, sp) in entries:
+                    ln = sp[src][p] * rn
+                    per_entry[id(e)].append(buf[off:off + ln])
+                    off += ln
+            for (e, subs_e, _, rest_e, rn, sp) in entries:
+                parts = per_entry[id(e)]
+                out = torch.cat(parts).to(pdtype).view((-1,) + rest_e)
+                rsp = torch.tensor([sp[src][p] for src in range(R)],
+                                   dtype=torch.int32)
+                results.append((subs_e[r].handle, out, rsp))
+        # the event follows every output's kernels
+        done = self._done_event()
+        for handle, out, rsp in results:
+            handle.set_result(out, event=done, extra=rsp)
+
     def _scatter_rows(self, subs, i, chunks, rest_n, dtype, factor):
         """Per local rank, payload ``i`` in the padded reducescatter
         layout ``(R * max_chunk * rest,)``: destination rank j's rows at
@@ -828,6 +1243,8 @@ class Engine:
             self._aborted = exc
             self._fail_all_pending_locked(HorovodInternalError(
                 f"a peer rank failed: {exc!r}"))
+            for ev in self._removal_events.values():
+                ev.set()
             self._lock.notify_all()
 
     def shutdown(self):
@@ -835,6 +1252,8 @@ class Engine:
             if self._shutdown:
                 return
             self._shutdown = True
+            for ev in self._removal_events.values():
+                ev.set()
             self._lock.notify_all()
         self._thread.join(timeout=30)
         if self.stream is not None:

@@ -16,7 +16,8 @@ class Handle:
     """Completion record for one enqueued tensor operation."""
 
     __slots__ = ("_event", "result", "error", "inplace_target",
-                 "inplace_targets", "grouped", "event")
+                 "inplace_targets", "grouped", "event", "extra",
+                 "returns_splits")
 
     def __init__(self):
         self._event = threading.Event()
@@ -30,13 +31,18 @@ class Handle:
         # CUDA event recorded after the work that produced ``result``
         # (None for CPU results)
         self.event: Any = None
+        # an alltoall's received splits, and whether synchronize()
+        # returns them beside the tensor
+        self.extra: Any = None
+        self.returns_splits: bool = False
 
     def done(self) -> bool:
         return self._event.is_set()
 
-    def set_result(self, result, event=None):
+    def set_result(self, result, event=None, extra=None):
         self.result = result
         self.event = event
+        self.extra = extra
         self._event.set()
 
     def set_error(self, exc: BaseException):

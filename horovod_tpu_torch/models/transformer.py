@@ -2,9 +2,11 @@
 ``horovod_tpu/models/transformer.py``, the dense training model).
 
 Pre-RMSNorm, rotary position embeddings (channels split in halves),
-SwiGLU, a tied embedding, f32 parameters and activations in
-``cfg.dtype``.  Layer for layer the flax model, so that its parameters
-load as they are (:func:`from_flax_params`):
+SwiGLU or a top-k mixture of experts (``num_experts > 0``: the dense
+one-hot dispatch, or fixed-capacity routing through ``parallel/moe.py``
+when ``moe_capacity_factor > 0``), a tied embedding, f32 parameters and
+activations in ``cfg.dtype``.  Layer for layer the flax model, so that
+its parameters load as they are (:func:`from_flax_params`):
 
 * flax's ``nn.scan`` over a stacked ``layers`` axis becomes an
   ``nn.ModuleList`` of :class:`DecoderBlock`;
@@ -14,9 +16,8 @@ load as they are (:func:`from_flax_params`):
   model's ``preferred_element_type=float32`` einsums give them.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: mixture-of-experts layers (A13), KV-cache decoding and
-``make_generate_fn`` (A16), remat, ``pre_logits`` and the fused chunked
-loss (A11).
+ROADMAP.md item: KV-cache decoding and ``make_generate_fn`` (A16), remat,
+``pre_logits`` and the fused chunked loss (A11).
 """
 
 import math
@@ -164,6 +165,57 @@ class SwiGLU(nn.Module):
         return self.wo(F.silu(self.wi_gate(x)) * self.wi_up(x))
 
 
+class MoE(nn.Module):
+    """Top-k mixture of experts (flax ``MoE``, ``transformer.py:265-327``
+    of the JAX package): an f32 router, expert weights with a leading E
+    axis kept in f32 and cast to ``cfg.dtype`` (``wi_gate``/``wi_up``
+    (E, M, F), ``wo`` (E, F, M)).  With ``moe_capacity_factor > 0`` the
+    tokens route into fixed-capacity slots (``parallel/moe.py``) and the
+    step's dropped choices stay readable in :attr:`moe_dropped` (the
+    flax ``sow("intermediates", "moe_dropped")``); otherwise every expert
+    runs on every token under a one-hot dispatch."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        E, M, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+        self.router = nn.Linear(M, E, bias=False)
+        self.wi_gate = nn.Parameter(torch.empty(E, M, Fd))
+        self.wi_up = nn.Parameter(torch.empty(E, M, Fd))
+        self.wo = nn.Parameter(torch.empty(E, Fd, M))
+        #: dropped choices of the last capacity-routed forward (0-d int32)
+        self.moe_dropped = None
+
+    def forward(self, x):
+        from ..parallel import moe as moe_mod
+
+        cfg = self.cfg
+        B, S, M = x.shape
+        E, K, dt = cfg.num_experts, cfg.expert_top_k, cfg.dtype
+        logits = F.linear(x.float(), self.router.weight.float())
+        wi_gate, wi_up = self.wi_gate.to(dt), self.wi_up.to(dt)
+        wo = self.wo.to(dt)
+        if cfg.moe_capacity_factor > 0:
+            T = B * S
+            w, idx = moe_mod.top_k_gating(logits.reshape(T, E), K)
+            cap = moe_mod.expert_capacity(T, E, K, cfg.moe_capacity_factor)
+            pos, keep, n_dropped = moe_mod.make_dispatch_plan(idx, E, cap)
+            slots = moe_mod.moe_dispatch(x.reshape(T, M), idx, pos, keep,
+                                         E, cap)
+            ye = moe_mod.expert_swiglu(slots, wi_gate, wi_up, wo)
+            y = moe_mod.moe_combine(ye, idx, pos, keep, w)
+            self.moe_dropped = n_dropped.detach()
+            return y.reshape(B, S, M).to(dt)
+        w, idx = moe_mod.top_k_gating(logits, K)
+        dispatch = moe_mod.one_hot(idx, E).to(dt)           # (B, S, K, E)
+        combine = dispatch * w[..., None].to(dt)
+        xe = torch.einsum("bske,bsm->ebsm", dispatch, x)
+        gate = F.silu(torch.einsum("ebsm,emf->ebsf", xe, wi_gate))
+        up = torch.einsum("ebsm,emf->ebsf", xe, wi_up)
+        ye = torch.einsum("ebsf,efm->ebsm", gate * up, wo)
+        return torch.einsum("bske,ebsm->bsm", combine, ye)
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig,
                  attention_fn: Callable = dense_causal_attention):
@@ -171,11 +223,14 @@ class DecoderBlock(nn.Module):
         self.ln_attn = RMSNorm(cfg.d_model, cfg.dtype)
         self.attn = Attention(cfg, attention_fn)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype)
-        self.mlp = SwiGLU(cfg)
+        # flax names the block's feed-forward "moe" or "mlp" (:338)
+        self.ff_name = "moe" if cfg.num_experts else "mlp"
+        self.add_module(self.ff_name,
+                        MoE(cfg) if cfg.num_experts else SwiGLU(cfg))
 
     def forward(self, x, angles):
         x = x + self.attn(self.ln_attn(x), angles)
-        return x + self.mlp(self.ln_mlp(x))
+        return x + getattr(self, self.ff_name)(self.ln_mlp(x))
 
 
 class TransformerLM(nn.Module):
@@ -184,10 +239,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: TransformerConfig,
                  attention_fn: Callable = dense_causal_attention):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet "
-                "(ROADMAP.md A13)")
         if cfg.remat:
             raise NotImplementedError(
                 "remat is not ported yet (ROADMAP.md A11)")
@@ -277,6 +328,11 @@ def numpy_init(model: TransformerLM, seed):
                 * np.float32(0.02)
         elif name.endswith(".scale"):
             state[name] = np.ones(shape, np.float32)
+        elif len(shape) == 3:
+            # expert kernels (E, in, out): flax's fan_in counts the E
+            # axis as receptive field, E * in
+            state[name] = _truncated_normal(
+                rng, shape, math.sqrt(1.0 / (shape[0] * shape[1])))
         else:                                    # (out, in): fan_in = in
             state[name] = _truncated_normal(rng, shape,
                                             math.sqrt(1.0 / shape[1]))
@@ -304,6 +360,13 @@ def from_flax_params(params):
             state[pre + f"attn.{name}.weight"] = k.reshape(k.shape[0], -1).T
         k = arr(layers["attn"]["wo"]["kernel"])[i]    # (H, D, M)
         state[pre + "attn.wo.weight"] = k.reshape(-1, k.shape[-1]).T
+        if "moe" in layers:
+            moe = layers["moe"]
+            state[pre + "moe.router.weight"] = \
+                arr(moe["router"]["kernel"])[i].T      # (M, E) -> (E, M)
+            for name in ("wi_gate", "wi_up", "wo"):   # leading E axis
+                state[pre + f"moe.{name}"] = arr(moe[name])[i]
+            continue
         for name in ("wi_gate", "wi_up", "wo"):       # (in, out)
             state[pre + f"mlp.{name}.weight"] = \
                 arr(layers["mlp"][name]["kernel"])[i].T

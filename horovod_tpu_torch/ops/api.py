@@ -1,15 +1,15 @@
-"""Public collective-op API (port of ``horovod_tpu/ops/api.py`` for the
-ops the port has): sync, ``*_async`` handle and in-place variants of
-allreduce, grouped allreduce, allgather, grouped allgather, broadcast,
-reducescatter and grouped reducescatter, plus ``synchronize``/``poll``
-and ``broadcast_object``.
+"""Public collective-op API (port of ``horovod_tpu/ops/api.py``): sync,
+``*_async`` handle and in-place variants of allreduce, grouped
+allreduce, allgather, grouped allgather, broadcast, alltoall,
+reducescatter and grouped reducescatter, plus ``barrier``, ``join``,
+``synchronize``/``poll``, ``broadcast_object`` and ``allgather_object``.
 
-Allreduces and reducescatters take ``wire_dtype=`` (None, 'f32', 'fp16',
-'bf16', 'int8', 'int4' and their aliases), normalized at the call: the
-wire the payload rides (``ops/quantize.py``).  The grouped reducescatter
-and allgather take ``shard_fp=``, the shard-layout fingerprint of a
-sharded weight update (``core/sharded.py``), which the engine validates
-across ranks.
+Allreduces, reducescatters and alltoalls take ``wire_dtype=`` (None,
+'f32', 'fp16', 'bf16', 'int8', 'int4' and their aliases), normalized at
+the call: the wire the payload rides (``ops/quantize.py``).  The grouped
+reducescatter and allgather take ``shard_fp=``, the shard-layout
+fingerprint of a sharded weight update (``core/sharded.py``), which the
+engine validates across ranks.
 
 Tensors stay on the runtime's device end to end: a payload is handed to
 the engine as it is (made contiguous if it is not), and results come
@@ -27,9 +27,9 @@ from ..common.process_sets import ProcessSet, global_process_set
 from ..core.engine import Submission
 from ..core.handles import Handle
 from ..core.message import (
-    Average, Sum, Min, Max, Product, ReduceOp, Request, RequestType,
+    Adasum, Average, Sum, Min, Max, Product, ReduceOp, Request, RequestType,
 )
-from .quantize import normalize_wire_dtype
+from .quantize import normalize_inner_wire, normalize_wire_dtype
 
 __all__ = [
     "allreduce", "allreduce_async", "allreduce_", "allreduce_async_",
@@ -40,8 +40,9 @@ __all__ = [
     "broadcast", "broadcast_async", "broadcast_", "broadcast_async_",
     "reducescatter", "reducescatter_async",
     "grouped_reducescatter", "grouped_reducescatter_async",
-    "synchronize", "poll", "broadcast_object",
-    "Average", "Sum", "Min", "Max", "Product",
+    "alltoall", "alltoall_async", "barrier", "join",
+    "synchronize", "poll", "broadcast_object", "allgather_object",
+    "Average", "Sum", "Adasum", "Min", "Max", "Product",
 ]
 
 
@@ -428,7 +429,88 @@ def grouped_reducescatter(tensors, op=Average, name=None,
 
 
 # ----------------------------------------------------------------------------
-# completion
+# alltoall
+
+def alltoall_async(tensor, splits=None, name=None,
+                   process_set=global_process_set, wire_dtype=None,
+                   wire_inner=None, error_feedback=True):
+    """Send ``splits[j]`` rows of ``tensor`` (first dimension) to rank j
+    of the set; equal splits when None (JAX ``api.py:392-435``).  The
+    splits are checked here and raise ``ValueError``, as the reference
+    does before it enqueues."""
+    t = _stage(tensor)
+    if t.dim() == 0:
+        raise ValueError("alltoall requires a tensor with at least 1 dim")
+    ps_size = len(basics.engine().process_set_ranks(_ps_id(process_set)))
+    if splits is None:
+        if t.shape[0] % ps_size != 0:
+            raise ValueError(
+                f"alltoall first dim {t.shape[0]} not divisible by "
+                f"process-set size {ps_size}; pass explicit splits")
+        splits = [t.shape[0] // ps_size] * ps_size
+    arr = np.asarray(splits.cpu() if torch.is_tensor(splits) else splits)
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(f"alltoall splits must contain 32-bit integers, "
+                         f"got {arr.dtype}")
+    splits_t = tuple(int(s) for s in np.ravel(arr))
+    if any(s < 0 for s in splits_t):
+        raise ValueError(f"alltoall splits must be non-negative: "
+                         f"{splits_t}")
+    if sum(splits_t) != t.shape[0]:
+        raise ValueError(
+            f"alltoall splits sum to {sum(splits_t)} but the tensor's "
+            f"first dimension is {t.shape[0]}")
+    ctx = basics.context()
+    name = _wire_name(ctx, "alltoall", name)
+    req = Request(
+        request_type=RequestType.ALLTOALL, tensor_name=name, rank=ctx.rank,
+        dtype=dtype_name(t.dtype), shape=tuple(t.shape), splits=splits_t,
+        process_set_id=_ps_id(process_set),
+        wire_dtype=normalize_wire_dtype(wire_dtype),
+        wire_inner=normalize_inner_wire(wire_inner),
+        error_feedback=bool(error_feedback))
+    h = _submit(req, [t], [name])
+    h.returns_splits = True
+    return h
+
+
+def alltoall(tensor, splits=None, name=None, process_set=global_process_set,
+             wire_dtype=None, wire_inner=None, error_feedback=True):
+    """Returns ``(received tensor, received splits)``; the received
+    splits are an int32 tensor on the CPU.  ``wire_dtype`` picks the
+    exchange's wire (int8/int4: block-scaled codes and bf16 scales per
+    destination slot), None inherits the process-wide default as the
+    reductions do; ``error_feedback`` folds each peer slot's quantization
+    residual into that slot's next exchange (off: stateless encode)."""
+    return synchronize(alltoall_async(tensor, splits, name, process_set,
+                                      wire_dtype, wire_inner,
+                                      error_feedback))
+
+
+# ----------------------------------------------------------------------------
+# barrier / join / completion
+
+def barrier(process_set=global_process_set):
+    """Block until every rank of the set reaches the barrier (reference
+    EnqueueBarrier, operations.cc:2026)."""
+    ctx = basics.context()
+    name = ctx.next_name("barrier")
+    req = Request(
+        request_type=RequestType.BARRIER, tensor_name=name, rank=ctx.rank,
+        dtype="uint8", shape=(), process_set_id=_ps_id(process_set))
+    _submit(req, [torch.zeros(0, dtype=torch.uint8,
+                              device=basics.engine().device)],
+            [name]).wait()
+
+
+def join(device=None, process_set=global_process_set) -> int:
+    """This rank is out of data: later allreduces on the set take it as a
+    zero contributor.  Blocks until every rank of the set has joined and
+    returns the last rank to join (reference operations.cc:1991).
+    ``device`` is accepted for the reference's signature and unused."""
+    ctx = basics.context()
+    return basics.engine().join(ctx.rank, _ps_id(process_set)).wait()
+
 
 def poll(handle) -> bool:
     return handle.done()
@@ -462,6 +544,9 @@ def synchronize(handle):
     """Wait for an async op and return its result(s); in-place variants
     return their targets."""
     result = handle.wait()
+    if getattr(handle, "returns_splits", False):
+        _device_wait(handle, [result])
+        return result, handle.extra
     if getattr(handle, "grouped", False) and not isinstance(result, list):
         result = [result]
     _device_wait(handle, result if isinstance(result, list) else [result])
@@ -494,3 +579,23 @@ def broadcast_object(obj, root_rank=0, name=None,
     out = broadcast(payload, root_rank, name=f"{name}.data",
                     process_set=process_set)
     return pickle.loads(out.cpu().numpy().tobytes())
+
+
+def allgather_object(obj, name=None, process_set=global_process_set):
+    """Every rank's ``obj`` (pickled), in rank order of the set (JAX
+    ``api.py:602-615``)."""
+    name = name or "allgather_object"
+    dev = basics.engine().device
+    raw = np.frombuffer(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL),
+                        dtype=np.uint8)
+    payload = torch.from_numpy(raw.copy()).to(dev)
+    gathered = allgather(payload, name=f"{name}.data",
+                         process_set=process_set).cpu().numpy()
+    sizes = allgather(torch.tensor([payload.numel()], dtype=torch.int64,
+                                   device=dev),
+                      name=f"{name}.sz", process_set=process_set).cpu()
+    out, off = [], 0
+    for s in sizes.tolist():
+        out.append(pickle.loads(gathered[off:off + s].tobytes()))
+        off += s
+    return out

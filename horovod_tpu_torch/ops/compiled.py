@@ -43,14 +43,18 @@ mode); the port's rank threads share one device, and each rank owns its
 shard of the optimizer state and its error-feedback residual as tensors
 of its own, which is the same call contract.
 
+A third deliverable is :class:`CompiledAlltoall`: the equal-split
+exchange of the MoE dispatch wire with the int8/int4 codec (B2-B5 on the
+card) per destination slot and per-rank error feedback.
+
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: an ``algorithm``/``topology_hint``/``wire_inner`` other
 than flat and :class:`TopologyHint` (A8), ``op=Adasum`` in the dense
-train step (A7), wire integrity digests (A14) and
-:class:`CompiledAlltoall` (A13).
+train step (A7) and wire integrity digests (A14).
 """
 
 import contextlib
+import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -69,6 +73,7 @@ from ..core.sharded import (
 )
 from . import cuda_kernels as K
 from . import quantize as qz
+from . import quantize_kernels
 from .api import dtype_name
 from .dist_ops import is_float
 
@@ -1024,19 +1029,303 @@ class _BucketStream:
         return [results[i] for i in range(self.n)]
 
 
+# error-feedback residuals of the compiled alltoall, one per (executor,
+# exchange identity, signature, rank position): each rank's residual is its
+# own entry, so one rank's reset_wire_state() never drops a peer's (the JAX
+# package's shared key races across rank threads, ROADMAP.md C)
+_A2A_EF = {}
+_A2A_EF_LOCK = threading.Lock()
+
+
 class CompiledAlltoall:
-    """The alltoall with its wire codec in one program: not ported yet
-    (ROADMAP.md A13)."""
+    """Equal-split alltoall with its wire codec in one program (port of
+    ``horovod_tpu/ops/compiled.py:1548-1800``): the MoE expert dispatch
+    and combine wire, without negotiation.
 
-    def __init__(self, *args, **kwargs):
+    Call per local rank with a tensor whose first dimension divides by
+    the set size R: slot j (``x.shape[0] / R`` rows) goes to rank j, and
+    slot j of the result came from rank j.  A ragged exchange is refused
+    (it rides ``hvd.alltoall``).  On the int8/int4 wire each destination
+    slot is padded to whole 256-element blocks, so a block never spans
+    two peers: the slot's codes and bf16 scales are what moves, and the
+    receiver decodes each slot against its sender's scales (B2/B4 encode
+    and B3/B5 decode on the card).  ``error_feedback`` keeps each rank's
+    per-slot quantization residual and adds it to that rank's next
+    exchange of the same signature; :meth:`reset_wire_state` drops it.
+
+    One program per (signature, wire) in the shared program cache.  Like
+    the compiled reducer it runs eagerly on the card: its inputs are
+    fresh tensors at every call, so a graph would only add a copy.  All
+    member ranks must call with one signature in one order; instances
+    with the same (process set, name, wire) meet at one rendezvous.
+    ``topology_hint`` is refused (ROADMAP.md A8); ``wire_inner`` is part
+    of the identity and has no effect on this single-hop exchange."""
+
+    def __init__(self, process_set=global_process_set, name=None,
+                 wire_dtype=None, wire_inner=None, topology_hint=None,
+                 error_feedback=False, force_program=False):
+        if topology_hint is not None:
+            raise NotImplementedError(
+                "topology-aware (hierarchical/torus) compiled exchanges "
+                "are not ported yet (ROADMAP.md A8)")
+        self.process_set = process_set
+        self.name = name
+        self.force_program = bool(force_program)
+        self.wire_dtype = qz.normalize_wire_dtype(wire_dtype)
+        if self.wire_dtype == "f32":
+            self.wire_dtype = None
+        self.wire_inner = qz.normalize_inner_wire(wire_inner)
+        self.error_feedback = bool(error_feedback) \
+            and self.wire_dtype in ("int8", "int4")
+        #: wire accounting of the most recent call
+        self.last_logical_bytes = 0
+        self.last_wire_bytes = 0
+        self._programs = {}
+        self._validated = set()
+        self._ef_keys = set()
+        self._ex = None
+        self._lock = threading.Lock()
+
+    def _tag(self):
+        return ("a2a", self.name, self.wire_dtype, self.wire_inner,
+                self.error_feedback)
+
+    def reset_wire_state(self):
+        """Drop the error-feedback residuals this object's callers hold
+        (elastic resize, quarantine)."""
+        with _A2A_EF_LOCK:
+            for k in self._ef_keys:
+                _A2A_EF.pop(k, None)
+            self._ef_keys.clear()
+
+    @staticmethod
+    def _seg_pad(m):
+        """A quantized slot's length: whole 256-element blocks."""
+        return -(-m // qz.BLOCK) * qz.BLOCK
+
+    def _build(self, ex, n, dtype):
+        """The exchange of per-local-rank rows ``(n,)`` laid out as R
+        destination slots of ``m = n / R``: ``prog(rows, res) -> (outs,
+        new_res)``, ``outs[i]`` the R source slots received by local
+        position i, ``res``/``new_res`` the per-position f32 residuals
+        (None without error feedback)."""
+        R = ex.num_ranks
+        wire, ef = self.wire_dtype, self.error_feedback
+        eq = [[n // R] * R for _ in range(R)]
+
+        def prog(rows, res):
+            if wire in ("int8", "int4"):
+                bits = 4 if wire == "int4" else 8
+                q_rows, s_rows, new_res = [], [], []
+                for i, x in enumerate(rows):
+                    if ef and res is not None:
+                        x = (x.float() + res[i]).to(x.dtype)
+                    xf = x.float()
+                    q, sc = quantize_kernels.encode(xf, wire)
+                    q_rows.append(q)
+                    s_rows.append(sc)
+                    if ef:
+                        new_res.append(xf - quantize_kernels.decode(
+                            q, sc, n, bits))
+                q_res, s_res = ex.alltoall_codes(q_rows, s_rows)
+                outs = [quantize_kernels.decode(q, sc, n, bits).to(dtype)
+                        for q, sc in zip(q_res, s_res)]
+                return outs, (new_res if ef else None)
+            if wire in qz.WIRE_TORCH_DTYPES:
+                wdt = qz.WIRE_TORCH_DTYPES[wire]
+                outs, _ = ex.alltoall([x.to(wdt) for x in rows], eq)
+                return [o.to(dtype) for o in outs], None
+            outs, _ = ex.alltoall(rows, eq)
+            return outs, None
+
+        return prog
+
+    def _program(self, ex, sig):
+        with self._lock:
+            if self._ex is not ex:
+                # the engine re-initialized: old programs and residuals
+                # belong to the old run
+                self._programs.clear()
+                self._validated.clear()
+                self.reset_wire_state()
+                self._ex = ex
+            prog = self._programs.get(sig)
+            if prog is None:
+                n, dtype = sig
+                prog = _shared_program(
+                    ("alltoall", _ex_uid(ex), self.wire_dtype,
+                     self.wire_inner, self.error_feedback, sig),
+                    lambda: _TimedFirstCall(
+                        self._build(ex, n, torch_dtype(dtype))))
+                self._programs[sig] = prog
+            else:
+                _count("hits")
+            return prog
+
+    def _account(self, n_exact, n_padded, itemsize):
+        wire = self.wire_dtype
+        self.last_logical_bytes = n_exact * itemsize
+        if wire in ("int8", "int4"):
+            self.last_wire_bytes = qz.wire_nbytes(n_padded, wire, itemsize)
+        elif wire in ("fp16", "bf16"):
+            self.last_wire_bytes = n_exact * 2
+        else:
+            self.last_wire_bytes = n_exact * itemsize
+
+    def start(self, array):
+        """Run the exchange; returns an object whose ``result()`` is this
+        rank's received tensor (the exchange is eager and the caller's
+        stream is ordered after it on return)."""
+        eng, ps = _ps_state(self.process_set)
+        if eng.config.integrity:
+            raise NotImplementedError(
+                "wire integrity digests on the compiled path are not "
+                "ported yet (ROADMAP.md A14); unset HOROVOD_INTEGRITY")
+        if torch.is_tensor(array):
+            if array.device != eng.device:
+                raise ValueError(f"tensor is on {array.device} but "
+                                 f"horovod_tpu_torch runs on {eng.device}")
+            a = array.detach().contiguous()
+        else:
+            a = torch.as_tensor(array, device=eng.device)
+        ex = ps.executor
+        R = ex.num_ranks
+        if a.dim() < 1 or a.shape[0] % R != 0:
+            raise ValueError(
+                f"compiled alltoall needs equal splits: first dim "
+                f"{a.shape[0] if a.dim() else None} must divide by the set "
+                f"size {R} (ragged exchanges ride hvd.alltoall)")
+        if R == 1 and not self.force_program:
+            return _A2AResult(a.clone())
+        rest = tuple(a.shape[1:])
+        m_exact = (a.shape[0] // R) * math.prod(rest)
+        wire = self.wire_dtype
+        m = self._seg_pad(m_exact) \
+            if wire in ("int8", "int4") and m_exact > 0 else m_exact
+        n = R * m
+        flat = a.reshape(-1)
+        if m != m_exact:
+            buf = torch.zeros(n, dtype=a.dtype, device=a.device)
+            buf.view(R, m)[:, :m_exact] = flat.view(R, m_exact)
+        else:
+            buf = flat
+        sig = (n, dtype_name(a.dtype))
+        prog = self._program(ex, sig)
+        n_local = len(ex.local_positions)
+        pos = ex.local_positions[0] if n_local == 1 \
+            else _caller_pos(eng, ps)
+        if pos is None:
+            raise ValueError(
+                "unbound caller: compiled collectives need a rank context "
+                "(call inside hvd.run)")
+        tag = self._tag()
+        ef_base = ("a2aef", _ex_uid(ex), tag, sig) \
+            if self.error_feedback else None
+        if ef_base is not None:
+            with _A2A_EF_LOCK:
+                self._ef_keys.add(ef_base + (pos,))
+        cur = torch.cuda.current_stream(eng.device) \
+            if eng.device.type == "cuda" else None
+        ready = None
+        if cur is not None:
+            ready = torch.cuda.Event()
+            ready.record(cur)
+
+        def launch(slots):
+            sigs = {p: v[0] for p, v in slots.items()}
+            if len(set(sigs.values())) > 1:
+                raise ValueError(
+                    "compiled alltoall signature mismatch across local "
+                    f"ranks: {sigs}")
+            if sig not in self._validated:
+                _validate_signature_cross_process(eng, ps, tag, sig)
+                with self._lock:
+                    self._validated.add(sig)
+            order = list(ex.local_positions)
+            lead = torch.cuda.current_stream(eng.device) \
+                if cur is not None else None
+            if lead is not None:
+                for p in order:
+                    lead.wait_event(slots[p][2])
+                    slots[p][1].record_stream(lead)
+            rows = [slots[p][1] for p in order]
+            res = None
+            if ef_base is not None:
+                with _A2A_EF_LOCK:
+                    got = [_A2A_EF.get(ef_base + (p,)) for p in order]
+                res = got if all(g is not None for g in got) else None
+            outs, new_res = prog(rows, res)
+            if new_res is not None:
+                with _A2A_EF_LOCK:
+                    for p, r in zip(order, new_res):
+                        _A2A_EF[ef_base + (p,)] = r
+            done = None
+            if lead is not None:
+                done = torch.cuda.Event()
+                done.record(lead)
+            return dict(zip(order, outs)), done
+
+        if n_local == 1:
+            outs, done = launch({pos: (sig, buf, ready)})
+        else:
+            outs, done = _rendezvous_for(ps, tag, n_local).run(
+                pos, (sig, buf, ready), launch)
+        self._account(R * m_exact, n, a.element_size())
+        out = outs[pos]
+        if done is not None:
+            # the leader's stream made the rows: this rank's stream reads
+            # them (and cuts the slot padding off) after it
+            cur.wait_event(done)
+            out.record_stream(cur)
+        if m != m_exact:
+            out = out.view(R, m)[:, :m_exact]
+        return _A2AResult(out.reshape((R * (a.shape[0] // R),) + rest))
+
+    def __call__(self, array):
+        """The synchronous exchange (``start(array).result()``)."""
+        return self.start(array).result()
+
+
+class _A2AResult:
+    """A finished compiled exchange: ``result()`` is this rank's received
+    tensor, ordered on the caller's stream."""
+
+    __slots__ = ("_out",)
+
+    def __init__(self, out):
+        self._out = out
+
+    def result(self):
+        return self._out
+
+
+_A2A_CACHE = {}
+_A2A_LOCK = threading.Lock()
+
+
+def compiled_alltoall(array, process_set=global_process_set,
+                      wire_dtype=None, wire_inner=None, topology_hint=None,
+                      error_feedback=False, name=None):
+    """Equal-split alltoall through one program (no negotiation): the
+    functional twin of :class:`CompiledAlltoall`, one object per
+    identity, shared by the rank threads."""
+    ps_id = process_set.process_set_id \
+        if isinstance(process_set, ProcessSet) else int(process_set or 0)
+    wire_dtype = qz.normalize_wire_dtype(wire_dtype)
+    wire_inner = qz.normalize_inner_wire(wire_inner)
+    if topology_hint is not None:
         raise NotImplementedError(
-            "CompiledAlltoall is not ported yet (ROADMAP.md A13)")
-
-
-def compiled_alltoall(*args, **kwargs):
-    """Not ported yet (ROADMAP.md A13)."""
-    raise NotImplementedError(
-        "compiled_alltoall is not ported yet (ROADMAP.md A13)")
+            "topology-aware (hierarchical/torus) compiled exchanges are "
+            "not ported yet (ROADMAP.md A8)")
+    key = (ps_id, name, wire_dtype, wire_inner, bool(error_feedback))
+    with _A2A_LOCK:
+        a2a = _A2A_CACHE.get(key)
+        if a2a is None:
+            a2a = CompiledAlltoall(
+                process_set=process_set, name=name, wire_dtype=wire_dtype,
+                wire_inner=wire_inner, error_feedback=error_feedback)
+            _A2A_CACHE[key] = a2a
+    return a2a(array)
 
 
 # ---------------------------------------------------------------------------
@@ -1165,12 +1454,16 @@ def compiled_allreduce(array, op=Average, prescale_factor=1.0,
 
 
 def reset_compiled_state():
-    """Drop cached reducers, programs (and so their graphs) and
-    rendezvous: ``shutdown`` calls it, so that a re-``init`` at another
-    world size never serves an old program.  The counters of
-    :func:`program_cache_stats` keep counting."""
+    """Drop cached reducers, exchanges, programs (and so their graphs),
+    alltoall residuals and rendezvous: ``shutdown`` calls it, so that a
+    re-``init`` at another world size never serves an old program.  The
+    counters of :func:`program_cache_stats` keep counting."""
     with _REDUCERS_LOCK:
         _REDUCERS.clear()
+    with _A2A_LOCK:
+        _A2A_CACHE.clear()
+    with _A2A_EF_LOCK:
+        _A2A_EF.clear()
     with _RDV_LOCK:
         _RDV_REGISTRY.clear()
         _STEP_COUNTERS.clear()

@@ -330,6 +330,73 @@ class MeshExecutor:
                          for r in range(self.num_ranks)]).view(shape)
         return [out] + [out.clone() for _ in rows[1:]]
 
+    # -- alltoall ------------------------------------------------------------
+
+    def alltoall(self, rows, splits, rest_shape=()):
+        """``splits[r]`` is rank r's send-split vector (length R) over
+        its first dimension, for ALL ranks of the set.  ``rows`` are the
+        per-local-rank flat send buffers, destination j's segment of rank
+        r at ``[sum(splits[r][:j]) * rest, ...)``.  Returns (per-local-rank
+        received tensors ``(sum_j splits[j][r], *rest)``, the segments
+        from each source in source order; per-local-rank received splits).
+
+        Stacked mode is the permutation of the rows' segments by splits
+        (xla_ops.py:658 pads every segment to the largest one for one
+        static exchange; the values delivered are the same).  Process-group
+        mode is the group's ``alltoall_base`` (``all_to_all_single``) with
+        the exact split sizes."""
+        R = self.num_ranks
+        rest = math.prod(int(d) for d in rest_shape)
+        recv = [[int(splits[j][r]) for j in range(R)] for r in range(R)]
+        recv_local = [recv[pos] for pos in self.local_positions]
+        dtype = rows[0].dtype if rows else torch.float32
+        if self.stacked:
+            starts = []
+            for r in range(R):
+                acc, st = 0, []
+                for j in range(R):
+                    st.append(acc * rest)
+                    acc += int(splits[r][j])
+                starts.append(st)
+            out = []
+            for pos in self.local_positions:
+                segs = [rows[src].reshape(-1)[
+                    starts[src][pos]:starts[src][pos]
+                    + int(splits[src][pos]) * rest] for src in range(R)]
+                y = torch.cat(segs) if segs else \
+                    torch.zeros(0, dtype=dtype, device=self.device)
+                out.append(y.view((-1,) + tuple(rest_shape)))
+            return out, recv_local
+        pos = self.local_positions[0]
+        send = rows[0].reshape(-1)
+        out = torch.empty(sum(recv[pos]) * rest, dtype=dtype,
+                          device=send.device)
+        self.group.alltoall_base(
+            out, send, [n * rest for n in recv[pos]],
+            [int(s) * rest for s in splits[pos]],
+            dist.AllToAllOptions()).wait()
+        return [out.view((-1,) + tuple(rest_shape))], recv_local
+
+    def alltoall_codes(self, q_rows, s_rows):
+        """Equal-slot exchange of a quantized wire (engine.py:2786-2789):
+        ``q_rows``/``s_rows`` are per-local-rank codes and f32 scales laid
+        out as R equal destination slots.  Returns the received codes and
+        f32 scales per local rank, each the R source slots in source
+        order.  Process-group mode ships the scales as the bytes of their
+        bf16 values, as :meth:`_gathered_codes` does."""
+        R = self.num_ranks
+        q_seg = q_rows[0].numel() // R
+        eq_q = [[q_seg] * R for _ in range(R)]
+        q_res, _ = self.alltoall(q_rows, eq_q)
+        if self.stacked:
+            s_seg = s_rows[0].numel() // R
+            s_res, _ = self.alltoall(s_rows, [[s_seg] * R for _ in range(R)])
+            return q_res, s_res
+        sb = [s.to(torch.bfloat16).view(torch.uint8) for s in s_rows]
+        b_seg = sb[0].numel() // R
+        b_res, _ = self.alltoall(sb, [[b_seg] * R for _ in range(R)])
+        return q_res, [b.view(torch.bfloat16).float() for b in b_res]
+
     # -- broadcast -----------------------------------------------------------
 
     def broadcast(self, rows, root_pos):

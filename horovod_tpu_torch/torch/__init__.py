@@ -11,11 +11,14 @@ from ..common.basics import (  # noqa: F401
     cross_rank, cross_size, is_homogeneous, bind_rank, unbind_rank, device,
 )
 from ..common.exceptions import HorovodInternalError  # noqa: F401
-from ..common.process_sets import ProcessSet, global_process_set  # noqa: F401
+from ..common.process_sets import (  # noqa: F401
+    ProcessSet, add_process_set, remove_process_set, global_process_set,
+)
 from ..runner.thread_launcher import run  # noqa: F401
 from .compression import Compression  # noqa: F401
 from .functions import (  # noqa: F401
-    broadcast_object, broadcast_optimizer_state, broadcast_parameters,
+    allgather_object, broadcast_object, broadcast_optimizer_state,
+    broadcast_parameters,
 )
 from .mpi_ops import (  # noqa: F401
     allreduce, allreduce_async, allreduce_, allreduce_async_,
@@ -23,12 +26,13 @@ from .mpi_ops import (  # noqa: F401
     grouped_allreduce_, grouped_allreduce_async_,
     allgather, allgather_async, grouped_allgather, grouped_allgather_async,
     broadcast, broadcast_async, broadcast_, broadcast_async_,
+    alltoall, alltoall_async,
     reducescatter, reducescatter_async,
     grouped_reducescatter, grouped_reducescatter_async,
-    synchronize, poll,
-    Average, Sum, Min, Max, Product,
+    barrier, join, synchronize, poll,
+    Average, Sum, Adasum, Min, Max, Product,
     HorovodAllreduce, HorovodGroupedAllreduce, HorovodAllgather,
-    HorovodGroupedAllgather, HorovodBroadcast, HorovodReducescatter,
-    HorovodGroupedReducescatter,
+    HorovodGroupedAllgather, HorovodBroadcast, HorovodAlltoall,
+    HorovodReducescatter, HorovodGroupedReducescatter,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401

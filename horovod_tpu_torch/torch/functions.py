@@ -48,3 +48,4 @@ def broadcast_optimizer_state(optimizer, root_rank,
 
 
 broadcast_object = api.broadcast_object
+allgather_object = api.allgather_object

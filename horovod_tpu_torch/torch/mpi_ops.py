@@ -1,14 +1,16 @@
 """Torch collective ops (port of ``horovod_tpu/torch/mpi_ops.py``: the
 allreduce, grouped allreduce, allgather, grouped allgather, broadcast,
-reducescatter and grouped reducescatter autograd Functions and their
-sync wrappers).  Unlike the JAX package's torch frontend, tensors stay
-on their device: nothing is staged through numpy.
+alltoall, reducescatter and grouped reducescatter autograd Functions and
+their sync wrappers, with ``barrier`` and ``join``).  Unlike the JAX
+package's torch frontend, tensors stay on their device: nothing is staged
+through numpy.
 
 Gradients (reference torch/mpi_ops.py:194-1100):
 
 * allreduce grad = allreduce of the output grad (same op and scales)
 * allgather grad = average-allreduce, then this rank's row slice
 * broadcast grad = average-allreduce, zeroed on non-root ranks
+* alltoall grad = alltoall of the output grad by the received splits
 * reducescatter grad = allgather of the output grad, scaled by
   ``common/util.reducescatter_grad_factor`` times prescale * postscale
 """
@@ -24,9 +26,9 @@ from ..ops.api import (  # noqa: F401
     allreduce_async, allreduce_, allreduce_async_,
     grouped_allreduce_async, grouped_allreduce_, grouped_allreduce_async_,
     allgather_async, grouped_allgather_async, broadcast_async, broadcast_,
-    broadcast_async_, reducescatter_async, grouped_reducescatter_async,
-    synchronize, poll,
-    Average, Sum, Min, Max, Product,
+    broadcast_async_, alltoall_async, reducescatter_async,
+    grouped_reducescatter_async, barrier, join, synchronize, poll,
+    Average, Sum, Adasum, Min, Max, Product,
 )
 from .compression import Compression
 
@@ -167,6 +169,33 @@ class HorovodBroadcast(torch.autograd.Function):
         return grad_reduced, None, None, None
 
 
+class HorovodAlltoall(torch.autograd.Function):
+    """Differentiable alltoall (reference torch/mpi_ops.py:960): the
+    backward sends each received segment's gradient back to its source,
+    an alltoall by the received splits.  On the card, rank threads of one
+    process run such a blocking backward each on its own thread
+    (``torch.autograd.set_multithreading_enabled(False)``): autograd's
+    one worker thread per device would run one rank's exchange while the
+    peer's waits behind it."""
+
+    @staticmethod
+    def forward(ctx, tensor, splits, name, process_set):
+        out, recv_splits = _api.alltoall(tensor, splits, name, process_set)
+        ctx.process_set = process_set
+        ctx.recv_splits = recv_splits
+        if splits is None:
+            return out
+        ctx.mark_non_differentiable(recv_splits)
+        return out, recv_splits
+
+    @staticmethod
+    def backward(ctx, grad_output, *dead_gradients):
+        grad, _ = _api.alltoall(grad_output.contiguous(),
+                                splits=ctx.recv_splits,
+                                process_set=ctx.process_set)
+        return grad, None, None, None
+
+
 def _reducescatter_grad_scale(ctx):
     """The reference's convention (or the exact adjoint, by
     ``HOROVOD_EXACT_ADJOINT_REDUCESCATTER``), then the linear
@@ -274,6 +303,19 @@ def grouped_allgather(tensors, name=None, process_set=global_process_set):
         return list(HorovodGroupedAllgather.apply(name, process_set,
                                                   *tensors))
     return _api.grouped_allgather(tensors, name, process_set)
+
+
+def alltoall(tensor, splits=None, name=None,
+             process_set=global_process_set):
+    """Reference return contract (torch/mpi_ops.py:984-1013): a bare
+    tensor when ``splits`` is None, ``(tensor, received splits)`` when
+    splits are given, on the autograd and the no-grad path alike."""
+    if _differentiable(tensor):
+        return HorovodAlltoall.apply(tensor, splits, name, process_set)
+    out, recv_splits = _api.alltoall(tensor, splits, name, process_set)
+    if splits is None:
+        return out
+    return out, recv_splits
 
 
 def reducescatter(tensor, name=None, compression=Compression.none,

@@ -692,7 +692,7 @@ def small_resnet_case(fused, loss_bound, param_bound, stat_bound,
 def test_not_ported_raises_naming_its_item(case, monkeypatch):
     items = {"sharded": "A8", "step_wire": "A8", "step_hint": "A8",
              "adasum": "A7", "algorithm": "A8", "topology_hint": "A8",
-             "alltoall": "A13", "alltoall_fn": "A13", "integrity": "A14"}
+             "alltoall": "A8", "alltoall_fn": "A8", "integrity": "A14"}
     loss = (lambda p, b: p["w"].sum())
     calls = {
         "sharded": lambda: thvd.make_compiled_train_step(
@@ -708,8 +708,10 @@ def test_not_ported_raises_naming_its_item(case, monkeypatch):
             algorithm="torus"),
         "topology_hint": lambda: thvd.TopologyHint(
             axes=("dp", "tp"), sizes=(2, 2)),
-        "alltoall": lambda: thvd.CompiledAlltoall(),
-        "alltoall_fn": lambda: thvd.compiled_alltoall(torch.ones(4)),
+        "alltoall": lambda: thvd.CompiledAlltoall(
+            topology_hint=("dp", "tp")),
+        "alltoall_fn": lambda: thvd.compiled_alltoall(
+            torch.ones(4), topology_hint=("dp", "tp")),
         "integrity": lambda: trun(
             lambda: thvd.compiled_allreduce(torch.ones(2)), 2),
     }

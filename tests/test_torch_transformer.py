@@ -153,8 +153,15 @@ def test_rope_matches_jax():
 
 def test_unported_features_raise():
     _, pcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="A13"):
-        pt.TransformerLM(_cfgs(num_experts=4)[1])
+    # the MoE layer is ported; its exchange over an ep mesh axis is not
+    from horovod_tpu_torch.parallel import moe as pmoe
+    x, rw = torch.zeros(4, 8), torch.zeros(8, 2)
+    ew, ewo = torch.zeros(2, 8, 4), torch.zeros(2, 4, 8)
+    with pytest.raises(NotImplementedError, match="A15"):
+        pmoe.capacity_moe_apply(x, rw, ew, ew, ewo, topk=1,
+                                capacity_factor=1.0, axis_name="ep")
+    with pytest.raises(NotImplementedError, match="A15"):
+        pmoe.quantized_all_to_all(x, "ep", "int8")
     with pytest.raises(NotImplementedError, match="A11"):
         pt.TransformerLM(_cfgs(remat=True)[1])
     model = pt.TransformerLM(pcfg)
