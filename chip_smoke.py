@@ -207,13 +207,36 @@ Phases (a failure in any one exits non-zero):
     same tokens (``EP_REL_L2``).  (c) Phase 4's run where rank 1 joins
     after step 3: rank 0's step-4 gradients the join rule's average bit
     for bit, join's value, barriers; an allreduce on
-    ``add_process_set([0, 2])`` among 4 rank threads and its removal.
+    ``add_process_set([0, 2])`` among 4 rank threads and its removal;
+16. the multi-process path, one rank per process: two jobs of the port's
+    ``launch_procs`` (``chip_smoke.py --worker16``, processes that report
+    through files and never print the last line) on phase 4's weights,
+    batches and ``step_batch`` sequence, 6 steps, each within
+    ``PHASE16_TIMEOUT``.  (a) np=1 over NCCL, cuDNN deterministic: the
+    gradients averaged by ``grouped_allreduce_`` (B1 at world size 1),
+    the parameters bit for bit the same steps of plain torch SGD in this
+    process.  In one np=2 job on ``cuda:0`` with
+    ``HOROVOD_GPU_OPERATIONS=gloo``: (b) phase 4's run through
+    ``DistributedOptimizer``, the two processes' parameters bit for bit
+    each other and within ``COMPILED_REL_L2`` of phase 4's; (c) the same
+    on ``Compression.int8``, replicas bit for bit, step 1's averaged
+    gradient within ``WIRE_REL_L2["int8"]`` of the exact average; (d)
+    the collective matrix on CUDA tensors (allreduce Sum, Average, Min,
+    Max with pre/post scale, int32, uneven allgather, broadcast from rank
+    1, uneven alltoall, reducescatter, grouped allreduce, barrier, a
+    process set, join with rank 0 early), each exact against its host
+    formula, and which of gloo's collectives take CUDA tensors, against
+    ``dist_ops.GLOO_CUDA_COLLECTIVES``.  Per leg it prints the steady
+    median step time and img/s, rank 0's busy share of one profiled
+    step, the host ms inside the collective per step, the seconds to the
+    first step, and each process's B1/B2/B3 launches.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
 ``sharded_launches``, every kernel's launches recorded by each phase-14
-leg's capture under ``compiled_sharded``, and each kernel's launches in
-phase 15 under ``phase15_launches``); the last line is ``{"ok": true,
+leg's capture under ``compiled_sharded``, each kernel's launches in
+phase 15 under ``phase15_launches``, and B1-B3's per phase-16 leg and
+process under ``phase16_launches``); the last line is ``{"ok": true,
 "device": {...}}``.  With ``--profile`` phases 4, 7, 9, 11, 12, 14 and
 15 also print the profile tables of one steady step each.
 """
@@ -340,6 +363,11 @@ MOE = dict(LM, d_ff=2048, num_experts=8, expert_top_k=2,
 # phase 15 (a): depth of the flash-against-dense gradient gate (phase 7's
 # rule: its f32 yardstick of the 24-layer MoE would not fit beside it)
 MOE_GATE_LAYERS = 4
+# phase 16: the bound on each leg's job (its workers' whole run)
+PHASE16_TIMEOUT = 240
+# phase 16: the codec kernels on its int8 leg and their launch counters
+PHASE16_CODEC = {"quantize_blockwise": "quantize",
+                 "dequantize_blockwise": "dequantize"}
 # phase 15 (b): rank threads of the dispatch wire (ep = 2: 4 experts a
 # rank), its wires, and the bound on the relative L2 distance of the
 # ep = 2 FFN's output and gradients from the one-rank layer (bf16: the two
@@ -3405,6 +3433,387 @@ def phase_join(dev, state, batches):
 
 
 # ---------------------------------------------------------------------------
+# phase 16
+
+def phase16_worker(legs, tmp):
+    """One process of a phase-16 job (``chip_smoke.py --worker16 <legs>
+    <dir>``), launched by the port's ``launch_procs``: rank
+    ``HOROVOD_RANK`` of the job, running ``legs`` in turn.  It reports
+    through files in ``dir`` and never prints the ``{"ok": ...}`` line;
+    any failure exits non-zero, which fails the launcher's job and so
+    the phase."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if legs == "a":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda:0")
+    hvd.init(device=dev)
+    # the job's first leg counts from the launch, later ones from their
+    # own start
+    t_start = float(os.environ["HVD16_T_LAUNCH"])
+    for leg in legs:
+        out = {"leg": leg, "rank": hvd.rank()}
+        if leg == "d":
+            out.update(phase16_matrix(dev))
+        else:
+            out.update(phase16_train(leg, tmp, dev, t_start))
+        with open(os.path.join(tmp, f"{leg}_{hvd.rank()}.json"), "w") as f:
+            json.dump(out, f)
+        t_start = time.time()
+    hvd.shutdown()
+    return 0
+
+
+def phase16_train(leg, tmp, dev, t_start):
+    """Legs (a)-(c): phase 4's run in this process (rank 0 alone in
+    (a)); the final parameters and, in (c), step 1's local and averaged
+    gradients go to files."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+
+    r = hvd.rank()
+    out = {}
+    ex = hvd.engine().get_process_set(0).executor
+    state = torch.load(os.path.join(tmp, "state.pt"))
+    x0, y0 = (t.to(dev) for t in torch.load(os.path.join(tmp,
+                                                          f"batch{r}.pt")))
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+    model.load_state_dict({k: v if r == 0 else v + 1.0
+                           for k, v in state.items()})
+    hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = list(model.parameters())
+    local = {}
+    capture = [p.register_post_accumulate_grad_hook(
+        lambda p, i=i: local.__setitem__(i, p.grad.clone()))
+        for i, p in enumerate(params)] if leg == "c" else []
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    if leg != "a":
+        # at one process the optimizer reduces nothing (the reference's
+        # rule), so leg (a) averages its gradients through the engine
+        opt = hvd_torch.DistributedOptimizer(
+            opt, named_parameters=model.named_parameters(),
+            compression=getattr(hvd_torch.Compression,
+                                "int8" if leg == "c" else "none"))
+    K.reset_launches()
+    QK.reset_launches()
+    losses, times, coll_ms = [], [], []
+    for step in range(STEPS):
+        x, y = step_batch(x0, y0, step)
+        hvd.barrier()
+        if step == 0:
+            out["to_first_step_s"] = time.time() - t_start
+        c0 = ex.collective_seconds
+        prof = None
+        if r == 0 and step == STEPS - 2:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        if leg == "a":
+            hvd.grouped_allreduce_([p.grad for p in params], name="grads")
+            opt.step()
+        elif step == 0 and leg == "c":
+            opt.synchronize()
+            for h in capture:
+                h.remove()
+            torch.save({"local": [local[i] for i in range(len(params))],
+                        "averaged": [p.grad for p in params]},
+                       os.path.join(tmp, f"c_grads{r}.pt"))
+            with opt.skip_synchronize():
+                opt.step()
+        else:
+            opt.step()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            out["busy_share"] = profile_summary(prof, times[-1],
+                                                tables=False)
+        coll_ms.append((ex.collective_seconds - c0) * 1e3)
+    out.update(losses=losses, times=times, collective_ms=coll_ms,
+               launches={
+                   "pack": K.launches["pack_scale_cast"],
+                   "unpack": K.launches["unpack_scale_cast"],
+                   "quantize": QK.launches["quantize_blockwise"],
+                   "dequantize": QK.launches["dequantize_blockwise"]})
+    torch.save({k: p.detach().cpu() for k, p in model.named_parameters()},
+               os.path.join(tmp, f"{leg}_params{r}.pt"))
+    return out
+
+
+def phase16_matrix(dev):
+    """Leg (d): the cross-process collective contract on CUDA tensors,
+    each result against its host formula, exactly (small integers and
+    power-of-two scales: every value is exact in f32); then which of
+    gloo's collectives take CUDA tensors, probed on the job's group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import dist_ops
+
+    r, s = hvd.rank(), hvd.size()
+    checks = []
+
+    def check(name, got, want):
+        got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            raise AssertionError(f"phase 16 (d) rank {r}: {name} {got}, "
+                                 f"want {want}")
+        checks.append(name)
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    base = np.arange(12, dtype=np.float32)
+    ranks = np.arange(s, dtype=np.float32)
+    for op, name, fold in ((hvd.Sum, "sum", lambda v: v.sum(0)),
+                           (hvd.Average, "average", lambda v: v.mean(0)),
+                           (hvd.Min, "min", lambda v: v.min(0)),
+                           (hvd.Max, "max", lambda v: v.max(0))):
+        rows = np.stack([base * (q + 1) - 3 * q for q in range(s)])
+        got = hvd.allreduce(T(rows[r]), op=op, prescale_factor=2.0,
+                            postscale_factor=0.25, name=f"ar_{name}")
+        check(f"allreduce {name} x2 x0.25", got, fold(rows * 2.0) * 0.25)
+    i32 = np.arange(6, dtype=np.int32) * (r + 3)
+    check("allreduce int32 sum", hvd.allreduce(T(i32), op=hvd.Sum,
+                                                 name="ar_i32"),
+          sum(np.arange(6, dtype=np.int32) * (q + 3) for q in range(s)))
+    check("allgather uneven", hvd.allgather(
+        T(np.full((r + 1, 3), float(r), np.float32)), name="ag"),
+        np.concatenate([np.full((q + 1, 3), float(q), np.float32)
+                        for q in range(s)]))
+    check("broadcast from rank 1", hvd.broadcast(
+        T(np.full(5, float(r), np.float32)), root_rank=1, name="bc"),
+        np.ones(5, np.float32))
+    send = np.arange(3, dtype=np.float32).reshape(3, 1) + 10 * r
+    a2a, recv = hvd.alltoall(T(send), splits=[1, 2] if r == 0 else [2, 1],
+                             name="a2a")
+    check("alltoall uneven", a2a.ravel(),
+          [0.0, 10.0, 11.0] if r == 0 else [1.0, 2.0, 12.0])
+    check("alltoall received splits", recv, [1, 2] if r == 0 else [2, 1])
+    x = np.arange(10, dtype=np.float32).reshape(5, 2)
+    check("reducescatter sum", hvd.reducescatter(
+        T(x * (r + 1)), op=hvd.Sum, name="rs"),
+        (x * ranks.sum() + x * s)[:3] if r == 0
+        else (x * ranks.sum() + x * s)[3:])
+    g = hvd.grouped_allreduce([T(np.full(3, float(r), np.float32)),
+                               T(np.full((2, 2), 1.0, np.float32))],
+                              op=hvd.Sum, name="grp")
+    check("grouped allreduce [0]", g[0], np.full(3, ranks.sum()))
+    check("grouped allreduce [1]", g[1], np.full((2, 2), float(s)))
+    hvd.barrier()
+    checks.append("barrier")
+    ps = hvd.add_process_set([1])
+    if r == 1:
+        check("process set [1]", hvd.allreduce(
+            T(np.full(4, 7.0, np.float32)), op=hvd.Sum, name="ps1",
+            process_set=ps), np.full(4, 7.0))
+    if not hvd.remove_process_set(ps):
+        raise AssertionError("phase 16 (d): remove_process_set failed")
+    if r == 0:
+        last = hvd.join()
+    else:
+        check("allreduce after rank 0 joined", hvd.allreduce(
+            T(np.ones(2, np.float32)), op=hvd.Sum, name="tail"),
+            np.ones(2, np.float32))
+        last = hvd.join()
+    check("join returns the last rank to join", np.asarray(last), 1)
+    # which collectives gloo takes on CUDA tensors: each called directly
+    # on the job's group (all processes in the same order; gloo refuses
+    # by argument checks, before any traffic)
+    pg = dist.group.WORLD
+    t = torch.ones(8, device=dev)
+    calls = {
+        "allreduce": lambda: pg.allreduce([t]),
+        "broadcast": lambda: pg.broadcast([t], dist.BroadcastOptions()),
+        "allgather": lambda: pg.allgather(
+            [[torch.empty_like(t) for _ in range(s)]], [t]),
+        "alltoall_base": lambda: pg.alltoall_base(
+            torch.empty_like(t), t, [], [], dist.AllToAllOptions()),
+        "reduce_scatter": lambda: pg.reduce_scatter(
+            [torch.empty(4, device=dev)], [list(t.view(s, 4).unbind(0))],
+            dist.ReduceScatterOptions()),
+    }
+    takes = {}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        try:
+            call().wait()
+            takes[name] = True
+        except RuntimeError as exc:
+            takes[name] = str(exc).splitlines()[0][:120]
+    wrong = [n for n in dist_ops.GLOO_CUDA_COLLECTIVES
+             if takes.get(n) is not True]
+    if wrong:
+        raise AssertionError(f"phase 16 (d): gloo refuses CUDA tensors "
+                             f"for {wrong}, which the executor hands it: "
+                             f"{takes}")
+    return {"checks": checks, "gloo_cuda": takes}
+
+
+def phase_multiprocess(dev, card, state, batches, phase4_params):
+    """Phase 16: the multi-process path.  Each leg is a job of the
+    port's ``launch_procs`` running ``chip_smoke.py --worker16``: (a)
+    np=1 over NCCL, cuDNN deterministic, phase 4's rank-0 run with the
+    gradients averaged by ``grouped_allreduce_``, bit for bit the same
+    steps of plain torch SGD here; (b) np=2 processes on cuda:0 with
+    ``HOROVOD_GPU_OPERATIONS=gloo``, phase 4's run through
+    ``DistributedOptimizer``: replicas bit for bit, within
+    ``COMPILED_REL_L2`` of phase 4; (c) (b) on the int8 wire
+    (``Compression.int8``): replicas bit for bit, step 1's averaged
+    gradient within ``WIRE_REL_L2["int8"]`` of the exact average; (d)
+    np=2, the collective matrix on CUDA tensors, exact.  Legs (b)-(d)
+    run in one job, one after the other."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.runner.proc_run import launch_procs
+
+    xs, ys = batches
+    jobs = (("a", 1, {}), ("bcd", NP, {"HOROVOD_GPU_OPERATIONS": "gloo"}))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        for r in range(NP):
+            torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
+                       os.path.join(tmp, f"batch{r}.pt"))
+        walls = {}
+        for legs, np_, env in jobs:
+            t0 = time.perf_counter()
+            codes = launch_procs(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--worker16", legs, tmp], np=np_,
+                env={**env, "HVD16_T_LAUNCH": repr(time.time()),
+                     "PYTHONPATH": ROOT},
+                start_timeout=PHASE16_TIMEOUT)
+            if codes != [0] * np_:
+                raise AssertionError(f"phase 16 ({legs}): workers exited "
+                                     f"{codes}")
+            walls[legs] = time.perf_counter() - t0
+            for leg in legs:
+                reports = []
+                for r in range(np_):
+                    with open(os.path.join(tmp, f"{leg}_{r}.json")) as f:
+                        reports.append(json.load(f))
+                res[leg] = {"reports": reports}
+                if leg != "d":
+                    res[leg]["params"] = [torch.load(os.path.join(
+                        tmp, f"{leg}_params{r}.pt")) for r in range(np_)]
+        c_grads = [torch.load(os.path.join(tmp, f"c_grads{r}.pt"))
+                   for r in range(NP)]
+
+    # (a) against plain torch SGD in this process, cuDNN deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict(state)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        x0 = torch.from_numpy(xs[0]).to(dev)
+        y0 = torch.from_numpy(ys[0]).to(dev)
+        for step in range(STEPS):
+            x, y = step_batch(x0, y0, step)
+            opt.zero_grad()
+            F.cross_entropy(model(x), y).backward()
+            opt.step()
+        plain = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = False
+    del model, opt
+    diff = [k for k in plain if not torch.equal(plain[k],
+                                                res["a"]["params"][0][k])]
+    if diff:
+        raise AssertionError(f"phase 16 (a): {len(diff)} parameters differ "
+                             f"from plain torch SGD: {diff[:5]}")
+    for leg in "bc":
+        p0, p1 = res[leg]["params"]
+        diff = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+        if diff:
+            raise AssertionError(f"phase 16 ({leg}): the two processes' "
+                                 f"parameters differ: {diff[:5]}")
+    num = sum(float((res["b"]["params"][0][k].float()
+                     - phase4_params[k].float()).norm()) ** 2
+              for k in phase4_params)
+    den = sum(float(v.float().norm()) ** 2 for v in phase4_params.values())
+    rel_b = math.sqrt(num / den)
+    if not rel_b <= COMPILED_REL_L2:
+        raise AssertionError(f"phase 16 (b): parameters {rel_b:.3g} "
+                             f"(relative L2) from phase 4's, bound "
+                             f"{COMPILED_REL_L2}")
+    exact_sq = err_sq = 0.0
+    for i in range(len(c_grads[0]["local"])):
+        exact = (c_grads[0]["local"][i].float()
+                 + c_grads[1]["local"][i].float()) * 0.5
+        exact_sq += float(exact.double().norm()) ** 2
+        err_sq += float((c_grads[0]["averaged"][i].float()
+                         - exact).double().norm()) ** 2
+    rel_c = math.sqrt(err_sq / exact_sq)
+    if not rel_c < WIRE_REL_L2["int8"]:
+        raise AssertionError(f"phase 16 (c): step 1's averaged gradient is "
+                             f"{rel_c} (relative L2) from the exact average")
+    launches = {}
+    for leg in "abc":
+        launches[leg] = [rep["launches"] for rep in res[leg]["reports"]]
+        for rep in res[leg]["reports"]:
+            b1 = rep["launches"]["pack"] + rep["launches"]["unpack"]
+            b23 = (rep["launches"]["quantize"], rep["launches"]["dequantize"])
+            if b1 <= 0 or (leg == "c" and min(b23) <= 0):
+                raise AssertionError(f"phase 16 ({leg}) rank {rep['rank']}: "
+                                     f"launches {rep['launches']}")
+    d = res["d"]["reports"]
+    log(f"phase 16 ({card}): np=1 NCCL (a) parameters bit for bit plain "
+        f"torch SGD after {STEPS} steps (cuDNN deterministic); np=2 "
+        f"processes on one card over gloo: (b) replicas bit for bit, "
+        f"{rel_b:.3g} (relative L2) from phase 4's 2-rank-thread run "
+        f"(bound {COMPILED_REL_L2}); (c) int8 wire replicas bit for bit, "
+        f"step 1's averaged gradient {rel_c:.6f} from the exact f32 average "
+        f"(bound {WIRE_REL_L2['int8']}); (d) {len(d[0]['checks'])} + "
+        f"{len(d[1]['checks'])} checks exact; job walls (s) "
+        f"{ {k: round(v, 1) for k, v in walls.items()} }")
+    log(f"phase 16 (d): gloo on CUDA tensors, per collective (True = "
+        f"taken): {d[0]['gloo_cuda']}")
+    out = {"launches": launches}
+    for leg in "abc":
+        reps = res[leg]["reports"]
+        np_ = len(reps)
+        step_s = [max(rep["times"][i] for rep in reps)
+                  for i in range(STEPS)]
+        timed = sorted(t for i, t in enumerate(step_s)
+                       if i > 0 and i != STEPS - 2)
+        med = timed[len(timed) // 2] if len(timed) % 2 else \
+            0.5 * (timed[len(timed) // 2 - 1] + timed[len(timed) // 2])
+        log(f"phase 16 ({leg}) np={np_}: step times (s) "
+            f"{[round(t, 4) for t in step_s]}; steady median "
+            f"{med * 1e3:.2f} ms/step = {np_ * BATCH / med:.1f} img/s; "
+            f"rank 0's busy share of one profiled step "
+            f"{reps[0]['busy_share']:.3f}; host ms inside the collective "
+            f"per step, per rank "
+            f"{[[round(v, 2) for v in rep['collective_ms']] for rep in reps]}; "
+            f"s to the first step from "
+            f"{'the launch' if leg in 'ab' else 'the leg start'} "
+            f"{[round(rep['to_first_step_s'], 2) for rep in reps]}; "
+            f"B1/B2/B3 launches per rank {launches[leg]}")
+        out[leg] = {"steady_ms": med * 1e3, "img_s": np_ * BATCH / med}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -3416,6 +3825,8 @@ def main():
         print("chip_smoke: horovod_tpu_torch is not beside this script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--worker16"]:
+        return phase16_worker(sys.argv[2], sys.argv[3])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -3523,6 +3934,9 @@ def main():
     moe = phase_moe_lm(dev, lm, profile="--profile" in sys.argv[1:])
     moe_wire = phase_moe_wire(dev, moe)
     join = phase_join(dev, state, batches)
+    torch.cuda.empty_cache()
+    multi = phase_multiprocess(dev, card, state, batches,
+                               main_path.pop("params"))
     del state, batches
 
     def at_capture(*names):
@@ -3546,6 +3960,8 @@ def main():
         "compiled_sharded": at_capture("fused_scale_cast", "pack_scale_cast",
                                        "unpack_scale_cast"),
         "phase15_launches": join["launches"],
+        "phase16_launches": {leg: [v["pack"] + v["unpack"] for v in per]
+                             for leg, per in multi["launches"].items()},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -3571,6 +3987,10 @@ def main():
                                  for leg, v in shard.items()},
             "compiled_sharded": at_capture(name),
             "phase15_launches": moe_wire["launches"][name],
+            **({"phase16_launches": {
+                leg: [v[PHASE16_CODEC[name]] for v in per]
+                for leg, per in multi["launches"].items()}}
+               if name in PHASE16_CODEC else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

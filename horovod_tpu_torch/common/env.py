@@ -34,6 +34,31 @@ HOROVOD_EXACT_ADJOINT_REDUCESCATTER = \
 HOROVOD_SHARDED_OPTIMIZER = "HOROVOD_SHARDED_OPTIMIZER"
 HOROVOD_SHARD_LAYOUT = "HOROVOD_SHARD_LAYOUT"
 
+# the launcher's env handoff (runner/proc_run.slot_env; reference
+# gloo_run.py:66-103): topology, the rendezvous/coordinator address and
+# its HMAC secret, and this worker's process index
+HOROVOD_CONTROLLER = "HOROVOD_CONTROLLER"
+HOROVOD_HOSTNAME = "HOROVOD_HOSTNAME"
+HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
+HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+HOROVOD_SECRET_KEY = "HOROVOD_SECRET_KEY"
+HOROVOD_TPU_PROC_INDEX = "HOROVOD_TPU_PROC_INDEX"
+HOROVOD_TPU_NUM_PROCS = "HOROVOD_TPU_NUM_PROCS"
+HOROVOD_TPU_RANKS_PER_PROC = "HOROVOD_TPU_RANKS_PER_PROC"
+HOROVOD_TPU_COORDINATOR = "HOROVOD_TPU_COORDINATOR"
+HOROVOD_TPU_HOST_OF_RANK = "HOROVOD_TPU_HOST_OF_RANK"
+# the port's device and backend handoff: the launcher's --cpu puts the
+# workers on the CPU; CPU tensors always ride gloo, CUDA tensors ride
+# NCCL unless GPU_OPERATIONS=gloo (the reference's own knob name)
+HOROVOD_TORCH_PLATFORM = "HOROVOD_TORCH_PLATFORM"
+HOROVOD_GPU_OPERATIONS = "HOROVOD_GPU_OPERATIONS"
+# seconds init() waits for torch.distributed's rendezvous
+HOROVOD_TPU_INIT_TIMEOUT = "HOROVOD_TPU_INIT_TIMEOUT"
+# worker liveness: the beat cadence (0 disables); the launcher's
+# coordinator reads it too, with HOROVOD_HEARTBEAT_WINDOW_SECONDS
+# (runner/http/http_server.coordinator_kwargs)
+HOROVOD_HEARTBEAT_INTERVAL_SECONDS = "HOROVOD_HEARTBEAT_INTERVAL_SECONDS"
+
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
 DEFAULT_STALL_WARNING_SECS = 60.0
@@ -60,6 +85,11 @@ def get_int(name, default=0):
     except ValueError:
         _warn_malformed(name, val, default)
         return default
+
+
+def get_str(name, default=None):
+    val = os.environ.get(name)
+    return default if val is None or not val.strip() else val.strip()
 
 
 def get_float(name, default=0.0):
@@ -100,3 +130,6 @@ class Config:
         from ..core.sharded import normalize_shard_layout
         self.shard_layout = normalize_shard_layout(
             os.environ.get(HOROVOD_SHARD_LAYOUT, "").strip())
+        # multi-process jobs beat the coordinator from their own thread
+        self.heartbeat_secs = get_float(
+            HOROVOD_HEARTBEAT_INTERVAL_SECONDS, 5.0)

@@ -1,10 +1,13 @@
 """Process sets -- collectives over rank subsets (port of
 ``horovod_tpu/common/process_sets.py``).
 
-Each registered set owns its own stacked executor over its member ranks'
-rows in the engine (``Engine.add_process_set``).  Removal is collective:
-every local rank votes, and the set drains its in-flight collectives
-before it disappears (``Engine.remove_process_set``)."""
+Each registered set owns its own executor in the engine
+(``Engine.add_process_set``): a stacked one over its member ranks' rows
+in one process, or, under the launcher, a ``torch.distributed`` group of
+its own when its members span processes.  Every process registers and
+removes the same sets in the same order, as in the reference.  Removal
+is collective: every local rank votes, and the set drains its in-flight
+collectives before it disappears (``Engine.remove_process_set``)."""
 
 import threading
 

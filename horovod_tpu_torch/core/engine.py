@@ -1,5 +1,5 @@
-"""Core runtime: negotiation, fusion, dispatch (port of the
-single-process part of ``horovod_tpu/core/engine.py``).
+"""Core runtime: negotiation, fusion, dispatch (port of
+``horovod_tpu/core/engine.py``).
 
 * Rank threads **submit** tensors (reference EnqueueTensorAllreduce);
   a background thread negotiates readiness -- a tensor executes only
@@ -24,6 +24,15 @@ single-process part of ``horovod_tpu/core/engine.py``).
   result carries an event recorded after the unpack, on which
   ``synchronize()`` makes the caller's stream wait.
 * Completion flows back through :class:`~..core.handles.Handle`.
+* Under the launcher (a :class:`~.store_controller.StoreController`,
+  one rank per process) negotiation is global: the background loop
+  reports locally-ready entries to the launcher's coordinator and runs
+  the coordinator's fused batches in log order (``_store_cycle``,
+  ``_apply_response``), every process set spanning processes reducing
+  over a ``torch.distributed`` process group.  A heartbeat thread keeps
+  the coordinator's liveness scan fed, and a dead peer aborts the
+  engine.  Without a controller the loop and its stacked executors are
+  the single-process path, untouched.
 """
 
 import contextlib
@@ -36,6 +45,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..common import env as env_mod
 from ..common.exceptions import (
@@ -90,16 +100,27 @@ class NegotiationEntry:
 
 
 class ProcessSetState:
-    """Runtime state for one process set (reference process_set.h)."""
+    """Runtime state for one process set (reference process_set.h).
+    ``executor`` is None on a process that hosts none of its ranks;
+    ``group`` is the process group this set created (removal destroys
+    it)."""
 
-    def __init__(self, ps_id, ranks, executor, local_ranks=None):
+    def __init__(self, ps_id, ranks, executor, local_ranks=None,
+                 group=None):
         self.id = ps_id
         self.ranks = list(ranks)
         self.index = {r: i for i, r in enumerate(self.ranks)}
         self.local_ranks = list(local_ranks) if local_ranks is not None \
             else list(self.ranks)
         self.executor = executor
+        self.group = group
         self.pending: "OrderedDict[str, NegotiationEntry]" = OrderedDict()
+        #: multi-process: entries reported to the coordinator, waiting
+        #: for the batch that schedules them
+        self.awaiting: "OrderedDict[str, NegotiationEntry]" = OrderedDict()
+        #: multi-process: per process index, the set's global ranks it
+        #: hosts (the coordinator's stall attribution reads it)
+        self.members_by_proc = None
         self.joined = set()                 # ranks that called join()
         self.last_joined = -1
         self.join_waiters: Dict[int, Handle] = {}
@@ -130,19 +151,27 @@ def bucket_layout(bucket):
 class Engine:
     """The per-process core runtime (reference HorovodGlobalState +
     BackgroundThreadLoop).  ``num_ranks`` ranks are hosted in this
-    process, all on ``device``."""
+    process, all on ``device``: global ranks ``[rank_offset, rank_offset
+    + num_ranks)`` of a ``global_size`` world.  A ``controller`` makes
+    negotiation global (one rank per process, ``world_group`` the
+    job's ``torch.distributed`` process group)."""
 
-    def __init__(self, num_ranks, device, config=None):
+    def __init__(self, num_ranks, device, config=None, controller=None,
+                 rank_offset=0, global_size=None, world_group=None):
         self.config = config or env_mod.Config()
         self.num_local = num_ranks
         self.device = torch.device(device)
+        self.controller = controller
+        self.rank_offset = rank_offset
+        self.global_size = global_size or num_ranks
+        self._world_group = world_group
         self._lock = threading.Condition()
         self._shutdown = False
         self._aborted: Optional[BaseException] = None
         self._hold_depth = 0
         self._stall_warned = set()
         self.process_sets: Dict[int, ProcessSetState] = {
-            0: self._make_process_set_state(0, range(num_ranks))}
+            0: self._make_process_set_state(0, range(self.global_size))}
         self._next_ps_id = 1
         # removal barrier bookkeeping (see remove_process_set)
         self._removal_events: Dict[int, threading.Event] = {}
@@ -175,6 +204,16 @@ class Engine:
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
+        # idle polls of the coordinator are rate-limited (see _store_cycle)
+        self._last_poll = 0.0
+        self._hb_stop = threading.Event()
+        self._hb_thread = None
+        if self.multiproc and self.config.heartbeat_secs > 0:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop,
+                args=(self.config.heartbeat_secs,),
+                name="horovod_tpu_torch-heartbeat", daemon=True)
+            self._hb_thread.start()
         self._thread = threading.Thread(
             target=self._background_loop, name="horovod_tpu_torch-engine",
             daemon=True)
@@ -182,17 +221,87 @@ class Engine:
 
     @property
     def num_ranks(self):
-        return self.num_local
+        """Global world size (``hvd.size()``)."""
+        return self.global_size
+
+    @property
+    def multiproc(self):
+        return self.controller is not None
+
+    def _proc_of(self, global_rank):
+        """Hosting process of a global rank (the uniform layout)."""
+        return global_rank // self.num_local
+
+    # ------------------------------------------------------------------
+    # worker liveness
+
+    def _heartbeat_loop(self, interval):
+        """Beat the coordinator's ``heartbeat`` verb from a thread of
+        its own (engine.py:529-556): a peer whose beats stop is declared
+        dead and its collectives fail; a beat answered ``dead`` aborts
+        this engine, whose peers' collectives were already failed."""
+        ranks = list(range(self.rank_offset,
+                           self.rank_offset + self.num_local))
+        host = env_mod.get_str(env_mod.HOROVOD_HOSTNAME)
+        while not self._hb_stop.is_set():
+            try:
+                if self.controller.heartbeat(ranks=ranks, host=host):
+                    self.abort(HorovodInternalError(
+                        "coordinator declared this worker dead after "
+                        "missed heartbeats"))
+                    return
+            except Exception:  # noqa: BLE001 — the client already
+                # retried with backoff; beat again next interval
+                pass
+            self._hb_stop.wait(interval)
+
+    def _stop_heartbeat(self):
+        self._hb_stop.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=2.0)
+            self._hb_thread = None
+            if self._aborted is None:
+                # clean shutdown: deregister so it never reads as a death
+                try:
+                    self.controller.heartbeat(bye=True)
+                except Exception:  # noqa: BLE001 — coordinator gone
+                    pass
 
     # ------------------------------------------------------------------
     # process sets
 
     def _make_process_set_state(self, ps_id, ranks):
-        """A set's state with its own stacked executor over the rows of
-        its member ranks (every rank of this process is local)."""
+        """A set's state.  Single process: a stacked executor over the
+        rows of its member ranks.  Multi-process: the global set reduces
+        over the job's process group; any other set whose members span
+        processes gets a group of its own (``dist.new_group``, which
+        every process calls in the same order, members or not); a set
+        inside one process is stacked; a process hosting none of the
+        set's ranks has no executor."""
         ranks = sorted(ranks)
-        return ProcessSetState(
-            ps_id, ranks, dist_ops.MeshExecutor(self.device, len(ranks)))
+        local = [r for r in ranks
+                 if self.rank_offset <= r < self.rank_offset + self.num_local]
+        if not self.multiproc:
+            return ProcessSetState(
+                ps_id, ranks, dist_ops.MeshExecutor(self.device, len(ranks)))
+        procs = sorted({self._proc_of(r) for r in ranks})
+        group = created = None
+        if ps_id == 0:
+            group = self._world_group
+        elif len(procs) > 1:
+            group = created = dist.new_group(ranks=procs)
+        executor = None
+        if local:
+            executor = dist_ops.MeshExecutor(
+                self.device, len(ranks),
+                group=group if len(procs) > 1 or ps_id == 0 else None)
+        state = ProcessSetState(ps_id, ranks, executor, local_ranks=local,
+                                group=created if local else None)
+        state.members_by_proc = {}
+        for r in ranks:
+            state.members_by_proc.setdefault(
+                str(self._proc_of(r)), []).append(r)
+        return state
 
     def add_process_set(self, ranks) -> int:
         """Register the set of ``ranks`` and return its id; registering
@@ -207,9 +316,17 @@ class Engine:
                     return ps.id
             ps_id = self._next_ps_id
             self._next_ps_id += 1
-            self.process_sets[ps_id] = self._make_process_set_state(
-                ps_id, ranks)
-            return ps_id
+            if not self.multiproc:
+                self.process_sets[ps_id] = self._make_process_set_state(
+                    ps_id, ranks)
+                return ps_id
+        # one caller per process here: dist.new_group waits for every
+        # process of the job, so the set is built outside the lock and
+        # the loop keeps serving the peers' collectives meanwhile
+        state = self._make_process_set_state(ps_id, ranks)
+        with self._lock:
+            self.process_sets[ps_id] = state
+        return ps_id
 
     def remove_process_set(self, ps_id, rank=None) -> bool:
         """Deregister a set (engine.py:751-834).  Removal is a barrier
@@ -265,20 +382,25 @@ class Engine:
             return any(r not in entry.subs
                        for r in ps.local_ranks if r not in ps.joined)
 
-        while (ps.pending or ps.running) \
+        while (ps.pending or ps.awaiting or ps.running) \
                 and self._aborted is None and not self._shutdown:
-            for key, entry in list(ps.pending.items()):
-                if incomplete(entry) or time.monotonic() > deadline:
-                    ps.pending.pop(key, None)
-                    self._stall_warned.discard((ps_id, key))
-                    for sub in entry.subs.values():
-                        sub.handle.set_error(HorovodInternalError(
-                            f"process set {ps_id} removed while {key} "
-                            f"pending"))
-            if not (ps.pending or ps.running):
+            for table in (ps.pending, ps.awaiting):
+                for key, entry in list(table.items()):
+                    if incomplete(entry) or time.monotonic() > deadline:
+                        table.pop(key, None)
+                        self._stall_warned.discard((ps_id, key))
+                        if self.multiproc:
+                            self.controller.forget(key)
+                        for sub in entry.subs.values():
+                            sub.handle.set_error(HorovodInternalError(
+                                f"process set {ps_id} removed while "
+                                f"{key} pending"))
+            if not (ps.pending or ps.awaiting or ps.running):
                 break
             self._lock.wait(timeout=0.05)   # let the engine thread drain
         self.process_sets.pop(ps_id, None)
+        if ps.group is not None:
+            dist.destroy_process_group(ps.group)
         for key in [k for k in list(self._a2a_ef) if k[0] == ps_id]:
             self._a2a_ef.pop(key, None)
         self._removed_ps_ids.add(ps_id)
@@ -370,6 +492,12 @@ class Engine:
             ps.last_joined = rank
             ps.join_waiters[rank] = handle
             self._lock.notify_all()
+        if self.multiproc:
+            # the coordinator counts the set's joined ranks across
+            # processes and logs join_done once all have
+            self.controller.report_join(
+                ps_id, rank, len(ps.ranks),
+                proc_members=len(ps.local_ranks))
         return handle
 
     @staticmethod
@@ -417,6 +545,9 @@ class Engine:
                         continue
                     work = self._collect_ready_locked()
                     self._check_stalls_locked()
+                if self.multiproc:
+                    self._store_cycle(work)
+                    continue
                 for ps, batch in work:
                     try:
                         self._execute_batch(ps, batch)
@@ -430,7 +561,8 @@ class Engine:
         non-joined local rank of the set has submitted."""
         work = []
         for ps in list(self.process_sets.values()):
-            if ps.joined and len(ps.joined) == ps.size \
+            if not self.multiproc and ps.joined \
+                    and len(ps.joined) == ps.size \
                     and not ps.pending and not ps.running:
                 # resolve the join barrier only once the set's pending
                 # entries drained: clearing ``joined`` earlier would strand
@@ -447,9 +579,12 @@ class Engine:
                 if all(r in entry.subs for r in needed):
                     ready.append(entry)
                     del ps.pending[key]
+                    if self.multiproc:
+                        ps.awaiting[key] = entry
                     self._stall_warned.discard((ps.id, key))
             if ready:
-                ps.running += len(ready)
+                if not self.multiproc:
+                    ps.running += len(ready)
                 work.append((ps, ready))
         return work
 
@@ -480,17 +615,270 @@ class Engine:
                     for sub in entry.subs.values():
                         sub.handle.set_error(StalledTensorError(
                             f"tensor {key} stalled for {age:.0f}s"))
+            # reported entries: the coordinator's ``stall`` records name
+            # the missing global ranks (_apply_response); here only the
+            # shutdown time applies
+            for key, entry in list(ps.awaiting.items()):
+                age = now - entry.first_time
+                if (self.config.stall_shutdown_secs > 0
+                        and age > self.config.stall_shutdown_secs):
+                    del ps.awaiting[key]
+                    self._stall_warned.discard((ps.id, key))
+                    # no response will ever name this key for us: a
+                    # resubmission must negotiate again
+                    self.controller.forget(key)
+                    for sub in entry.subs.values():
+                        sub.handle.set_error(StalledTensorError(
+                            f"tensor {key} stalled for {age:.0f}s"))
 
     def _fail_all_pending_locked(self, exc):
         self._stall_warned.clear()
         for ps in self.process_sets.values():
-            for entry in ps.pending.values():
+            for entry in list(ps.pending.values()) + \
+                    list(ps.awaiting.values()):
                 for sub in entry.subs.values():
                     sub.handle.set_error(exc)
+            if self.multiproc:
+                for key in ps.awaiting:
+                    self.controller.forget(key)
             ps.pending.clear()
+            ps.awaiting.clear()
             for h in ps.join_waiters.values():
                 h.set_error(exc)
             ps.join_waiters.clear()
+
+    # ------------------------------------------------------------------
+    # multi-process negotiation over the coordinator
+
+    def _meta_for(self, ps, entry):
+        """Negotiation metadata sent to the coordinator, the Request wire
+        message (engine.py:1274-1329 of the JAX package; reference
+        message.h:59-143)."""
+        first = next(iter(entry.subs.values()))
+        req = first.request
+        meta = {
+            "key": entry.key,
+            "type": req.request_type.name,
+            "dtype": req.dtype,
+            "shape": list(req.shape),
+            "op": int(req.reduce_op),
+            "pre": req.prescale_factor,
+            "post": req.postscale_factor,
+            "wire": req.wire_dtype,
+            "wi": req.wire_inner,
+            "sfp": req.shard_fp,
+            "ps": ps.id,
+            "nbytes": sum(p.numel() * p.element_size()
+                          for p in first.payloads),
+            "nprocs": len(ps.members_by_proc),
+            "nranks": ps.size,
+            "root": req.root_rank,
+            "members": ps.members_by_proc,
+            "aux": {},
+        }
+        if req.group_shapes is not None:
+            meta["gshapes"] = [list(s) for s in req.group_shapes]
+        if req.request_type == RequestType.ALLGATHER:
+            # per-local-rank first dims, ordered by global rank; the
+            # coordinator merges them into the global dim0 table
+            meta["aux"]["dim0s"] = [
+                [int(entry.subs[r].payloads[i].shape[0])
+                 if entry.subs[r].payloads[i].dim() else 1
+                 for i in range(len(first.payloads))]
+                for r in ps.local_ranks if r in entry.subs]
+        if req.request_type == RequestType.ALLTOALL:
+            meta["aux"]["splits"] = [
+                list(entry.subs[r].request.splits)
+                for r in ps.local_ranks if r in entry.subs]
+        return meta
+
+    def _store_cycle(self, work):
+        """Report locally-ready entries; execute the coordinator's
+        responses in log order (engine.py:1331-1385).  While anything is
+        outstanding (entries reported, or a joined rank whose peers go
+        on reducing) the poll waits up to 0.2 s for the log to grow;
+        otherwise it only looks, at most every 50 ms, for liveness and
+        stall records."""
+        metas = []
+        for ps, batch in work:
+            for entry in batch:
+                err = self._validate(ps, entry, local_only=True)
+                if err is not None:
+                    with self._lock:
+                        ps.awaiting.pop(entry.key, None)
+                    for sub in entry.subs.values():
+                        sub.handle.set_error(err)
+                    # tell the coordinator so peer processes holding
+                    # this tensor fail instead of waiting forever
+                    meta = self._meta_for(ps, entry)
+                    meta["error"] = str(err)
+                    metas.append(meta)
+                    continue
+                metas.append(self._meta_for(ps, entry))
+        with self._lock:
+            outstanding = any(ps.awaiting or ps.join_waiters
+                              for ps in self.process_sets.values())
+        now = time.monotonic()
+        if not (metas or outstanding) and now - self._last_poll < 0.05:
+            return
+        self._last_poll = now
+        try:
+            if metas:
+                self.controller.report_ready(metas)
+            responses = self.controller.poll(
+                wait=0.2 if outstanding or metas else 0.0)
+        except Exception as exc:  # noqa: BLE001 — coordinator death
+            self.abort(exc)
+            return
+        for resp in responses:
+            self._apply_response(resp)
+
+    def _apply_response(self, resp):
+        """One record of the coordinator's log (engine.py:1536-1674):
+        a fused batch to run, a negotiation error, a stall attribution,
+        a dead peer (abort) or a set's join barrier.  The JAX package's
+        flight-recorder dump requests (``trace_dump``) have no recorder
+        to dump here (ROADMAP.md A17)."""
+        kind = resp.get("kind")
+        if kind == "batch":
+            self._apply_batch(resp)
+        elif kind == "error":
+            with self._lock:
+                for cand in self.process_sets.values():
+                    e = cand.awaiting.pop(resp["key"], None)
+                    if e is not None:
+                        self._stall_warned.discard((cand.id, resp["key"]))
+                        for sub in e.subs.values():
+                            sub.handle.set_error(TensorShapeMismatchError(
+                                resp.get("message", "negotiation error")))
+                        break
+        elif kind == "stall":
+            key, ps_id = resp.get("key"), resp.get("ps", 0)
+            with self._lock:
+                fresh = (ps_id, key) not in self._stall_warned
+                self._stall_warned.add((ps_id, key))
+            if fresh:
+                logger.warning(
+                    "One or more tensors were submitted to be reduced "
+                    "by some ranks but not all: %s stalled for %ss "
+                    "(missing global ranks: %s, hosted by non-reporting "
+                    "processes %s)", key, resp.get("age", "?"),
+                    resp.get("missing_ranks") or "unknown",
+                    resp.get("missing_procs", []))
+        elif kind == "dead":
+            # a peer missed its heartbeats: every collective it belongs
+            # to is doomed, so fail every pending and future handle now
+            msg = resp.get("message") or (
+                f"worker process {resp.get('proc')} hosting global "
+                f"ranks {resp.get('ranks') or []} declared dead after "
+                f"missed heartbeats")
+            logger.warning("%s; failing pending collectives", msg)
+            self.abort(HorovodInternalError(msg))
+        elif kind == "join_done":
+            with self._lock:
+                ps = self.process_sets.get(resp.get("ps", 0))
+                if ps is not None:
+                    for h in ps.join_waiters.values():
+                        h.set_result(resp.get("last", -1))
+                    ps.join_waiters.clear()
+                    ps.joined.clear()
+                    ps.last_joined = -1
+
+    def _apply_batch(self, resp):
+        keys, metas = resp["keys"], resp.get("metas", {})
+        ps = None
+        with self._lock:
+            m = metas.get(keys[0]) if keys else None
+            if m is not None:
+                ps = self.process_sets.get(m.get("ps", 0))
+        if ps is None or not ps.local_ranks:
+            # this process hosts no member of the set
+            return
+        entries, bad_key = [], None
+        with self._lock:
+            popped = {k: ps.awaiting.pop(k) for k in keys
+                      if k in ps.awaiting}
+            for k in keys:
+                self._stall_warned.discard((ps.id, k))
+                # our ranks joined before this entry: run it with zeros
+                e = popped.get(k) or self._synthetic_entry(k, metas.get(k))
+                if e is None:
+                    bad_key = k
+                    break
+                entries.append(e)
+            ps.running += len(entries)
+        try:
+            if bad_key is not None:
+                # we cannot take part in this collective: peers would
+                # hang in it, so fail loudly everywhere
+                err = HorovodInternalError(
+                    f"coordinator response for unknown tensor {bad_key}; "
+                    f"aborting to avoid a hang")
+                for pe in popped.values():
+                    for sub in pe.subs.values():
+                        sub.handle.set_error(err)
+                self.abort(err)
+                return
+            self._run_bucket(ps, entries, aux=resp.get("aux", {}))
+        except Exception as exc:  # noqa: BLE001 — deliver to waiters
+            logger.exception("collective execution failed")
+            wrapped = exc if isinstance(exc, HorovodInternalError) \
+                else HorovodInternalError(str(exc))
+            for e in entries:
+                for sub in e.subs.values():
+                    sub.handle.set_error(wrapped)
+        finally:
+            with self._lock:
+                ps.running -= len(entries)
+                self._lock.notify_all()
+
+    def _synthetic_entry(self, key, meta):
+        """Zero-contribution entry for an allreduce batch our joined
+        ranks did not submit (engine.py:1687-1710): the set's collective
+        still needs this process's row.  Other ops refuse join."""
+        if meta is None or meta["type"] != "ALLREDUCE":
+            return None
+        req = Request(
+            request_type=RequestType.ALLREDUCE, tensor_name=key, rank=-1,
+            dtype=meta["dtype"], shape=tuple(meta["shape"]),
+            reduce_op=ReduceOp(meta["op"]),
+            prescale_factor=meta["pre"], postscale_factor=meta["post"],
+            process_set_id=meta["ps"], wire_dtype=meta.get("wire"))
+        zeros = torch.zeros(tuple(meta["shape"]),
+                            dtype=getattr(torch, meta["dtype"]),
+                            device=self.device)
+        entry = NegotiationEntry(key)
+        entry.subs[-1] = Submission(rank=-1, request=req, names=[key],
+                                    payloads=[zeros], handle=Handle())
+        return entry
+
+    def _global_table(self, ps, entry, aux, field, local_value):
+        """Per global rank of the set, ``field``'s value: local mode
+        reads the submissions; store mode merges the coordinator's
+        per-process aux (engine.py:2458-2480, 2630-2641)."""
+        if not self.multiproc:
+            return {r: local_value(entry.subs[r]) for r in ps.ranks}
+        by_rank = {}
+        for proc_str, a in (aux or {}).get(entry.key, {}).items():
+            members = ps.members_by_proc.get(proc_str, [])
+            for r, v in zip(members, a[field]):
+                by_rank[r] = v
+        return by_rank
+
+    def _global_dim0s(self, ps, entry, aux, n_tensors):
+        """``[tensor][position]`` first dims of an allgather."""
+        table = self._global_table(
+            ps, entry, aux, "dim0s",
+            lambda sub: [int(p.shape[0]) if p.dim() else 1
+                         for p in sub.payloads])
+        return [[int(table[r][i]) for r in ps.ranks]
+                for i in range(n_tensors)]
+
+    def _global_splits(self, ps, entry, aux):
+        """Every rank's alltoall send splits, in rank order."""
+        table = self._global_table(ps, entry, aux, "splits",
+                                   lambda sub: list(sub.request.splits))
+        return [list(table[r]) for r in ps.ranks]
 
     # ------------------------------------------------------------------
     # execution
@@ -517,10 +905,12 @@ class Engine:
                     for sub in entry.subs.values():
                         sub.handle.set_error(wrapped)
 
-    def _validate(self, ps, entry) -> Optional[Exception]:
+    def _validate(self, ps, entry, local_only=False) -> Optional[Exception]:
         """Cross-rank consistency checks (ConstructResponse,
         controller.cc:496-843): dtype, shape, op, scale factors, wire,
-        shard layout and root must agree across ranks."""
+        shard layout and root must agree across ranks.  Multi-process
+        (``local_only``) this covers the local ranks; the coordinator
+        checks across processes and refuses join for non-allreduces."""
         subs = [entry.subs[r] for r in ps.ranks if r in entry.subs]
         first = subs[0].request
         rt = first.request_type
@@ -596,6 +986,8 @@ class Engine:
                                          if first.shape else 0)):
             return TensorShapeMismatchError(
                 f"alltoall splits invalid for {first.tensor_name}")
+        if local_only:
+            return None
         if len(subs) < ps.size and rt != RequestType.ALLREDUCE:
             return HorovodInternalError(
                 f"rank(s) {[r for r in ps.ranks if r not in entry.subs]} "
@@ -645,19 +1037,21 @@ class Engine:
             buckets.append(cur)
         return buckets
 
-    def _run_bucket(self, ps, bucket):
+    def _run_bucket(self, ps, bucket, aux=None):
+        """Run one fused bucket; ``aux`` is a multi-process batch's
+        per-process allgather dims and alltoall splits."""
         rt = next(iter(bucket[0].subs.values())).request.request_type
         if rt == RequestType.ALLREDUCE:
             self._run_allreduce_bucket(ps, bucket)
         elif rt == RequestType.ALLGATHER:
             if len(bucket) > 1:
-                self._run_allgather_fused(ps, bucket)
+                self._run_allgather_fused(ps, bucket, aux)
             else:
-                self._run_allgather(ps, bucket[0])
+                self._run_allgather(ps, bucket[0], aux)
         elif rt == RequestType.BROADCAST:
             self._run_broadcast(ps, bucket[0])
         elif rt == RequestType.ALLTOALL:
-            self._run_alltoall(ps, bucket)
+            self._run_alltoall(ps, bucket, aux)
         elif rt == RequestType.REDUCESCATTER:
             self._run_reducescatter(ps, bucket[0])
         elif rt == RequestType.BARRIER:
@@ -870,15 +1264,16 @@ class Engine:
                 sub.handle.set_result(
                     outs if len(sub.payloads) > 1 else outs[0], event=done)
 
-    def _run_allgather(self, ps, entry):
+    def _run_allgather(self, ps, entry, aux=None):
         """Allgather with per-rank first-dim sizes: pad to the max rows,
         gather, keep each rank's true rows (engine.py:2482)."""
         subs = self._local_subs(ps, entry)
         self._await_inputs(subs.values())
         first = next(iter(subs.values()))
         results = {r: [] for r in subs}
+        dim0s = self._global_dim0s(ps, entry, aux, len(first.payloads))
         for i, ref in enumerate(first.payloads):
-            dim0 = [int(entry.subs[r].payloads[i].shape[0]) for r in ps.ranks]
+            dim0 = dim0s[i]
             rest = tuple(ref.shape[1:])
             rest_n = 1
             for d in rest:
@@ -898,7 +1293,7 @@ class Engine:
             sub.handle.set_result(outs if len(outs) > 1 else outs[0],
                                   event=done)
 
-    def _run_allgather_fused(self, ps, bucket):
+    def _run_allgather_fused(self, ps, bucket, aux=None):
         """Fused allgather bucket (engine.py:2526-2604): every entry's
         tensors pack into ONE flat row per rank, padded to the largest
         rank's total, and ONE gather; each output is cut back out of the
@@ -909,8 +1304,7 @@ class Engine:
             subs = self._local_subs(ps, entry)
             ref = next(iter(subs.values()))
             n = len(ref.payloads)
-            dim0s = [[int(entry.subs[r].payloads[i].shape[0])
-                      for r in ps.ranks] for i in range(n)]
+            dim0s = self._global_dim0s(ps, entry, aux, n)
             rests = [tuple(ref.payloads[i].shape[1:]) for i in range(n)]
             tables.append((entry, subs, n, rests, dim0s))
         rest_ns = [[math.prod(r) for r in rests]
@@ -1005,7 +1399,7 @@ class Engine:
             q, s, R * seg_pad, 4 if wire == "int4" else 8)
         return q, s
 
-    def _run_alltoall(self, ps, bucket):
+    def _run_alltoall(self, ps, bucket, aux=None):
         """Fused alltoall bucket (engine.py:2643-2859), the MoE dispatch
         and combine wire.  The bucket's entries share one (dtype, wire,
         error feedback): their per-destination segments merge into ONE
@@ -1020,7 +1414,7 @@ class Engine:
             subs_e = self._local_subs(ps, e)
             first_e = next(iter(subs_e.values()))
             rest_e = tuple(first_e.payloads[0].shape[1:])
-            splits_e = [list(e.subs[r].request.splits) for r in ps.ranks]
+            splits_e = self._global_splits(ps, e, aux)
             entries.append((e, subs_e, first_e, rest_e, math.prod(rest_e),
                             splits_e))
         subs0 = entries[0][1]
@@ -1256,5 +1650,9 @@ class Engine:
                 ev.set()
             self._lock.notify_all()
         self._thread.join(timeout=30)
+        if self.multiproc:
+            # stop beating (with a goodbye) so a clean teardown never
+            # reads as a missed-heartbeat death
+            self._stop_heartbeat()
         if self.stream is not None:
             self.stream.synchronize()

@@ -128,6 +128,12 @@ def _ps_state(process_set):
     ps = eng.process_sets.get(ps_id)
     if ps is None:
         raise ValueError(f"unknown process set {ps_id}")
+    if eng.multiproc:
+        # every compiled entry point comes through here
+        raise NotImplementedError(
+            "the compiled path over a process group (one rank per "
+            "process, under the launcher) is not ported yet (ROADMAP.md "
+            "A22); use the eager ops and DistributedOptimizer")
     return eng, ps
 
 
@@ -259,9 +265,10 @@ def _rendezvous_for(ps, tag, n):
 def _validate_signature_cross_process(eng, ps, tag, sig):
     """First-call fingerprint exchange over the coordinator's KV store:
     process A's Nth new signature of a collective must equal process B's
-    Nth.  The port runs one process (its engine has no ``controller``
-    until the launcher lands, ROADMAP.md A4/A6), so this returns at once
-    there; the exchange is the JAX package's."""
+    Nth.  The compiled path refuses a multi-process engine until
+    ROADMAP.md A22 (``_ps_state``), so no engine that reaches here has
+    a ``controller`` yet and this returns at once; the exchange is the
+    JAX package's."""
     ctl = getattr(eng, "controller", None)
     if ctl is None or ctl.num_procs <= 1:
         return
@@ -1849,7 +1856,7 @@ class _CompiledTrainStep:
         if not ex.stacked:
             raise NotImplementedError(
                 "the sharded compiled step over a process group (one rank "
-                "per process) is not ported yet (ROADMAP.md A4/A6)")
+                "per process) is not ported yet (ROADMAP.md A22)")
         R = ex.num_ranks
 
         def prog(state, batch_rows):

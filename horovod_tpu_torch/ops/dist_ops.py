@@ -9,9 +9,13 @@ Two modes, as the reference has (``xla_ops.py:94-107``):
   JAX package's ``reduce_stacked`` does outside any kernel.
 * **process group**: one rank per process (or per thread, in the CPU
   tests) over a ``torch.distributed`` ``ProcessGroup`` -- NCCL for CUDA
-  tensors, gloo for CPU ones.  The executor calls the group object's
-  own collectives, so a group built directly (``ProcessGroupGloo(store,
-  rank, size)``) works as well as the default one.
+  tensors, gloo for CPU ones, or gloo for CUDA tensors when the job asks
+  for it (``HOROVOD_GPU_OPERATIONS=gloo``: two processes on one card).
+  The executor calls the group object's own collectives, so a group
+  built directly (``ProcessGroupGloo(store, rank, size)``) works as well
+  as the default one.  Gloo takes CUDA tensors for every collective the
+  executor calls (:data:`GLOO_CUDA_COLLECTIVES`), copying them through
+  host memory itself.
 
 Row convention: every method takes ``rows``, one flat tensor per rank
 this process hosts (ordered by global rank), and returns one result
@@ -19,6 +23,7 @@ per such rank.
 """
 
 import math
+import time
 
 import torch
 import torch.distributed as dist
@@ -27,6 +32,13 @@ from ..core.message import ReduceOp
 from . import quantize as qz
 from . import quantize_kernels as qk
 from .cuda_kernels import FLOAT_DTYPES, fused_scale_cast
+
+#: the collectives the executor calls, all of which torch's gloo backend
+#: runs on CUDA tensors (torch 2.11 on the H100); chip_smoke.py phase 16
+#: and tests/test_torch_cuda_multiprocess.py check it on the card's torch
+GLOO_CUDA_COLLECTIVES = frozenset(
+    {"allreduce", "broadcast", "allgather", "alltoall_base",
+     "reduce_scatter"})
 
 _DIST_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -81,6 +93,9 @@ class MeshExecutor:
         self.device = torch.device(device)
         self.num_ranks = num_ranks
         self.group = group
+        #: host-clock seconds inside the group's collectives (waiting for
+        #: the peers included; an NCCL call returns once enqueued)
+        self.collective_seconds = 0.0
         if group is not None and group.size() != num_ranks:
             raise ValueError(
                 f"process group has {group.size()} ranks, executor "
@@ -91,6 +106,15 @@ class MeshExecutor:
     @property
     def stacked(self):
         return self.group is None
+
+    def _collective(self, work):
+        """Wait for the group's collective ``work`` (the call that
+        issued it is the argument: it runs inside the clock)."""
+        t0 = time.perf_counter()
+        try:
+            work().wait()
+        finally:
+            self.collective_seconds += time.perf_counter() - t0
 
     # -- the reduction itself ------------------------------------------------
 
@@ -114,7 +138,7 @@ class MeshExecutor:
             return [y] * len(rows)
         opts = dist.AllreduceOptions()
         opts.reduceOp = _DIST_OPS[op]
-        self.group.allreduce([rows[0]], opts).wait()
+        self._collective(lambda: self.group.allreduce([rows[0]], opts))
         return [rows[0]]
 
     # -- allreduce -----------------------------------------------------------
@@ -216,8 +240,8 @@ class MeshExecutor:
         out = torch.empty(m, dtype=rows[0].dtype, device=rows[0].device)
         opts = dist.ReduceScatterOptions()
         opts.reduceOp = _DIST_OPS[op]
-        self.group.reduce_scatter(
-            [out], [list(rows[0].view(R, m).unbind(0))], opts).wait()
+        self._collective(lambda: self.group.reduce_scatter(
+            [out], [list(rows[0].view(R, m).unbind(0))], opts))
         return [out]
 
     def reducescatter(self, rows, d0, rest_shape, op: ReduceOp,
@@ -301,10 +325,10 @@ class MeshExecutor:
             return q_rows, s_rows
         R = self.num_ranks
         qs = [torch.empty_like(q_rows[0]) for _ in range(R)]
-        self.group.allgather([qs], [q_rows[0]]).wait()
+        self._collective(lambda: self.group.allgather([qs], [q_rows[0]]))
         sb = s_rows[0].to(torch.bfloat16).view(torch.uint8)
         sbs = [torch.empty_like(sb) for _ in range(R)]
-        self.group.allgather([sbs], [sb]).wait()
+        self._collective(lambda: self.group.allgather([sbs], [sb]))
         return qs, [b.view(torch.bfloat16).float() for b in sbs]
 
     # -- allgather -----------------------------------------------------------
@@ -325,7 +349,8 @@ class MeshExecutor:
             parts = rows
         else:
             parts = [torch.empty_like(rows[0]) for _ in range(self.num_ranks)]
-            self.group.allgather([parts], [rows[0]]).wait()
+            self._collective(
+                lambda: self.group.allgather([parts], [rows[0]]))
         out = torch.cat([parts[r][: dim0_sizes[r] * rest]
                          for r in range(self.num_ranks)]).view(shape)
         return [out] + [out.clone() for _ in rows[1:]]
@@ -371,10 +396,9 @@ class MeshExecutor:
         send = rows[0].reshape(-1)
         out = torch.empty(sum(recv[pos]) * rest, dtype=dtype,
                           device=send.device)
-        self.group.alltoall_base(
+        self._collective(lambda: self.group.alltoall_base(
             out, send, [n * rest for n in recv[pos]],
-            [int(s) * rest for s in splits[pos]],
-            dist.AllToAllOptions()).wait()
+            [int(s) * rest for s in splits[pos]], dist.AllToAllOptions()))
         return [out.view((-1,) + tuple(rest_shape))], recv_local
 
     def alltoall_codes(self, q_rows, s_rows):
@@ -404,5 +428,5 @@ class MeshExecutor:
             return [rows[root_pos].clone() for _ in rows]
         opts = dist.BroadcastOptions()
         opts.rootRank = int(root_pos)
-        self.group.broadcast([rows[0]], opts).wait()
+        self._collective(lambda: self.group.broadcast([rows[0]], opts))
         return [rows[0]]
