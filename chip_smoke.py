@@ -229,16 +229,47 @@ Phases (a failure in any one exits non-zero):
     ``dist_ops.GLOO_CUDA_COLLECTIVES``.  Per leg it prints the steady
     median step time and img/s, rank 0's busy share of one profiled
     step, the host ms inside the collective per step, the seconds to the
-    first step, and each process's B1/B2/B3 launches.
+    first step, and each process's B1/B2/B3 launches;
+17. the compiled path across processes, as more legs of phase 16's two
+    jobs (``PHASE16_JOBS``; the parent frees what it holds on the card
+    first).  In the np=1 job over NCCL, cuDNN deterministic: (e)
+    bench.py's configuration (128 images through ``place_batch``)
+    through ``make_compiled_train_step``, one CUDA graph a step with
+    the NCCL allreduces inside it: 1 capture and 5 replays, the
+    collectives issued at warm-up and recorded at capture and none by a
+    replay, bit for bit the same program uncaptured; (f) the 436M LM
+    (phase 7's weights and tokens, AdamW 1e-3) in one graph with NCCL
+    and B6-B8, its 6 losses within ``P17_LM_LOSS`` of phase 7's; (g)
+    ``CompiledGroupedAllreduce(force_program=True)`` over the ResNet-50
+    gradients bit for bit the engine's ``grouped_allreduce``, B1
+    launched.  In the np=2 job over gloo on CUDA tensors (uncaptured by
+    the capture rule), cuDNN deterministic in (h)-(i): (h) phase 12
+    (b)'s configuration through the dense compiled step, replicas bit
+    for bit, and bit for bit (or within ``COMPILED_REL_L2`` of) phase 12
+    (b)'s parameters; (i) the sharded step on the f32 and int8 wires,
+    replicas bit for bit, f32 within ``SHARDED_PARAM_BOUND`` of (h), int8
+    bit for bit phase 14 (a)'s, the optimizer state per process phase
+    14's per rank; (j) ``CompiledAlltoall`` at ep = 2 on phase 15 (b)'s
+    slots (f32, int8, int4 with error feedback) equal to phase 15 (b)'s
+    exchanges by digest, B2-B5 launched, and
+    ``CompiledGroupedAllreduce.stream`` over the ResNet-50 gradients in
+    backward order bit for bit the engine's sums, B1 launched; (k) a
+    mismatched ``compiled_allreduce`` signature raising ``ValueError``
+    on both processes within ``P17_SIG_TIMEOUT``.  Per leg it prints the
+    steady step time, img/s or tok/s, busy share, warm-up plus capture
+    seconds, host ms in the compiled group's collectives and each
+    process's peak device memory.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
 ``sharded_launches``, every kernel's launches recorded by each phase-14
 leg's capture under ``compiled_sharded``, each kernel's launches in
-phase 15 under ``phase15_launches``, and B1-B3's per phase-16 leg and
-process under ``phase16_launches``); the last line is ``{"ok": true,
-"device": {...}}``.  With ``--profile`` phases 4, 7, 9, 11, 12, 14 and
-15 also print the profile tables of one steady step each.
+phase 15 under ``phase15_launches``, B1-B3's per phase-16 leg and
+process under ``phase16_launches``, and every kernel's per phase-17 leg
+and process, through its wrapper, under ``phase17_launches``); the last
+line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
+7, 9, 11, 12, 14 and 15 also print the profile tables of one steady
+step each.
 """
 
 import gc
@@ -368,6 +399,16 @@ PHASE16_TIMEOUT = 240
 # phase 16: the codec kernels on its int8 leg and their launch counters
 PHASE16_CODEC = {"quantize_blockwise": "quantize",
                  "dequantize_blockwise": "dequantize"}
+# phases 16 and 17: the legs of the two launcher jobs (np=1 over NCCL,
+# np=2 over gloo on cuda:0), and the legs that run cuDNN deterministic
+PHASE16_JOBS = (("aefg", 1, {}),
+                ("bcdhijk", 2, {"HOROVOD_GPU_OPERATIONS": "gloo"}))
+DETERMINISTIC_LEGS = "aefghi"
+# phase 17 (f): bound on |loss - phase 7's loss| at each of the 6 steps,
+# phase 7's bar for two bf16 LM steps of the same weights and tokens
+P17_LM_LOSS = 2e-3
+# phase 17 (k): the signature exchange's timeout in the np=2 job (s)
+P17_SIG_TIMEOUT = 60
 # phase 15 (b): rank threads of the dispatch wire (ep = 2: 4 experts a
 # rank), its wires, and the bound on the relative L2 distance of the
 # ep = 2 FFN's output and gradients from the one-rank layer (bf16: the two
@@ -2881,7 +2922,13 @@ def phase_compiled_sharded(dev, card, state, batches, refs, lm_weights,
                          f"replay ran {sorted(seen)}")
             log(line)
             summary[label] = {"steady_s": got["steady_s"], "capture": cap,
-                              "peak": got["peak"]}
+                              "peak": got["peak"],
+                              "state_bytes": [got["state_bytes"][r]
+                                              for r in range(NP)]}
+            if label == "a int8":
+                # phase 17 (i) holds the process-group step to it
+                summary[label]["params"] = {
+                    k: v.cpu() for k, v in got["params"].items()}
             keep = {"steady_s": got["steady_s"], "losses": got["losses"]}
             if label in ("a f32", "a int8", "d dense"):
                 keep.update(params=got["params"], ef=got["ef"],
@@ -3254,12 +3301,17 @@ def phase_moe_wire(dev, moe):
                         or not torch.equal(CM._A2A_EF[key], padded - rt):
                     failures.append(f"rank {r} CompiledAlltoall {wire} call "
                                     f"{call} differs from the plain codec")
+                digests[f"{wire}.{call}.{r}"] = _digest(y)
                 prev_res = padded - rt
             out[f"compiled {wire}"] = {"ms": ms,
                                        "ratio": a2a.last_logical_bytes
                                        / a2a.last_wire_bytes}
             a2a.reset_wire_state()
         shared[r] = None
+        # what phase 17 (j) sends across processes, and the f32 exchange
+        # it must deliver (the plain permutation)
+        sends[r] = send.cpu()
+        digests[f"f32.0.{r}"] = _digest(plain)
         # the ep = 2 FFN: dispatch and combine through HorovodAlltoall
         lo = r * E_loc
         loc = [t[lo:lo + E_loc] for t in experts]
@@ -3301,6 +3353,7 @@ def phase_moe_wire(dev, moe):
         return out
 
     shared = [None] * A2A_NP
+    sends, digests = [None] * A2A_NP, {}
     QK.reset_launches()
     results = hvd.run(fn, np=A2A_NP, device=dev)
     launches = dict(QK.launches)
@@ -3339,7 +3392,7 @@ def phase_moe_wire(dev, moe):
     del moe["keep"]
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "sends": sends, "digests": digests}
 
 
 def phase_join(dev, state, batches):
@@ -3436,35 +3489,46 @@ def phase_join(dev, state, batches):
 # phase 16
 
 def phase16_worker(legs, tmp):
-    """One process of a phase-16 job (``chip_smoke.py --worker16 <legs>
-    <dir>``), launched by the port's ``launch_procs``: rank
-    ``HOROVOD_RANK`` of the job, running ``legs`` in turn.  It reports
-    through files in ``dir`` and never prints the ``{"ok": ...}`` line;
-    any failure exits non-zero, which fails the launcher's job and so
-    the phase."""
+    """One process of a phase-16/17 job (``chip_smoke.py --worker16
+    <legs> <dir>``), launched by the port's ``launch_procs``: rank
+    ``HOROVOD_RANK`` of the job, running ``legs`` in turn (cuDNN
+    deterministic in ``DETERMINISTIC_LEGS``).  It reports through files
+    in ``dir`` and never prints the ``{"ok": ...}`` line; any failure
+    exits non-zero, which fails the launcher's job and so the phase."""
     import torch
     sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if legs == "a":
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.benchmark = False
     dev = torch.device("cuda:0")
     hvd.init(device=dev)
     # the job's first leg counts from the launch, later ones from their
     # own start
     t_start = float(os.environ["HVD16_T_LAUNCH"])
     for leg in legs:
+        torch.backends.cudnn.deterministic = leg in DETERMINISTIC_LEGS
         out = {"leg": leg, "rank": hvd.rank()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = wrapper_counts()
         if leg == "d":
             out.update(phase16_matrix(dev))
-        else:
+        elif leg in "abc":
             out.update(phase16_train(leg, tmp, dev, t_start))
+        else:
+            out.update(PHASE17_LEGS[leg](tmp, dev))
+            after = wrapper_counts()
+            out["launches"] = {k: after[k] - before.get(k, 0)
+                               for k in after}
+        torch.cuda.synchronize()
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
         with open(os.path.join(tmp, f"{leg}_{hvd.rank()}.json"), "w") as f:
             json.dump(out, f)
         t_start = time.time()
+        gc.collect()
+        torch.cuda.empty_cache()
     hvd.shutdown()
     return 0
 
@@ -3665,8 +3729,382 @@ def phase16_matrix(dev):
     return {"checks": checks, "gloo_cuda": takes}
 
 
-def phase_multiprocess(dev, card, state, batches, phase4_params):
-    """Phase 16: the multi-process path.  Each leg is a job of the
+# ---------------------------------------------------------------------------
+# phase 17: the compiled path across processes (legs of phase 16's jobs)
+
+def p17_resnet(tmp, dev, sharded=False, wire=None, staged=False,
+               capture=True, profile=False):
+    """Phase 12's ResNet-50 configuration in this process of a launcher
+    job through ``make_compiled_train_step`` (SGD momentum 0.9 at lr 0.1,
+    bf16 compute, phase 4's weights): rank r on ``step_batch`` of its
+    phase-4 batch, or (``staged``) one rank on both ranks' 128 images
+    through ``place_batch``; 6 steps.  Returns the losses (read after the
+    6 steps), step times, host ms in the compiled group's collectives a
+    step and the collectives issued, the final parameters on the host,
+    the program, rank r's optimizer-state bytes and (``profile``) the busy
+    share of step 5."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import compiled as C
+    from horovod_tpu_torch.parallel.train import sgd
+
+    r = hvd.rank()
+    state = torch.load(os.path.join(tmp, "state.pt"))
+    with torch.device("meta"):
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16)
+    names = {k for k, _ in model.named_parameters()}
+    params = {k: v for k, v in state.items() if k in names}
+    aux = {k: v for k, v in state.items() if k not in names}
+
+    def loss_fn(p, a, batch):
+        x, y = batch
+        logits = torch.func.functional_call(model, {**p, **a}, (x,))
+        return F.cross_entropy(logits, y), a
+
+    step = hvd.make_compiled_train_step(
+        loss_fn, sgd(0.1, momentum=0.9), has_aux=True, sharded=sharded,
+        wire_dtype=wire)
+    step.capture = capture
+    st = step.init_state(params, aux=aux)
+    bases = [tuple(t.to(dev) for t in torch.load(
+        os.path.join(tmp, f"batch{q}.pt"))) for q in range(NP)]
+    feed = step.place_batch((torch.cat([x for x, _ in bases]),
+                             torch.cat([y for _, y in bases]))) \
+        if staged else None
+    ex = hvd.engine().get_process_set(0).compiled_executor
+    losses, times, coll_ms, colls = [], [], [], []
+    busy = None
+    for i in range(STEPS):
+        batch = feed if staged else step_batch(*bases[r], i)
+        hvd.barrier()
+        c0, n0 = ex.collective_seconds, ex.collectives
+        prof = None
+        if profile and r == 0 and i == STEPS - 2:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        st, loss = step(st, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            busy = profile_summary(prof, times[-1], tables=False)
+        coll_ms.append((ex.collective_seconds - c0) * 1e3)
+        colls.append(ex.collectives - n0)
+    so = st["opt_state"]
+    return {"losses": [float(v) for v in losses], "times": times,
+            "coll_ms": coll_ms, "colls": colls, "busy": busy,
+            "params": {k: v.detach().cpu() for k, v in st["params"].items()},
+            "prog": step._prog, "backend": C.executor_backend(ex, dev),
+            "state_bytes": so.state_bytes(r)
+            if isinstance(so, C.ShardedOptState) else None}
+
+
+def _steady_ms(times):
+    """Mean of steps 3-6 but the profiled step 5, in ms."""
+    steady_i = [i for i in range(2, STEPS) if i != STEPS - 2]
+    return sum(times[i] for i in steady_i) / len(steady_i) * 1e3
+
+
+def _rules():
+    from horovod_tpu_torch.ops import compiled as C
+    return C.program_cache_stats(by_rule=True)
+
+
+def _rules_delta(before):
+    after = _rules()
+    return {k: after[k] - before[k] for k in after}
+
+
+def p17_e(tmp, dev):
+    """(e) bench.py's configuration at np=1 over NCCL: one CUDA graph a
+    step with the NCCL allreduces inside it, bit for bit the same program
+    uncaptured."""
+    import torch
+    before = _rules()
+    got = p17_resnet(tmp, dev, staged=True, profile=True)
+    want = p17_resnet(tmp, dev, staged=True, capture=False)
+    rules = _rules_delta(before)
+    prog = got.pop("prog")
+    name = "phase 17 (e)"
+    if got["backend"] != "nccl" or rules["graph"] != 1 \
+            or rules["reference"] != 1:
+        raise AssertionError(f"{name}: backend {got['backend']}, programs "
+                             f"by rule {rules}")
+    if (prog.captures, prog.replays) != (1, STEPS - 1):
+        raise AssertionError(f"{name}: captures {prog.captures}, replays "
+                             f"{prog.replays}")
+    # collectives: issued by the warm-up and recorded by the capture,
+    # none by the replays (they run inside the graph)
+    if got["colls"][0] == 0 or got["colls"][1] != got["colls"][0] \
+            or any(got["colls"][2:]):
+        raise AssertionError(f"{name}: collectives a step {got['colls']}")
+    diff = [k for k in got["params"]
+            if not torch.equal(got["params"][k], want["params"][k])]
+    if got["losses"] != want["losses"] or diff:
+        raise AssertionError(f"{name}: captured differs from uncaptured: "
+                             f"{got['losses']} vs {want['losses']}; "
+                             f"{diff[:5]}")
+    torch.save(got.pop("params"), os.path.join(tmp, "e_params.pt"))
+    return {"losses": got["losses"], "times": got["times"],
+            "busy": got["busy"], "colls": got["colls"],
+            "compile_s": prog.compile_seconds, "rules": rules,
+            "captures": prog.captures, "replays": prog.replays}
+
+
+def p17_f(tmp, dev):
+    """(f) the full-width 436M LM (phase 7's weights and tokens, bf16,
+    flash attention, AdamW 1e-3) through ``make_compiled_train_step`` at
+    np=1 over NCCL: NCCL and B6-B8 in one graph; the 6 losses against
+    phase 7's eager run."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, lm_loss, numpy_init)
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.ops.flash_attention import flash_attention
+    from horovod_tpu_torch.parallel.train import adamw
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    with torch.device("meta"):
+        model = TransformerLM(cfg, attention_fn=flash_attention)
+    weights = numpy_init(model, SEED)
+    tok = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, cfg.max_seq_len))).to(dev)
+
+    def loss_fn(p, t):
+        logits = torch.func.functional_call(model, p, (t,))
+        return lm_loss(logits[:, :-1], t[:, 1:])
+
+    before = _rules()
+    step = hvd.make_compiled_train_step(loss_fn, adamw(1e-3))
+    st = step.init_state(weights)
+    del weights
+    gc.collect()
+    ex = hvd.engine().get_process_set(0).compiled_executor
+    names = [n for n, _ in FLASH]
+    losses, times, per_step, colls = [], [], [], []
+    busy = None
+    for i in range(STEPS):
+        n0 = ex.collectives
+        c0 = [FA.launches[n] for n in names]
+        prof = None
+        if i == STEPS - 2:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        st, loss = step(st, tok)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            busy = profile_summary(prof, times[-1], tables=False)
+            kern = {e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA}
+        losses.append(loss)
+        per_step.append([FA.launches[n] - c for n, c in zip(names, c0)])
+        colls.append(ex.collectives - n0)
+    losses = [float(v) for v in losses]
+    rules = _rules_delta(before)
+    prog = step._prog
+    ref = json.load(open(os.path.join(tmp, "p17_refs.json")))["lm_losses"]
+    name = "phase 17 (f)"
+    gap = max(abs(a - b) for a, b in zip(losses, ref))
+    ran = sorted(k for k in (FLASH_KERNEL[n] for n in names)
+                 if any(k in e for e in kern))
+    if not all(math.isfinite(v) for v in losses) or gap > P17_LM_LOSS \
+            or (prog.captures, prog.replays) != (1, STEPS - 1) \
+            or rules["graph"] != 1 \
+            or per_step[1] != [cfg.n_layers] * 3 \
+            or any(any(c) for c in per_step[2:]) \
+            or colls[1] == 0 or any(colls[2:]) or len(ran) != 3:
+        raise AssertionError(
+            f"{name}: losses {losses} vs phase 7's {ref} (gap {gap:.3g}, "
+            f"bound {P17_LM_LOSS}); captures {prog.captures}, replays "
+            f"{prog.replays}, rules {rules}; flash launches per step "
+            f"{per_step}; collectives per step {colls}; the profiled "
+            f"replay ran {ran}")
+    steady = _steady_ms(times)
+    return {"losses": losses, "ref": ref, "gap": gap, "times": times,
+            "busy": busy, "per_step": per_step, "colls": colls,
+            "compile_s": prog.compile_seconds, "ran": ran,
+            "tflops": lm_flops_per_token(cfg) * LM_BATCH * cfg.max_seq_len
+            / steady / 1e9}
+
+
+def p17_g(tmp, dev):
+    """(g) ``CompiledGroupedAllreduce(force_program=True)`` over the 161
+    ResNet-50 gradients at np=1 over NCCL: B1 packs and unpacks, and the
+    sums bit for bit the engine's ``grouped_allreduce``."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as K
+
+    rng = np.random.default_rng(SEED + 17)
+    grads = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                              * 1e-2).to(dev)
+             for s in resnet50_grad_shapes()]
+    k0 = dict(K.launches)
+    got = hvd.CompiledGroupedAllreduce(op=hvd.Sum, force_program=True,
+                                       name="p17g")(grads)
+    b1 = {k: K.launches[k] - k0.get(k, 0)
+          for k in ("pack_scale_cast", "unpack_scale_cast")}
+    want = hvd.grouped_allreduce(grads, op=hvd.Sum, name="p17g")
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(a, b)]
+    if bad or min(b1.values()) <= 0:
+        raise AssertionError(f"phase 17 (g): differs from the engine at "
+                             f"{bad[:5]}; B1 launches {b1}")
+    return {"b1": b1, "n": len(grads)}
+
+
+def p17_h(tmp, dev):
+    """(h) phase 12 (b)'s configuration through the dense compiled step,
+    one rank a process over gloo on CUDA tensors: uncaptured by the
+    capture rule."""
+    import torch
+    import horovod_tpu_torch as hvd
+    before = _rules()
+    got = p17_resnet(tmp, dev, profile=True)
+    rules = _rules_delta(before)
+    if got["backend"] != "gloo" or rules["uncaptured"] != 1 \
+            or rules["graph"] != 0 or hasattr(got["prog"], "captures"):
+        raise AssertionError(f"phase 17 (h): backend {got['backend']}, "
+                             f"programs by rule {rules}")
+    torch.save(got.pop("params"),
+               os.path.join(tmp, f"h_params{hvd.rank()}.pt"))
+    got.pop("prog")
+    got["rules"] = rules
+    return got
+
+
+def p17_i(tmp, dev):
+    """(i) the sharded compiled step on the f32 and int8 wires (phase 14
+    (a)'s legs), one rank a process over gloo."""
+    import torch
+    import horovod_tpu_torch as hvd
+    out = {}
+    for wire in (None, "int8"):
+        got = p17_resnet(tmp, dev, sharded=True, wire=wire)
+        got.pop("prog")
+        torch.save(got.pop("params"), os.path.join(
+            tmp, f"i{wire or 'f32'}_params{hvd.rank()}.pt"))
+        out[wire or "f32"] = got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _digest(t):
+    """SHA-256 of a tensor's bytes: an exact comparison across processes
+    and phases without keeping the tensor."""
+    import hashlib
+    import torch
+    flat = t.detach().contiguous().cpu().reshape(-1)
+    return hashlib.sha256(flat.view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def p17_j(tmp, dev):
+    """(j) ``CompiledAlltoall`` at ep = 2 across the two processes on
+    phase 15 (b)'s layer-0 slots, f32, int8 and int4 (error feedback,
+    two calls), against phase 15 (b)'s exchanges by digest; then
+    ``CompiledGroupedAllreduce.stream`` over the ResNet-50 gradients
+    pushed in backward order, bit for bit the engine's sums."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+
+    r = hvd.rank()
+    send = torch.load(os.path.join(tmp, f"a2a_send{r}.pt")).to(dev)
+    ref = json.load(open(os.path.join(tmp, "p17_refs.json")))["a2a"]
+    q0 = dict(QK.launches)
+    ms, bad = {}, []
+    for wire in (None, "int8", "int4"):
+        a2a = hvd.CompiledAlltoall(name="moe.dispatch", wire_dtype=wire,
+                                   error_feedback=wire is not None)
+        tag = wire or "f32"
+        ms[tag] = []
+        for call in range(1 if wire is None else 2):
+            hvd.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = a2a(send)
+            torch.cuda.synchronize()
+            ms[tag].append((time.perf_counter() - t0) * 1e3)
+            if _digest(y) != ref[f"{tag}.{call}.{r}"]:
+                bad.append(f"{tag} call {call}")
+        a2a.reset_wire_state()
+    codec = {k: QK.launches[k] - q0.get(k, 0) for k in QK.launches}
+    del send
+    rng = np.random.default_rng(SEED + 170 + r)
+    grads = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                              * 1e-2).to(dev)
+             for s in resnet50_grad_shapes()]
+    k0 = dict(K.launches)
+    red = hvd.CompiledGroupedAllreduce(op=hvd.Sum, name="p17j",
+                                       bucket_bytes=COMPILED_BUCKET_BYTES)
+    st = red.stream(grads)
+    for i in reversed(range(len(grads))):
+        st.push(i, grads[i])
+    got = st.result()
+    b1 = {k: K.launches[k] - k0.get(k, 0)
+          for k in ("pack_scale_cast", "unpack_scale_cast")}
+    want = hvd.grouped_allreduce(grads, op=hvd.Sum, name="p17j")
+    sbad = [i for i, (a, b) in enumerate(zip(got, want))
+            if not torch.equal(a, b)]
+    if bad or sbad or min(b1.values()) <= 0 \
+            or any(codec[n] <= 0 for n, _, _ in CODEC):
+        raise AssertionError(
+            f"phase 17 (j) rank {r}: exchanges differing from phase 15 "
+            f"(b)'s {bad}; stream differing from the engine at "
+            f"{sbad[:5]}; B1 {b1}; B2-B5 {codec}")
+    return {"ms": ms, "codec": codec, "b1": b1,
+            "buckets": len(st.buckets)}
+
+
+def p17_k(tmp, dev):
+    """(k) a mismatched ``compiled_allreduce`` signature raises
+    ``ValueError`` on both processes within the exchange's timeout."""
+    import torch
+    import horovod_tpu_torch as hvd
+    r = hvd.rank()
+    ok = hvd.compiled_allreduce(torch.full((4,), float(r + 1), device=dev),
+                                op=hvd.Sum)
+    if not torch.equal(ok.cpu(), torch.full((4,), 3.0)):
+        raise AssertionError(f"phase 17 (k): {ok}")
+    t0 = time.monotonic()
+    try:
+        hvd.compiled_allreduce(torch.ones(4 if r == 0 else 5, device=dev))
+    except ValueError as exc:
+        if "signature mismatch across processes" not in str(exc):
+            raise
+        dt = time.monotonic() - t0
+        if dt >= P17_SIG_TIMEOUT:
+            raise AssertionError(f"phase 17 (k): raised after {dt:.1f} s")
+        return {"raised_s": dt, "error": str(exc).splitlines()[0][:200]}
+    raise AssertionError("phase 17 (k): the mismatch did not raise")
+
+
+PHASE17_LEGS = {"e": p17_e, "f": p17_f, "g": p17_g, "h": p17_h,
+                "i": p17_i, "j": p17_j, "k": p17_k}
+
+
+def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
+    """Phases 16 and 17: the multi-process path, eager (16) and compiled
+    (17, ``refs``: what earlier phases measured that phase 17 is held
+    to; see :func:`phase17_report`).  Each leg is a job of the
     port's ``launch_procs`` running ``chip_smoke.py --worker16``: (a)
     np=1 over NCCL, cuDNN deterministic, phase 4's rank-0 run with the
     gradients averaged by ``grouped_allreduce_``, bit for bit the same
@@ -3685,20 +4123,25 @@ def phase_multiprocess(dev, card, state, batches, phase4_params):
     from horovod_tpu_torch.runner.proc_run import launch_procs
 
     xs, ys = batches
-    jobs = (("a", 1, {}), ("bcd", NP, {"HOROVOD_GPU_OPERATIONS": "gloo"}))
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(state, os.path.join(tmp, "state.pt"))
         for r in range(NP):
             torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
                        os.path.join(tmp, f"batch{r}.pt"))
+            torch.save(refs["a2a_sends"][r],
+                       os.path.join(tmp, f"a2a_send{r}.pt"))
+        with open(os.path.join(tmp, "p17_refs.json"), "w") as f:
+            json.dump({"lm_losses": refs["lm_losses"],
+                       "a2a": refs["a2a_digests"]}, f)
         walls = {}
-        for legs, np_, env in jobs:
+        for legs, np_, env in PHASE16_JOBS:
             t0 = time.perf_counter()
             codes = launch_procs(
                 [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
                  "--worker16", legs, tmp], np=np_,
                 env={**env, "HVD16_T_LAUNCH": repr(time.time()),
+                     "HOROVOD_COMPILED_SIG_TIMEOUT": str(P17_SIG_TIMEOUT),
                      "PYTHONPATH": ROOT},
                 start_timeout=PHASE16_TIMEOUT)
             if codes != [0] * np_:
@@ -3711,11 +4154,15 @@ def phase_multiprocess(dev, card, state, batches, phase4_params):
                     with open(os.path.join(tmp, f"{leg}_{r}.json")) as f:
                         reports.append(json.load(f))
                 res[leg] = {"reports": reports}
-                if leg != "d":
+                if leg in "abc":
                     res[leg]["params"] = [torch.load(os.path.join(
                         tmp, f"{leg}_params{r}.pt")) for r in range(np_)]
         c_grads = [torch.load(os.path.join(tmp, f"c_grads{r}.pt"))
                    for r in range(NP)]
+        p17_params = {"e": torch.load(os.path.join(tmp, "e_params.pt"))}
+        for leg in ("h", "if32", "iint8"):
+            p17_params[leg] = [torch.load(os.path.join(
+                tmp, f"{leg}_params{r}.pt")) for r in range(NP)]
 
     # (a) against plain torch SGD in this process, cuDNN deterministic
     torch.backends.cudnn.deterministic = True
@@ -3810,6 +4257,150 @@ def phase_multiprocess(dev, card, state, batches, phase4_params):
             f"{[round(rep['to_first_step_s'], 2) for rep in reps]}; "
             f"B1/B2/B3 launches per rank {launches[leg]}")
         out[leg] = {"steady_ms": med * 1e3, "img_s": np_ * BATCH / med}
+    out["phase17"] = phase17_report(card, res, p17_params, refs,
+                                    walls, out["b"]["steady_ms"])
+    return out
+
+
+def _rel_l2(a, b):
+    num = sum(float((a[k].float() - b[k].float()).norm()) ** 2 for k in b)
+    den = sum(float(v.float().norm()) ** 2 for v in b.values())
+    return math.sqrt(num / den)
+
+
+def phase17_report(card, res, params, refs, walls, b16_ms):
+    """Phase 17's checks across the processes and against the earlier
+    phases (each worker already held its own leg: captures, replays,
+    uncaptured twins, digests, the engine's sums), and its lines.
+    ``refs``: phase 12 (a)'s and (b)'s parameters and steady seconds,
+    the plain step's seconds, phase 14 (a) int8's parameters and state
+    bytes per rank (f32 and int8), phase 14 (d)'s dense LM steady
+    seconds, phase 7's losses and steady seconds.  Returns each kernel's
+    launches per phase-17 leg and process."""
+    import torch
+    rep = {leg: res[leg]["reports"] for leg in "efghijk"}
+    name = f"phase 17 ({card})"
+    # (e)
+    e = rep["e"][0]
+    e_ms = _steady_ms(e["times"])
+    rel_e = _rel_l2(params["e"], refs["a_params"])
+    bit_e = all(torch.equal(params["e"][k], refs["a_params"][k])
+                for k in refs["a_params"])
+    log(f"{name} (e) np=1 NCCL, bench.py's 128 staged images: losses "
+        f"{e['losses']} (= uncaptured, bit for bit, with the parameters); "
+        f"1 capture, {e['replays']} replays; collectives a step "
+        f"{e['colls']} (issued at warm-up, recorded at capture, none at "
+        f"the replays: NCCL inside the graph); programs by rule "
+        f"{e['rules']}; steady {e_ms:.2f} ms/step = "
+        f"{2 * BATCH / e_ms * 1e3:.1f} img/s; x "
+        f"{e_ms / (refs['a_steady_s'] * 1e3):.3f} phase 12 (a) "
+        f"({refs['a_steady_s'] * 1e3:.2f} ms), x "
+        f"{e_ms / (refs['plain_s'] * 1e3):.3f} the plain step; busy share "
+        f"{e['busy']:.3f}; warm-up + capture {e['compile_s']:.2f} s; "
+        f"parameters {'bit for bit' if bit_e else 'not bit for bit'} "
+        f"phase 12 (a)'s, relative L2 {rel_e:.3g}; peak "
+        f"{e['peak']} B")
+    # (f)
+    f = rep["f"][0]
+    f_ms = _steady_ms(f["times"])
+    n_tok = LM_BATCH * LM["max_seq_len"]
+    log(f"{name} (f) np=1 NCCL, the 436M LM in one graph: losses "
+        f"{f['losses']} vs phase 7's eager {f['ref']} (max |gap| "
+        f"{f['gap']:.3g}, bound {P17_LM_LOSS}); flash launches per step "
+        f"{f['per_step']} (warm-up, capture, then none: the replays run "
+        f"them inside the graph, the profiled replay ran {f['ran']}); "
+        f"collectives a step {f['colls']}; steady {f_ms:.2f} ms/step = "
+        f"{n_tok / f_ms * 1e3:.1f} tok/s = {f['tflops']:.1f} model "
+        f"TFLOP/s; x {f_ms / (refs['lm7_steady_s'] * 1e3):.3f} phase 7's "
+        f"eager step, x {f_ms / (refs['lm14_steady_s'] * 1e3):.3f} phase "
+        f"14 (d)'s dense step at 2 rank threads; busy share "
+        f"{f['busy']:.3f}; warm-up + capture {f['compile_s']:.2f} s; peak "
+        f"{f['peak']} B")
+    g = rep["g"][0]
+    log(f"{name} (g) np=1 NCCL: CompiledGroupedAllreduce(force_program) "
+        f"over the {g['n']} ResNet-50 gradients bit for bit the engine's "
+        f"grouped_allreduce; B1 launches {g['b1']}")
+    # (h): replicas, and phase 12 (b)
+    h0, h1 = params["h"]
+    diff = [k for k in h0 if not torch.equal(h0[k], h1[k])]
+    if diff:
+        raise AssertionError(f"{name} (h): replicas differ: {diff[:5]}")
+    rel_h = _rel_l2(h0, refs["b_params"])
+    bit_h = all(torch.equal(h0[k], refs["b_params"][k])
+                for k in refs["b_params"])
+    if not bit_h and not rel_h <= COMPILED_REL_L2:
+        raise AssertionError(f"{name} (h): {rel_h:.3g} from phase 12 "
+                             f"(b)'s parameters (bound {COMPILED_REL_L2})")
+    h = rep["h"]
+    h_ms = max(_steady_ms(x["times"]) for x in h)
+    log(f"{name} (h) np=2 processes, gloo on CUDA (uncaptured by the "
+        f"rule; programs by rule {h[0]['rules']}): replicas bit for bit; "
+        f"parameters {'bit for bit' if bit_h else 'not bit for bit'} "
+        f"phase 12 (b)'s (relative L2 {rel_h:.3g}); losses "
+        f"{h[0]['losses']}; steady {h_ms:.2f} ms/step = "
+        f"{NP * BATCH / h_ms * 1e3:.1f} img/s (x "
+        f"{h_ms / b16_ms:.3f} phase 16 (b)'s eager step); busy "
+        f"share {h[0]['busy']:.3f}; host ms in the compiled group's "
+        f"collectives a step "
+        f"{[[round(v, 2) for v in x['coll_ms']] for x in h]}, collectives "
+        f"a step {h[0]['colls']}; peak per process "
+        f"{[x['peak'] for x in h]} B")
+    # (i): replicas, f32 against (h), int8 against phase 14 (a)
+    i = rep["i"]
+    for wire in ("f32", "int8"):
+        p0, p1 = params["i" + wire]
+        diff = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+        if diff:
+            raise AssertionError(f"{name} (i) {wire}: replicas differ: "
+                                 f"{diff[:5]}")
+        sb = [x[wire]["state_bytes"] for x in i]
+        want_sb = refs["state_bytes"][wire]
+        if sb != want_sb:
+            raise AssertionError(f"{name} (i) {wire}: optimizer state "
+                                 f"{sb} B a process, phase 14's {want_sb}")
+        if wire == "f32":
+            d = max_delta(p0, h0)
+            line = (f"max |delta| {d:.3g} from (h)'s (bound "
+                    f"{SHARDED_PARAM_BOUND}; bit for bit: "
+                    f"{not _same(p0, h0)})")
+            if d > SHARDED_PARAM_BOUND:
+                raise AssertionError(f"{name} (i) f32: {line}")
+        else:
+            bad = _same(p0, refs["i8_params"])
+            line = (f"{'bit for bit' if not bad else 'NOT bit for bit'} "
+                    f"phase 14 (a) int8's")
+            if bad:
+                d = max_delta(p0, refs["i8_params"])
+                raise AssertionError(f"{name} (i) int8: parameters differ "
+                                     f"from phase 14 (a)'s at {bad[:5]} "
+                                     f"(max |delta| {d:.3g})")
+        ms = max(_steady_ms(x[wire]["times"]) for x in i)
+        log(f"{name} (i) sharded {wire}, np=2 gloo: replicas bit for bit; "
+            f"parameters {line}; optimizer state per process {sb} B (= "
+            f"phase 14's per rank); losses {i[0][wire]['losses']}; steady "
+            f"{ms:.2f} ms/step = {NP * BATCH / ms * 1e3:.1f} img/s (x "
+            f"{ms / h_ms:.3f} (h)); collectives a step "
+            f"{i[0][wire]['colls']}, host ms in them "
+            f"{[[round(v, 2) for v in x[wire]['coll_ms']] for x in i]}")
+    log(f"{name} (i): peak device memory per process {[x['peak'] for x in i]}"
+        f" B (both wires' legs)")
+    j = rep["j"]
+    log(f"{name} (j) CompiledAlltoall at ep = 2 across the processes on "
+        f"phase 15 (b)'s slots: f32, int8, int4 (two calls, error "
+        f"feedback) equal phase 15 (b)'s exchanges by digest; ms per "
+        f"exchange {[x['ms'] for x in j]}; B2-B5 per process "
+        f"{[x['codec'] for x in j]}; .stream over the ResNet-50 gradients "
+        f"({j[0]['buckets']} buckets of {COMPILED_BUCKET_BYTES} B, pushed "
+        f"in backward order) bit for bit the engine's grouped_allreduce; "
+        f"B1 {[x['b1'] for x in j]}")
+    k = rep["k"]
+    log(f"{name} (k): the mismatched signature raised ValueError on both "
+        f"processes after {[round(x['raised_s'], 3) for x in k]} s (timeout "
+        f"{P17_SIG_TIMEOUT} s): {k[0]['error']}")
+    log(f"{name}: job walls (s) {walls}")
+    out = {"launches": {leg: [x["launches"] for x in rep[leg]]
+                        for leg in "efghijk"},
+           "e_ms": e_ms, "f_ms": f_ms, "h_ms": h_ms}
     return out
 
 
@@ -3930,14 +4521,40 @@ def main():
     cs = phase_compiled_sharded(dev, card, state, batches, compiled,
                                 lm.pop("weights"),
                                 profile="--profile" in sys.argv[1:])
+    # what phase 17 is held to
+    p17_refs = {
+        "a_params": compiled["a"]["params"],
+        "a_steady_s": compiled["a"]["steady_s"],
+        "b_params": compiled["b"]["params"], "plain_s": plain_s,
+        "i8_params": cs["a int8"].pop("params"),
+        "state_bytes": {"f32": cs["a f32"]["state_bytes"],
+                        "int8": cs["a int8"]["state_bytes"]},
+        "lm14_steady_s": cs["d dense"]["steady_s"],
+        "lm7_steady_s": lm["steady_s"], "lm_losses": lm["losses"]}
     del compiled
     moe = phase_moe_lm(dev, lm, profile="--profile" in sys.argv[1:])
     moe_wire = phase_moe_wire(dev, moe)
+    moe_launches = moe["launches"]
+    p17_refs["a2a_sends"] = moe_wire.pop("sends")
+    p17_refs["a2a_digests"] = moe_wire.pop("digests")
     join = phase_join(dev, state, batches)
+    # the jobs share the card with this process: hand back what it holds
+    del moe
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"phases 16-17: this process holds "
+        f"{torch.cuda.memory_allocated(dev)} B allocated, "
+        f"{torch.cuda.memory_reserved(dev)} B reserved on the card")
     multi = phase_multiprocess(dev, card, state, batches,
-                               main_path.pop("params"))
-    del state, batches
+                               main_path.pop("params"), p17_refs)
+    del state, batches, p17_refs
+    p17 = multi["phase17"]["launches"]
+
+    def phase17_launches(*names):
+        """Launches of the named kernels in each phase-17 leg, per
+        process."""
+        return {leg: [sum(x.get(n, 0) for n in names) for x in per]
+                for leg, per in p17.items()}
 
     def at_capture(*names):
         """Launches of the named kernels each phase-14 leg's capture
@@ -3962,6 +4579,8 @@ def main():
         "phase15_launches": join["launches"],
         "phase16_launches": {leg: [v["pack"] + v["unpack"] for v in per]
                              for leg, per in multi["launches"].items()},
+        "phase17_launches": phase17_launches(
+            "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -3972,7 +4591,8 @@ def main():
             "source": FLASH_SOURCE[name], "kernel": FLASH_KERNEL[name],
             "replaces": replaces, "launches": lm["launches"][name],
             "compiled_sharded": at_capture(name),
-            "phase15_launches": moe["launches"][name],
+            "phase15_launches": moe_launches[name],
+            "phase17_launches": phase17_launches(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -3987,6 +4607,7 @@ def main():
                                  for leg, v in shard.items()},
             "compiled_sharded": at_capture(name),
             "phase15_launches": moe_wire["launches"][name],
+            "phase17_launches": phase17_launches(name),
             **({"phase16_launches": {
                 leg: [v[PHASE16_CODEC[name]] for v in per]
                 for leg, per in multi["launches"].items()}}
@@ -4003,6 +4624,7 @@ def main():
             "launches": fused["conv_launches"][name],
             "compiled_sharded": at_capture(name),
             "phase15_launches": 0,
+            "phase17_launches": phase17_launches(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

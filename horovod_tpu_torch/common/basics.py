@@ -14,7 +14,8 @@ reference's gloo_run.py:66-103 env handoff) ``init()`` builds the
 ``torch.distributed`` at the address process 0 hosts, the counterpart of
 the JAX package's ``jax.distributed.initialize``: one rank per process,
 CPU tensors over gloo, CUDA tensors over NCCL unless
-``HOROVOD_GPU_OPERATIONS=gloo``.
+``HOROVOD_GPU_OPERATIONS=gloo``, with a second group of every process
+for the compiled path (``ops/compiled.py``).
 """
 
 import datetime
@@ -156,6 +157,10 @@ def _init_multiproc(device, num_ranks, config):
         world_size=num_procs, timeout=datetime.timedelta(
             seconds=env_mod.get_int(env_mod.HOROVOD_TPU_INIT_TIMEOUT, 300)))
     _dist_up = True
+    # the compiled path's own group over every process: its collectives
+    # come from the caller's thread un-negotiated, so they must never
+    # share a communicator with the engine thread's (ProcessSetState)
+    compiled_group = dist.new_group(ranks=list(range(num_procs)))
     hof = env_mod.get_str(env_mod.HOROVOD_TPU_HOST_OF_RANK)
     _host_of_rank = [int(x) for x in hof.split(",")] if hof \
         else list(range(num_procs))
@@ -165,7 +170,8 @@ def _init_multiproc(device, num_ranks, config):
             f"for {num_procs} processes (stale environment?)")
     return Engine(1, dev, config=config, controller=controller,
                   rank_offset=proc, global_size=num_procs,
-                  world_group=dist.group.WORLD)
+                  world_group=dist.group.WORLD,
+                  compiled_group=compiled_group)
 
 
 def init(device=None, num_ranks=None, process_sets=None):

@@ -103,10 +103,15 @@ class ProcessSetState:
     """Runtime state for one process set (reference process_set.h).
     ``executor`` is None on a process that hosts none of its ranks;
     ``group`` is the process group this set created (removal destroys
-    it)."""
+    it).  ``compiled_executor`` runs the compiled path's collectives:
+    the same stacked executor in one process; across processes an
+    executor over a second group of the same processes
+    (``compiled_group``, destroyed with the set when the set made it),
+    so that the caller's un-negotiated collectives never interleave with
+    the engine thread's on one communicator."""
 
     def __init__(self, ps_id, ranks, executor, local_ranks=None,
-                 group=None):
+                 group=None, compiled_executor=None, compiled_group=None):
         self.id = ps_id
         self.ranks = list(ranks)
         self.index = {r: i for i, r in enumerate(self.ranks)}
@@ -114,6 +119,8 @@ class ProcessSetState:
             else list(self.ranks)
         self.executor = executor
         self.group = group
+        self.compiled_executor = compiled_executor
+        self.compiled_group = compiled_group
         self.pending: "OrderedDict[str, NegotiationEntry]" = OrderedDict()
         #: multi-process: entries reported to the coordinator, waiting
         #: for the batch that schedules them
@@ -154,10 +161,12 @@ class Engine:
     process, all on ``device``: global ranks ``[rank_offset, rank_offset
     + num_ranks)`` of a ``global_size`` world.  A ``controller`` makes
     negotiation global (one rank per process, ``world_group`` the
-    job's ``torch.distributed`` process group)."""
+    job's ``torch.distributed`` process group, ``compiled_group`` a
+    second group of the same processes for the compiled path)."""
 
     def __init__(self, num_ranks, device, config=None, controller=None,
-                 rank_offset=0, global_size=None, world_group=None):
+                 rank_offset=0, global_size=None, world_group=None,
+                 compiled_group=None):
         self.config = config or env_mod.Config()
         self.num_local = num_ranks
         self.device = torch.device(device)
@@ -165,6 +174,7 @@ class Engine:
         self.rank_offset = rank_offset
         self.global_size = global_size or num_ranks
         self._world_group = world_group
+        self._compiled_world_group = compiled_group
         self._lock = threading.Condition()
         self._shutdown = False
         self._aborted: Optional[BaseException] = None
@@ -202,8 +212,14 @@ class Engine:
         #: gradient reducescatters, one per rank and step; engine.py:645)
         self.sharded_update_runs = 0
         self.stream = None
+        #: the compiled reducer's side stream: its own, so that its
+        #: collectives (on the compiled group) never wait in one stream
+        #: behind the engine thread's (on the set's group) across
+        #: processes that issued the two in another order
+        self.compiled_stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
+            self.compiled_stream = torch.cuda.Stream(self.device)
         # idle polls of the coordinator are rate-limited (see _store_cycle)
         self._last_poll = 0.0
         self._hb_stop = threading.Event()
@@ -277,26 +293,39 @@ class Engine:
         processes gets a group of its own (``dist.new_group``, which
         every process calls in the same order, members or not); a set
         inside one process is stacked; a process hosting none of the
-        set's ranks has no executor."""
+        set's ranks has no executor.  Each group the compiled path
+        uses is a second one over the same processes: the global set's
+        is the engine's ``compiled_group``, another set's a second
+        ``dist.new_group`` right after its own."""
         ranks = sorted(ranks)
         local = [r for r in ranks
                  if self.rank_offset <= r < self.rank_offset + self.num_local]
         if not self.multiproc:
-            return ProcessSetState(
-                ps_id, ranks, dist_ops.MeshExecutor(self.device, len(ranks)))
+            ex = dist_ops.MeshExecutor(self.device, len(ranks))
+            return ProcessSetState(ps_id, ranks, ex, compiled_executor=ex)
         procs = sorted({self._proc_of(r) for r in ranks})
-        group = created = None
+        group = created = cgroup = ccreated = None
         if ps_id == 0:
             group = self._world_group
+            cgroup = self._compiled_world_group
         elif len(procs) > 1:
             group = created = dist.new_group(ranks=procs)
-        executor = None
+            cgroup = ccreated = dist.new_group(ranks=procs)
+        executor = compiled = None
         if local:
+            spans = len(procs) > 1 or ps_id == 0
             executor = dist_ops.MeshExecutor(
-                self.device, len(ranks),
-                group=group if len(procs) > 1 or ps_id == 0 else None)
+                self.device, len(ranks), group=group if spans else None)
+            if cgroup is not None:
+                compiled = dist_ops.MeshExecutor(self.device, len(ranks),
+                                                 group=cgroup)
+            elif not spans:
+                # a set inside this process reduces stacked on both paths
+                compiled = executor
         state = ProcessSetState(ps_id, ranks, executor, local_ranks=local,
-                                group=created if local else None)
+                                group=created if local else None,
+                                compiled_executor=compiled,
+                                compiled_group=ccreated if local else None)
         state.members_by_proc = {}
         for r in ranks:
             state.members_by_proc.setdefault(
@@ -399,8 +428,9 @@ class Engine:
                 break
             self._lock.wait(timeout=0.05)   # let the engine thread drain
         self.process_sets.pop(ps_id, None)
-        if ps.group is not None:
-            dist.destroy_process_group(ps.group)
+        for group in (ps.group, ps.compiled_group):
+            if group is not None:
+                dist.destroy_process_group(group)
         for key in [k for k in list(self._a2a_ef) if k[0] == ps_id]:
             self._a2a_ef.pop(key, None)
         self._removed_ps_ids.add(ps_id)
@@ -1654,5 +1684,6 @@ class Engine:
             # stop beating (with a goodbye) so a clean teardown never
             # reads as a missed-heartbeat death
             self._stop_heartbeat()
-        if self.stream is not None:
-            self.stream.synchronize()
+        for stream in (self.stream, self.compiled_stream):
+            if stream is not None:
+                stream.synchronize()

@@ -12,7 +12,10 @@ collectives in the same order, as one process group needs.
 The JAX package's coordinator-restart recovery (the epoch resync and the
 drain-then-rereport handshake), its elastic rounds and per-host
 aggregator route (ROADMAP.md A17) and the negotiation bypass's vote
-(A23) are not ported: the port's coordinator never restarts.
+(A23) are not ported: the port's coordinator never restarts.  The
+elastic round id is kept all the same (``round_id``, 0 until elastic
+rounds exist): the compiled path's signature exchange keys its records
+by it, as the JAX package's does.
 """
 
 import json
@@ -36,12 +39,15 @@ class StoreController:
     """One per worker process in multi-process jobs."""
 
     def __init__(self, addr, port, secret, proc_id, num_procs, nlocal,
-                 poll_wait=5.0):
+                 poll_wait=5.0, round_id=0):
         self.client = StoreClient(addr, port, secret)
         self.proc_id = proc_id
         self.num_procs = num_procs
         self.nlocal = nlocal
         self.poll_wait = poll_wait
+        #: the launcher's elastic round (0 outside elastic rounds, which
+        #: are not ported, ROADMAP.md A17)
+        self.round_id = round_id
         self._cursor = 0
         self._reported = set()
         self._cache = {}      # key -> (cache_id, fingerprint)

@@ -20,9 +20,9 @@ Two deliverables, as in the JAX package:
   ``ops/csrc/scale_cast.cu``); the sum over the rank rows is the
   executor's.  The 16-bit and shared-scale int8/int4 wires are plain
   torch ops around that sum, with error feedback outside the program.
-  The reducer runs eagerly on the card, on the engine's side stream:
-  its inputs are fresh tensors at every call, so a graph would only add
-  a copy of each.  :meth:`~CompiledGroupedAllreduce.stream` dispatches
+  The reducer runs eagerly on the card, on the engine's compiled-path
+  stream: its inputs are fresh tensors at every call, so a graph would
+  only add a copy of each.  :meth:`~CompiledGroupedAllreduce.stream` dispatches
   it bucket by bucket as tensors arrive.
 * :func:`make_compiled_train_step`: forward, backward, the reduction
   over the ranks and the optimizer update as one program, on the card
@@ -38,6 +38,20 @@ order with the same shapes: there is no negotiation on this path.  Rank
 threads of one process meet at a rendezvous, and the last to arrive
 runs the program once for all of them.
 
+Under the launcher (one rank per process) every entry point runs over
+the set's compiled group (``ProcessSetState.compiled_executor``), a
+second ``torch.distributed`` group of the same processes: the engine
+thread issues its negotiated collectives on the set's own group, and
+the compiled path's, issued un-negotiated from the caller's thread (or a
+graph's), must never interleave with them on one communicator.  A
+process's first call of each signature is checked against its peers'
+through the coordinator's KV store (``_validate_signature_cross_process``):
+a mismatch raises ``ValueError`` on every process.  How a step's program
+runs is decided before any capture, by :func:`capture_rule`: one CUDA
+graph on the card when its collectives are stacked or NCCL's (NCCL
+inside the graph), the same function uncaptured on the card over gloo
+(gloo cannot be captured), the plain function on the CPU.
+
 The JAX package's sharded step needs one device per rank (its shard
 mode); the port's rank threads share one device, and each rank owns its
 shard of the optimizer state and its error-feedback residual as tensors
@@ -50,7 +64,8 @@ card) per destination slot and per-rank error feedback.
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: an ``algorithm``/``topology_hint``/``wire_inner`` other
 than flat and :class:`TopologyHint` (A8), ``op=Adasum`` in the dense
-train step (A7) and wire integrity digests (A14).
+train step (A7), wire integrity digests (A14) and several rank threads
+per process across processes (A24).
 """
 
 import contextlib
@@ -79,8 +94,8 @@ from .dist_ops import is_float
 
 __all__ = [
     "CompiledAlltoall", "CompiledGroupedAllreduce", "CompiledPredict",
-    "StagedBatch", "TopologyHint", "batch_signature", "compiled_allreduce",
-    "compiled_alltoall", "compiled_grouped_allreduce",
+    "StagedBatch", "TopologyHint", "batch_signature", "capture_rule",
+    "compiled_allreduce", "compiled_alltoall", "compiled_grouped_allreduce",
     "make_compiled_train_step", "program_cache_stats", "shared_program",
     "sharded_state_from_jax",
 ]
@@ -117,6 +132,8 @@ class TopologyHint:
 # rank meeting point
 
 def _ps_state(process_set):
+    """(engine, set state) of a compiled entry point's set; its
+    collectives run on ``ps.compiled_executor``."""
     eng = basics.engine()
     ps_id = 0
     if isinstance(process_set, ProcessSet):
@@ -128,12 +145,17 @@ def _ps_state(process_set):
     ps = eng.process_sets.get(ps_id)
     if ps is None:
         raise ValueError(f"unknown process set {ps_id}")
-    if eng.multiproc:
+    if eng.multiproc and eng.num_local > 1:
         # every compiled entry point comes through here
         raise NotImplementedError(
-            "the compiled path over a process group (one rank per "
-            "process, under the launcher) is not ported yet (ROADMAP.md "
-            "A22); use the eager ops and DistributedOptimizer")
+            "the compiled path with several rank threads per process "
+            "across processes (the hybrid layout) is not ported yet "
+            "(ROADMAP.md A24)")
+    if ps.compiled_executor is None:
+        raise ValueError(
+            f"process set {ps_id} has no compiled path in this process "
+            + ("(it hosts none of the set's ranks)" if ps.executor is None
+               else "(the engine was built without a compiled group)"))
     return eng, ps
 
 
@@ -228,7 +250,8 @@ _PROGRAM_LOCK = threading.Lock()
 #: families horovod_program_cache_{hits,misses}_total and
 #: horovod_compile_seconds_total; the port has no telemetry package yet,
 #: ROADMAP.md A17).  Monotonic over the process's life.
-_STATS = {"hits": 0, "misses": 0, "compile_seconds": 0.0}
+_STATS = {"hits": 0, "misses": 0, "compile_seconds": 0.0,
+          "graph": 0, "uncaptured": 0, "reference": 0, "plain": 0}
 _STATS_LOCK = threading.Lock()
 _EX_UID = [0]
 
@@ -263,12 +286,12 @@ def _rendezvous_for(ps, tag, n):
 
 
 def _validate_signature_cross_process(eng, ps, tag, sig):
-    """First-call fingerprint exchange over the coordinator's KV store:
-    process A's Nth new signature of a collective must equal process B's
-    Nth.  The compiled path refuses a multi-process engine until
-    ROADMAP.md A22 (``_ps_state``), so no engine that reaches here has
-    a ``controller`` yet and this returns at once; the exchange is the
-    JAX package's."""
+    """First-call fingerprint exchange over the coordinator's KV store
+    (the JAX package's): process A's Nth new signature of a collective
+    must equal process B's Nth, or every process raises ``ValueError``;
+    a peer that never publishes raises ``RuntimeError`` after
+    ``HOROVOD_COMPILED_SIG_TIMEOUT`` seconds.  A single-process engine
+    has nothing to exchange."""
     ctl = getattr(eng, "controller", None)
     if ctl is None or ctl.num_procs <= 1:
         return
@@ -280,7 +303,7 @@ def _validate_signature_cross_process(eng, ps, tag, sig):
         seq = _SIG_COUNTERS.get((ps.id, taghash), 0)
         _SIG_COUNTERS[(ps.id, taghash)] = seq + 1
     fp = json.dumps(sig, sort_keys=True)
-    base = f"compiled_sig/{ctl.round_id}/{ps.id}/{taghash}/{seq}"
+    base = f"/compiled_sig/{ctl.round_id}/{ps.id}/{taghash}/{seq}"
     ctl.client.put(f"{base}/{ctl.proc_id}", fp.encode())
     deadline = time.monotonic() + env_mod.get_int(
         "HOROVOD_COMPILED_SIG_TIMEOUT", 120)
@@ -454,11 +477,43 @@ class _GraphProgram:
             old.copy_(new)
 
 
-def _make_program(fn, device, leaves=None, capture=True):
-    """The program of ``fn`` for ``device``: a CUDA graph on the card
-    (``capture=False`` runs the same function uncaptured, the reference a
-    graph is checked against), the plain function on the CPU."""
-    if device.type == "cuda" and capture:
+def capture_rule(device, backend=None):
+    """How a program whose collectives ride ``backend`` runs on
+    ``device``, decided before any capture: ``"graph"`` (one CUDA graph:
+    CUDA tensors whose collectives are stacked, ``backend`` None, or
+    NCCL's, captured inside the graph), ``"uncaptured"`` (CUDA tensors
+    over any other backend, gloo: it cannot be captured, so the same
+    function runs uncaptured on the card) or ``"plain"`` (the CPU)."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "graph" if backend in (None, "nccl") else "uncaptured"
+
+
+def executor_backend(ex, device):
+    """The backend carrying ``device``'s tensors over executor ``ex``'s
+    group (``"nccl"``, ``"gloo"``), or None for a stacked executor."""
+    if ex is None or ex.stacked:
+        return None
+    group = ex.group
+    get = getattr(group, "_get_backend", None)
+    if get is not None:
+        return get(torch.device(device)).name()
+    return group.name()
+
+
+def _make_program(fn, device, leaves=None, capture=True, backend=None):
+    """The program of ``fn`` for ``device`` by :func:`capture_rule`: a
+    CUDA graph on the card, the same function uncaptured on the card over
+    a backend that cannot be captured, the plain function on the CPU.
+    ``capture=False`` runs a would-be graph uncaptured: the reference a
+    graph is checked against.  Each program built counts under its rule
+    (``"reference"`` for ``capture=False``) in
+    :func:`program_cache_stats`."""
+    rule = capture_rule(device, backend)
+    if rule == "graph" and not capture:
+        rule = "reference"
+    _count(rule)
+    if rule == "graph":
         return _GraphProgram(fn, device, leaves)
     return _TimedFirstCall(fn)
 
@@ -483,10 +538,17 @@ def shared_program(key, builder):
     return _shared_program(key, builder)
 
 
-def program_cache_stats():
+def program_cache_stats(by_rule=False):
     """(hits, misses) of the process-wide program cache as integers, for
-    asserting zero steady-state rebuilds."""
+    asserting zero steady-state rebuilds.  ``by_rule=True`` returns a
+    dict of those and of the step programs built under each
+    :func:`capture_rule` outcome: ``graph`` (CUDA graphs), ``uncaptured``
+    (on the card over gloo), ``reference`` (``capture=False``) and
+    ``plain`` (the CPU)."""
     with _STATS_LOCK:
+        if by_rule:
+            return {k: int(v) for k, v in _STATS.items()
+                    if k != "compile_seconds"}
         return int(_STATS["hits"]), int(_STATS["misses"])
 
 
@@ -844,10 +906,10 @@ class _BucketStream:
     Buckets launch strictly in plan order on every rank, whatever the
     push order.  The bucket size is latched once, at construction.  On
     the card a bucket's work (pack, sum, unpack, error feedback) runs on
-    the engine's side stream after an event of the pushing stream, and
-    ends in an event; ``result()`` makes the caller's stream wait only on
-    the buckets still in flight.  Error-feedback residuals are keyed per
-    (signature, bucket size, bucket)."""
+    the engine's compiled-path stream after an event of the pushing
+    stream, and ends in an event; ``result()`` makes the caller's stream
+    wait only on the buckets still in flight.  Error-feedback residuals
+    are keyed per (signature, bucket size, bucket)."""
 
     def __init__(self, red, specs):
         self.red = red
@@ -868,10 +930,10 @@ class _BucketStream:
                 "wire integrity digests on the compiled path are not "
                 "ported yet (ROADMAP.md A14); unset HOROVOD_INTEGRITY")
         self.eng, self.ps = eng, ps
-        ex = ps.executor
+        ex = ps.compiled_executor
         self.ex = ex
         self.device = eng.device
-        self.side = eng.stream
+        self.side = eng.compiled_stream
         self.trivial = ex.num_ranks == 1 and not red.force_program
         self._vals = {}        # index -> delivered tensor
         self._inflight = []    # (results, done event)
@@ -951,7 +1013,7 @@ class _BucketStream:
 
     @contextlib.contextmanager
     def _on_side(self, members):
-        """Run the block on the engine's side stream after the caller's
+        """Run the block on the compiled-path stream after the caller's
         stream, with the members' memory held for it; yields the caller's
         stream (None on the CPU)."""
         if self.side is None:
@@ -1195,7 +1257,7 @@ class CompiledAlltoall:
             a = array.detach().contiguous()
         else:
             a = torch.as_tensor(array, device=eng.device)
-        ex = ps.executor
+        ex = ps.compiled_executor
         R = ex.num_ranks
         if a.dim() < 1 or a.shape[0] % R != 0:
             raise ValueError(
@@ -1500,6 +1562,47 @@ def _optimizer_tensors(state):
     return out
 
 
+def _fusion_groups(tensors, threshold):
+    """The indices of ``tensors`` in groups of one dtype each (dtypes in
+    first-seen order, the same on every process) split where a group
+    would pass ``threshold`` bytes (0: never; a larger tensor is a group
+    alone): the buffers of the process-group steps, each one collective.
+    Over gloo on CUDA tensors a collective is a round trip through host
+    memory, so a few, not one a leaf."""
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    groups = []
+    for idx in by_dtype.values():
+        cur, nbytes = [], 0
+        for i in idx:
+            b = tensors[i].numel() * tensors[i].element_size()
+            if cur and threshold > 0 and nbytes + b > threshold:
+                groups.append(cur)
+                cur, nbytes = [], 0
+            cur.append(i)
+            nbytes += b
+        groups.append(cur)
+    return groups
+
+
+def _allreduce_flat(ex, tensors, threshold):
+    """The sums of ``tensors`` over executor ``ex``'s process group, as
+    new tensors of their shapes: one flat buffer per
+    :func:`_fusion_groups` group, summed by one collective, packed and
+    unpacked with torch ops."""
+    out = [None] * len(tensors)
+    for group in _fusion_groups(tensors, threshold):
+        buf = torch.cat([tensors[i].detach().reshape(-1) for i in group])
+        ex.reduce([buf], ReduceOp.SUM)
+        o = 0
+        for i in group:
+            n = tensors[i].numel()
+            out[i] = buf[o:o + n].view(tensors[i].shape)
+            o += n
+    return out
+
+
 def _state_leaves(state, batch_rows):
     """The input tensors of one step: params, optimizer state, aux, the
     error-feedback residuals and the staged batch."""
@@ -1588,53 +1691,80 @@ class _ShardLayout:
             flat = torch.nn.functional.pad(flat, (0, self.pad - self.n))
         return flat
 
+    def shard_blocks(self, values, pos, block):
+        """The entries of a per-block tensor ``values`` (one per
+        ``block`` elements of the natural padded flat) that rank ``pos``'s
+        shard covers, in shard order (its shard is whole blocks)."""
+        nb = self.m // block
+        if self.perm is None:
+            return values[pos * nb:(pos + 1) * nb]
+        idx = self.perm.view(-1, self.m)[pos][::block] // block
+        return values.index_select(0, idx)
+
 
 class ShardedOptState:
     """The optimizer state of the weight-update-sharded step, in place of
-    the JAX package's flat dp-sharded optax leaves.  ``shards[i]`` is an
-    ``(R, pad // R)`` buffer of parameter leaf ``names[i]``'s dtype whose
-    row r is rank r's flat shard of that parameter (segment-major, see
-    ``_ShardLayout``); ``optimizers[r]`` is rank r's optimizer over its
-    rows, so it holds rank r's shard of every moment, and only that."""
+    the JAX package's flat dp-sharded optax leaves, for the set positions
+    ``positions`` this process hosts (every rank for rank threads, its
+    one rank under the launcher).  ``shards[i]`` is a ``(len(positions),
+    pad // R)`` buffer of parameter leaf ``names[i]``'s dtype whose k-th
+    row is rank ``positions[k]``'s flat shard of that parameter
+    (segment-major, see ``_ShardLayout``); ``optimizers[k]`` is that
+    rank's optimizer over its rows, so it holds that rank's shard of
+    every moment, and only that.  Methods taking ``r`` take a set
+    position this process hosts."""
 
-    def __init__(self, names, shards, optimizers):
+    def __init__(self, names, shards, optimizers, positions=None):
         self.names = list(names)
         self.shards = list(shards)
         self.optimizers = list(optimizers)
+        self.positions = list(range(len(self.optimizers))) \
+            if positions is None else list(positions)
+
+    def _row(self, r):
+        if r not in self.positions:
+            raise ValueError(f"rank position {r} is not hosted here "
+                             f"(this state holds {self.positions})")
+        return self.positions.index(r)
 
     def tensors(self):
-        """The shard buffers, then each rank's state tensors in parameter
-        order, keys sorted."""
+        """The shard buffers, then each hosted rank's state tensors in
+        parameter order, keys sorted."""
         out = list(self.shards)
-        for r, opt in enumerate(self.optimizers):
+        for r, opt in zip(self.positions, self.optimizers):
             for p in self.rank_params(r):
                 st = opt.state.get(p, {})
                 out.extend(st[k] for k in sorted(st)
                            if torch.is_tensor(st[k]))
         return out
 
+    def optimizer(self, r):
+        """Rank position r's optimizer."""
+        return self.optimizers[self._row(r)]
+
     def rank_params(self, r):
         """Rank r's shard tensors (its optimizer's parameters), in
         parameter order."""
-        return [p for g in self.optimizers[r].param_groups
+        return [p for g in self.optimizer(r).param_groups
                 for p in g["params"]]
 
     def state_bytes(self, r):
         """Bytes of rank r's optimizer state tensors (device and host)."""
-        opt = self.optimizers[r]
+        opt = self.optimizer(r)
         return sum(v.numel() * v.element_size()
                    for p in self.rank_params(r)
                    for v in opt.state.get(p, {}).values()
                    if torch.is_tensor(v))
 
     def flat(self, key):
-        """``{name: (R * m,)}``: every rank's shard of optimizer state
-        ``key`` ('momentum_buffer', 'exp_avg', ...) concatenated in rank
-        order, the layout of the JAX package's global flat leaves."""
+        """``{name: (len(positions) * m,)}``: the hosted ranks' shards of
+        optimizer state ``key`` ('momentum_buffer', 'exp_avg', ...)
+        concatenated in rank order; with every rank hosted, the layout
+        of the JAX package's global flat leaves."""
         out = {}
         for i, name in enumerate(self.names):
             rows = [opt.state[self.rank_params(r)[i]][key]
-                    for r, opt in enumerate(self.optimizers)]
+                    for r, opt in zip(self.positions, self.optimizers)]
             out[name] = torch.cat([t.reshape(-1) for t in rows])
         return out
 
@@ -1689,17 +1819,19 @@ class _CompiledTrainStep:
     # -- program -------------------------------------------------------------
 
     def _grads(self, ex, state, batch_rows, take):
-        """Each rank's loss and gradients from the same params and its own
-        copy of the aux on its batch rows, handed to ``take(r, grads)`` as
-        they come; the aux written back (float leaves averaged over the
-        ranks, others rank 0's).  Returns the trained params and the mean
-        loss."""
+        """Each local rank's loss and gradients from the same params and
+        its own copy of the aux, on its rows of the staged batch (row i is
+        local position ``ex.local_positions[i]``'s), handed to ``take(i,
+        grads)`` as they come.  Returns the trained params, the local
+        losses and, with ``has_aux``, ``[(aux leaf, [its new value per
+        local rank])]`` for :meth:`_finish_stacked` or
+        :meth:`_finish_group` to write back."""
         loss_fn, has_aux = self.loss_fn, self.has_aux
         params = state["params"]
         train = [p for p in params.values() if p.requires_grad]
         losses, auxes = [], []
-        for r in range(ex.num_ranks):
-            batch = pytree.tree_map(lambda x: x[r], batch_rows)
+        for i in range(len(ex.local_positions)):
+            batch = pytree.tree_map(lambda x: x[i], batch_rows)
             if has_aux:
                 # BatchNorm updates its statistics in place: each rank
                 # starts from its own copy of the same aux
@@ -1708,25 +1840,66 @@ class _CompiledTrainStep:
                 auxes.append(pytree.tree_leaves(new_aux))
             else:
                 loss = loss_fn(params, batch)
-            take(r, torch.autograd.grad(loss, train, allow_unused=True,
+            take(i, torch.autograd.grad(loss, train, allow_unused=True,
                                         materialize_grads=True))
             losses.append(loss.detach())
+        aux_pairs = []
         if has_aux:
             dst = pytree.tree_leaves(state["aux"])
             if any(len(a) != len(dst) for a in auxes):
                 raise ValueError("loss_fn's new aux must have the "
                                  "structure of the aux it was given")
-            with torch.no_grad():
-                for j, t in enumerate(dst):
-                    vals = [a[j] for a in auxes]
-                    t.copy_(torch.stack(vals).mean(dim=0)
-                            if vals[0].is_floating_point() else vals[0])
-        return train, torch.stack(losses).mean()
+            aux_pairs = [(t, [a[j] for a in auxes])
+                         for j, t in enumerate(dst)]
+        return train, losses, aux_pairs
+
+    @staticmethod
+    @torch.no_grad()
+    def _finish_stacked(losses, aux_pairs):
+        """The stacked step's aux write-back (float leaves averaged over
+        the ranks, the sync-BN convention; others rank 0's) and mean
+        loss."""
+        for t, vals in aux_pairs:
+            t.copy_(torch.stack(vals).mean(dim=0)
+                    if vals[0].is_floating_point() else vals[0])
+        return torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def _finish_group(self, ex, losses, aux_pairs, grads):
+        """Over a process group (one rank here): ``grads`` replaced by
+        their sums over the set's ranks, the float aux leaves and the loss
+        averaged over them (the JAX body's ``pmean``), other aux leaves
+        kept local ("taken as replicated"), all in one
+        :func:`_allreduce_flat`.  An average is the sum, then ``div_(R)``,
+        as the stacked step's.  Returns the loss."""
+        R = ex.num_ranks
+        floats = [vals[0] for _t, vals in aux_pairs
+                  if vals[0].is_floating_point()]
+        summed = _allreduce_flat(ex, list(grads) + floats + [losses[0]],
+                                 self._fusion_threshold)
+        grads[:] = summed[:len(grads)]
+        it = iter(summed[len(grads):-1])
+        for t, vals in aux_pairs:
+            t.copy_(next(it).div_(R) if vals[0].is_floating_point()
+                    else vals[0])
+        return summed[-1].div_(R)
+
+    def _apply(self, state, train, acc):
+        """One optimizer update of the replicated params from ``acc``."""
+        opt = state["opt_state"]
+        for p, g in zip(train, acc):
+            p.grad = g
+        opt.step()
+        for p in train:
+            p.grad = None
 
     def _build(self, ex):
-        """The stacked step, JAX's ``vmap`` branch written out: the ranks'
-        gradients (:meth:`_grads`) summed as they come, their mean
-        (Average) or sum (Sum) over ranks, one optimizer update.  Params,
+        """The dense step.  Stacked, JAX's ``vmap`` branch written out: the
+        ranks' gradients (:meth:`_grads`) summed as they come, their mean
+        (Average) or sum (Sum) over ranks, one optimizer update.  Over a
+        process group, JAX's shard-mode body: this rank's gradients summed
+        over the compiled group in a few flat buffers
+        (:meth:`_finish_group`), the same mean or sum and update.  Params,
         optimizer state and aux are updated in place and the state
         returned with the mean loss."""
         op, R = self.op, ex.num_ranks
@@ -1734,25 +1907,31 @@ class _CompiledTrainStep:
         def prog(state, batch_rows):
             acc = []
 
-            def take(r, g):
-                if r == 0:
+            def take(i, g):
+                if i == 0:
                     acc.extend(g)
                 else:
                     for a, gi in zip(acc, g):
                         a.add_(gi)
-            train, loss = self._grads(ex, state, batch_rows, take)
+            train, losses, aux_pairs = self._grads(ex, state, batch_rows,
+                                                   take)
+            if ex.stacked:
+                loss = self._finish_stacked(losses, aux_pairs)
+            else:
+                loss = self._finish_group(ex, losses, aux_pairs, acc)
             if op == Average:
                 for a in acc:
                     a.div_(R)
-            opt = state["opt_state"]
-            for p, g in zip(train, acc):
-                p.grad = g
-            opt.step()
-            for p in train:
-                p.grad = None
+            self._apply(state, train, acc)
             return state, loss
 
         return prog
+
+    @property
+    def _fusion_threshold(self):
+        """The engine's fusion threshold: where the process-group step
+        splits its flat gradient buffers."""
+        return int(basics.engine().config.fusion_threshold_bytes)
 
     # -- weight-update sharding ----------------------------------------------
 
@@ -1843,6 +2022,70 @@ class _CompiledTrainStep:
             y = y * (1.0 / R)
         return y
 
+    def _scatter_group(self, ex, grads, efs, layouts):
+        """:meth:`_reduce_leaf` over a process group, one rank here, for a
+        group of leaves: this rank's reduced shard ``(m,)`` f32 of each,
+        in shard order.  Each leaf's padded flat gradient in shard order
+        is an ``(R, m)`` block; the group's blocks side by side are one
+        ``(R, M)`` buffer whose rows one reduce-scatter sums into this
+        rank's ``(M,)``, in the wire's dtype for f32 and 16-bit.
+        int8/int4: per leaf ``x = g + res`` (``res`` this rank's ``(1,
+        pad)`` residual, replaced in place) and its bf16 block absmax;
+        the group's absmax all-reduced with MAX into the shared scales,
+        the codes reduce-scattered as an integer sum (int16 partials,
+        which NCCL lacks and gloo refuses, summed as int32: the same
+        values, the acc dtype is chosen so that nothing overflows) and
+        decoded against each shard's scales.  Average multiplies by the
+        f32 1/R.  Every sum is elementwise, so grouping changes no value,
+        and at two ranks each is the stacked step's ``a + b``: the two
+        are bit for bit."""
+        R = ex.num_ranks
+        pos = ex.local_positions[0]
+        wire = self.wire_dtype
+        ms = [lay.m for lay in layouts]
+        if self._quantized():
+            bits = 8 if wire == "int8" else 4
+            qmax = qz.quantized_qmax(bits)
+            xs = []
+            for g, res, lay in zip(grads, efs, layouts):
+                x = res[0].clone()
+                x[:lay.n].add_(g.reshape(-1))
+                xs.append(x.view(-1, qz.BLOCK))
+            absmax = torch.cat([x.abs().amax(dim=1) for x in xs]) \
+                .to(torch.bfloat16)
+            shared_all = ex.reduce([absmax], ReduceOp.MAX)[0].float()
+            acc = qz.quantized_acc_dtype(bits, R)
+            if acc == torch.int16:
+                acc = torch.int32
+            codes, safes, o = [], [], 0
+            for x, res, lay in zip(xs, efs, layouts):
+                shared = shared_all[o:o + x.shape[0]]
+                o += x.shape[0]
+                # divide by a tensor: CUDA divides by a Python number as a
+                # multiplication by its reciprocal
+                scale = (shared / shared.new_full((), float(qmax))) \
+                    .to(torch.bfloat16).float()
+                safe = torch.where(scale > 0, scale, scale.new_ones(()))
+                q = torch.round(x / safe[:, None]).clamp_(-qmax, qmax)
+                res.copy_((x - q * safe[:, None]).view(1, -1))
+                codes.append(lay.shard(q.to(acc).view(-1)))
+                safes.append(lay.shard_blocks(safe, pos, qz.BLOCK))
+            y_all = ex.reduce_tiles([torch.cat(codes, dim=1).reshape(-1)],
+                                    ReduceOp.SUM, sum(ms))[0].float()
+            out = [(y.view(-1, qz.BLOCK) * s[:, None]).view(-1)
+                   for y, s in zip(y_all.split(ms), safes)]
+        else:
+            wdt = qz.WIRE_TORCH_DTYPES[wire] if wire in ("bf16", "fp16") \
+                else torch.float32
+            x = torch.cat([lay.shard(lay.padded(g.reshape(-1).to(wdt)))
+                           for g, lay in zip(grads, layouts)], dim=1)
+            y_all = ex.reduce_tiles([x.reshape(-1)], ReduceOp.SUM,
+                                    sum(ms))[0].float()
+            out = list(y_all.split(ms))
+        if self.op == Average:
+            out = [y * (1.0 / R) for y in out]
+        return out
+
     def _build_sharded(self, ex):
         """The weight-update-sharded step (the JAX package's
         ``_build_sharded``, flat decomposition): the ranks' gradients
@@ -1852,19 +2095,19 @@ class _CompiledTrainStep:
         loaded from the replicated params), and the updated rows written
         back into the one replicated parameter tensor, the allgather.
         The rank threads of the stacked executor stand for the JAX
-        package's one device per rank."""
+        package's one device per rank; over a process group a process is
+        that device (:meth:`_build_sharded_group`)."""
         if not ex.stacked:
-            raise NotImplementedError(
-                "the sharded compiled step over a process group (one rank "
-                "per process) is not ported yet (ROADMAP.md A22)")
+            return self._build_sharded_group(ex)
         R = ex.num_ranks
 
         def prog(state, batch_rows):
             # every rank's gradients: the shared scales of a quantized
             # wire need all of them before any rank's codes
             grads = []
-            train, loss = self._grads(ex, state, batch_rows,
-                                      lambda r, g: grads.append(g))
+            train, losses, aux_pairs = self._grads(
+                ex, state, batch_rows, lambda i, g: grads.append(g))
+            loss = self._finish_stacked(losses, aux_pairs)
             so = state["opt_state"]
             efs = list(state.get("grad_ef", {}).values()) \
                 or [None] * len(train)
@@ -1893,6 +2136,58 @@ class _CompiledTrainStep:
 
         return prog
 
+    def _build_sharded_group(self, ex):
+        """The sharded step over a process group, JAX ``_build_sharded``
+        in its one-device-per-rank form: this process holds its rank's
+        shard only.  Per group of leaves (:func:`_fusion_groups` of the
+        parameters) :meth:`_scatter_group` reduces its shards of the
+        gradients, this rank's optimizer steps its shards, and per group
+        one allgather brings every rank's shards back into the
+        replicated parameters in natural order."""
+        R = ex.num_ranks
+        pos = ex.local_positions[0]
+
+        def prog(state, batch_rows):
+            grads = []
+            train, losses, aux_pairs = self._grads(
+                ex, state, batch_rows, lambda i, g: grads.extend(g))
+            loss = self._finish_group(ex, losses, aux_pairs, [])
+            so = state["opt_state"]
+            efs = list(state.get("grad_ef", {}).values()) \
+                or [None] * len(train)
+            layouts = [self._layout(p.numel(), R, p.device) for p in train]
+            groups = _fusion_groups(train, self._fusion_threshold)
+            with torch.no_grad():
+                shard_grads = [None] * len(train)
+                for grp in groups:
+                    ys = self._scatter_group(
+                        ex, [grads[i] for i in grp], [efs[i] for i in grp],
+                        [layouts[i] for i in grp])
+                    for i, y in zip(grp, ys):
+                        shard_grads[i] = y.to(train[i].dtype)
+                for p, buf, lay in zip(train, so.shards, layouts):
+                    # this step's shard of the replicated params
+                    buf.copy_(lay.shard(lay.padded(p.detach()))
+                              [pos:pos + 1])
+                del grads
+                shards = so.rank_params(pos)
+                for t, g in zip(shards, shard_grads):
+                    t.grad = g
+                so.optimizer(pos).step()
+                for t in shards:
+                    t.grad = None
+                for grp in groups:
+                    full = ex.gather_tiles(
+                        [torch.cat([so.shards[i][0] for i in grp])])
+                    cols = full.split([layouts[i].m for i in grp], dim=1)
+                    for i, c in zip(grp, cols):
+                        lay = layouts[i]
+                        train[i].copy_(lay.natural(c)[:lay.n]
+                                       .view_as(train[i]))
+            return state, loss
+
+        return prog
+
     def _program(self, ex, device):
         # built by whichever rank leads first; later leaders (other
         # instances) reuse it through the shared cache: one build and one
@@ -1909,7 +2204,9 @@ class _CompiledTrainStep:
                 def make():
                     return _make_program(build(ex), device,
                                          leaves=_state_leaves,
-                                         capture=self.capture)
+                                         capture=self.capture,
+                                         backend=executor_backend(
+                                             ex, device))
                 if self._tag is not None:
                     # the sharded decomposition is part of the key: the
                     # same model under another wire or segment size is
@@ -1970,12 +2267,14 @@ class _CompiledTrainStep:
         one optimizer over that rank's flat shards, its state built as
         tensors now), and under an int8/int4 wire ``grad_ef``, per trained
         parameter a zero ``(R, pad)`` f32 error-feedback residual whose
-        row r is rank r's."""
+        row r is rank r's.  Over a process group (one rank a process) the
+        sharded state holds this rank's shard only: one optimizer, and a
+        ``(1, pad)`` residual."""
         eng, ps = _ps_state(self.process_set)
         dev = eng.device
         params = {k: _param_leaf(v, dev) for k, v in params.items()}
         if self.sharded:
-            state = self._init_sharded(ps.executor.num_ranks, params, dev)
+            state = self._init_sharded(ps.compiled_executor, params, dev)
         else:
             state = {"params": params, "opt_state": _capturable(
                 self.optimizer(list(params.values())), dev)}
@@ -1985,24 +2284,28 @@ class _CompiledTrainStep:
                 {} if aux is None else aux)
         return state
 
-    def _init_sharded(self, R, params, dev):
-        names = [k for k, p in params.items() if p.requires_grad]
-        layouts = [self._layout(params[k].numel(), R, dev) for k in names]
+    def _init_sharded(self, ex, params, dev):
+        R, positions = ex.num_ranks, list(ex.local_positions)
+        # the hosted positions are contiguous: every rank, or one
+        lo, k = positions[0], len(positions)
+        names = [name for name, p in params.items() if p.requires_grad]
+        layouts = [self._layout(params[n].numel(), R, dev) for n in names]
         with torch.no_grad():
-            shards = [lay.shard(lay.padded(params[k])).clone()
-                      for k, lay in zip(names, layouts)]
+            shards = [lay.shard(lay.padded(params[n]))[lo:lo + k].clone()
+                      for n, lay in zip(names, layouts)]
         opts = []
-        for r in range(R):
-            opt = _capturable(self.optimizer([b[r] for b in shards]), dev)
+        for row in range(k):
+            opt = _capturable(self.optimizer([b[row] for b in shards]), dev)
             _init_optimizer_state(opt)
             opts.append(opt)
         state = {"params": params,
-                 "opt_state": ShardedOptState(names, shards, opts)}
+                 "opt_state": ShardedOptState(names, shards, opts,
+                                              positions)}
         if self._quantized():
             state["grad_ef"] = {
-                k: torch.zeros((R, lay.pad), dtype=torch.float32,
+                n: torch.zeros((k, lay.pad), dtype=torch.float32,
                                device=dev)
-                for k, lay in zip(names, layouts)}
+                for n, lay in zip(names, layouts)}
         return state
 
     def _clone_state(self, state):
@@ -2016,9 +2319,10 @@ class _CompiledTrainStep:
         if isinstance(old, ShardedOptState):
             shards = [b.clone() for b in old.shards]
             opts = [self._clone_optimizer(
-                o, [b[r] for b in shards], old.rank_params(r))
-                for r, o in enumerate(old.optimizers)]
-            opt = ShardedOptState(old.names, shards, opts)
+                o, [b[row] for b in shards], old.rank_params(r))
+                for row, (r, o) in enumerate(zip(old.positions,
+                                                 old.optimizers))]
+            opt = ShardedOptState(old.names, shards, opts, old.positions)
         else:
             opt = self._clone_optimizer(old, list(params.values()),
                                         list(state["params"].values()))
@@ -2073,7 +2377,7 @@ class _CompiledTrainStep:
         :class:`StagedBatch` skips the per-step staging (and, in a
         captured step, is read in place: no copy per step)."""
         eng, ps = _ps_state(self.process_set)
-        ex = ps.executor
+        ex = ps.compiled_executor
         if len(ex.local_positions) != 1:
             raise ValueError(
                 "place_batch is per-process: use it in one-rank-per-"
@@ -2086,9 +2390,11 @@ class _CompiledTrainStep:
         """Run one step with THIS rank's ``batch``; returns ``(new_state,
         loss)``.  All member ranks call per step."""
         eng, ps = _ps_state(self.process_set)
-        ex = ps.executor
+        ex = ps.compiled_executor
         n_local = len(ex.local_positions)
         if n_local == 1:
+            # before the first program: a process whose shapes differ
+            # from its peers' raises here, never inside a collective
             self._check_step_signature(eng, ps, state, batch)
             prog = self._program(ex, eng.device)
             rows = batch.tree if isinstance(batch, StagedBatch) else \
@@ -2203,7 +2509,8 @@ def sharded_state_from_jax(step, params, opt_leaves, aux=None,
     of a mid-run ``make_compiled_train_step(sharded=True)`` state.
 
     ``step`` is the port's sharded step (its ``init_state`` runs inside
-    ``hvd.run``); ``params`` and ``aux`` are the port's named arrays;
+    ``hvd.run``, or in a process of a launcher's job, which takes its
+    rank's rows); ``params`` and ``aux`` are the port's named arrays;
     ``opt_leaves`` maps an optax slot to ``{name: array}`` of the JAX
     package's global flat leaves, ``(pad,)`` in its segment-major layout:
     ``"trace"`` (``optax.sgd``'s momentum, into ``momentum_buffer``),
@@ -2218,7 +2525,7 @@ def sharded_state_from_jax(step, params, opt_leaves, aux=None,
     with torch.no_grad():
         for slot, arrays in opt_leaves.items():
             if slot == "count":
-                for r, opt in enumerate(so.optimizers):
+                for r, opt in zip(so.positions, so.optimizers):
                     for p in so.rank_params(r):
                         opt.state[p]["step"].fill_(float(arrays))
                 continue
@@ -2228,8 +2535,8 @@ def sharded_state_from_jax(step, params, opt_leaves, aux=None,
                                  f"{sorted(_OPTAX_SLOTS)} and 'count'")
             for i, name in enumerate(so.names):
                 rows = torch.as_tensor(np.asarray(arrays[name])).view(
-                    so.shards[i].shape)
-                for r, opt in enumerate(so.optimizers):
+                    -1, so.shards[i].shape[1])
+                for r, opt in zip(so.positions, so.optimizers):
                     st = opt.state[so.rank_params(r)[i]]
                     if key not in st:
                         raise ValueError(
@@ -2237,5 +2544,6 @@ def sharded_state_from_jax(step, params, opt_leaves, aux=None,
                             f"slot {slot!r}")
                     st[key].copy_(rows[r])
         for name, arr in (grad_ef or {}).items():
-            state["grad_ef"][name].copy_(torch.as_tensor(np.asarray(arr)))
+            state["grad_ef"][name].copy_(
+                torch.as_tensor(np.asarray(arr))[so.positions])
     return state

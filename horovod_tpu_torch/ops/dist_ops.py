@@ -94,8 +94,10 @@ class MeshExecutor:
         self.num_ranks = num_ranks
         self.group = group
         #: host-clock seconds inside the group's collectives (waiting for
-        #: the peers included; an NCCL call returns once enqueued)
+        #: the peers included; an NCCL call returns once enqueued), and
+        #: the collectives issued (a captured graph's replays issue none)
         self.collective_seconds = 0.0
+        self.collectives = 0
         if group is not None and group.size() != num_ranks:
             raise ValueError(
                 f"process group has {group.size()} ranks, executor "
@@ -115,6 +117,7 @@ class MeshExecutor:
             work().wait()
         finally:
             self.collective_seconds += time.perf_counter() - t0
+            self.collectives += 1
 
     # -- the reduction itself ------------------------------------------------
 
@@ -218,7 +221,7 @@ class MeshExecutor:
         rest = math.prod(int(d) for d in rest_shape)
         return chunks, max(chunks, default=0) * rest, rest
 
-    def _reduce_tiles(self, rows, op, m):
+    def reduce_tiles(self, rows, op, m):
         """Unscaled reducescatter of rows laid out as R tiles of ``m``:
         per local rank position ``pos``, the reduction over ranks of
         tile ``pos``.  Stacked mode reduces every tile at once (the
@@ -243,6 +246,19 @@ class MeshExecutor:
         self._collective(lambda: self.group.reduce_scatter(
             [out], [list(rows[0].view(R, m).unbind(0))], opts))
         return [out]
+
+    def gather_tiles(self, rows):
+        """Every rank's tile ``rows[i]`` (one flat tensor of ``m``
+        elements per local rank) as one ``(R, m)`` tensor, rank order:
+        the stacked rows, or the group's ``allgather`` into the rows of a
+        new tensor."""
+        if self.stacked:
+            return torch.stack(rows)
+        out = torch.empty((self.num_ranks,) + tuple(rows[0].shape),
+                          dtype=rows[0].dtype, device=rows[0].device)
+        self._collective(lambda: self.group.allgather(
+            [list(out.unbind(0))], [rows[0]]))
+        return out
 
     def reducescatter(self, rows, d0, rest_shape, op: ReduceOp,
                       prescale=1.0, postscale=1.0):
@@ -274,7 +290,7 @@ class MeshExecutor:
             xs = [int_prescale(r, prescale) for r in rows] if scaled \
                 else rows
         out = []
-        for tile, pos, shape in zip(self._reduce_tiles(xs, red_op, m),
+        for tile, pos, shape in zip(self.reduce_tiles(xs, red_op, m),
                                     self.local_positions, shapes):
             y = tile[:chunks[pos] * rest]
             if is_float(dtype) and post != 1.0:

@@ -4,11 +4,16 @@ assignment, the config file and the CLI's argument parsing give the same
 results for the same inputs, and ``slot_env`` hands a worker the same
 environment but for the platform and backend keys.  Plus the port's
 refusals (the hybrid layout, elastic and other unported flags, autotune,
-a compiled entry point on a multi-process engine) and its backend rule
-for CUDA tensors, checked with fake device UUIDs."""
+what the compiled path still refuses on a multi-process engine) and its
+backend rule for CUDA tensors, checked with fake device UUIDs; the
+compiled path over a one-process gloo group against the stacked program
+(bit for bit), its capture rule, and the signature exchange's round id.
+"""
 
 import argparse
+import json
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -22,6 +27,9 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import HorovodInitError
 from horovod_tpu_torch.core.engine import Engine
+from horovod_tpu_torch.core.store_controller import StoreController
+from horovod_tpu_torch.ops import compiled as C
+from horovod_tpu_torch.parallel.train import adamw, sgd
 from horovod_tpu_torch.runner import config_parser as torch_config
 from horovod_tpu_torch.runner import gloo_run as torch_gloo_run
 from horovod_tpu_torch.runner import hosts as torch_hosts
@@ -218,7 +226,7 @@ def test_distinct_gpus_or_gloo_pass():
 class _Controller:
     """The StoreController surface the engine calls, with no
     coordinator: nothing is ever scheduled."""
-    proc_id, num_procs = 0, 1
+    proc_id, num_procs, round_id = 0, 1, 0
 
     def report_ready(self, metas):
         pass
@@ -235,10 +243,11 @@ class _Controller:
 
 @pytest.fixture
 def world_of_one(monkeypatch):
-    pg = dist.ProcessGroupGloo(dist.PrefixStore("w1", dist.HashStore()),
-                               0, 1)
+    store = dist.HashStore()
+    pg = dist.ProcessGroupGloo(dist.PrefixStore("w1", store), 0, 1)
+    cpg = dist.ProcessGroupGloo(dist.PrefixStore("w1c", store), 0, 1)
     eng = Engine(1, "cpu", controller=_Controller(), rank_offset=0,
-                 global_size=1, world_group=pg)
+                 global_size=1, world_group=pg, compiled_group=cpg)
     monkeypatch.setattr(basics, "_engine", eng)
     monkeypatch.setattr(basics, "_host_of_rank", [0])
     yield eng
@@ -247,21 +256,178 @@ def world_of_one(monkeypatch):
 
 
 def test_multiproc_engine_uses_the_process_group(world_of_one):
-    ex = world_of_one.process_sets[0].executor
+    ps = world_of_one.process_sets[0]
+    ex, cex = ps.executor, ps.compiled_executor
     assert not ex.stacked and ex.num_ranks == 1
     assert world_of_one.multiproc
+    # the compiled path has a group of its own over the same processes
+    assert not cex.stacked and cex.num_ranks == 1
+    assert cex.group is not ex.group
 
 
-def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one):
-    with pytest.raises(NotImplementedError, match="A22"):
+def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
+                                                         monkeypatch):
+    """What stays refused on a multi-process engine: several rank threads
+    per process (A24), a 2-D decomposition (A8), Adasum (A7), integrity
+    digests (A14)."""
+    def step():
+        return hvd.make_compiled_train_step(
+            lambda params, batch: params["w"].sum(),
+            lambda params: torch.optim.SGD(params, lr=0.1))
+    with pytest.raises(NotImplementedError, match="A8"):
+        hvd.CompiledGroupedAllreduce(topology_hint=("a", "b"))
+    with pytest.raises(NotImplementedError, match="A8"):
+        hvd.CompiledAlltoall(topology_hint=("a", "b"))
+    with pytest.raises(NotImplementedError, match="A8"):
+        hvd.make_compiled_train_step(
+            lambda params, batch: params["w"].sum(), sgd(0.1),
+            topology_hint=("a", "b"))
+    with pytest.raises(NotImplementedError, match="A7"):
+        hvd.make_compiled_train_step(
+            lambda params, batch: params["w"].sum(), sgd(0.1),
+            op=hvd.Adasum)
+    monkeypatch.setattr(world_of_one.config, "integrity", True)
+    with pytest.raises(NotImplementedError, match="A14"):
+        hvd.CompiledGroupedAllreduce(force_program=True)([torch.ones(4)])
+    with pytest.raises(NotImplementedError, match="A14"):
+        hvd.CompiledAlltoall(force_program=True)(torch.ones(4))
+    monkeypatch.setattr(world_of_one.config, "integrity", False)
+    monkeypatch.setattr(world_of_one, "num_local", 2)
+    with pytest.raises(NotImplementedError, match="A24"):
         hvd.CompiledGroupedAllreduce()([torch.ones(4)])
-    with pytest.raises(NotImplementedError, match="A22"):
+    with pytest.raises(NotImplementedError, match="A24"):
         hvd.CompiledAlltoall()(torch.ones(4))
-    step = hvd.make_compiled_train_step(
-        lambda params, batch: params["w"].sum(),
-        lambda params: torch.optim.SGD(params, lr=0.1))
-    with pytest.raises(NotImplementedError, match="A22"):
-        step.init_state({"w": torch.ones(2)})
+    with pytest.raises(NotImplementedError, match="A24"):
+        step().init_state({"w": torch.ones(2)})
+
+
+def _tiny_step_runs():
+    """A small MLP through the dense compiled step (SGD momentum,
+    Average), the sharded one (AdamW, int8 wire) and the compiled reducer
+    (int8 wire with error feedback, and full width) on the current
+    engine; every result as numpy."""
+    rng = np.random.default_rng(3)
+    params = {"w1": rng.standard_normal((6, 5)).astype(np.float32) * 0.3,
+              "b1": rng.standard_normal(5).astype(np.float32) * 0.1,
+              "w2": rng.standard_normal((5, 3)).astype(np.float32) * 0.3}
+    batches = [(torch.from_numpy(rng.standard_normal((4, 6))
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.standard_normal((4, 3))
+                                 .astype(np.float32))) for _ in range(3)]
+
+    def loss_fn(p, batch):
+        x, y = batch
+        h = torch.tanh(x @ p["w1"] + p["b1"])
+        return ((h @ p["w2"] - y) ** 2).mean()
+
+    out = {}
+    for label, opt, kw in (("dense", sgd(0.1, momentum=0.9), {}),
+                           ("int8", adamw(1e-2),
+                            {"sharded": True, "wire_dtype": "int8"})):
+        step = hvd.make_compiled_train_step(loss_fn, opt, **kw)
+        state = step.init_state(params)
+        for i, batch in enumerate(batches):
+            state, loss = step(state, batch)
+            out[f"{label}.loss{i}"] = loss.numpy().copy()
+        for k, v in state["params"].items():
+            out[f"{label}.{k}"] = v.detach().numpy().copy()
+        for k, v in state.get("grad_ef", {}).items():
+            out[f"{label}.ef.{k}"] = v.numpy().copy()
+    for wire in (None, "int8"):
+        red = hvd.CompiledGroupedAllreduce(
+            wire_dtype=wire, error_feedback=True, force_program=True,
+            name=f"t{wire}")
+        for call in range(2):
+            res = red([torch.from_numpy(rng.standard_normal(s).astype(
+                np.float32)) for s in ((300,), (7, 11))])
+            for j, t in enumerate(res):
+                out[f"red.{wire}.{call}.{j}"] = t.numpy().copy()
+    return out
+
+
+def test_compiled_path_over_a_gloo_group_of_one_is_the_stacked_program(
+        world_of_one, monkeypatch):
+    """The dense and sharded steps and the reducer over a size-1
+    ProcessGroupGloo (the compiled group's executor) equal the same
+    entry points over the stacked executor bit for bit."""
+    got = _tiny_step_runs()
+    assert C.program_cache_stats(by_rule=True)["plain"] >= 2
+    C.reset_compiled_state()
+    stacked = Engine(1, "cpu")
+    try:
+        monkeypatch.setattr(basics, "_engine", stacked)
+        assert stacked.process_sets[0].compiled_executor.stacked
+        want = _tiny_step_runs()
+    finally:
+        stacked.shutdown()
+        C.reset_compiled_state()
+    assert sorted(got) == sorted(want)
+    bad = [k for k in got if not np.array_equal(got[k], want[k])]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("device,backend,rule", [
+    ("cuda", "nccl", "graph"), ("cuda:0", None, "graph"),
+    ("cuda", "gloo", "uncaptured"), ("cpu", "gloo", "plain"),
+    ("cpu", None, "plain")])
+def test_capture_rule(device, backend, rule):
+    """Decided before any capture, from the device and the compiled
+    group's backend: NCCL (or stacked) on the card is one graph, gloo on
+    the card runs uncaptured, the CPU is plain."""
+    assert C.capture_rule(device, backend) == rule
+
+
+def test_executor_backend_names_the_group(world_of_one):
+    cex = world_of_one.process_sets[0].compiled_executor
+    assert C.executor_backend(cex, "cpu") == "gloo"
+    stacked = world_of_one.process_sets[0].executor.__class__("cpu", 2)
+    assert C.executor_backend(stacked, "cpu") is None
+
+
+class _KV:
+    """The store client surface of the signature exchange."""
+
+    def __init__(self, peer=None):
+        self.data, self.peer = {}, peer
+
+    def put(self, key, value):
+        self.data[key] = value
+
+    def get(self, key, wait=0.0):
+        return self.peer(key) if self.peer else self.data.get(key)
+
+
+def test_store_controller_keeps_the_round_id():
+    assert StoreController("127.0.0.1", 1, None, 0, 2, 1).round_id == 0
+    assert StoreController("127.0.0.1", 1, None, 0, 2, 1,
+                           round_id=3).round_id == 3
+
+
+@pytest.mark.parametrize("peer,raises", [
+    ("same", None), ("other", ValueError), ("absent", RuntimeError)])
+def test_signature_exchange_keys_by_round(monkeypatch, peer, raises):
+    """Each process publishes its Nth fingerprint under the round id and
+    reads its peers': equal passes, different raises ValueError, a peer
+    that never publishes raises RuntimeError after the timeout."""
+    monkeypatch.setenv("HOROVOD_COMPILED_SIG_TIMEOUT", "1")
+    sig = ((4,), "float32")
+    fp = json.dumps(sig, sort_keys=True).encode()
+    answer = {"same": fp, "other": b'[[5], "float32"]', "absent": None}
+    ctl = type("Ctl", (), {})()
+    ctl.proc_id, ctl.num_procs, ctl.round_id = 0, 2, 7
+    ctl.client = _KV(peer=lambda key: answer[peer])
+    eng = type("Eng", (), {"controller": ctl})()
+    ps = type("PS", (), {"id": 0})()
+    C.reset_compiled_state()
+    if raises is None:
+        C._validate_signature_cross_process(eng, ps, ("t",), sig)
+    else:
+        with pytest.raises(raises, match="signature"):
+            C._validate_signature_cross_process(eng, ps, ("t",), sig)
+    (key,) = ctl.client.data
+    assert key.startswith("/compiled_sig/7/0/") and key.endswith("/0/0")
+    assert ctl.client.data[key] == fp
+    C.reset_compiled_state()
 
 
 @pytest.mark.parametrize("hosts", [[0, 0, 1, 1], [0, 0, 0, 1, 1],
