@@ -258,15 +258,40 @@ Phases (a failure in any one exits non-zero):
     on both processes within ``P17_SIG_TIMEOUT``.  Per leg it prints the
     steady step time, img/s or tok/s, busy share, warm-up plus capture
     seconds, host ms in the compiled group's collectives and each
-    process's peak device memory.
+    process's peak device memory;
+18. the hybrid layout and the negotiation bypass, four jobs of the
+    port's ``launch_procs`` (``PHASE18_JOBS``, ``chip_smoke.py
+    --worker18``) on phase 4's weights and batches, 6 steps.  First a
+    4-rank-thread stacked run here, the reference.  (a) np=4 as 2
+    processes x 2 rank threads over gloo on cuda:0, full-width ResNet-50
+    (bf16, SGD momentum 0.9, 32 images a rank: bench.py's 128) through
+    ``DistributedOptimizer(groups=1)`` in two jobs, the bypass off, then
+    on at K = ``P18_K``: the runs' parameters bit for bit on every rank,
+    within ``COMPILED_REL_L2`` of the stacked run, bypass hits and fewer
+    coordinator requests with it on, B1 launched in every process.  (b)
+    phase 16 (d)'s matrix at 2 x 2 and at np=3 with
+    ``ranks_per_proc="host"`` (``-H localhost:2,127.0.0.1:1``), exact,
+    with an int8-wire allreduce (B2/B3).  (c) ``--ranks-per-worker 2`` at
+    np=2 (one process, NCCL over a group of one, two stacked rows): phase
+    4's run bit for bit phase 4's parameters.  (d) phase 12 (b)'s compiled
+    step at 2 x 2, uncaptured over gloo, within ``COMPILED_REL_L2`` of the
+    stacked run.  (e) runs in phase 16: its np=2 job (the bypass on by
+    default) and one more job of leg (b) with the bypass off, each
+    process's coordinator requests counted per step, and the seconds
+    the un-armed bypass tracker took in the job with it on.  Per leg it
+    prints
+    the step times, img/s, busy share, coordinator requests a step,
+    bypass hits and fallbacks, and each process's peak memory and B1
+    launches.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
 ``sharded_launches``, every kernel's launches recorded by each phase-14
 leg's capture under ``compiled_sharded``, each kernel's launches in
 phase 15 under ``phase15_launches``, B1-B3's per phase-16 leg and
-process under ``phase16_launches``, and every kernel's per phase-17 leg
-and process, through its wrapper, under ``phase17_launches``); the last
+process under ``phase16_launches``, every kernel's per phase-17 leg
+and process, through its wrapper, under ``phase17_launches``, and
+B1-B3's per phase-18 leg and process under ``phase18_launches``); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15 also print the profile tables of one steady
 step each.
@@ -402,13 +427,29 @@ PHASE16_CODEC = {"quantize_blockwise": "quantize",
 # phases 16 and 17: the legs of the two launcher jobs (np=1 over NCCL,
 # np=2 over gloo on cuda:0), and the legs that run cuDNN deterministic
 PHASE16_JOBS = (("aefg", 1, {}),
-                ("bcdhijk", 2, {"HOROVOD_GPU_OPERATIONS": "gloo"}))
+                ("bcdhijk", 2, {"HOROVOD_GPU_OPERATIONS": "gloo"}),
+                ("B", 2, {"HOROVOD_GPU_OPERATIONS": "gloo",
+                          "HOROVOD_BYPASS_AFTER_CYCLES": "0"}))
 DETERMINISTIC_LEGS = "aefghi"
 # phase 17 (f): bound on |loss - phase 7's loss| at each of the 6 steps,
 # phase 7's bar for two bf16 LM steps of the same weights and tokens
 P17_LM_LOSS = 2e-3
 # phase 17 (k): the signature exchange's timeout in the np=2 job (s)
 P17_SIG_TIMEOUT = 60
+# phase 18: the hybrid layout's rank count, images a rank and the
+# bypass's stable cycles in (a)'s bypass-on job; its launcher jobs:
+# (label, legs, np, ranks per worker, hosts, environment)
+P18_NP = 4
+P18_BATCH = 32
+P18_K = 3
+_GLOO = {"HOROVOD_GPU_OPERATIONS": "gloo"}
+PHASE18_JOBS = (
+    ("2 x 2, bypass off", "omd", 4, 2, "localhost:1,127.0.0.1:1",
+     {**_GLOO, "HOROVOD_BYPASS_AFTER_CYCLES": "0"}),
+    ("2 x 2, bypass on", "n", 4, 2, "localhost:1,127.0.0.1:1",
+     {**_GLOO, "HOROVOD_BYPASS_AFTER_CYCLES": str(P18_K)}),
+    ("host 2 + 1", "m", 3, "host", "localhost:2,127.0.0.1:1", _GLOO),
+    ("--ranks-per-worker 2, NCCL", "c", 2, 2, None, {}))
 # phase 15 (b): rank threads of the dispatch wire (ep = 2: 4 experts a
 # rank), its wires, and the bound on the relative L2 distance of the
 # ep = 2 FFN's output and gradients from the one-rank layer (bf16: the two
@@ -418,7 +459,14 @@ A2A_WIRES = (None, "bf16", "int8", "int4")
 EP_REL_L2 = 1e-2
 
 
+#: a launcher worker's tag on its lines (phase 18's workers run phase
+#: 4's code, whose lines would otherwise read as phase 4's own)
+LOG_PREFIX = ""
+
+
 def log(*a):
+    if LOG_PREFIX:
+        a = (LOG_PREFIX,) + a
     print(*a, flush=True)
 
 
@@ -3488,6 +3536,26 @@ def phase_join(dev, state, batches):
 # ---------------------------------------------------------------------------
 # phase 16
 
+def coord_counts():
+    """This process's coordinator requests so far (ready POSTs, polls),
+    its negotiation bypass's hits and fallbacks, the seconds of its
+    armed cycles' votes and executions and the seconds its un-armed
+    tracker took (all 0 without a coordinator)."""
+    import horovod_tpu_torch as hvd
+    eng = hvd.engine()
+    ctl = eng.controller
+    req = ctl.client.coord_requests if ctl is not None else {}
+    return {"ready": req.get("ready", 0), "poll": req.get("poll", 0),
+            "hits": eng.bypass_hits, "fallbacks": eng.bypass_fallbacks,
+            "bypass_s": eng.bypass_cycle_seconds,
+            "track_s": eng.bypass_track_seconds}
+
+
+def counts_delta(before):
+    now = coord_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
 def phase16_worker(legs, tmp):
     """One process of a phase-16/17 job (``chip_smoke.py --worker16
     <legs> <dir>``), launched by the port's ``launch_procs``: rank
@@ -3515,7 +3583,7 @@ def phase16_worker(legs, tmp):
         before = wrapper_counts()
         if leg == "d":
             out.update(phase16_matrix(dev))
-        elif leg in "abc":
+        elif leg in "abcB":
             out.update(phase16_train(leg, tmp, dev, t_start))
         else:
             out.update(PHASE17_LEGS[leg](tmp, dev))
@@ -3536,7 +3604,10 @@ def phase16_worker(legs, tmp):
 def phase16_train(leg, tmp, dev, t_start):
     """Legs (a)-(c): phase 4's run in this process (rank 0 alone in
     (a)); the final parameters and, in (c), step 1's local and averaged
-    gradients go to files."""
+    gradients go to files.  Leg B is (b) in a job whose negotiation
+    bypass is off (phase 18 (e)); per step each leg counts this
+    process's coordinator requests (ready POSTs and polls) and its
+    bypass hits and fallbacks."""
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
@@ -3570,12 +3641,13 @@ def phase16_train(leg, tmp, dev, t_start):
                                 "int8" if leg == "c" else "none"))
     K.reset_launches()
     QK.reset_launches()
-    losses, times, coll_ms = [], [], []
+    losses, times, coll_ms, requests = [], [], [], []
     for step in range(STEPS):
         x, y = step_batch(x0, y0, step)
         hvd.barrier()
         if step == 0:
             out["to_first_step_s"] = time.time() - t_start
+        q0 = coord_counts()
         c0 = ex.collective_seconds
         prof = None
         if r == 0 and step == STEPS - 2:
@@ -3609,8 +3681,9 @@ def phase16_train(leg, tmp, dev, t_start):
             out["busy_share"] = profile_summary(prof, times[-1],
                                                 tables=False)
         coll_ms.append((ex.collective_seconds - c0) * 1e3)
+        requests.append(counts_delta(q0))
     out.update(losses=losses, times=times, collective_ms=coll_ms,
-               launches={
+               requests=requests, launches={
                    "pack": K.launches["pack_scale_cast"],
                    "unpack": K.launches["unpack_scale_cast"],
                    "quantize": QK.launches["quantize_blockwise"],
@@ -3733,7 +3806,7 @@ def phase16_matrix(dev):
 # phase 17: the compiled path across processes (legs of phase 16's jobs)
 
 def p17_resnet(tmp, dev, sharded=False, wire=None, staged=False,
-               capture=True, profile=False):
+               capture=True, profile=False, n_batches=NP):
     """Phase 12's ResNet-50 configuration in this process of a launcher
     job through ``make_compiled_train_step`` (SGD momentum 0.9 at lr 0.1,
     bf16 compute, phase 4's weights): rank r on ``step_batch`` of its
@@ -3742,7 +3815,8 @@ def p17_resnet(tmp, dev, sharded=False, wire=None, staged=False,
     6 steps), step times, host ms in the compiled group's collectives a
     step and the collectives issued, the final parameters on the host,
     the program, rank r's optimizer-state bytes and (``profile``) the busy
-    share of step 5."""
+    share of step 5.  ``n_batches``: the ranks' batch files
+    (``batch<q>.pt``) in ``tmp``."""
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
@@ -3769,7 +3843,7 @@ def p17_resnet(tmp, dev, sharded=False, wire=None, staged=False,
     step.capture = capture
     st = step.init_state(params, aux=aux)
     bases = [tuple(t.to(dev) for t in torch.load(
-        os.path.join(tmp, f"batch{q}.pt"))) for q in range(NP)]
+        os.path.join(tmp, f"batch{q}.pt"))) for q in range(n_batches)]
     feed = step.place_batch((torch.cat([x for x, _ in bases]),
                              torch.cat([y for _, y in bases]))) \
         if staged else None
@@ -4154,7 +4228,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
                     with open(os.path.join(tmp, f"{leg}_{r}.json")) as f:
                         reports.append(json.load(f))
                 res[leg] = {"reports": reports}
-                if leg in "abc":
+                if leg in "abcB":
                     res[leg]["params"] = [torch.load(os.path.join(
                         tmp, f"{leg}_params{r}.pt")) for r in range(np_)]
         c_grads = [torch.load(os.path.join(tmp, f"c_grads{r}.pt"))
@@ -4188,7 +4262,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
     if diff:
         raise AssertionError(f"phase 16 (a): {len(diff)} parameters differ "
                              f"from plain torch SGD: {diff[:5]}")
-    for leg in "bc":
+    for leg in "bcB":
         p0, p1 = res[leg]["params"]
         diff = [k for k in p0 if not torch.equal(p0[k], p1[k])]
         if diff:
@@ -4215,7 +4289,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
         raise AssertionError(f"phase 16 (c): step 1's averaged gradient is "
                              f"{rel_c} (relative L2) from the exact average")
     launches = {}
-    for leg in "abc":
+    for leg in "abcB":
         launches[leg] = [rep["launches"] for rep in res[leg]["reports"]]
         for rep in res[leg]["reports"]:
             b1 = rep["launches"]["pack"] + rep["launches"]["unpack"]
@@ -4236,7 +4310,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
     log(f"phase 16 (d): gloo on CUDA tensors, per collective (True = "
         f"taken): {d[0]['gloo_cuda']}")
     out = {"launches": launches}
-    for leg in "abc":
+    for leg in "abcB":
         reps = res[leg]["reports"]
         np_ = len(reps)
         step_s = [max(rep["times"][i] for rep in reps)
@@ -4253,13 +4327,499 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
             f"per step, per rank "
             f"{[[round(v, 2) for v in rep['collective_ms']] for rep in reps]}; "
             f"s to the first step from "
-            f"{'the launch' if leg in 'ab' else 'the leg start'} "
+            f"{'the launch' if leg in 'abB' else 'the leg start'} "
             f"{[round(rep['to_first_step_s'], 2) for rep in reps]}; "
             f"B1/B2/B3 launches per rank {launches[leg]}")
         out[leg] = {"steady_ms": med * 1e3, "img_s": np_ * BATCH / med}
+    # phase 18 (e): the coordinator's requests a step in (b) (the bypass
+    # armed by default, K = 5) and in B, the same run with it off
+    for leg, label in (("b", "on (default, K = 5)"), ("B", "off")):
+        reps = res[leg]["reports"]
+        per = [[q["ready"] + q["poll"] for q in rep["requests"]]
+               for rep in reps]
+        log(f"phase 18 (e) ({card}): phase 16 (b)'s np=2 job with the "
+            f"bypass {label}: coordinator requests (ready + poll) a step, "
+            f"per process {per}; bypass hits "
+            f"{[sum(q['hits'] for q in rep['requests']) for rep in reps]}, "
+            f"fallbacks "
+            f"{[sum(q['fallbacks'] for q in rep['requests']) for rep in reps]}"
+            f"; host ms a step in the un-armed bypass tracker per process "
+            f"{[[round(q['track_s'] * 1e3, 3) for q in rep['requests']] for rep in reps]}")
+    same = all(torch.equal(res["b"]["params"][0][k],
+                           res["B"]["params"][0][k])
+               for k in res["b"]["params"][0])
+    log(f"phase 18 (e): (b)'s parameters {'equal' if same else 'differ from'}"
+        f" the bypass-off job's bit for bit (cuDNN not deterministic in "
+        f"either)")
+    out["e_requests"] = {leg: [[q["ready"] + q["poll"]
+                                for q in rep["requests"]]
+                               for rep in res[leg]["reports"]]
+                         for leg in "bB"}
     out["phase17"] = phase17_report(card, res, p17_params, refs,
                                     walls, out["b"]["steady_ms"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the hybrid layout and the negotiation bypass
+
+def p18_images(xs, ys, r):
+    """Rank r's images of phase 18: phase 4's batches cut in halves,
+    ``P18_BATCH`` a rank, so four ranks take bench.py's 128."""
+    lo = (r % 2) * P18_BATCH
+    return xs[r // 2][lo:lo + P18_BATCH], ys[r // 2][lo:lo + P18_BATCH]
+
+
+def p18_train(dev, state, xs, ys, nloc):
+    """Phase 18 (a)'s run on this process's ``nloc`` rank threads (all
+    four in the stacked reference): full-width ResNet-50, bf16, phase 4's
+    weights broadcast from rank 0, SGD momentum 0.9 through
+    ``DistributedOptimizer(groups=1)`` (one grouped allreduce a step: the
+    periodic response list the bypass serves), ``P18_BATCH`` images a
+    rank, 6 steps.  No negotiated op between steps: a barrier is a cycle
+    of its own that no bypass takes, so the local threads meet at a
+    threading barrier.  Returns per rank its losses, step times and
+    parameters, and local rank 0's per-step coordinator requests, bypass
+    counts and busy share of one profiled step."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    barrier = threading.Barrier(nloc)
+    per_step, busy = [], []
+
+    def train():
+        r = hvd.rank()
+        lead = r == hvd.engine().rank_offset
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict({k: v if r == 0 else v + 1.0
+                               for k, v in state.items()})
+        hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters(), groups=1)
+        x, y = p18_images(xs, ys, r)
+        x0, y0 = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        losses, times = [], []
+        for step in range(STEPS):
+            x, y = step_batch(x0, y0, step)
+            barrier.wait()
+            q0 = coord_counts() if lead else None
+            prof = None
+            if lead and step == STEPS - 2:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                busy.append(profile_summary(prof, times[-1], tables=False))
+            barrier.wait()
+            if lead:
+                per_step.append(counts_delta(q0))
+        return {"rank": r, "losses": losses, "times": times,
+                "params": {k: p.detach().cpu()
+                           for k, p in model.named_parameters()}}
+
+    results = hvd.run(train, np=nloc, device=dev)
+    return {"ranks": results, "per_step": per_step, "busy": busy[0]}
+
+
+def phase18_matrix(dev):
+    """Phase 18 (b): phase 16 (d)'s checks at the job's size, on CUDA
+    tensors, each exact against its host formula (small integers and
+    power-of-two scales: every value exact in f32), run by every rank
+    thread: allreduce Sum, Min, Max with pre/post scale, Average where
+    the rank count is a power of two, int32, the int8 wire on values its
+    codec holds exactly (B2/B3), uneven allgather, broadcast from the
+    last rank (in the last process), uneven alltoall, reducescatter,
+    grouped allreduce, barrier, a set [1, 2] spanning processes, join
+    with rank 0 early.  Returns the checks made."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    def one():
+        r, s = hvd.rank(), hvd.size()
+        checks = []
+
+        def check(name, got, want):
+            got = got.cpu().numpy() if isinstance(got, torch.Tensor) \
+                else got
+            if not np.array_equal(np.asarray(got), np.asarray(want)):
+                raise AssertionError(f"phase 18 (b) rank {r} of {s}: "
+                                     f"{name} {got}, want {want}")
+            checks.append(name)
+
+        T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        base = np.arange(12, dtype=np.float32)
+        rows = np.stack([base * (q + 1) - 3 * q for q in range(s)])
+        folds = [(hvd.Sum, "sum", lambda v: v.sum(0)),
+                 (hvd.Min, "min", lambda v: v.min(0)),
+                 (hvd.Max, "max", lambda v: v.max(0))]
+        if s & (s - 1) == 0:
+            folds.append((hvd.Average, "average", lambda v: v.mean(0)))
+        for op, name, fold in folds:
+            got = hvd.allreduce(T(rows[r]), op=op, prescale_factor=2.0,
+                                postscale_factor=0.25, name=f"ar_{name}")
+            check(f"allreduce {name} x2 x0.25", got,
+                  fold(rows * 2.0) * 0.25)
+        i32 = np.arange(6, dtype=np.int32) * (r + 3)
+        check("allreduce int32 sum", hvd.allreduce(
+            T(i32), op=hvd.Sum, name="ar_i32"),
+            sum(np.arange(6, dtype=np.int32) * (q + 3) for q in range(s)))
+        # block absmax 127 * 2**q: the codec's scale is 2**q, every code
+        # an integer, every decode exact
+        q8 = np.clip(np.arange(512, dtype=np.float32) % 256 - 128, -127,
+                     127)
+        check("allreduce int8 wire sum", hvd.allreduce(
+            T(q8 * 2.0 ** r), op=hvd.Sum, name="ar_int8",
+            wire_dtype="int8"), sum(q8 * 2.0 ** q for q in range(s)))
+        check("allgather uneven", hvd.allgather(
+            T(np.full((r + 1, 3), float(r), np.float32)), name="ag"),
+            np.concatenate([np.full((q + 1, 3), float(q), np.float32)
+                            for q in range(s)]))
+        x0 = np.full(5, float(r), np.float32)
+        t0 = T(x0)
+        check("broadcast from the last rank", hvd.broadcast(
+            t0, root_rank=s - 1, name="bc"),
+            np.full(5, float(s - 1), np.float32))
+        check("broadcast input untouched", t0, x0)
+        splits = [[(q + j) % 3 for j in range(s)] for q in range(s)]
+        send = np.arange(sum(splits[r]), dtype=np.float32) + 100 * r
+        a2a, recv = hvd.alltoall(T(send.reshape(-1, 1)), splits=splits[r],
+                                 name="a2a")
+        want = [100.0 * q + sum(splits[q][:r]) + i for q in range(s)
+                for i in range(splits[q][r])]
+        check("alltoall uneven", a2a.ravel(), want)
+        check("alltoall received splits", recv,
+              [splits[q][r] for q in range(s)])
+        x = np.arange(2 * (s + 1), dtype=np.float32).reshape(-1, 2)
+        chunks = [(s + 1) // s + (1 if q < (s + 1) % s else 0)
+                  for q in range(s)]
+        lo = sum(chunks[:r])
+        total = x * sum(q + 1 for q in range(s))
+        check("reducescatter sum", hvd.reducescatter(
+            T(x * (r + 1)), op=hvd.Sum, name="rs"),
+            total[lo:lo + chunks[r]])
+        g = hvd.grouped_allreduce([T(np.full(3, float(r), np.float32)),
+                                   T(np.full((2, 2), 1.0, np.float32))],
+                                  op=hvd.Sum, name="grp")
+        check("grouped allreduce [0]", g[0],
+              np.full(3, float(sum(range(s)))))
+        check("grouped allreduce [1]", g[1], np.full((2, 2), float(s)))
+        hvd.barrier()
+        checks.append("barrier")
+        ps = hvd.add_process_set([1, 2])
+        if r in (1, 2):
+            check("process set [1, 2]", hvd.allreduce(
+                T(np.full(4, r + 0.5, np.float32)), op=hvd.Sum, name="ps",
+                process_set=ps), np.full(4, 4.0))
+        if not hvd.remove_process_set(ps):
+            raise AssertionError("phase 18 (b): remove_process_set failed")
+        if r == 0:
+            last = hvd.join()
+        else:
+            check("allreduce after rank 0 joined", hvd.allreduce(
+                T(np.ones(2, np.float32)), op=hvd.Sum, name="tail"),
+                np.full(2, float(s - 1), np.float32))
+            last = hvd.join()
+        if not 0 < int(last) < s:
+            raise AssertionError(f"phase 18 (b): join returned {last}")
+        checks.append("join")
+        return checks
+
+    return hvd.run(one)
+
+
+def p18_compiled(tmp, dev):
+    """Phase 18 (d): phase 12 (b)'s configuration through the dense
+    compiled step at 2 processes x 2 rank threads over gloo on CUDA
+    tensors (uncaptured by the capture rule), on phase 18's images; the
+    local replicas must agree bit for bit."""
+    import torch
+    import horovod_tpu_torch as hvd
+    before = _rules()
+    outs = hvd.run(lambda: p17_resnet(tmp, dev, profile=True,
+                                      n_batches=P18_NP))
+    rules = _rules_delta(before)
+    if outs[0]["backend"] != "gloo" or rules["uncaptured"] != 1 \
+            or rules["graph"] != 0:
+        raise AssertionError(f"phase 18 (d): backend {outs[0]['backend']},"
+                             f" programs by rule {rules}")
+    for o in outs[1:]:
+        diff = [k for k in o["params"]
+                if not torch.equal(o["params"][k], outs[0]["params"][k])]
+        if diff or o["losses"] != outs[0]["losses"]:
+            raise AssertionError(f"phase 18 (d): local replicas differ: "
+                                 f"{diff[:5]}")
+    proc = env_proc()
+    torch.save(outs[0]["params"], os.path.join(tmp, f"d_params{proc}.pt"))
+    out = {k: v for k, v in outs[0].items() if k not in ("params", "prog")}
+    out["rules"] = rules
+    return out
+
+
+def env_proc():
+    """This worker's process index in its launcher job."""
+    return int(os.environ.get("HOROVOD_TPU_PROC_INDEX", "0"))
+
+
+def phase18_worker(legs, tmp):
+    """One process of a phase-18 job (``chip_smoke.py --worker18 <legs>
+    <dir>``), launched by the port's ``launch_procs`` with its rank
+    threads per process: (o)/(n) phase 18 (a)'s run with the bypass off
+    or on (the job's environment decides), (m) the collective matrix,
+    (d) the compiled step, (c) phase 4's run (its own checks, as in
+    phase 4).  Reports through files in ``dir``; any failure exits
+    non-zero, which fails the launcher's job and so the phase."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = False
+    global LOG_PREFIX
+    dev = torch.device("cuda:0")
+    hvd.init(device=dev)
+    proc = env_proc()
+    LOG_PREFIX = f"[phase 18 worker, legs {legs}, process {proc}]"
+    eng = hvd.engine()
+    state = torch.load(os.path.join(tmp, "state.pt"))
+    base = torch.load(os.path.join(tmp, "phase4_batches.pt"))
+    xs = [x.numpy() for x in base[0]]
+    ys = [y.numpy() for y in base[1]]
+    for leg in legs:
+        out = {"leg": leg, "proc": proc, "ranks": list(range(
+            eng.rank_offset, eng.rank_offset + eng.num_local))}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = wrapper_counts()
+        t0 = time.perf_counter()
+        if leg in "on":
+            got = p18_train(dev, state, xs, ys, eng.num_local)
+            first = got["ranks"][0]["params"]
+            for rec in got["ranks"][1:]:
+                diff = [k for k in first
+                        if not torch.equal(first[k], rec["params"][k])]
+                if diff:
+                    raise AssertionError(f"phase 18 (a) {leg}: local "
+                                         f"replicas differ: {diff[:5]}")
+            torch.save(first, os.path.join(tmp, f"{leg}_params{proc}.pt"))
+            out.update(per_step=got["per_step"], busy=got["busy"],
+                       losses=[rec["losses"] for rec in got["ranks"]],
+                       times=[rec["times"] for rec in got["ranks"]])
+        elif leg == "m":
+            out["checks"] = phase18_matrix(dev)
+        elif leg == "d":
+            out.update(p18_compiled(tmp, dev))
+        elif leg == "c":
+            got = phase_main_path(dev, state, (xs, ys))
+            torch.save(got["params"],
+                       os.path.join(tmp, f"c_params{proc}.pt"))
+            out.update(steady_s=got["steady_s"], busy=got["busy_share"],
+                       backend=hvd.engine().get_process_set(0)
+                       .executor.group.name())
+        out["seconds"] = time.perf_counter() - t0
+        after = wrapper_counts()
+        out["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        torch.cuda.synchronize()
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(tmp, f"{leg}_{proc}.json"), "w") as f:
+            json.dump(out, f)
+        gc.collect()
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    return 0
+
+
+def phase_hybrid(dev, card, state, batches, phase4_params):
+    """Phase 18: the hybrid layout (several rank threads per process,
+    across processes) and the steady-state negotiation bypass, as jobs of
+    the port's ``launch_procs`` (``PHASE18_JOBS``) running ``chip_smoke.py
+    --worker18``, with phase 18 (a)'s stacked reference run here first.
+    Checks: (a) a run with the bypass off and one with it on: their
+    parameters bit for bit each other (every rank of both jobs), within
+    ``COMPILED_REL_L2`` of the 4-rank-thread stacked run on the same
+    batches, the bypass on engaged (hits) with fewer coordinator requests
+    than off, B1 launched in every process; (b) the matrix exact at 2 x 2
+    and at np=3 with ``ranks_per_proc="host"``, B2/B3 launched; (c) ``--ranks-per-worker
+    2`` at np=2 (one process, NCCL over a group of one, two stacked rows)
+    bit for bit phase 4's parameters; (d) the compiled step at 2 x 2,
+    uncaptured over gloo, within ``COMPILED_REL_L2`` of (a)'s stacked
+    reference."""
+    import torch
+    from horovod_tpu_torch.runner.proc_run import launch_procs
+
+    xs, ys = batches
+    t_phase = time.perf_counter()
+    ref = p18_train(dev, state, xs, ys, P18_NP)
+    ref_params = ref["ranks"][0]["params"]
+    for rec in ref["ranks"][1:]:
+        if any(not torch.equal(ref_params[k], rec["params"][k])
+               for k in ref_params):
+            raise AssertionError("phase 18 (a): the stacked reference's "
+                                 "ranks differ")
+    ref_steps = [max(rec["times"][i] for rec in ref["ranks"])
+                 for i in range(STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, walls, params = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        torch.save(([torch.from_numpy(x) for x in xs],
+                    [torch.from_numpy(y) for y in ys]),
+                   os.path.join(tmp, "phase4_batches.pt"))
+        for r in range(P18_NP):
+            x, y = p18_images(xs, ys, r)
+            torch.save((torch.from_numpy(x), torch.from_numpy(y)),
+                       os.path.join(tmp, f"batch{r}.pt"))
+        for label, legs, np_, rpw, hosts, env in PHASE18_JOBS:
+            t0 = time.perf_counter()
+            codes = launch_procs(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--worker18", legs, tmp], np=np_, ranks_per_proc=rpw,
+                hosts=hosts, env={**env, "PYTHONPATH": ROOT},
+                start_timeout=PHASE16_TIMEOUT)
+            if any(codes):
+                raise AssertionError(f"phase 18 job {label} ({legs}): "
+                                     f"workers exited {codes}")
+            walls[label] = time.perf_counter() - t0
+            for leg in legs:
+                key = leg if leg != "m" else f"m{np_}"
+                res[key] = [json.load(open(os.path.join(
+                    tmp, f"{leg}_{p}.json"))) for p in range(len(codes))]
+                if leg in "ondc":
+                    params[key] = [torch.load(os.path.join(
+                        tmp, f"{leg}_params{p}.pt"))
+                        for p in range(len(codes))]
+
+    # (a): both runs' every rank bit for bit, near the stacked reference
+    runs = ("o", "n")
+    first = params["o"][0]
+    for k in first:
+        if not all(torch.equal(first[k], p[k]) for run in runs
+                   for p in params[run]):
+            raise AssertionError(f"phase 18 (a): {k} differs between the "
+                                 f"processes or between the bypass-off "
+                                 f"and bypass-on runs")
+    rel_a = _rel_l2(first, ref_params)
+    if not rel_a <= COMPILED_REL_L2:
+        raise AssertionError(f"phase 18 (a): parameters {rel_a:.3g} "
+                             f"(relative L2) from the stacked run's, bound "
+                             f"{COMPILED_REL_L2}")
+    req = {}
+    for leg in runs:
+        req[leg] = [[q["ready"] + q["poll"] for q in rep["per_step"]]
+                    for rep in res[leg]]
+        for rep in res[leg]:
+            b1 = rep["launches"]["pack_scale_cast"] \
+                + rep["launches"]["unpack_scale_cast"]
+            if b1 <= 0:
+                raise AssertionError(f"phase 18 (a) {leg} process "
+                                     f"{rep['proc']}: B1 launches "
+                                     f"{rep['launches']}")
+    hits = [sum(q["hits"] for q in rep["per_step"]) for rep in res["n"]]
+    o_req, n_req = (sum(map(sum, req[run])) for run in runs)
+    if min(hits) <= 0 or n_req >= o_req:
+        raise AssertionError(f"phase 18 (a): bypass hits {hits}, requests "
+                             f"{req}")
+    # (b)
+    for key in ("m4", "m3"):
+        for rep in res[key]:
+            b23 = (rep["launches"]["quantize_blockwise"],
+                   rep["launches"]["dequantize_blockwise"])
+            if min(b23) <= 0:
+                raise AssertionError(f"phase 18 (b) {key} process "
+                                     f"{rep['proc']}: launches {b23}")
+    # (c)
+    diff = [k for k in phase4_params
+            if not torch.equal(phase4_params[k], params["c"][0][k])]
+    if diff:
+        raise AssertionError(f"phase 18 (c): {len(diff)} parameters differ "
+                             f"from phase 4's: {diff[:5]}; relative L2 "
+                             f"{_rel_l2(params['c'][0], phase4_params):.3g}")
+    # (d)
+    d0, d1 = params["d"]
+    if any(not torch.equal(d0[k], d1[k]) for k in d0):
+        raise AssertionError("phase 18 (d): the processes' parameters "
+                             "differ")
+    rel_d = _rel_l2(d0, ref_params)
+    if not rel_d <= COMPILED_REL_L2:
+        raise AssertionError(f"phase 18 (d): parameters {rel_d:.3g} from "
+                             f"(a)'s stacked reference, bound "
+                             f"{COMPILED_REL_L2}")
+
+    def steps_of(reps):
+        return [max(max(t[i] for t in rep["times"]) for rep in reps)
+                for i in range(STEPS)]
+    lines = []
+    for leg, label in (("o", "off"), ("n", f"on, K = {P18_K}")):
+        st = steps_of(res[leg])
+        lines.append(
+            f"phase 18 (a) ({card}): np=4 as 2 processes x 2 rank threads "
+            f"over gloo, bypass {label}: step ms "
+            f"{[round(t * 1e3, 2) for t in st]}, steady "
+            f"{_steady_ms(st):.2f} ms = {P18_NP * P18_BATCH * 1e3 / _steady_ms(st):.1f} img/s; "
+            f"busy share of one profiled step per process "
+            f"{[round(rep['busy'], 3) for rep in res[leg]]}; coordinator "
+            f"requests (ready + poll) a step per process {req[leg]}; "
+            f"ms a step in the armed cycles' votes and executions "
+            f"{[[round(q['bypass_s'] * 1e3, 1) for q in rep['per_step']] for rep in res[leg]]}; "
+            f"bypass hits / fallbacks per process "
+            f"{[[sum(q['hits'] for q in rep['per_step']), sum(q['fallbacks'] for q in rep['per_step'])] for rep in res[leg]]}; "
+            f"peak memory per process {[rep['peak'] for rep in res[leg]]} B;"
+            f" B1 launches per process "
+            f"{[rep['launches']['pack_scale_cast'] + rep['launches']['unpack_scale_cast'] for rep in res[leg]]}")
+    for line in lines:
+        log(line)
+    log(f"phase 18 (a): the 2 x 2 runs' parameters bit for bit each other "
+        f"with the bypass off and on (every rank of both runs), "
+        f"{rel_a:.3g} (relative "
+        f"L2) from the 4-rank-thread stacked run (bound {COMPILED_REL_L2}; "
+        f"stacked steady {_steady_ms(ref_steps):.2f} ms, busy "
+        f"{ref['busy']:.3f})")
+    log(f"phase 18 (b): the collective matrix exact at 2 x 2 "
+        f"({[len(c) for rep in res['m4'] for c in rep['checks']]} checks a "
+        f"rank) and at np=3 as -H localhost:2,127.0.0.1:1 "
+        f"({[len(c) for rep in res['m3'] for c in rep['checks']]}); B2/B3 "
+        f"launches per process "
+        f"{[(rep['launches']['quantize_blockwise'], rep['launches']['dequantize_blockwise']) for rep in res['m4'] + res['m3']]}")
+    log(f"phase 18 (c): --ranks-per-worker 2 at np=2 (one process, "
+        f"{res['c'][0]['backend']} over a group of one, two stacked rows): "
+        f"parameters bit for bit phase 4's; steady "
+        f"{res['c'][0]['steady_s'] * 1e3:.2f} ms, busy "
+        f"{res['c'][0]['busy']:.3f}")
+    dst = [max(rep["times"][i] for rep in res["d"]) for i in range(STEPS)]
+    log(f"phase 18 (d): the compiled step at 2 x 2 over gloo "
+        f"({res['d'][0]['rules']}): step ms "
+        f"{[round(t * 1e3, 2) for t in dst]}, steady {_steady_ms(dst):.2f} "
+        f"ms; busy {res['d'][0]['busy']:.3f}; parameters {rel_d:.3g} from "
+        f"(a)'s "
+        f"stacked reference; host ms in the compiled group a step "
+        f"{[[round(v, 1) for v in rep['coll_ms']] for rep in res['d']]}; "
+        f"peak memory per process {[rep['peak'] for rep in res['d']]} B")
+    log(f"phase 18 ({card}): job walls (s) "
+        f"{ {k: round(v, 1) for k, v in walls.items()} }; "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    launches = {}
+    for key, reps in res.items():
+        launches[key] = [rep["launches"] for rep in reps]
+    return {"launches": launches,
+            "steady_ms": {leg: _steady_ms(steps_of(res[leg]))
+                          for leg in runs}}
 
 
 def _rel_l2(a, b):
@@ -4418,6 +4978,8 @@ def main():
         return 2
     if sys.argv[1:2] == ["--worker16"]:
         return phase16_worker(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--worker18"]:
+        return phase18_worker(sys.argv[2], sys.argv[3])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -4545,9 +5107,18 @@ def main():
     log(f"phases 16-17: this process holds "
         f"{torch.cuda.memory_allocated(dev)} B allocated, "
         f"{torch.cuda.memory_reserved(dev)} B reserved on the card")
-    multi = phase_multiprocess(dev, card, state, batches,
-                               main_path.pop("params"), p17_refs)
-    del state, batches, p17_refs
+    phase4_params = main_path.pop("params")
+    multi = phase_multiprocess(dev, card, state, batches, phase4_params,
+                               p17_refs)
+    del p17_refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid(dev, card, state, batches, phase4_params)
+    log(f"phase 18 (a) against phase 16 (b): 2 x 2 steady "
+        f"{hybrid['steady_ms']['o']:.2f} ms (bypass off), "
+        f"{hybrid['steady_ms']['n']:.2f} ms (on) for 128 images; np=2 "
+        f"{multi['b']['steady_ms']:.2f} ms for 128 images")
+    del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
     def phase17_launches(*names):
@@ -4555,6 +5126,12 @@ def main():
         process."""
         return {leg: [sum(x.get(n, 0) for n in names) for x in per]
                 for leg, per in p17.items()}
+
+    def phase18_launches(*names):
+        """Launches of the named kernels in each phase-18 leg, per
+        process."""
+        return {leg: [sum(x.get(n, 0) for n in names) for x in per]
+                for leg, per in hybrid["launches"].items()}
 
     def at_capture(*names):
         """Launches of the named kernels each phase-14 leg's capture
@@ -4580,6 +5157,8 @@ def main():
         "phase16_launches": {leg: [v["pack"] + v["unpack"] for v in per]
                              for leg, per in multi["launches"].items()},
         "phase17_launches": phase17_launches(
+            "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
+        "phase18_launches": phase18_launches(
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
@@ -4610,7 +5189,8 @@ def main():
             "phase17_launches": phase17_launches(name),
             **({"phase16_launches": {
                 leg: [v[PHASE16_CODEC[name]] for v in per]
-                for leg, per in multi["launches"].items()}}
+                for leg, per in multi["launches"].items()},
+                "phase18_launches": phase18_launches(name)}
                if name in PHASE16_CODEC else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -12,10 +12,12 @@ Under the multi-process launcher (``HOROVOD_CONTROLLER=http``, the
 reference's gloo_run.py:66-103 env handoff) ``init()`` builds the
 :class:`~..core.store_controller.StoreController` and brings up
 ``torch.distributed`` at the address process 0 hosts, the counterpart of
-the JAX package's ``jax.distributed.initialize``: one rank per process,
-CPU tensors over gloo, CUDA tensors over NCCL unless
-``HOROVOD_GPU_OPERATIONS=gloo``, with a second group of every process
-for the compiled path (``ops/compiled.py``).
+the JAX package's ``jax.distributed.initialize``: one process group
+member per process, which hosts ``HOROVOD_TPU_RANKS_PER_PROC`` rank
+threads (or its entry of ``HOROVOD_TPU_RANKS_OF_PROC`` in a
+heterogeneous host:slots job), CPU tensors over gloo, CUDA tensors over
+NCCL unless ``HOROVOD_GPU_OPERATIONS=gloo``, with a second group of
+every process for the compiled path (``ops/compiled.py``).
 """
 
 import datetime
@@ -31,8 +33,9 @@ from .exceptions import HorovodInitError
 _state_lock = threading.RLock()
 _engine = None
 _tls = threading.local()
-#: host index per global rank (the launcher's HOROVOD_TPU_HOST_OF_RANK);
-#: one host in a single-process job
+#: host index per global rank (the launcher's HOROVOD_TPU_HOST_OF_RANK,
+#: one entry per process, expanded by each process's rank count); one
+#: host in a single-process job
 _host_of_rank = None
 #: True while init() owns a torch.distributed default process group
 _dist_up = False
@@ -116,6 +119,11 @@ def _exchange_device_uuids(client, proc, num_procs, device):
     return uuids
 
 
+#: the bypass vote's timeout when stall shutdown is off: a week (gloo
+#: keeps timeouts in milliseconds, and this stays inside a 32-bit count)
+BYPASS_VOTE_TIMEOUT_SECS = 7 * 24 * 3600
+
+
 def _init_multiproc(device, num_ranks, config):
     """The launcher's env handoff (engine.py/basics.py:193-300 of the
     JAX package): controller, ``torch.distributed`` and the engine."""
@@ -123,11 +131,8 @@ def _init_multiproc(device, num_ranks, config):
     from ..core.engine import Engine
     from ..core.store_controller import StoreController
 
-    rpp = num_ranks or env_mod.get_int(env_mod.HOROVOD_TPU_RANKS_PER_PROC, 1)
-    if rpp != 1:
-        raise NotImplementedError(
-            f"{rpp} rank threads per process across processes (the hybrid "
-            f"layout) is not ported yet (ROADMAP.md A24)")
+    rpp = num_ranks or env_mod.get_int(env_mod.HOROVOD_TPU_RANKS_PER_PROC,
+                                       1) or 1
     proc = env_mod.get_int(env_mod.HOROVOD_TPU_PROC_INDEX, 0)
     num_procs = env_mod.get_int(env_mod.HOROVOD_TPU_NUM_PROCS, 1)
     coordinator = env_mod.get_str(env_mod.HOROVOD_TPU_COORDINATOR)
@@ -135,11 +140,24 @@ def _init_multiproc(device, num_ranks, config):
         raise HorovodInitError(
             "HOROVOD_CONTROLLER=http without HOROVOD_TPU_COORDINATOR: "
             "launch through horovod_tpu_torch.runner.launch")
+    # heterogeneous host:slots jobs carry per-process rank counts; the
+    # uniform layout is rpp ranks in every process (basics.py:294-307 of
+    # the JAX package)
+    rop = env_mod.get_str(env_mod.HOROVOD_TPU_RANKS_OF_PROC)
+    ranks_of_proc = None
+    if rop:
+        ranks_of_proc = [int(x) for x in rop.split(",")]
+        if len(ranks_of_proc) != num_procs:
+            raise HorovodInitError(
+                f"HOROVOD_TPU_RANKS_OF_PROC has {len(ranks_of_proc)} "
+                f"entries for {num_procs} processes (stale environment?)")
+        rpp = ranks_of_proc[proc]
+    counts = ranks_of_proc or [rpp] * num_procs
     secret = env_mod.get_str(env_mod.HOROVOD_SECRET_KEY)
     controller = StoreController(
         env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR, "127.0.0.1"),
         env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
-        bytes.fromhex(secret) if secret else None, proc, num_procs, 1)
+        bytes.fromhex(secret) if secret else None, proc, num_procs, rpp)
     dev = resolve_device(device)
     gpu_ops = env_mod.get_str(env_mod.HOROVOD_GPU_OPERATIONS,
                               "nccl").lower()
@@ -161,25 +179,40 @@ def _init_multiproc(device, num_ranks, config):
     # come from the caller's thread un-negotiated, so they must never
     # share a communicator with the engine thread's (ProcessSetState)
     compiled_group = dist.new_group(ranks=list(range(num_procs)))
+    # the negotiation bypass's vote: a process whose cached keys are
+    # ready waits in it for the slowest process (one that checkpoints or
+    # evaluates for minutes), as it waited at the coordinator before the
+    # bypass armed, so it gets a gloo group whose timeout is the stall
+    # shutdown's, or BYPASS_VOTE_TIMEOUT_SECS when that is off, and not
+    # the job group's HOROVOD_TPU_INIT_TIMEOUT
+    vote_group = dist.new_group(
+        ranks=list(range(num_procs)), backend="gloo",
+        timeout=datetime.timedelta(seconds=config.stall_shutdown_secs
+                                   or BYPASS_VOTE_TIMEOUT_SECS))
     hof = env_mod.get_str(env_mod.HOROVOD_TPU_HOST_OF_RANK)
-    _host_of_rank = [int(x) for x in hof.split(",")] if hof \
+    host_of_proc = [int(x) for x in hof.split(",")] if hof \
         else list(range(num_procs))
-    if len(_host_of_rank) != num_procs:
+    if len(host_of_proc) != num_procs:
         raise HorovodInitError(
-            f"HOROVOD_TPU_HOST_OF_RANK has {len(_host_of_rank)} entries "
+            f"HOROVOD_TPU_HOST_OF_RANK has {len(host_of_proc)} entries "
             f"for {num_procs} processes (stale environment?)")
-    return Engine(1, dev, config=config, controller=controller,
-                  rank_offset=proc, global_size=num_procs,
+    # processes on one host share its local-rank space
+    _host_of_rank = [host_of_proc[p] for p in range(num_procs)
+                     for _ in range(counts[p])]
+    return Engine(rpp, dev, config=config, controller=controller,
+                  rank_offset=sum(counts[:proc]), global_size=sum(counts),
                   world_group=dist.group.WORLD,
-                  compiled_group=compiled_group)
+                  compiled_group=compiled_group,
+                  ranks_of_proc=ranks_of_proc, vote_group=vote_group)
 
 
 def init(device=None, num_ranks=None, process_sets=None):
     """Start the runtime (reference horovod_init): ``num_ranks`` ranks
-    hosted by this process (default 1) on ``device``; ``process_sets``
-    (``ProcessSet`` objects) are registered at once.  Under the
-    launcher (``HOROVOD_CONTROLLER=http``) this process hosts one rank
-    of the job (see the module docstring)."""
+    hosted by this process on ``device`` (default 1, or the launcher's
+    ``HOROVOD_TPU_RANKS_PER_PROC``); ``process_sets`` (``ProcessSet``
+    objects) are registered at once.  Under the launcher
+    (``HOROVOD_CONTROLLER=http``) this process hosts its run of the job's
+    ranks (see the module docstring)."""
     global _engine, _host_of_rank
     with _state_lock:
         if _engine is not None:

@@ -58,6 +58,15 @@ HOROVOD_TPU_INIT_TIMEOUT = "HOROVOD_TPU_INIT_TIMEOUT"
 # coordinator reads it too, with HOROVOD_HEARTBEAT_WINDOW_SECONDS
 # (runner/http/http_server.coordinator_kwargs)
 HOROVOD_HEARTBEAT_INTERVAL_SECONDS = "HOROVOD_HEARTBEAT_INTERVAL_SECONDS"
+# steady-state negotiation bypass (core/bypass.py): identical negotiation
+# cycles before the ranks agree over the collective path instead of the
+# coordinator (0 disables), and the bound on an armed cycle's wait for
+# the cached tensors before the unanimous fallback
+HOROVOD_BYPASS_AFTER_CYCLES = "HOROVOD_BYPASS_AFTER_CYCLES"
+HOROVOD_BYPASS_WAIT_SECONDS = "HOROVOD_BYPASS_WAIT_SECONDS"
+# per-process rank counts of a heterogeneous host:slots job (the
+# launcher's ranks_per_proc="host"), one entry per process
+HOROVOD_TPU_RANKS_OF_PROC = "HOROVOD_TPU_RANKS_OF_PROC"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -133,3 +142,7 @@ class Config:
         # multi-process jobs beat the coordinator from their own thread
         self.heartbeat_secs = get_float(
             HOROVOD_HEARTBEAT_INTERVAL_SECONDS, 5.0)
+        # multi-process jobs arm the negotiation bypass after K stable
+        # cycles by default, as the JAX package's do (env.py:506-509)
+        self.bypass_after_cycles = get_int(HOROVOD_BYPASS_AFTER_CYCLES, 5)
+        self.bypass_wait_secs = get_float(HOROVOD_BYPASS_WAIT_SECONDS, 10.0)

@@ -4,8 +4,12 @@
 Each registered set owns its own executor in the engine
 (``Engine.add_process_set``): a stacked one over its member ranks' rows
 in one process, or, under the launcher, a ``torch.distributed`` group of
-its own when its members span processes.  Every process registers and
-removes the same sets in the same order, as in the reference.  Removal
+its own when its members span processes, whose members may be rank
+threads of several processes (the hybrid layout: each process stacks
+its members' rows, and a process hosting none has no executor).  Every
+process registers and removes the same sets in the same order, as in
+the reference; of a process's rank threads the first to register a set
+builds it and the others get its id.  Removal
 is collective: every local rank votes, and the set drains its in-flight
 collectives before it disappears (``Engine.remove_process_set``)."""
 

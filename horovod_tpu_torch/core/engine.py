@@ -25,16 +25,23 @@
   ``synchronize()`` makes the caller's stream wait.
 * Completion flows back through :class:`~..core.handles.Handle`.
 * Under the launcher (a :class:`~.store_controller.StoreController`,
-  one rank per process) negotiation is global: the background loop
-  reports locally-ready entries to the launcher's coordinator and runs
-  the coordinator's fused batches in log order (``_store_cycle``,
-  ``_apply_response``), every process set spanning processes reducing
-  over a ``torch.distributed`` process group.  A heartbeat thread keeps
-  the coordinator's liveness scan fed, and a dead peer aborts the
-  engine.  Without a controller the loop and its stacked executors are
-  the single-process path, untouched.
+  one or more rank threads per process) negotiation is global: the
+  background loop reports locally-ready entries to the launcher's
+  coordinator and runs the coordinator's fused batches in log order
+  (``_store_cycle``, ``_apply_response``), every process set spanning
+  processes reducing over a ``torch.distributed`` process group (the
+  local rank rows stacked inside the process first).  A heartbeat thread
+  keeps the coordinator's liveness scan fed, and a dead peer aborts the
+  engine.  Once the coordinator has scheduled the same response list for
+  K cycles and every process voted for it, the loop runs the
+  steady-state negotiation bypass instead (``_bypass_cycle``,
+  core/bypass.py): a one-element MIN vote over the job's group, then the
+  cached list, with no coordinator traffic.  Without a controller the
+  loop and its stacked executors are the single-process path,
+  untouched.
 """
 
+import bisect
 import contextlib
 import logging
 import math
@@ -88,10 +95,13 @@ class Submission:
 class NegotiationEntry:
     """Readiness table row (reference controller.cc:1115-1140)."""
 
-    __slots__ = ("key", "subs", "first_time", "wire_default")
+    __slots__ = ("key", "subs", "first_time", "wire_default", "meta_fp")
 
     def __init__(self, key, wire_default=None):
         self.key = key
+        # the negotiation meta's fingerprint, computed once an armed
+        # bypass cycle first looks at the entry
+        self.meta_fp = None
         self.subs: Dict[int, Submission] = {}
         self.first_time = time.monotonic()
         # the process-wide wire default, latched when the first local
@@ -160,19 +170,32 @@ class Engine:
     BackgroundThreadLoop).  ``num_ranks`` ranks are hosted in this
     process, all on ``device``: global ranks ``[rank_offset, rank_offset
     + num_ranks)`` of a ``global_size`` world.  A ``controller`` makes
-    negotiation global (one rank per process, ``world_group`` the
-    job's ``torch.distributed`` process group, ``compiled_group`` a
-    second group of the same processes for the compiled path)."""
+    negotiation global (``world_group`` the job's ``torch.distributed``
+    process group, ``compiled_group`` a second group of the same
+    processes for the compiled path, ``vote_group`` a gloo group of the
+    same processes for the bypass's vote); ``ranks_of_proc`` gives each
+    process's rank count when they differ (the launcher's
+    ``ranks_per_proc="host"``), else every process hosts ``num_ranks``
+    (engine.py:143-150 of the JAX package)."""
 
     def __init__(self, num_ranks, device, config=None, controller=None,
                  rank_offset=0, global_size=None, world_group=None,
-                 compiled_group=None):
+                 compiled_group=None, ranks_of_proc=None, vote_group=None):
         self.config = config or env_mod.Config()
         self.num_local = num_ranks
         self.device = torch.device(device)
         self.controller = controller
         self.rank_offset = rank_offset
         self.global_size = global_size or num_ranks
+        self.ranks_of_proc = list(ranks_of_proc) if ranks_of_proc \
+            else None
+        if self.ranks_of_proc:
+            self._proc_starts = [sum(self.ranks_of_proc[:p])
+                                 for p in range(len(self.ranks_of_proc))]
+            if sum(self.ranks_of_proc) != self.global_size:
+                raise ValueError(
+                    f"ranks_of_proc sums to {sum(self.ranks_of_proc)} but "
+                    f"the global size is {self.global_size}")
         self._world_group = world_group
         self._compiled_world_group = compiled_group
         self._lock = threading.Condition()
@@ -187,6 +210,10 @@ class Engine:
         self._removal_events: Dict[int, threading.Event] = {}
         self._removal_votes: Dict[int, set] = {}
         self._removed_ps_ids: set = set()
+        # rank tuples of multi-process sets being built (dist.new_group
+        # runs outside the lock): the other local rank threads wait for
+        # the first one's build instead of starting their own
+        self._building_ps: set = set()
         #: alltoall error-feedback residuals, keyed (set id, rank): the
         #: quantization error of the last exchange's padded per-peer-slot
         #: layout, re-injected slot by slot into the next exchange with
@@ -222,6 +249,27 @@ class Engine:
             self.compiled_stream = torch.cuda.Stream(self.device)
         # idle polls of the coordinator are rate-limited (see _store_cycle)
         self._last_poll = 0.0
+        #: steady-state negotiation bypass (core/bypass.py): armed by the
+        #: coordinator's bypass_arm record once every process voted the
+        #: same stable cycle fingerprint; while active the loop runs
+        #: _bypass_cycle instead of _store_cycle.  The JAX package counts
+        #: its cycles through telemetry (ROADMAP.md A17); the port keeps
+        #: plain counters: armed cycles run on the cached list (hits),
+        #: fallbacks to full negotiation, the seconds of the hits' votes
+        #: and executions, and the seconds the un-armed tracker takes
+        #: after each store cycle (what the bypass costs where it never
+        #: arms)
+        self._bypass = None
+        self._vote_group = vote_group
+        self._vote_ex = None
+        self.bypass_hits = 0
+        self.bypass_fallbacks = 0
+        self.bypass_cycle_seconds = 0.0
+        self.bypass_track_seconds = 0.0
+        if self.multiproc and self.config.bypass_after_cycles > 0:
+            from .bypass import BypassState
+            self._bypass = BypassState(self.config.bypass_after_cycles,
+                                       self.config.bypass_wait_secs)
         self._hb_stop = threading.Event()
         self._hb_thread = None
         if self.multiproc and self.config.heartbeat_secs > 0:
@@ -245,7 +293,11 @@ class Engine:
         return self.controller is not None
 
     def _proc_of(self, global_rank):
-        """Hosting process of a global rank (the uniform layout)."""
+        """Hosting process of a global rank: a table lookup for a
+        heterogeneous host:slots job, integer division for the uniform
+        layout (engine.py:655-663)."""
+        if self.ranks_of_proc:
+            return bisect.bisect_right(self._proc_starts, global_rank) - 1
         return global_rank // self.num_local
 
     # ------------------------------------------------------------------
@@ -293,9 +345,11 @@ class Engine:
         processes gets a group of its own (``dist.new_group``, which
         every process calls in the same order, members or not); a set
         inside one process is stacked; a process hosting none of the
-        set's ranks has no executor.  Each group the compiled path
-        uses is a second one over the same processes: the global set's
-        is the engine's ``compiled_group``, another set's a second
+        set's ranks has no executor.  Over a group each process hosts
+        the run of the set's positions that its rank threads hold
+        (``proc_positions``).  Each group the compiled path uses is a
+        second one over the same processes: the global set's is the
+        engine's ``compiled_group``, another set's a second
         ``dist.new_group`` right after its own."""
         ranks = sorted(ranks)
         local = [r for r in ranks
@@ -314,11 +368,15 @@ class Engine:
         executor = compiled = None
         if local:
             spans = len(procs) > 1 or ps_id == 0
+            positions = [[i for i, r in enumerate(ranks)
+                          if self._proc_of(r) == p] for p in procs]
             executor = dist_ops.MeshExecutor(
-                self.device, len(ranks), group=group if spans else None)
+                self.device, len(ranks), group=group if spans else None,
+                proc_positions=positions if spans else None)
             if cgroup is not None:
-                compiled = dist_ops.MeshExecutor(self.device, len(ranks),
-                                                 group=cgroup)
+                compiled = dist_ops.MeshExecutor(
+                    self.device, len(ranks), group=cgroup,
+                    proc_positions=positions)
             elif not spans:
                 # a set inside this process reduces stacked on both paths
                 compiled = executor
@@ -340,21 +398,32 @@ class Engine:
         if any(r < 0 or r >= self.num_ranks for r in ranks):
             raise ValueError(f"process set ranks {ranks} out of range")
         with self._lock:
-            for ps in self.process_sets.values():
-                if ps.ranks == ranks:
-                    return ps.id
+            while True:
+                for ps in self.process_sets.values():
+                    if ps.ranks == ranks:
+                        return ps.id
+                if tuple(ranks) not in self._building_ps:
+                    break
+                # another local rank thread is building this set
+                self._lock.wait(timeout=0.05)
             ps_id = self._next_ps_id
             self._next_ps_id += 1
             if not self.multiproc:
                 self.process_sets[ps_id] = self._make_process_set_state(
                     ps_id, ranks)
                 return ps_id
-        # one caller per process here: dist.new_group waits for every
+            self._building_ps.add(tuple(ranks))
+        # the first local caller builds: dist.new_group waits for every
         # process of the job, so the set is built outside the lock and
         # the loop keeps serving the peers' collectives meanwhile
-        state = self._make_process_set_state(ps_id, ranks)
-        with self._lock:
-            self.process_sets[ps_id] = state
+        try:
+            state = self._make_process_set_state(ps_id, ranks)
+            with self._lock:
+                self.process_sets[ps_id] = state
+        finally:
+            with self._lock:
+                self._building_ps.discard(tuple(ranks))
+                self._lock.notify_all()
         return ps_id
 
     def remove_process_set(self, ps_id, rank=None) -> bool:
@@ -523,6 +592,11 @@ class Engine:
             ps.join_waiters[rank] = handle
             self._lock.notify_all()
         if self.multiproc:
+            if self._bypass is not None:
+                # a joined rank stops submitting: the cached list can never
+                # be fully ready again, so the next agreement round falls
+                # back at once instead of waiting out the bound
+                self._bypass.poison("join")
             # the coordinator counts the set's joined ranks across
             # processes and logs join_done once all have
             self.controller.report_join(
@@ -576,7 +650,13 @@ class Engine:
                     work = self._collect_ready_locked()
                     self._check_stalls_locked()
                 if self.multiproc:
-                    self._store_cycle(work)
+                    if self._bypass is not None and self._bypass.active:
+                        # armed fast path: agree over the collective path
+                        # and run the cached response list, with no
+                        # coordinator traffic
+                        self._bypass_cycle()
+                    else:
+                        self._store_cycle(work)
                     continue
                 for ps, batch in work:
                     try:
@@ -762,13 +842,169 @@ class Engine:
             return
         for resp in responses:
             self._apply_response(resp)
+        if self._bypass is not None and not self._bypass.active:
+            t0 = time.perf_counter()
+            self._bypass_track(responses)
+            self.bypass_track_seconds += time.perf_counter() - t0
+        if self.controller.take_rereport():
+            # a restarted coordinator's replayed log is drained: report
+            # again what its lost pending table held (never, until the
+            # coordinator restarts, ROADMAP.md A17)
+            self._rereport_awaiting()
+
+    # ------------------------------------------------------------------
+    # steady-state negotiation bypass (core/bypass.py)
+
+    def _bypass_track(self, responses):
+        """Un-armed detection (engine.py:1376-1408): feed the applied
+        responses to the tracker; when the awaiting tables drain, the
+        cycle closes, and a list stable for K cycles votes its
+        fingerprint to the coordinator (idempotent; voted again each
+        stable cycle until the arm record arrives in the log)."""
+        bp = self._bypass
+        for resp in responses:
+            bp.observe_response(resp)
+        with self._lock:
+            drained = all(not ps.awaiting
+                          for ps in self.process_sets.values())
+        if not drained:
+            return
+        fp = bp.cycle_complete()
+        if fp is not None:
+            try:
+                self.controller.bypass_ready(fp)
+            except Exception:  # noqa: BLE001 — advisory: the vote goes
+                # out again next stable cycle; a coordinator gone here
+                # only delays arming
+                pass
+
+    def _bypass_cycle(self):
+        """One armed cycle (engine.py:1410-1470): wait for the cached
+        tensors, agree through a one-element MIN allreduce over the
+        global set's group (vote 1 = my locally ready entries match my
+        cached list) and on unanimity run the cached response list with
+        no coordinator traffic.  Any dissent is unanimous too (the same
+        collective result everywhere), so every process falls back into
+        full negotiation together."""
+        from .bypass import meta_fingerprint
+        bp = self._bypass
+        with self._lock:
+            ps0 = self.process_sets.get(0)
+            foreign = any(ps.id != 0 and ps.awaiting
+                          for ps in self.process_sets.values())
+            awaiting_fps = {}
+            if ps0 is not None:
+                for key, entry in ps0.awaiting.items():
+                    if entry.meta_fp is None:
+                        entry.meta_fp = meta_fingerprint(
+                            self._meta_for(ps0, entry))
+                    awaiting_fps[key] = entry.meta_fp
+        if ps0 is None:
+            return
+        decision = bp.decide(awaiting_fps, foreign)
+        if decision is None:
+            return
+        vote, reason = decision
+        t0 = time.perf_counter()
+        try:
+            agreed = self._bypass_vote(ps0, vote)
+        except Exception as exc:  # noqa: BLE001 — a failed agreement
+            # collective means a dead or diverged peer: the same contract
+            # as any peer failure
+            self.abort(exc)
+            return
+        if agreed:
+            # counted before the handles resolve, so a rank thread that
+            # reads the counter after its result sees this cycle
+            bp.cycles += 1
+            self.bypass_hits += 1
+            for i, resp in enumerate(bp.responses):
+                self._apply_response(self._bypass_response(resp, i))
+            self.bypass_cycle_seconds += time.perf_counter() - t0
+        else:
+            self.bypass_fallbacks += 1
+            logger.info(
+                "negotiation bypass disengaged (%s); falling back to full "
+                "negotiation", reason or "peer mismatch")
+            bp.disarm()
+            # marks from the pre-arm race window would swallow the
+            # re-report of re-used tensor names (the coordinator dropped
+            # those entries when it armed)
+            self.controller.clear_reported()
+            self._rereport_awaiting()
+
+    def _bypass_vote(self, ps0, vote):
+        """The agreement exchange (the reference's response-cache
+        CoordinateCacheAndState, collapsed to one MIN bit; engine.py:
+        1472-1482): one row per local rank, 1 iff this process's state
+        matches its cached list, so the reduced value is 1 only on global
+        agreement, and the same on every rank.  It runs over the vote's
+        own gloo group (``vote_group``) on the CPU: a process whose keys
+        are ready waits there for the slowest one, as it waited at the
+        coordinator before the bypass armed, and that group's timeout is
+        the stall shutdown's, not the job group's."""
+        ex = ps0.executor
+        if self._vote_group is not None:
+            if self._vote_ex is None:
+                self._vote_ex = dist_ops.MeshExecutor(
+                    "cpu", ex.num_ranks, group=self._vote_group,
+                    proc_positions=ex.proc_positions)
+            ex = self._vote_ex
+        rows = [torch.full((1,), float(vote), dtype=torch.float32,
+                           device=ex.device) for _ in ps0.local_ranks]
+        out = ex.reduce(rows, ReduceOp.MIN)
+        return bool(out[0].item() >= 0.5)
+
+    def _bypass_response(self, resp, idx):
+        """Cached batch response for one bypass execution: fresh
+        deterministic trace ids (every process runs the same responses in
+        the same order, so the cumulative sequence is the same
+        everywhere), outside the coordinator's id space."""
+        r = dict(resp)
+        bp = self._bypass
+        ids = {}
+        for k in resp["keys"]:
+            bp.trace_seq += 1
+            ids[k] = (1 << 40) + bp.trace_seq
+        r["trace"] = ids
+        return r
+
+    def _rereport_awaiting(self):
+        """Report every entry still awaiting a coordinator response: the
+        bypass fallback's recovery (entries were never reported while
+        armed), and the coordinator-restart resync's.  Local validation
+        runs here because armed-mode entries skipped the store cycle's."""
+        with self._lock:
+            items = [(ps, key, entry)
+                     for ps in self.process_sets.values()
+                     for key, entry in list(ps.awaiting.items())]
+        metas = []
+        for ps, key, entry in items:
+            err = self._validate(ps, entry, local_only=True)
+            if err is not None:
+                with self._lock:
+                    ps.awaiting.pop(key, None)
+                for sub in entry.subs.values():
+                    sub.handle.set_error(err)
+                meta = self._meta_for(ps, entry)
+                meta["error"] = str(err)
+                metas.append(meta)
+            else:
+                metas.append(self._meta_for(ps, entry))
+        if not metas:
+            return
+        try:
+            self.controller.report_ready(metas)
+        except Exception as exc:  # noqa: BLE001 — coordinator death
+            self.abort(exc)
 
     def _apply_response(self, resp):
         """One record of the coordinator's log (engine.py:1536-1674):
         a fused batch to run, a negotiation error, a stall attribution,
-        a dead peer (abort) or a set's join barrier.  The JAX package's
-        flight-recorder dump requests (``trace_dump``) have no recorder
-        to dump here (ROADMAP.md A17)."""
+        a dead peer (abort), the bypass's arm record or a set's join
+        barrier.  The JAX package's flight-recorder dump requests
+        (``trace_dump``) have no recorder to dump here (ROADMAP.md
+        A17)."""
         kind = resp.get("kind")
         if kind == "batch":
             self._apply_batch(resp)
@@ -804,6 +1040,12 @@ class Engine:
                 f"missed heartbeats")
             logger.warning("%s; failing pending collectives", msg)
             self.abort(HorovodInternalError(msg))
+        elif kind == "bypass_arm":
+            # the coordinated switch point: every process consumes this
+            # record at the same position of its response stream and arms
+            # the steady-state bypass
+            if self._bypass is not None:
+                self._bypass.on_arm(resp.get("fp"))
         elif kind == "join_done":
             with self._lock:
                 ps = self.process_sets.get(resp.get("ps", 0))

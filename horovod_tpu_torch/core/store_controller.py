@@ -9,13 +9,15 @@ polls an ordered response log.  The log fixes the global execution
 order, so every process issues the same ``torch.distributed``
 collectives in the same order, as one process group needs.
 
-The JAX package's coordinator-restart recovery (the epoch resync and the
+The negotiation bypass's vote (``bypass_ready``) and the poll's cut at
+the ``bypass_arm`` record are ported (core/bypass.py).  The JAX
+package's coordinator-restart recovery (the epoch resync and the
 drain-then-rereport handshake), its elastic rounds and per-host
-aggregator route (ROADMAP.md A17) and the negotiation bypass's vote
-(A23) are not ported: the port's coordinator never restarts.  The
-elastic round id is kept all the same (``round_id``, 0 until elastic
-rounds exist): the compiled path's signature exchange keys its records
-by it, as the JAX package's does.
+aggregator route (ROADMAP.md A17) are not: the port's coordinator never
+restarts, so :meth:`StoreController.take_rereport` is always False.
+The elastic round id is kept all the same (``round_id``, 0 until
+elastic rounds exist): the compiled path's signature exchange keys its
+records by it, as the JAX package's does.
 """
 
 import json
@@ -59,6 +61,32 @@ class StoreController:
         # (engine shutdown + re-init) must not have its reports
         # deduplicated against the previous controller's counters
         self._sid = secrets.token_hex(8)
+
+    # -- the negotiation bypass ----------------------------------------------
+
+    def take_rereport(self):
+        """True once per coordinator-restart resync, after the replayed
+        log drained (the JAX package's recovery).  The port's coordinator
+        never restarts (ROADMAP.md A17), so there is nothing to
+        re-report."""
+        return False
+
+    def bypass_ready(self, fp):
+        """Vote this worker's stable cycle fingerprint (core/bypass.py
+        step 1 -> 2).  Idempotent on the coordinator; advisory here."""
+        self.client.coord("bypass_ready", {
+            "proc": self.proc_id, "round": self.round_id,
+            "sid": self._sid, "fp": fp}, timeout=5.0)
+
+    def clear_reported(self):
+        """Drop every reported-key mark.  The engine calls it when the
+        bypass disengages: entries reported in the race window before the
+        arm were dropped by the coordinator at arm time (and ran through
+        the bypass), so their marks would otherwise swallow the re-report
+        of a re-used tensor name; nothing is in flight at a fallback."""
+        with self._lock:
+            self._reported.clear()
+            self._suppressed.clear()
 
     # -- reporting -----------------------------------------------------------
 
@@ -158,7 +186,8 @@ class StoreController:
 
     def poll(self, wait=None):
         """Fetch responses past the cursor; returns list of response
-        dicts ({kind: batch|error|join_done|stall|dead, ...})."""
+        dicts ({kind: batch|error|join_done|stall|dead|bypass_arm,
+        ...}), cut after a ``bypass_arm`` record."""
         wait = self.poll_wait if wait is None else wait
         out = self.client.coord(
             "poll", {"cursor": self._cursor, "proc": self.proc_id,
@@ -166,6 +195,17 @@ class StoreController:
             timeout=wait + 30)
         responses = out.get("responses", [])
         self._cursor = out.get("cursor", self._cursor)
+        for j, r in enumerate(responses):
+            if r.get("kind") == "bypass_arm":
+                # the arm record is the coordinated mode switch: stop
+                # consuming the log exactly there.  A batch scheduled after
+                # it must not run on the fast pollers only (the slow ones
+                # bypass those entries instead, and the collective orders
+                # diverge); the cursor fenced at the arm makes every
+                # process resume from the same point after a fallback
+                self._cursor -= len(responses) - (j + 1)
+                responses = responses[:j + 1]
+                break
         if responses:
             with self._lock:
                 for r in responses:

@@ -38,15 +38,17 @@ order with the same shapes: there is no negotiation on this path.  Rank
 threads of one process meet at a rendezvous, and the last to arrive
 runs the program once for all of them.
 
-Under the launcher (one rank per process) every entry point runs over
-the set's compiled group (``ProcessSetState.compiled_executor``), a
+Under the launcher every entry point runs over the set's compiled group (``ProcessSetState.compiled_executor``), a
 second ``torch.distributed`` group of the same processes: the engine
 thread issues its negotiated collectives on the set's own group, and
 the compiled path's, issued un-negotiated from the caller's thread (or a
 graph's), must never interleave with them on one communicator.  A
 process's first call of each signature is checked against its peers'
 through the coordinator's KV store (``_validate_signature_cross_process``):
-a mismatch raises ``ValueError`` on every process.  How a step's program
+a mismatch raises ``ValueError`` on every process.  A process hosting
+several rank threads (the hybrid layout) meets them at one rendezvous,
+stacks their rows and runs the group collective once for them all.
+How a step's program
 runs is decided before any capture, by :func:`capture_rule`: one CUDA
 graph on the card when its collectives are stacked or NCCL's (NCCL
 inside the graph), the same function uncaptured on the card over gloo
@@ -64,8 +66,7 @@ card) per destination slot and per-rank error feedback.
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: an ``algorithm``/``topology_hint``/``wire_inner`` other
 than flat and :class:`TopologyHint` (A8), ``op=Adasum`` in the dense
-train step (A7), wire integrity digests (A14) and several rank threads
-per process across processes (A24).
+train step (A7) and wire integrity digests (A14).
 """
 
 import contextlib
@@ -145,12 +146,6 @@ def _ps_state(process_set):
     ps = eng.process_sets.get(ps_id)
     if ps is None:
         raise ValueError(f"unknown process set {ps_id}")
-    if eng.multiproc and eng.num_local > 1:
-        # every compiled entry point comes through here
-        raise NotImplementedError(
-            "the compiled path with several rank threads per process "
-            "across processes (the hybrid layout) is not ported yet "
-            "(ROADMAP.md A24)")
     if ps.compiled_executor is None:
         raise ValueError(
             f"process set {ps_id} has no compiled path in this process "
@@ -240,8 +235,10 @@ def _caller_pos(eng, ps):
 _RDV_REGISTRY = {}
 _RDV_LOCK = threading.Lock()
 _STEP_COUNTERS = {}
-# per-(ps, tag) count of distinct signatures validated across processes
+# per-(ps, tag) count of distinct signatures validated across processes,
+# and the (ps, tag, signature) triples already validated
 _SIG_COUNTERS = {}
+_SIG_DONE = set()
 # shared program cache: whichever rank leads a round reuses the program
 # any earlier leader built (one build, and one capture, per process)
 _PROGRAM_CACHE = {}
@@ -290,8 +287,11 @@ def _validate_signature_cross_process(eng, ps, tag, sig):
     (the JAX package's): process A's Nth new signature of a collective
     must equal process B's Nth, or every process raises ``ValueError``;
     a peer that never publishes raises ``RuntimeError`` after
-    ``HOROVOD_COMPILED_SIG_TIMEOUT`` seconds.  A single-process engine
-    has nothing to exchange."""
+    ``HOROVOD_COMPILED_SIG_TIMEOUT`` seconds.  "New" is per process: a
+    signature this process already exchanged under ``tag`` is not sent
+    again, whichever of its rank threads' objects leads the call (in the
+    hybrid layout the leader of a rendezvous changes from call to call).
+    A single-process engine has nothing to exchange."""
     ctl = getattr(eng, "controller", None)
     if ctl is None or ctl.num_procs <= 1:
         return
@@ -299,10 +299,13 @@ def _validate_signature_cross_process(eng, ps, tag, sig):
     import json
 
     taghash = hashlib.md5(repr(tag).encode()).hexdigest()[:12]
+    fp = json.dumps(sig, sort_keys=True)
+    done = (ps.id, taghash, fp)
     with _RDV_LOCK:
+        if done in _SIG_DONE:
+            return
         seq = _SIG_COUNTERS.get((ps.id, taghash), 0)
         _SIG_COUNTERS[(ps.id, taghash)] = seq + 1
-    fp = json.dumps(sig, sort_keys=True)
     base = f"/compiled_sig/{ctl.round_id}/{ps.id}/{taghash}/{seq}"
     ctl.client.put(f"{base}/{ctl.proc_id}", fp.encode())
     deadline = time.monotonic() + env_mod.get_int(
@@ -321,6 +324,8 @@ def _validate_signature_cross_process(eng, ps, tag, sig):
                 "compiled collective signature mismatch across "
                 f"processes (tag={tag}, call #{seq}): this process has "
                 f"{fp} but process {p} has {raw.decode()}")
+    with _RDV_LOCK:
+        _SIG_DONE.add(done)
 
 
 # ---------------------------------------------------------------------------
@@ -1537,6 +1542,7 @@ def reset_compiled_state():
         _RDV_REGISTRY.clear()
         _STEP_COUNTERS.clear()
         _SIG_COUNTERS.clear()
+        _SIG_DONE.clear()
     with _PROGRAM_LOCK:
         _PROGRAM_CACHE.clear()
 
@@ -1594,7 +1600,7 @@ def _allreduce_flat(ex, tensors, threshold):
     out = [None] * len(tensors)
     for group in _fusion_groups(tensors, threshold):
         buf = torch.cat([tensors[i].detach().reshape(-1) for i in group])
-        ex.reduce([buf], ReduceOp.SUM)
+        ex.reduce_across(buf, ReduceOp.SUM)
         o = 0
         for i in group:
             n = tensors[i].numel()
@@ -1866,16 +1872,22 @@ class _CompiledTrainStep:
 
     @torch.no_grad()
     def _finish_group(self, ex, losses, aux_pairs, grads):
-        """Over a process group (one rank here): ``grads`` replaced by
-        their sums over the set's ranks, the float aux leaves and the loss
-        averaged over them (the JAX body's ``pmean``), other aux leaves
-        kept local ("taken as replicated"), all in one
-        :func:`_allreduce_flat`.  An average is the sum, then ``div_(R)``,
-        as the stacked step's.  Returns the loss."""
+        """Over a process group: ``grads`` (this process's, summed over its
+        local ranks) replaced by their sums over the set's ranks, the float
+        aux leaves and the loss averaged over them (the JAX body's
+        ``pmean``; a process's local ranks summed first), other aux leaves
+        kept local ("taken as replicated", the first local rank's), all in
+        one :func:`_allreduce_flat`.  An average is the sum, then
+        ``div_(R)``, as the stacked step's.  Returns the loss."""
         R = ex.num_ranks
-        floats = [vals[0] for _t, vals in aux_pairs
+
+        def local_sum(vals):
+            return vals[0] if len(vals) == 1 else \
+                torch.stack(vals).sum(0, dtype=vals[0].dtype)
+        floats = [local_sum(vals) for _t, vals in aux_pairs
                   if vals[0].is_floating_point()]
-        summed = _allreduce_flat(ex, list(grads) + floats + [losses[0]],
+        summed = _allreduce_flat(ex, list(grads) + floats
+                                 + [local_sum(losses)],
                                  self._fusion_threshold)
         grads[:] = summed[:len(grads)]
         it = iter(summed[len(grads):-1])
@@ -2023,67 +2035,81 @@ class _CompiledTrainStep:
         return y
 
     def _scatter_group(self, ex, grads, efs, layouts):
-        """:meth:`_reduce_leaf` over a process group, one rank here, for a
-        group of leaves: this rank's reduced shard ``(m,)`` f32 of each,
-        in shard order.  Each leaf's padded flat gradient in shard order
-        is an ``(R, m)`` block; the group's blocks side by side are one
-        ``(R, M)`` buffer whose rows one reduce-scatter sums into this
-        rank's ``(M,)``, in the wire's dtype for f32 and 16-bit.
-        int8/int4: per leaf ``x = g + res`` (``res`` this rank's ``(1,
-        pad)`` residual, replaced in place) and its bf16 block absmax;
-        the group's absmax all-reduced with MAX into the shared scales,
-        the codes reduce-scattered as an integer sum (int16 partials,
-        which NCCL lacks and gloo refuses, summed as int32: the same
-        values, the acc dtype is chosen so that nothing overflows) and
-        decoded against each shard's scales.  Average multiplies by the
-        f32 1/R.  Every sum is elementwise, so grouping changes no value,
-        and at two ranks each is the stacked step's ``a + b``: the two
-        are bit for bit."""
+        """:meth:`_reduce_leaf` over a process group for a group of
+        leaves: per local rank row k (``grads[k]`` that rank's gradients
+        of the leaves), its reduced shard ``(m,)`` f32 of each leaf, in
+        shard order.  Each leaf's padded flat gradient in shard order is
+        an ``(R, m)`` block; the group's blocks side by side are one
+        ``(R, M)`` buffer whose rows the executor's reduce-scatter sums
+        (the local rows first) into each local rank's ``(M,)``, in the
+        wire's dtype for f32 and 16-bit.  int8/int4: per local rank and
+        leaf ``x = g + res`` (``res`` the leaf's ``(L, pad)`` residuals,
+        row k replaced in place) and its bf16 block absmax; the absmax
+        all-reduced with MAX into the shared scales, the codes
+        reduce-scattered as an integer sum (int16 partials, which NCCL
+        lacks and gloo refuses, summed as int32: the same values, the acc
+        dtype is chosen so that nothing overflows) and decoded against
+        each shard's scales.  Average multiplies by the f32 1/R.  Every
+        sum is elementwise, so grouping changes no value, and at two
+        ranks each is the stacked step's ``a + b``: the two are bit for
+        bit."""
         R = ex.num_ranks
-        pos = ex.local_positions[0]
+        positions = ex.local_positions
         wire = self.wire_dtype
         ms = [lay.m for lay in layouts]
         if self._quantized():
             bits = 8 if wire == "int8" else 4
             qmax = qz.quantized_qmax(bits)
             xs = []
-            for g, res, lay in zip(grads, efs, layouts):
-                x = res[0].clone()
-                x[:lay.n].add_(g.reshape(-1))
-                xs.append(x.view(-1, qz.BLOCK))
-            absmax = torch.cat([x.abs().amax(dim=1) for x in xs]) \
-                .to(torch.bfloat16)
-            shared_all = ex.reduce([absmax], ReduceOp.MAX)[0].float()
+            for k, gk in enumerate(grads):
+                row = []
+                for g, res, lay in zip(gk, efs, layouts):
+                    x = res[k].clone()
+                    x[:lay.n].add_(g.reshape(-1))
+                    row.append(x.view(-1, qz.BLOCK))
+                xs.append(row)
+            absmax = [torch.cat([x.abs().amax(dim=1) for x in row])
+                      .to(torch.bfloat16) for row in xs]
+            shared_all = ex.reduce(absmax, ReduceOp.MAX)[0].float()
             acc = qz.quantized_acc_dtype(bits, R)
             if acc == torch.int16:
                 acc = torch.int32
-            codes, safes, o = [], [], 0
-            for x, res, lay in zip(xs, efs, layouts):
-                shared = shared_all[o:o + x.shape[0]]
-                o += x.shape[0]
+            nbs = [x.shape[0] for x in xs[0]]
+            safes, code_rows = [], []
+            o = 0
+            for j, nb in enumerate(nbs):
+                shared = shared_all[o:o + nb]
+                o += nb
                 # divide by a tensor: CUDA divides by a Python number as a
                 # multiplication by its reciprocal
                 scale = (shared / shared.new_full((), float(qmax))) \
                     .to(torch.bfloat16).float()
-                safe = torch.where(scale > 0, scale, scale.new_ones(()))
-                q = torch.round(x / safe[:, None]).clamp_(-qmax, qmax)
-                res.copy_((x - q * safe[:, None]).view(1, -1))
-                codes.append(lay.shard(q.to(acc).view(-1)))
-                safes.append(lay.shard_blocks(safe, pos, qz.BLOCK))
-            y_all = ex.reduce_tiles([torch.cat(codes, dim=1).reshape(-1)],
-                                    ReduceOp.SUM, sum(ms))[0].float()
-            out = [(y.view(-1, qz.BLOCK) * s[:, None]).view(-1)
-                   for y, s in zip(y_all.split(ms), safes)]
+                safes.append(torch.where(scale > 0, scale,
+                                         scale.new_ones(())))
+            for k, row in enumerate(xs):
+                codes = []
+                for x, res, lay, safe in zip(row, efs, layouts, safes):
+                    q = torch.round(x / safe[:, None]).clamp_(-qmax, qmax)
+                    res[k].copy_((x - q * safe[:, None]).view(-1))
+                    codes.append(lay.shard(q.to(acc).view(-1)))
+                code_rows.append(torch.cat(codes, dim=1).reshape(-1))
+            tiles = ex.reduce_tiles(code_rows, ReduceOp.SUM, sum(ms))
+            out = [[(y.view(-1, qz.BLOCK)
+                     * lay.shard_blocks(safe, pos, qz.BLOCK)[:, None])
+                    .view(-1)
+                    for y, lay, safe in zip(tile.float().split(ms),
+                                            layouts, safes)]
+                   for tile, pos in zip(tiles, positions)]
         else:
             wdt = qz.WIRE_TORCH_DTYPES[wire] if wire in ("bf16", "fp16") \
                 else torch.float32
-            x = torch.cat([lay.shard(lay.padded(g.reshape(-1).to(wdt)))
-                           for g, lay in zip(grads, layouts)], dim=1)
-            y_all = ex.reduce_tiles([x.reshape(-1)], ReduceOp.SUM,
-                                    sum(ms))[0].float()
-            out = list(y_all.split(ms))
+            rows = [torch.cat([lay.shard(lay.padded(g.reshape(-1).to(wdt)))
+                               for g, lay in zip(gk, layouts)],
+                              dim=1).reshape(-1) for gk in grads]
+            tiles = ex.reduce_tiles(rows, ReduceOp.SUM, sum(ms))
+            out = [list(tile.float().split(ms)) for tile in tiles]
         if self.op == Average:
-            out = [y * (1.0 / R) for y in out]
+            out = [[y * (1.0 / R) for y in row] for row in out]
         return out
 
     def _build_sharded(self, ex):
@@ -2138,19 +2164,24 @@ class _CompiledTrainStep:
 
     def _build_sharded_group(self, ex):
         """The sharded step over a process group, JAX ``_build_sharded``
-        in its one-device-per-rank form: this process holds its rank's
-        shard only.  Per group of leaves (:func:`_fusion_groups` of the
-        parameters) :meth:`_scatter_group` reduces its shards of the
-        gradients, this rank's optimizer steps its shards, and per group
-        one allgather brings every rank's shards back into the
-        replicated parameters in natural order."""
+        in its one-device-per-rank form: this process holds its ranks'
+        shards only (one, or its rank threads' run).  Per group of leaves
+        (:func:`_fusion_groups` of the parameters) :meth:`_scatter_group`
+        reduces the local ranks' shards of the gradients, each local
+        rank's optimizer steps its shards, and per group one allgather
+        brings every rank's shards back into the replicated parameters
+        in natural order."""
         R = ex.num_ranks
-        pos = ex.local_positions[0]
+        positions = ex.local_positions
+        lo, L = positions[0], len(positions)
 
         def prog(state, batch_rows):
-            grads = []
-            train, losses, aux_pairs = self._grads(
-                ex, state, batch_rows, lambda i, g: grads.extend(g))
+            grads = [None] * L
+
+            def take(i, g):
+                grads[i] = list(g)
+            train, losses, aux_pairs = self._grads(ex, state, batch_rows,
+                                                   take)
             loss = self._finish_group(ex, losses, aux_pairs, [])
             so = state["opt_state"]
             efs = list(state.get("grad_ef", {}).values()) \
@@ -2158,27 +2189,30 @@ class _CompiledTrainStep:
             layouts = [self._layout(p.numel(), R, p.device) for p in train]
             groups = _fusion_groups(train, self._fusion_threshold)
             with torch.no_grad():
-                shard_grads = [None] * len(train)
+                shard_grads = [[None] * len(train) for _ in range(L)]
                 for grp in groups:
                     ys = self._scatter_group(
-                        ex, [grads[i] for i in grp], [efs[i] for i in grp],
-                        [layouts[i] for i in grp])
-                    for i, y in zip(grp, ys):
-                        shard_grads[i] = y.to(train[i].dtype)
+                        ex, [[gk[i] for i in grp] for gk in grads],
+                        [efs[i] for i in grp], [layouts[i] for i in grp])
+                    for k, row in enumerate(ys):
+                        for i, y in zip(grp, row):
+                            shard_grads[k][i] = y.to(train[i].dtype)
                 for p, buf, lay in zip(train, so.shards, layouts):
-                    # this step's shard of the replicated params
+                    # this step's shards of the replicated params
                     buf.copy_(lay.shard(lay.padded(p.detach()))
-                              [pos:pos + 1])
+                              [lo:lo + L])
                 del grads
-                shards = so.rank_params(pos)
-                for t, g in zip(shards, shard_grads):
-                    t.grad = g
-                so.optimizer(pos).step()
-                for t in shards:
-                    t.grad = None
+                for k, pos in enumerate(positions):
+                    shards = so.rank_params(pos)
+                    for t, g in zip(shards, shard_grads[k]):
+                        t.grad = g
+                    so.optimizer(pos).step()
+                    for t in shards:
+                        t.grad = None
                 for grp in groups:
                     full = ex.gather_tiles(
-                        [torch.cat([so.shards[i][0] for i in grp])])
+                        [torch.cat([so.shards[i][k] for i in grp])
+                         for k in range(L)])
                     cols = full.split([layouts[i].m for i in grp], dim=1)
                     for i, c in zip(grp, cols):
                         lay = layouts[i]
@@ -2267,9 +2301,9 @@ class _CompiledTrainStep:
         one optimizer over that rank's flat shards, its state built as
         tensors now), and under an int8/int4 wire ``grad_ef``, per trained
         parameter a zero ``(R, pad)`` f32 error-feedback residual whose
-        row r is rank r's.  Over a process group (one rank a process) the
-        sharded state holds this rank's shard only: one optimizer, and a
-        ``(1, pad)`` residual."""
+        row r is rank r's.  Over a process group the sharded state holds
+        this process's ranks' shards only: one optimizer and one residual
+        row per local rank thread."""
         eng, ps = _ps_state(self.process_set)
         dev = eng.device
         params = {k: _param_leaf(v, dev) for k, v in params.items()}

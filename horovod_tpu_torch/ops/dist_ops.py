@@ -1,21 +1,30 @@
 """Collective executor over ``torch.distributed`` (port of
 ``horovod_tpu/ops/xla_ops.py::MeshExecutor``).
 
-Two modes, as the reference has (``xla_ops.py:94-107``):
+Three layouts, as the reference has (``xla_ops.py:94-107``):
 
 * **stacked** (``group=None``): every rank of the set lives in this
   process on one device (rank threads sharing a card, or the CPU).  The
   per-rank rows are stacked and reduced with plain tensor ops, as the
   JAX package's ``reduce_stacked`` does outside any kernel.
-* **process group**: one rank per process (or per thread, in the CPU
-  tests) over a ``torch.distributed`` ``ProcessGroup`` -- NCCL for CUDA
-  tensors, gloo for CPU ones, or gloo for CUDA tensors when the job asks
-  for it (``HOROVOD_GPU_OPERATIONS=gloo``: two processes on one card).
-  The executor calls the group object's own collectives, so a group
-  built directly (``ProcessGroupGloo(store, rank, size)``) works as well
-  as the default one.  Gloo takes CUDA tensors for every collective the
+* **process group, one rank a process**: a ``torch.distributed``
+  ``ProcessGroup`` -- NCCL for CUDA tensors, gloo for CPU ones, or gloo
+  for CUDA tensors when the job asks for it
+  (``HOROVOD_GPU_OPERATIONS=gloo``: two processes on one card).  The
+  executor calls the group object's own collectives, so a group built
+  directly (``ProcessGroupGloo(store, rank, size)``) works as well as the
+  default one.  Gloo takes CUDA tensors for every collective the
   executor calls (:data:`GLOO_CUDA_COLLECTIVES`), copying them through
   host memory itself.
+* **hybrid** (a group and ``proc_positions``): each process of the group
+  hosts a contiguous run of the set's positions as rank threads.  The
+  local rows are stacked inside the process first, then one group
+  collective runs across the processes, over gloo and NCCL alike.  The
+  global rank order is kept: the processes' runs follow the group's
+  rank order.  A float sum is then ``(r0 + r1) + (r2 + r3)`` at 2 x 2
+  where the stacked executor sums the four rows in one reduction, so
+  the two agree to rounding, and exactly on integers and on values whose
+  sums are exact in the dtype.
 
 Row convention: every method takes ``rows``, one flat tensor per rank
 this process hosts (ordered by global rank), and returns one result
@@ -82,14 +91,29 @@ def int_postscale(y, op, num_ranks, postscale):
     return (y.to(torch.float64) * postscale).to(y.dtype)
 
 
+def _stack_reduce(x, op):
+    """Reduction of a stacked ``x`` over its first dimension."""
+    if op == ReduceOp.SUM:
+        # dtype pinned: torch.sum promotes small ints to int64
+        return x.sum(0, dtype=x.dtype)
+    if op == ReduceOp.MIN:
+        return x.amin(0)
+    if op == ReduceOp.MAX:
+        return x.amax(0)
+    return x.prod(0, dtype=x.dtype)
+
+
 class MeshExecutor:
     """Executes collectives for one process set.
 
-    ``device``: where the rows live.  ``group``: a ``ProcessGroup`` of
-    ``num_ranks`` ranks in which this process hosts one rank, or None
-    for stacked mode (this process hosts all ``num_ranks`` ranks)."""
+    ``device``: where the rows live.  ``group``: a ``ProcessGroup`` over
+    the processes hosting the set's ``num_ranks`` ranks, or None for
+    stacked mode (this process hosts all of them).  ``proc_positions``:
+    per group rank, the set positions that process hosts, a contiguous
+    ascending run each (default: one position a process, the group
+    rank's own)."""
 
-    def __init__(self, device, num_ranks, group=None):
+    def __init__(self, device, num_ranks, group=None, proc_positions=None):
         self.device = torch.device(device)
         self.num_ranks = num_ranks
         self.group = group
@@ -98,12 +122,24 @@ class MeshExecutor:
         #: the collectives issued (a captured graph's replays issue none)
         self.collective_seconds = 0.0
         self.collectives = 0
-        if group is not None and group.size() != num_ranks:
+        if group is None:
+            self.proc_positions = [list(range(num_ranks))]
+            self.local_positions = list(range(num_ranks))
+            return
+        if proc_positions is None:
+            proc_positions = [[g] for g in range(group.size())]
+        self.proc_positions = [list(p) for p in proc_positions]
+        flat = [q for p in self.proc_positions for q in p]
+        if group.size() != len(self.proc_positions) \
+                or flat != list(range(num_ranks)) \
+                or any(not p for p in self.proc_positions):
             raise ValueError(
-                f"process group has {group.size()} ranks, executor "
-                f"expects {num_ranks}")
-        self.local_positions = [group.rank()] if group is not None \
-            else list(range(num_ranks))
+                f"process group of {group.size()} processes cannot host "
+                f"positions {self.proc_positions} of a set of {num_ranks} "
+                f"ranks (a contiguous ascending run a process, in group "
+                f"rank order)")
+        self.local_positions = self.proc_positions[group.rank()]
+        self._counts = [len(p) for p in self.proc_positions]
 
     @property
     def stacked(self):
@@ -119,30 +155,51 @@ class MeshExecutor:
             self.collective_seconds += time.perf_counter() - t0
             self.collectives += 1
 
+    def _gather_local(self, local):
+        """Every position's row, in position order, as one ``(R, ...)``
+        tensor: the processes' stacked local rows ``local`` (``(L,
+        ...)``) allgathered over the group.  Uneven runs are padded to
+        the longest for the gather and cut back after it."""
+        G, L = len(self._counts), max(self._counts)
+        rest = tuple(local.shape[1:])
+        if local.shape[0] < L:
+            local = torch.cat([local, local.new_zeros(
+                (L - local.shape[0],) + rest)])
+        out = torch.empty((G, L) + rest, dtype=local.dtype,
+                          device=local.device)
+        self._collective(lambda: self.group.allgather(
+            [list(out.unbind(0))], [local]))
+        if min(self._counts) == L:
+            return out.view((G * L,) + rest)
+        return torch.cat([out[g, :n] for g, n in enumerate(self._counts)])
+
     # -- the reduction itself ------------------------------------------------
 
     def reduce(self, rows, op: ReduceOp):
-        """Unscaled reduction of the rows.  Stacked mode returns ONE
-        tensor shared by every local rank (callers copy out of it);
-        process-group mode reduces the row in place and returns it."""
+        """Unscaled reduction of the rows.  Returns ONE tensor shared by
+        every local rank (callers copy out of it): stacked mode reduces
+        the stacked rows; over a process group the local rows are reduced
+        in the process first (a single row is reduced in place), then
+        across the processes."""
         if op not in _DIST_OPS:
             raise ValueError(f"unsupported reduce op {op!r}")
         if self.stacked:
-            x = torch.stack(rows)
-            if op == ReduceOp.SUM:
-                # dtype pinned: torch.sum promotes small ints to int64
-                y = x.sum(0, dtype=x.dtype)
-            elif op == ReduceOp.MIN:
-                y = x.amin(0)
-            elif op == ReduceOp.MAX:
-                y = x.amax(0)
-            else:
-                y = x.prod(0, dtype=x.dtype)
-            return [y] * len(rows)
+            return [_stack_reduce(torch.stack(rows), op)] * len(rows)
+        y = rows[0] if len(rows) == 1 else \
+            _stack_reduce(torch.stack(rows), op)
+        self.reduce_across(y, op)
+        return [y] * len(rows)
+
+    def reduce_across(self, t, op=ReduceOp.SUM):
+        """Reduce one process-level tensor ``t`` in place across the
+        group's processes (the compiled step's flat buffers, which sum
+        the local ranks first); the identity when stacked."""
+        if self.stacked:
+            return t
         opts = dist.AllreduceOptions()
         opts.reduceOp = _DIST_OPS[op]
-        self._collective(lambda: self.group.allreduce([rows[0]], opts))
-        return [rows[0]]
+        self._collective(lambda: self.group.allreduce([t], opts))
+        return t
 
     # -- allreduce -----------------------------------------------------------
 
@@ -225,40 +282,38 @@ class MeshExecutor:
         """Unscaled reducescatter of rows laid out as R tiles of ``m``:
         per local rank position ``pos``, the reduction over ranks of
         tile ``pos``.  Stacked mode reduces every tile at once (the
-        results are views of one tensor); process-group mode runs the
-        group's ``reduce_scatter`` (NCCL's on the card; gloo has it for
-        every op and dtype on the CPU) into a new tile."""
+        results are views of one tensor).  Over a process group the local
+        rows are reduced in the process, then the group's
+        ``reduce_scatter`` (NCCL's on the card; gloo has it for every op
+        and dtype on the CPU) hands each process its run of tiles; with
+        uneven runs an allreduce of every tile does, and each process
+        keeps its own."""
         R = self.num_ranks
         if self.stacked:
-            x = torch.stack(rows).view(R, R, m)
-            if op == ReduceOp.SUM:
-                y = x.sum(0, dtype=x.dtype)
-            elif op == ReduceOp.MIN:
-                y = x.amin(0)
-            elif op == ReduceOp.MAX:
-                y = x.amax(0)
-            else:
-                y = x.prod(0, dtype=x.dtype)
+            y = _stack_reduce(torch.stack(rows).view(R, R, m), op)
             return [y[pos] for pos in self.local_positions]
-        out = torch.empty(m, dtype=rows[0].dtype, device=rows[0].device)
+        x = rows[0] if len(rows) == 1 else \
+            _stack_reduce(torch.stack(rows), op)
+        L = len(self.local_positions)
+        if min(self._counts) != max(self._counts):
+            self.reduce_across(x, op)
+            return [x.view(R, m)[pos] for pos in self.local_positions]
+        G = len(self._counts)
+        out = torch.empty(L * m, dtype=x.dtype, device=x.device)
         opts = dist.ReduceScatterOptions()
         opts.reduceOp = _DIST_OPS[op]
         self._collective(lambda: self.group.reduce_scatter(
-            [out], [list(rows[0].view(R, m).unbind(0))], opts))
-        return [out]
+            [out], [list(x.view(G, L * m).unbind(0))], opts))
+        return list(out.view(L, m).unbind(0))
 
     def gather_tiles(self, rows):
         """Every rank's tile ``rows[i]`` (one flat tensor of ``m``
         elements per local rank) as one ``(R, m)`` tensor, rank order:
-        the stacked rows, or the group's ``allgather`` into the rows of a
-        new tensor."""
+        the stacked rows, or the group's ``allgather`` of each process's
+        stacked rows into the rows of a new tensor."""
         if self.stacked:
             return torch.stack(rows)
-        out = torch.empty((self.num_ranks,) + tuple(rows[0].shape),
-                          dtype=rows[0].dtype, device=rows[0].device)
-        self._collective(lambda: self.group.allgather(
-            [list(out.unbind(0))], [rows[0]]))
-        return out
+        return self._gather_local(torch.stack(rows))
 
     def reducescatter(self, rows, d0, rest_shape, op: ReduceOp,
                       prescale=1.0, postscale=1.0):
@@ -339,12 +394,10 @@ class MeshExecutor:
         gathers, where gloo refuses int16 and NCCL has none)."""
         if self.stacked:
             return q_rows, s_rows
-        R = self.num_ranks
-        qs = [torch.empty_like(q_rows[0]) for _ in range(R)]
-        self._collective(lambda: self.group.allgather([qs], [q_rows[0]]))
-        sb = s_rows[0].to(torch.bfloat16).view(torch.uint8)
-        sbs = [torch.empty_like(sb) for _ in range(R)]
-        self._collective(lambda: self.group.allgather([sbs], [sb]))
+        qs = list(self._gather_local(torch.stack(q_rows)).unbind(0))
+        sb = torch.stack([s.to(torch.bfloat16).view(torch.uint8)
+                          for s in s_rows])
+        sbs = self._gather_local(sb).unbind(0)
         return qs, [b.view(torch.bfloat16).float() for b in sbs]
 
     # -- allgather -----------------------------------------------------------
@@ -361,12 +414,8 @@ class MeshExecutor:
         if max(dim0_sizes, default=0) == 0 or rest == 0:
             return [torch.zeros(shape, dtype=rows[0].dtype,
                                 device=self.device) for _ in rows]
-        if self.stacked:
-            parts = rows
-        else:
-            parts = [torch.empty_like(rows[0]) for _ in range(self.num_ranks)]
-            self._collective(
-                lambda: self.group.allgather([parts], [rows[0]]))
+        parts = rows if self.stacked else \
+            self._gather_local(torch.stack(rows)).unbind(0)
         out = torch.cat([parts[r][: dim0_sizes[r] * rest]
                          for r in range(self.num_ranks)]).view(shape)
         return [out] + [out.clone() for _ in rows[1:]]
@@ -385,7 +434,8 @@ class MeshExecutor:
         (xla_ops.py:658 pads every segment to the largest one for one
         static exchange; the values delivered are the same).  Process-group
         mode is the group's ``alltoall_base`` (``all_to_all_single``) with
-        the exact split sizes."""
+        the exact split sizes, each process's local sources' segments
+        sent together."""
         R = self.num_ranks
         rest = math.prod(int(d) for d in rest_shape)
         recv = [[int(splits[j][r]) for j in range(R)] for r in range(R)]
@@ -408,14 +458,47 @@ class MeshExecutor:
                     torch.zeros(0, dtype=dtype, device=self.device)
                 out.append(y.view((-1,) + tuple(rest_shape)))
             return out, recv_local
-        pos = self.local_positions[0]
-        send = rows[0].reshape(-1)
-        out = torch.empty(sum(recv[pos]) * rest, dtype=dtype,
-                          device=send.device)
+        return self._alltoall_across(rows, splits, rest, rest_shape,
+                                     dtype), recv_local
+
+    def _alltoall_across(self, rows, splits, rest, rest_shape, dtype):
+        """The exchange over the process group, one rank thread a
+        process or several: one ``alltoall_base`` between the processes.
+        To each process this one sends, for each of its destination
+        positions in order, the segment from each local source in order;
+        each destination's received segments are then its sources' in
+        position order."""
+        mine = self.local_positions
+        R = self.num_ranks
+        starts = [[sum(int(v) for v in splits[s][:d]) * rest
+                   for d in range(R)] for s in range(R)]
+        flat = [r.reshape(-1) for r in rows]
+        parts, send_counts = [], []
+        for dests in self.proc_positions:
+            n_h = 0
+            for d in dests:
+                for i, s in enumerate(mine):
+                    n = int(splits[s][d]) * rest
+                    parts.append(flat[i][starts[s][d]:starts[s][d] + n])
+                    n_h += n
+            send_counts.append(n_h)
+        recv_counts = [sum(int(splits[s][d]) * rest for d in mine
+                           for s in srcs) for srcs in self.proc_positions]
+        send = torch.cat(parts) if parts else \
+            torch.zeros(0, dtype=dtype, device=self.device)
+        out = torch.empty(sum(recv_counts), dtype=dtype, device=self.device)
         self._collective(lambda: self.group.alltoall_base(
-            out, send, [n * rest for n in recv[pos]],
-            [int(s) * rest for s in splits[pos]], dist.AllToAllOptions()))
-        return [out.view((-1,) + tuple(rest_shape))], recv_local
+            out, send, recv_counts, send_counts, dist.AllToAllOptions()))
+        per_dest = {d: [] for d in mine}
+        off = 0
+        for srcs in self.proc_positions:
+            for d in mine:
+                for s in srcs:
+                    n = int(splits[s][d]) * rest
+                    per_dest[d].append(out[off:off + n])
+                    off += n
+        return [torch.cat(per_dest[d]).view((-1,) + tuple(rest_shape))
+                for d in mine]
 
     def alltoall_codes(self, q_rows, s_rows):
         """Equal-slot exchange of a quantized wire (engine.py:2786-2789):
@@ -440,9 +523,18 @@ class MeshExecutor:
     # -- broadcast -----------------------------------------------------------
 
     def broadcast(self, rows, root_pos):
+        """Every local rank's copy of the root position's row, each in
+        memory of its own: the rows given are never written or returned
+        (a non-in-place ``hvd.broadcast`` hands the caller's own tensor
+        in as a row)."""
         if self.stacked:
             return [rows[root_pos].clone() for _ in rows]
+        mine = self.local_positions
+        root_proc = next(g for g, p in enumerate(self.proc_positions)
+                         if root_pos in p)
+        buf = rows[mine.index(root_pos)].clone() if root_pos in mine \
+            else torch.empty_like(rows[0])
         opts = dist.BroadcastOptions()
-        opts.rootRank = int(root_pos)
-        self._collective(lambda: self.group.broadcast([rows[0]], opts))
-        return [rows[0]]
+        opts.rootRank = int(root_proc)
+        self._collective(lambda: self.group.broadcast([buf], opts))
+        return [buf] + [buf.clone() for _ in rows[1:]]

@@ -19,6 +19,7 @@ middleware are ROADMAP.md A17.
 """
 
 import base64
+import collections
 import hashlib
 import hmac
 import http.client
@@ -54,6 +55,9 @@ class StoreClient:
         self.secret = secret
         self.timeout = timeout
         self._tls = threading.local()
+        #: coordinator requests sent, per verb (each logical request once,
+        #: retries not counted): what a step costs the control plane
+        self.coord_requests = collections.Counter()
 
     # -- connection management ----------------------------------------------
 
@@ -184,6 +188,7 @@ class StoreClient:
     def coord(self, verb: str, payload: dict, timeout: float = None,
               budget=None):
         body = json.dumps(payload).encode()
+        self.coord_requests[verb] += 1
         status, data = self._request(
             "POST", f"/coord/{verb}", body, timeout=timeout,
             # ready/join are rid/jid-deduplicated server-side and

@@ -16,10 +16,15 @@ process issues the same collectives in the same order, as one
 Requests are HMAC-signed with the job secret (reference
 runner/common/util/network.py:56).
 
+The steady-state negotiation bypass's coordinator side is here: the
+``bypass_ready`` vote, the ``bypass_arm`` record once every process
+voted one fingerprint, and the disarm when a worker reports entries or
+joins again (core/bypass.py).
+
 Not ported (ROADMAP.md): the aggregator tier's verbs, journal restore
-and compaction, coordinator-side chaos and the ``/metrics`` and
-``/timeline`` endpoints (A17); the negotiation bypass (A23); the
-coordinator-side autotuner (A14).
+and compaction (with it the replay of a ``bypass_arm`` record after a
+restart), coordinator-side chaos and the ``/metrics`` and ``/timeline``
+endpoints (A17); the coordinator-side autotuner (A14).
 """
 
 import hashlib
@@ -267,6 +272,12 @@ class Coordinator:
         # starters are never false-positived.  0 disables.
         self.heartbeat_secs = heartbeat_secs
         self.heartbeat_window = heartbeat_window
+        # steady-state negotiation bypass (core/bypass.py): per-proc
+        # cycle-fingerprint votes; when every proc votes the same
+        # fingerprint a ``bypass_arm`` record rides the response log, the
+        # instant all workers switch to the coordinator-free fast path
+        self._bypass_votes = {}
+        self._bypass_armed_fp = None
         self._lock = threading.Condition()
         # key -> {proc_id -> meta}
         self._pending: "OrderedDict[str, dict]" = OrderedDict()
@@ -329,6 +340,8 @@ class Coordinator:
             return self._on_join(req)
         if verb == "heartbeat":
             return self._on_heartbeat(req)
+        if verb == "bypass_ready":
+            return self._on_bypass_ready(req)
         raise ValueError(f"unknown coordinator verb {verb}")
 
     # -- worker liveness ----------------------------------------------------
@@ -348,7 +361,10 @@ class Coordinator:
         with self._lock:
             out = self._apply_heartbeat_locked(req)
             # beats are a liveness-scan clock too (AFTER recording
-            # this beat — the caller is alive by definition)
+            # this beat — the caller is alive by definition): while
+            # every worker is armed on the negotiation bypass nobody
+            # polls, and a poll-clocked scan alone would never declare a
+            # hung bypassed worker dead
             self._scan_heartbeats()
         return out
 
@@ -442,6 +458,54 @@ class Coordinator:
                         f"(missed heartbeats); {key} cannot complete")})
                 break
 
+    # -- steady-state negotiation bypass ---------------------------------------
+
+    def _on_bypass_ready(self, req):
+        """One worker's vote that its negotiated response list has been
+        stable (one fingerprint) for K cycles.  When EVERY proc has voted
+        the same fingerprint, a ``bypass_arm`` record rides the response
+        log: consumed in log order, it is the instant all workers switch
+        to the coordinator-free fast path (core/bypass.py).  Idempotent
+        per (proc, fp): a replayed vote re-writes the same slot, and an
+        armed coordinator never re-arms the same fingerprint."""
+        proc = req.get("proc")
+        fp = req.get("fp")
+        if proc is None or not fp:
+            return {}
+        with self._lock:
+            self._check_session(proc, req.get("sid"))
+            if self._bypass_armed_fp == fp:
+                return {"armed": True}
+            self._bypass_votes[proc] = fp
+            world = max(self.world_size, 1)
+            if len(self._bypass_votes) >= world and \
+                    len(set(self._bypass_votes.values())) == 1:
+                self._bypass_armed_fp = fp
+                self._bypass_votes = {}
+                # entries reported in the race window right before the arm
+                # are dropped: every proc runs them through the bypass
+                # (they ARE the armed list), and a batch scheduled after
+                # the arm record would be consumed by fast pollers only.
+                # Entries the list cannot cover are re-reported by the
+                # unanimous fallback.
+                for key in list(self._pending):
+                    del self._pending[key]
+                    self._pending_since.pop(key, None)
+                    self._stall_warned_keys.discard(key)
+                logger.info(
+                    "steady-state negotiation bypass armed "
+                    "(fingerprint %s..., %d procs)", fp[:12], world)
+                self._log_append({"kind": "bypass_arm", "fp": fp})
+                self._lock.notify_all()
+                return {"armed": True}
+        return {}
+
+    def _disarm_bypass_locked(self):
+        if self._bypass_armed_fp is not None:
+            logger.info("steady-state negotiation bypass disarmed")
+        self._bypass_armed_fp = None
+        self._bypass_votes.clear()
+
     # -- negotiation ----------------------------------------------------------
 
     def _check_session(self, proc, sid):
@@ -522,6 +586,11 @@ class Coordinator:
             if rid < last:
                 return {}
             self._ready_seen[proc] = rid
+        if req.get("entries"):
+            # a worker reporting entries has left the bypass fast path
+            # (the agreement vote made the exit unanimous): disarm, so a
+            # fresh stable phase must vote again
+            self._disarm_bypass_locked()
         for meta in req["entries"]:
             key = meta["key"]
             if "c" in meta:
@@ -613,6 +682,7 @@ class Coordinator:
                     "jid": req.get("jid"),
                     "proc_members": req.get("proc_members", 1),
                     "ps_size": req.get("ps_size", self.world_size)}})
+            self._disarm_bypass_locked()
             self._advance()
             self._lock.notify_all()
         return {}

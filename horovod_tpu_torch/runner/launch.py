@@ -4,14 +4,14 @@ run_commandline :830, _run :806).
 
     python -m horovod_tpu_torch.runner.launch -np 2 [--cpu] -- python train.py
 
-A static job spawns one worker process per rank with the full
+A static job spawns one worker process per ``--ranks-per-worker`` ranks
+(or per host entry with ``--ranks-per-worker host``) with the full
 ``HOROVOD_*`` env handoff (proc_run.py).  The parser is the JAX
 package's, flag for flag; the flags of features the port has not ported
 yet are refused with the ROADMAP.md item that ports them (elastic,
 fleet, chaos, tracing, telemetry and the aggregator tier: A17;
 autotune: A14; the 2-D algorithms and per-hop wires: A8; pipelining:
-A15; serving: A16; the negotiation bypass: A23; rank threads across
-processes: A24).
+A15; serving: A16).
 """
 
 import argparse
@@ -46,7 +46,6 @@ _UNPORTED_FLAGS = (
     ("serve_max_latency_ms", "A16"), ("serve_batch_buckets", "A16"),
     ("serve_slo_p99_ms", "A16"), ("serve_queue_high", "A16"),
     ("serve_autoscale_seconds", "A16"), ("serve_drain_seconds", "A16"),
-    ("bypass_after_cycles", "A23"), ("bypass_wait_seconds", "A23"),
 )
 
 
@@ -65,9 +64,10 @@ def parse_args(argv=None):
     parser.add_argument("--ranks-per-worker", default=1,
                         dest="ranks_per_proc",
                         type=lambda s: s if s == "host" else int(s),
-                        help="Rank threads per worker process; the "
-                             "port runs one (more, and 'host', are "
-                             "ROADMAP.md A24).")
+                        help="Rank threads per worker process, or "
+                             "'host': one process per -H entry holding "
+                             "that entry's slots (the reference's "
+                             "heterogeneous h1:4,h2:2 layout).")
     parser.add_argument("--cpu", action="store_true",
                         help="Run the workers on the CPU (gloo).")
     parser.add_argument("--gloo", action="store_true",
@@ -362,19 +362,15 @@ def parse_args(argv=None):
 def unported_flags(args):
     """``[(flag, ROADMAP.md item)]`` of the parsed flags whose features
     the port has not ported (a flag counts when it is set: not None,
-    False or an empty list).  ``--allreduce-algorithm flat`` and
-    ``--bypass-after-cycles 0`` ask for what the port does anyway."""
+    False or an empty list).  ``--allreduce-algorithm flat`` asks for
+    what the port does anyway."""
     out = []
     for attr, item in _UNPORTED_FLAGS:
         value = getattr(args, attr, None)
         if attr == "allreduce_algorithm" and value == "flat":
             continue
-        if attr == "bypass_after_cycles" and value == 0:
-            continue
         if value not in (None, False, []):
             out.append(("--" + attr.replace("_", "-"), item))
-    if args.ranks_per_proc != 1:
-        out.append(("--ranks-per-worker", "A24"))
     return out
 
 
@@ -400,7 +396,8 @@ def _run_static(args):
     mb = 64 if args.fusion_threshold_mb is None else args.fusion_threshold_mb
     fusion = int(mb * 1024 * 1024)
     codes = launch_procs(
-        args.command, np=args.np, hosts=args.hosts, env=env,
+        args.command, np=args.np, hosts=args.hosts,
+        ranks_per_proc=args.ranks_per_proc, env=env,
         platform="cpu" if args.cpu else None,
         verbose=args.verbose, fusion_threshold_bytes=fusion,
         start_timeout=args.start_timeout,

@@ -10,8 +10,10 @@ processes get their rank, topology and the service's address through
 ``torch.distributed`` store at ``HOROVOD_TPU_COORDINATOR``, where every
 process's ``init_process_group`` meets (basics.init).
 
-One rank per process: rank threads across processes (the JAX package's
-``ranks_per_proc > 1`` and ``"host"`` layouts) are ROADMAP.md A24.
+A worker process hosts ``ranks_per_proc`` ranks as threads (the JAX
+package's pod shape), or with ``ranks_per_proc="host"`` one process per
+host entry holds that entry's slots.  Workers are spawned on this host
+only: remote hosts are ROADMAP.md A25.
 """
 
 import functools
@@ -98,12 +100,15 @@ def host_of_rank_env(slots) -> str:
 
 def slot_env(slot: SlotInfo, *, rdv_addr, rdv_port, coordinator,
              secret_hex, num_procs, ranks_per_proc=1, platform=None,
-             host_of_rank=None):
+             host_of_rank=None, ranks_of_proc=None):
     """Env handoff for one worker (reference gloo_run.py:66-103): the
     JAX package's keys, but for its platform keys (``JAX_PLATFORMS``,
     ``JAX_NUM_CPU_DEVICES``) the port's device and backend:
     ``HOROVOD_CPU_OPERATIONS=gloo``, and ``HOROVOD_TORCH_PLATFORM=cpu``
-    under ``platform="cpu"`` (the launcher's ``--cpu``)."""
+    under ``platform="cpu"`` (the launcher's ``--cpu``).
+    ``ranks_of_proc``: per-process rank-thread counts of a heterogeneous
+    ``host:slots`` job, handed over as ``HOROVOD_TPU_RANKS_OF_PROC`` so
+    every worker builds the same rank-to-process table."""
     env = {
         "HOROVOD_RANK": str(slot.rank),
         "HOROVOD_SIZE": str(slot.size),
@@ -124,6 +129,9 @@ def slot_env(slot: SlotInfo, *, rdv_addr, rdv_port, coordinator,
     }
     if host_of_rank:
         env["HOROVOD_TPU_HOST_OF_RANK"] = host_of_rank
+    if ranks_of_proc:
+        env["HOROVOD_TPU_RANKS_OF_PROC"] = ",".join(
+            str(n) for n in ranks_of_proc)
     if platform == "cpu":
         env["HOROVOD_TORCH_PLATFORM"] = "cpu"
     return env
@@ -201,37 +209,69 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
                  start_timeout: float = None,
                  output_filename: str = None,
                  stop_on_failure: bool = True):
-    """Launch ``command`` once per slot, one rank per process, with the
-    full env handoff; blocks until all workers exit and returns their
-    exit codes.  ``start_timeout`` bounds the whole job: past it every
-    worker is stopped and ``TimeoutError`` raised.
+    """Launch ``command`` once per slot with the full env handoff;
+    blocks until all workers exit and returns their exit codes.
+    ``start_timeout`` bounds the whole job: past it every worker is
+    stopped and ``TimeoutError`` raised.
 
-    ``output_filename``: directory for per-rank output capture, worker
+    ``ranks_per_proc``: rank threads per worker process, an int (every
+    process the same; ``np`` must divide by it), or ``"host"`` for the
+    reference's heterogeneous ``-H h1:4,h2:2`` layout (gloo_run.py:66-103
+    host allocation): one process per host entry, holding that entry's
+    slots as rank threads, filled in order until ``np`` ranks are placed
+    (proc_run.py:240-330 of the JAX package).
+
+    ``output_filename``: directory for per-process output capture, worker
     stdout/stderr in ``<dir>/rank.<NNN>/{stdout,stderr}`` (reference
     ``horovodrun --output-filename``, launch.py:332).
 
-    Only local spawning is wired (subprocess); a remote host raises (the
-    ssh command :func:`ssh_command` builds is what the reference's
-    exec_command runs)."""
-    if ranks_per_proc != 1:
-        raise NotImplementedError(
-            f"ranks_per_proc={ranks_per_proc!r}: rank threads across "
-            f"processes (the hybrid layout) are not ported yet "
-            f"(ROADMAP.md A24)")
+    Only local spawning is wired (subprocess); a remote host raises
+    (ROADMAP.md A25; the ssh command :func:`ssh_command` builds is what
+    the reference's exec_command runs)."""
     hosts = hosts or f"localhost:{np}"
     host_infos = parse_hosts(hosts)
     remote = [h.hostname for h in host_infos if not is_local(h.hostname)]
     if remote:
         raise NotImplementedError(
             f"remote hosts {remote}: the launcher spawns local workers "
-            f"only")
-    slots = get_host_assignments(host_infos, np)
+            f"only; workers on remote hosts are not ported yet "
+            f"(ROADMAP.md A25)")
+    ranks_of_proc = None
+    if ranks_per_proc == "host":
+        # host entry i => process i with slots_i ranks, filled in order
+        # until np ranks are placed
+        ranks_of_proc, left = [], np
+        for h in host_infos:
+            if left <= 0:
+                break
+            take = min(h.slots, left)
+            ranks_of_proc.append(take)
+            left -= take
+        if left > 0:
+            raise ValueError(
+                f"requested np={np} exceeds the "
+                f"{sum(h.slots for h in host_infos)} slots in -H {hosts}")
+        num_procs = len(ranks_of_proc)
+        slots = [SlotInfo(hostname=host_infos[i].hostname, rank=i,
+                          local_rank=0, local_size=1, cross_rank=i,
+                          cross_size=num_procs, size=num_procs)
+                 for i in range(num_procs)]
+    else:
+        ranks_per_proc = int(ranks_per_proc)
+        if ranks_per_proc < 1 or np % ranks_per_proc != 0:
+            raise ValueError(
+                f"np={np} is not divisible by "
+                f"ranks_per_proc={ranks_per_proc}; for unequal hosts pass "
+                f"ranks_per_proc='host' (-H h1:2,h2:1 -> one process per "
+                f"host holding that many ranks)")
+        num_procs = np // ranks_per_proc
+        slots = get_host_assignments(host_infos, num_procs)
 
     secret_hex = _secrets.token_hex(16)
     launcher_env = dict(os.environ)
     launcher_env.update(env or {})
     server = RendezvousServer(
-        secret=bytes.fromhex(secret_hex), world_size=np,
+        secret=bytes.fromhex(secret_hex), world_size=num_procs,
         fusion_threshold_bytes=fusion_threshold_bytes,
         **coordinator_kwargs(launcher_env))
     rdv_port = server.start()
@@ -242,14 +282,18 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
     pool = ProcessPool()
     hof = host_of_rank_env(slots)
     out_files = []
-    pad = max(3, len(str(max(np - 1, 0))))
+    pad = max(3, len(str(max(num_procs - 1, 0))))
     try:
         for slot in slots:
             child_env = dict(launcher_env)
             child_env.update(slot_env(
                 slot, rdv_addr=rdv_addr, rdv_port=rdv_port,
                 coordinator=coordinator, secret_hex=secret_hex,
-                num_procs=np, platform=platform, host_of_rank=hof))
+                num_procs=num_procs,
+                ranks_per_proc=ranks_of_proc[slot.rank] if ranks_of_proc
+                else ranks_per_proc,
+                platform=platform, host_of_rank=hof,
+                ranks_of_proc=ranks_of_proc))
             if verbose:
                 print(f"[horovodrun] rank {slot.rank} -> {command}",
                       file=sys.stderr)

@@ -6,6 +6,7 @@ programmatic ``horovod.run(func, np=...)`` for the local case."""
 import threading
 
 from ..common import basics
+from ..common import env as env_mod
 
 
 class _RankThread(threading.Thread):
@@ -28,12 +29,18 @@ class _RankThread(threading.Thread):
             basics.unbind_rank()
 
 
-def run(fn, np=1, args=(), kwargs=None, device=None, keep_alive=False):
+def run(fn, np=None, args=(), kwargs=None, device=None, keep_alive=False):
     """Run ``fn`` once per rank on ``np`` rank threads and return the
-    per-rank results.  ``device`` defaults to the card (see
-    ``basics.init``); ``keep_alive`` leaves the runtime initialized."""
+    per-rank results.  ``np`` defaults to the running engine's local
+    ranks, else to the launcher's ``HOROVOD_TPU_RANKS_PER_PROC`` (this
+    process's share of a hybrid job), else 1.  ``device`` defaults to the
+    card (see ``basics.init``); ``keep_alive`` leaves the runtime
+    initialized."""
     kwargs = kwargs or {}
     already = basics.is_initialized()
+    if np is None:
+        np = basics.engine().num_local if already else \
+            env_mod.get_int(env_mod.HOROVOD_TPU_RANKS_PER_PROC, 1) or 1
     if not already:
         basics.init(device=device, num_ranks=np)
     elif basics.engine().num_local != np:

@@ -354,3 +354,53 @@ def test_autotune_refused():
         torch_http.Coordinator(world_size=1, autotune=True)
     with pytest.raises(NotImplementedError, match="A14"):
         torch_http.coordinator_kwargs({"HOROVOD_AUTOTUNE": "1"})
+
+
+def _vote(proc, fp, **kw):
+    return {"proc": proc, "sid": f"s{proc}", "round": 0, "fp": fp, **kw}
+
+
+def test_bypass_votes_arm_and_disarm():
+    """The bypass verb through ``_same``: votes that disagree, the quorum
+    that arms (one ``bypass_arm`` record in the polled log, the pending
+    race-window entry dropped), a replayed vote, the disarm on a report
+    with entries and on a join, and votes missing their fields."""
+    def script(h):
+        h("ready", _ready(0, [_meta("g")], rid=1, sid="s0"))
+        h("ready", _ready(1, [_meta("g")], rid=1, sid="s1"))
+        h("poll", _poll(0, proc=0))
+        h("bypass_ready", _vote(0, "x"))
+        h("bypass_ready", _vote(1, "y"))
+        h("ready", _ready(0, [_meta("w")], rid=2, sid="s0"))
+        h("bypass_ready", _vote(0, "x"))
+        h("bypass_ready", _vote(1, "x"))
+        h("bypass_ready", _vote(1, "x"))
+        h("poll", _poll(0, proc=1))
+        h("ready", _ready(1, [_meta("w")], rid=2, sid="s1"))
+        h("poll", _poll(0, proc=0))
+        h("bypass_ready", _vote(0, "z"))
+        h("bypass_ready", _vote(1, "z"))
+        h("join", {"ps": 0, "rank": 0, "ps_size": 2, "proc": 0, "jid": 1,
+                   "sid": "s0"})
+        h("bypass_ready", _vote(0, "z"))
+        h("bypass_ready", {"proc": 1})
+        h("bypass_ready", {"fp": "z"})
+        h("poll", _poll(0, proc=1))
+    replies = _same(script, world_size=2, fusion_threshold_bytes=1000)
+    arms = [r for rep in replies for r in rep.get("responses", [])
+            if r.get("kind") == "bypass_arm"]
+    assert {a["fp"] for a in arms} == {"x", "z"} and arms[-1]["fp"] == "z"
+    assert replies[7] == replies[8] == {"armed": True}
+
+
+def test_bypass_votes_of_three_procs_with_a_session_change():
+    def script(h):
+        for fp in ("a", "a"):
+            for p in range(3):
+                h("bypass_ready", _vote(p, fp))
+        h("bypass_ready", _vote(2, "b", sid="new"))
+        h("ready", _ready(2, [_meta("k", nprocs=3)], rid=1, sid="new"))
+        for p in range(3):
+            h("bypass_ready", _vote(p, "c"))
+        h("poll", _poll(0, proc=0))
+    _same(script, world_size=3)

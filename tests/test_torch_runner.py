@@ -165,22 +165,56 @@ def test_gloo_run_env_helpers():
 # -- refusals -----------------------------------------------------------------
 
 @pytest.mark.parametrize("argv,item", [
-    (["-np", "2", "--ranks-per-worker", "2"], "A24"),
+    (["-np", "2", "--pipeline-stages", "2"], "A15"),
     (["-np", "2", "--min-np", "1"], "A17"),
     (["-np", "2", "--host-discovery-script", "d.sh"], "A17"),
     (["-np", "2", "--autotune"], "A14"),
     (["-np", "2", "--hierarchical-allreduce"], "A8"),
-    (["-np", "2", "--bypass-after-cycles", "3"], "A23"),
+    (["-np", "2", "--timeline-filename", "t.json"], "A17"),
     (["-np", "2", "--serve"], "A16"),
 ])
 def test_cli_refuses_unported_flags(argv, item):
+    """What the CLI still refuses; ``--ranks-per-worker`` and the bypass
+    flags are ported (``test_cli_takes_the_hybrid_and_bypass_flags``)."""
     with pytest.raises(NotImplementedError, match=item):
         torch_launch.run_commandline(argv + ["--", "python", "t.py"])
 
 
-def test_refusals_outside_the_cli():
-    with pytest.raises(NotImplementedError, match="A24"):
-        torch_proc_run.launch_procs(["true"], np=2, ranks_per_proc=2)
+def test_cli_takes_the_hybrid_and_bypass_flags():
+    """``--ranks-per-worker`` (N or host) and the bypass flags reach the
+    launcher and the workers' environment as the JAX CLI maps them."""
+    for argv in (["-np", "4", "--ranks-per-worker", "2"],
+                 ["-np", "3", "--ranks-per-worker", "host"],
+                 ["-np", "2", "--bypass-after-cycles", "3",
+                  "--bypass-wait-seconds", "2.5"]):
+        full = argv + ["--", "python", "t.py"]
+        args = torch_launch.parse_args(full)
+        assert torch_launch.unported_flags(args) == []
+        ref = jax_launch.parse_args(full)
+        assert args.ranks_per_proc == ref.ranks_per_proc
+        env, ref_env = {}, {}
+        torch_config.set_env_from_args(env, args)
+        jax_config.set_env_from_args(ref_env, ref)
+        for key in ("HOROVOD_BYPASS_AFTER_CYCLES",
+                    "HOROVOD_BYPASS_WAIT_SECONDS"):
+            assert env.get(key) == ref_env.get(key)
+    assert env["HOROVOD_BYPASS_AFTER_CYCLES"] == "3"
+
+
+def test_refusals_outside_the_cli(monkeypatch):
+    """What the launcher still refuses: workers on remote hosts (A25),
+    an np that the rank threads per process do not divide (as the JAX
+    package's launcher), elastic and chaos (A17)."""
+    monkeypatch.setattr(torch_proc_run, "is_local",
+                        lambda h: h != "remote-host")
+    with pytest.raises(NotImplementedError, match="A25"):
+        torch_proc_run.launch_procs(["true"], np=2,
+                                    hosts="remote-host:2")
+    with pytest.raises(ValueError, match="ranks_per_proc='host'"):
+        torch_proc_run.launch_procs(["true"], np=3, ranks_per_proc=2)
+    with pytest.raises(ValueError, match="exceeds"):
+        torch_proc_run.launch_procs(["true"], np=4, ranks_per_proc="host",
+                                    hosts="localhost:2,127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="A17"):
         torch_config.set_env_from_args(
             {}, argparse.Namespace(fault_plan="{}"))
@@ -191,9 +225,18 @@ def test_refusals_outside_the_cli():
 
 
 def test_init_refuses_the_hybrid_layout(monkeypatch):
+    """The hybrid layout is ported; what init still refuses about it is a
+    stale or incomplete hand-off: a per-process rank table of the wrong
+    length, or no coordinator address."""
     monkeypatch.setenv("HOROVOD_CONTROLLER", "http")
     monkeypatch.setenv("HOROVOD_TPU_RANKS_PER_PROC", "2")
-    with pytest.raises(NotImplementedError, match="A24"):
+    with pytest.raises(HorovodInitError, match="HOROVOD_TPU_COORDINATOR"):
+        basics.init(device="cpu")
+    assert not basics.is_initialized()
+    monkeypatch.setenv("HOROVOD_TPU_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("HOROVOD_TPU_NUM_PROCS", "2")
+    monkeypatch.setenv("HOROVOD_TPU_RANKS_OF_PROC", "2,1,1")
+    with pytest.raises(HorovodInitError, match="RANKS_OF_PROC"):
         basics.init(device="cpu")
     assert not basics.is_initialized()
 
@@ -238,6 +281,9 @@ class _Controller:
         pass
 
     def heartbeat(self, **kw):
+        return False
+
+    def take_rereport(self):
         return False
 
 
@@ -292,13 +338,16 @@ def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
     with pytest.raises(NotImplementedError, match="A14"):
         hvd.CompiledAlltoall(force_program=True)(torch.ones(4))
     monkeypatch.setattr(world_of_one.config, "integrity", False)
-    monkeypatch.setattr(world_of_one, "num_local", 2)
-    with pytest.raises(NotImplementedError, match="A24"):
-        hvd.CompiledGroupedAllreduce()([torch.ones(4)])
-    with pytest.raises(NotImplementedError, match="A24"):
-        hvd.CompiledAlltoall()(torch.ones(4))
-    with pytest.raises(NotImplementedError, match="A24"):
-        step().init_state({"w": torch.ones(2)})
+    # several rank threads per process are ported (tests/
+    # test_torch_hybrid.py); the 2-D decompositions stay refused
+    with pytest.raises(NotImplementedError, match="A8"):
+        hvd.CompiledGroupedAllreduce(algorithm="torus")
+    with pytest.raises(NotImplementedError, match="A8"):
+        C.TopologyHint()
+    with pytest.raises(NotImplementedError, match="A8"):
+        hvd.compiled_alltoall(torch.ones(4), topology_hint=("a", "b"))
+    state = step().init_state({"w": torch.ones(2)})
+    assert set(state) == {"params", "opt_state"}
 
 
 def _tiny_step_runs():
