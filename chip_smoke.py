@@ -282,7 +282,28 @@ Phases (a failure in any one exits non-zero):
     prints
     the step times, img/s, busy share, coordinator requests a step,
     bypass hits and fallbacks, and each process's peak memory and B1
-    launches.
+    launches;
+19. workers on a remote host: two jobs of the port's ``launch_procs`` with
+    a ``-H`` that names ``192.0.2.1`` (``P19_REMOTE``, an address that is
+    not this machine's), whose workers the launcher spawns through
+    ``ssh`` with the env handoff on stdin.  The remote end is a stub
+    ``ssh`` (``STUB_SSH``) first on the launcher's PATH for the two jobs
+    only: it records its argv and runs the remote command here in an
+    emptied environment, so the numbers are this card's and loopback's,
+    not a network's.  (a) Phase 16 (b)'s job (``--worker16 b``: np=2 over
+    gloo on cuda:0, phase 4's weights and batches, full-width ResNet-50
+    through ``DistributedOptimizer``, 6 steps) with ``-H
+    localhost:1,192.0.2.1:1``, rank 1 through ssh: exit codes [0, 0],
+    one ssh call for the remote host with no secret in its argv, rank
+    1's rendezvous address the launcher's ``local_ip()``, its forwarded
+    keys present and a launcher-only key absent, the replicas bit for
+    bit and within ``COMPILED_REL_L2`` of phase 4's, B1 launched in both
+    processes.  (b) ``selfcheck.run_engine_selfcheck`` at np=4 on cuda:0
+    over gloo with ``-H localhost:2,192.0.2.1:2``, two workers through
+    ssh: every assert of its worker, the slot table's local and cross
+    ranks and sizes (2 and 2) among them, within ``P19_TIMEOUT``.  It
+    prints (a)'s steady median step time, img/s, busy share, seconds to
+    the first step and B1 launches per process, and both jobs' walls.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
@@ -290,8 +311,9 @@ the kernels (with B1-B5's launches per phase-13 leg under
 leg's capture under ``compiled_sharded``, each kernel's launches in
 phase 15 under ``phase15_launches``, B1-B3's per phase-16 leg and
 process under ``phase16_launches``, every kernel's per phase-17 leg
-and process, through its wrapper, under ``phase17_launches``, and
-B1-B3's per phase-18 leg and process under ``phase18_launches``); the last
+and process, through its wrapper, under ``phase17_launches``,
+B1-B3's per phase-18 leg and process under ``phase18_launches``, and B1's
+per phase-19 (a) process under ``phase19_launches``); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15 also print the profile tables of one steady
 step each.
@@ -450,6 +472,33 @@ PHASE18_JOBS = (
      {**_GLOO, "HOROVOD_BYPASS_AFTER_CYCLES": str(P18_K)}),
     ("host 2 + 1", "m", 3, "host", "localhost:2,127.0.0.1:1", _GLOO),
     ("--ranks-per-worker 2, NCCL", "c", 2, 2, None, {}))
+# phase 19: the "remote" host, an address that is not this machine's
+# (RFC 5737 TEST-NET-1: a literal resolves without a lookup, and no packet
+# goes to it: the stub ssh runs the remote command here); the two jobs'
+# hosts, the bound on each job, and the keys each worker reports from its
+# environment (P19_LAUNCHER_ONLY is set in the launcher's own environment
+# only, with no forwarded prefix, so it must not reach a remote worker)
+P19_REMOTE = "192.0.2.1"
+P19_HOSTS_A = f"localhost:1,{P19_REMOTE}:1"
+P19_HOSTS_B = f"localhost:2,{P19_REMOTE}:2"
+P19_TIMEOUT = 240
+P19_LAUNCHER_ONLY = "HVD19_LAUNCHER_ONLY"
+REPORTED_ENV = ("HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_TPU_COORDINATOR",
+                "HOROVOD_HOSTNAME", "HOROVOD_GPU_OPERATIONS",
+                "HOROVOD_SECRET_KEY", "CUDA_VISIBLE_DEVICES", "PYTHONPATH",
+                P19_LAUNCHER_ONLY)
+# phase 19: the stand-in for ssh that the launcher finds first on its PATH:
+# it records its argv (NUL-separated, one file a call) and runs the last
+# argument, the remote command, under sh with a login-like environment
+# (HOME, TMPDIR, a system PATH) and ssh's stdin, so the worker gets only
+# what the env handoff on stdin gives it; through exec the worker keeps
+# the ssh client's PID, which the launcher terminates
+STUB_SSH = """#!/bin/sh
+printf '%s\\0' "$@" > "{log}/call.$$"
+for last; do :; done
+exec env -i HOME="$HOME" TMPDIR="${{TMPDIR:-/tmp}}" \\
+    PATH=/usr/local/bin:/usr/bin:/bin sh -c "$last"
+"""
 # phase 15 (b): rank threads of the dispatch wire (ep = 2: 4 experts a
 # rank), its wires, and the bound on the relative L2 distance of the
 # ep = 2 FFN's output and gradients from the one-rank layer (bf16: the two
@@ -3592,6 +3641,7 @@ def phase16_worker(legs, tmp):
                                for k in after}
         torch.cuda.synchronize()
         out["peak"] = torch.cuda.max_memory_allocated(dev)
+        out["env"] = {k: os.environ.get(k) for k in REPORTED_ENV}
         with open(os.path.join(tmp, f"{leg}_{hvd.rank()}.json"), "w") as f:
             json.dump(out, f)
         t_start = time.time()
@@ -4828,6 +4878,153 @@ def _rel_l2(a, b):
     return math.sqrt(num / den)
 
 
+def stub_ssh_calls(log_dir):
+    """The stub ssh's calls so far, each its argv (without ``ssh``)."""
+    calls = []
+    for name in sorted(os.listdir(log_dir)):
+        if name.startswith("call."):
+            with open(os.path.join(log_dir, name), "rb") as f:
+                calls.append([a.decode() for a in f.read().split(b"\0")[:-1]])
+    return calls
+
+
+def phase_remote(dev, card, state, batches, phase4_params):
+    """Phase 19: workers on a remote host, spawned by the port's
+    ``launch_procs`` through ``ssh`` with the env handoff on stdin.  The
+    remote end is :data:`STUB_SSH`, first on the launcher's PATH for the
+    two jobs only, so the numbers are this card's and loopback's, not a
+    network's.  (a) Phase 16 (b)'s job (``chip_smoke.py --worker16 b``:
+    np=2 over gloo on cuda:0, phase 4's weights and batches, full-width
+    ResNet-50 bf16 through ``DistributedOptimizer``, 6 steps) with ``-H
+    localhost:1,192.0.2.1:1``: exit codes [0, 0]; exactly one ssh call,
+    for the remote host, with no secret in its argv; rank 1's rendezvous
+    address the launcher's ``local_ip()``, its forwarded keys present and
+    the launcher-only key absent; the processes' parameters bit for bit
+    each other and within ``COMPILED_REL_L2`` of phase 4's; B1 launched in
+    both.  (b) The engine self-check (``selfcheck.run_engine_selfcheck``)
+    at np=4 over ``-H localhost:2,192.0.2.1:2`` on cuda:0 over gloo, two
+    workers through ssh: every assert of its worker holds (the slot
+    table's local and cross ranks and sizes among them), exit 0 within
+    ``P19_TIMEOUT``."""
+    import torch
+    from horovod_tpu_torch.runner.hosts import (
+        get_host_assignments, parse_hosts)
+    from horovod_tpu_torch.runner.http.http_server import local_ip
+    from horovod_tpu_torch.runner.proc_run import launch_procs
+    from horovod_tpu_torch.selfcheck import run_engine_selfcheck
+
+    xs, ys = batches
+    t_phase = time.perf_counter()
+    old_path = os.environ.get("PATH", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        stub_dir = os.path.join(tmp, "stub")
+        logs = {leg: os.path.join(tmp, f"log_{leg}") for leg in "ab"}
+        os.makedirs(stub_dir)
+        for d in logs.values():
+            os.makedirs(d)
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        for r in range(NP):
+            torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
+                       os.path.join(tmp, f"batch{r}.pt"))
+        cvd = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
+        walls = {}
+        os.environ[P19_LAUNCHER_ONLY] = "1"
+        try:
+            with open(os.path.join(stub_dir, "ssh"), "w") as f:
+                f.write(STUB_SSH.format(log=logs["a"]))
+            os.chmod(os.path.join(stub_dir, "ssh"), 0o755)
+            os.environ["PATH"] = stub_dir + os.pathsep + old_path
+            t0 = time.perf_counter()
+            codes = launch_procs(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--worker16", "b", tmp], np=NP, hosts=P19_HOSTS_A,
+                env={**_GLOO, "HVD16_T_LAUNCH": repr(time.time()),
+                     "CUDA_VISIBLE_DEVICES": cvd, "PYTHONPATH": ROOT},
+                start_timeout=P19_TIMEOUT)
+            walls["a"] = time.perf_counter() - t0
+            if codes != [0] * NP:
+                raise AssertionError(f"phase 19 (a): workers exited {codes}")
+            reps = [json.load(open(os.path.join(tmp, f"b_{r}.json")))
+                    for r in range(NP)]
+            params = [torch.load(os.path.join(tmp, f"b_params{r}.pt"))
+                      for r in range(NP)]
+            with open(os.path.join(stub_dir, "ssh"), "w") as f:
+                f.write(STUB_SSH.format(log=logs["b"]))
+            t0 = time.perf_counter()
+            run_engine_selfcheck(4, start_timeout=P19_TIMEOUT,
+                                 device="cuda:0", hosts=P19_HOSTS_B,
+                                 env=_GLOO)
+            walls["b"] = time.perf_counter() - t0
+        finally:
+            os.environ["PATH"] = old_path
+            os.environ.pop(P19_LAUNCHER_ONLY, None)
+        calls = {leg: stub_ssh_calls(d) for leg, d in logs.items()}
+
+    # (a)
+    secret = reps[1]["env"]["HOROVOD_SECRET_KEY"]
+    if len(calls["a"]) != 1 or P19_REMOTE not in calls["a"][0] \
+            or any(secret in arg for arg in calls["a"][0]):
+        raise AssertionError(f"phase 19 (a): ssh calls {calls['a']}")
+    env1 = reps[1]["env"]
+    want = {"HOROVOD_GLOO_RENDEZVOUS_ADDR": local_ip(),
+            "HOROVOD_HOSTNAME": P19_REMOTE, "HOROVOD_GPU_OPERATIONS": "gloo",
+            "CUDA_VISIBLE_DEVICES": cvd, "PYTHONPATH": ROOT,
+            P19_LAUNCHER_ONLY: None}
+    bad = {k: (env1[k], v) for k, v in want.items() if env1[k] != v}
+    if bad or reps[0]["env"][P19_LAUNCHER_ONLY] != "1":
+        raise AssertionError(f"phase 19 (a): rank 1's environment (got, "
+                             f"want) {bad}; rank 0's launcher-only key "
+                             f"{reps[0]['env'][P19_LAUNCHER_ONLY]}")
+    p0, p1 = params
+    diff = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    if diff:
+        raise AssertionError(f"phase 19 (a): the two processes' parameters "
+                             f"differ: {diff[:5]}")
+    rel_a = _rel_l2(p0, phase4_params)
+    if not rel_a <= COMPILED_REL_L2:
+        raise AssertionError(f"phase 19 (a): parameters {rel_a:.3g} "
+                             f"(relative L2) from phase 4's, bound "
+                             f"{COMPILED_REL_L2}")
+    b1 = [rep["launches"]["pack"] + rep["launches"]["unpack"]
+          for rep in reps]
+    if min(b1) <= 0:
+        raise AssertionError(f"phase 19 (a): B1 launches per process {b1}")
+    # (b): the slot table the workers held their topology to
+    slots = get_host_assignments(parse_hosts(P19_HOSTS_B), 4)
+    table = [(s.hostname, s.local_rank, s.local_size, s.cross_rank,
+              s.cross_size) for s in slots]
+    if {s[2] for s in table} != {2} or {s[4] for s in table} != {2}:
+        raise AssertionError(f"phase 19 (b): slot table {table}")
+    if len(calls["b"]) != 2 or any(P19_REMOTE not in c for c in calls["b"]):
+        raise AssertionError(f"phase 19 (b): ssh calls {calls['b']}")
+
+    step_s = [max(rep["times"][i] for rep in reps) for i in range(STEPS)]
+    timed = sorted(t for i, t in enumerate(step_s)
+                   if i > 0 and i != STEPS - 2)
+    med = timed[len(timed) // 2] if len(timed) % 2 else \
+        0.5 * (timed[len(timed) // 2 - 1] + timed[len(timed) // 2])
+    log(f"phase 19 (a) ({card}): np=2 over gloo on cuda:0 with -H "
+        f"{P19_HOSTS_A}, rank 1 through the stub ssh: step times (s) "
+        f"{[round(t, 4) for t in step_s]}; steady median {med * 1e3:.2f} "
+        f"ms/step = {NP * BATCH / med:.1f} img/s; rank 0's busy share of "
+        f"one profiled step {reps[0]['busy_share']:.3f}; s to the first "
+        f"step from the launch {[round(rep['to_first_step_s'], 2) for rep in reps]}"
+        f"; B1 launches per process {b1}; replicas bit for bit, "
+        f"{rel_a:.3g} (relative L2) from phase 4's (bound "
+        f"{COMPILED_REL_L2}); one ssh call for {P19_REMOTE}, no secret in "
+        f"its argv; rank 1's rendezvous address "
+        f"{env1['HOROVOD_GLOO_RENDEZVOUS_ADDR']} (the launcher's "
+        f"local_ip()), store {env1['HOROVOD_TPU_COORDINATOR']}")
+    log(f"phase 19 (b) ({card}): the engine self-check at np=4 on cuda:0 "
+        f"over gloo with -H {P19_HOSTS_B}, two workers through the stub "
+        f"ssh: every assert held; slot table (host, local rank, local "
+        f"size, cross rank, cross size) {table}")
+    log(f"phase 19 ({card}): job walls (s) "
+        f"{ {k: round(v, 1) for k, v in walls.items()} }; "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return {"launches": b1, "steady_ms": med * 1e3}
+
+
 def phase17_report(card, res, params, refs, walls, b16_ms):
     """Phase 17's checks across the processes and against the earlier
     phases (each worker already held its own leg: captures, replays,
@@ -5118,6 +5315,12 @@ def main():
         f"{hybrid['steady_ms']['o']:.2f} ms (bypass off), "
         f"{hybrid['steady_ms']['n']:.2f} ms (on) for 128 images; np=2 "
         f"{multi['b']['steady_ms']:.2f} ms for 128 images")
+    gc.collect()
+    torch.cuda.empty_cache()
+    remote = phase_remote(dev, card, state, batches, phase4_params)
+    log(f"phase 19 (a) against phase 16 (b): {remote['steady_ms']:.2f} ms "
+        f"with rank 1 through ssh, {multi['b']['steady_ms']:.2f} ms with "
+        f"both local")
     del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
@@ -5160,6 +5363,7 @@ def main():
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "phase18_launches": phase18_launches(
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
+        "phase19_launches": remote["launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]

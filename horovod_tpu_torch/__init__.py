@@ -19,6 +19,8 @@ from .common.basics import (  # noqa: F401
     init, shutdown, is_initialized, rank, size, local_rank, local_size,
     cross_rank, cross_size, is_homogeneous, bind_rank, unbind_rank, device,
     engine,
+    mpi_threads_supported, mpi_built, gloo_built, nccl_built, ddl_built,
+    ccl_built, cuda_built, rocm_built, xla_built, tpu_built,
 )
 from .common.exceptions import (  # noqa: F401
     HorovodInitError, HorovodInternalError, TensorShapeMismatchError,

@@ -366,3 +366,65 @@ def is_homogeneous():
 def device() -> torch.device:
     """The device the runtime's tensors live on."""
     return engine().device
+
+
+# -- build-feature queries (common/basics.py:620-675 of the JAX package,
+#    reference basics.py:250-340), answered from the torch build.  The port
+#    has one controller, the HTTP store coordinator, and torch.distributed
+#    as its data plane: NCCL for CUDA tensors, gloo for CPU tensors ---------
+
+def mpi_threads_supported():
+    """False: the port has no MPI controller."""
+    return False
+
+
+def mpi_built():
+    """Whether this torch was built with the MPI backend of
+    ``torch.distributed`` (the port's launcher never uses it)."""
+    return dist.is_available() and dist.is_mpi_available()
+
+
+def gloo_built():
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def nccl_built():
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def ddl_built():
+    return False
+
+
+def ccl_built():
+    return False
+
+
+def cuda_built():
+    return torch.version.cuda is not None
+
+
+def rocm_built():
+    return getattr(torch.version, "hip", None) is not None
+
+
+def xla_built():
+    return False
+
+
+def tpu_built():
+    return False
+
+
+def mpi_enabled():
+    """Whether an MPI controller drives negotiation (reference mpi_ops
+    ``mpi_enabled``): never in the port."""
+    return False
+
+
+def gloo_enabled():
+    """Whether the gloo-style control plane is active (reference mpi_ops
+    ``gloo_enabled``): always, as in the JAX package, since the HTTP
+    store controller fills the gloo controller's role on every launch
+    path."""
+    return True

@@ -1092,9 +1092,12 @@ def free_port():
 
 def local_ip():
     """This host's address as its own name resolves (127.0.0.1 when it
-    does not resolve).  Remote workers need a routable address for the
-    rendezvous service; the launcher only spawns local workers today,
-    where it uses 127.0.0.1 and never calls this."""
+    does not resolve).  The launcher hands it to every worker as the
+    rendezvous address when a job has a remote host (an all-local job
+    uses 127.0.0.1), and uses it for ``proc_run.is_local``.  It is trusted
+    as it is, as the JAX package trusts its own: a host whose name
+    resolves to a loopback alias (``127.0.1.1``) gives remote workers an
+    address they cannot reach."""
     try:
         return socket.gethostbyname(socket.gethostname())
     except OSError:

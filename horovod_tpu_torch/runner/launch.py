@@ -6,7 +6,9 @@ run_commandline :830, _run :806).
 
 A static job spawns one worker process per ``--ranks-per-worker`` ranks
 (or per host entry with ``--ranks-per-worker host``) with the full
-``HOROVOD_*`` env handoff (proc_run.py).  The parser is the JAX
+``HOROVOD_*`` env handoff (proc_run.py); a ``-H`` host that is not this
+machine gets its workers over ssh.  ``--mpi`` and ``--gloo`` are
+accepted and change nothing, as in the JAX package.  The parser is the JAX
 package's, flag for flag; the flags of features the port has not ported
 yet are refused with the ROADMAP.md item that ports them (elastic,
 fleet, chaos, tracing, telemetry and the aggregator tier: A17;
@@ -15,6 +17,7 @@ A15; serving: A16).
 """
 
 import argparse
+import os
 import sys
 
 from .config_parser import parse_config_file, set_env_from_args
@@ -375,15 +378,26 @@ def unported_flags(args):
 
 
 def check_build():
-    """The port's frontends, controllers and tensor operations."""
+    """The port's frontends, controllers and tensor operations, each line
+    read from the build-feature queries of ``common/basics.py``."""
+    from ..common import basics
     from ..version import __version__
+
+    def mark(flag):
+        return "X" if flag else " "
     lines = [f"Horovod-TPU-Torch v{__version__}:", "",
              "Available frameworks:", "    [X] PyTorch", "",
-             "Available controllers:", "    [X] HTTP store coordinator",
-             "", "Available tensor operations:",
-             "    [X] NCCL (CUDA tensors, one process a GPU)",
-             "    [X] Gloo (CPU tensors; CUDA tensors with "
-             "HOROVOD_GPU_OPERATIONS=gloo)"]
+             "Available controllers:",
+             f"    [{mark(basics.mpi_enabled())}] MPI",
+             f"    [{mark(basics.gloo_enabled())}] Gloo (the HTTP store "
+             f"coordinator)", "", "Available tensor operations:",
+             f"    [{mark(basics.nccl_built())}] NCCL (CUDA tensors, one "
+             f"process a GPU)",
+             f"    [{mark(basics.ddl_built())}] DDL",
+             f"    [{mark(basics.ccl_built())}] CCL",
+             f"    [{mark(basics.mpi_built())}] MPI",
+             f"    [{mark(basics.gloo_built())}] Gloo (CPU tensors; CUDA "
+             f"tensors with HOROVOD_GPU_OPERATIONS=gloo)"]
     print("\n".join(lines))
 
 
@@ -434,6 +448,128 @@ def run_commandline(argv=None):
 
 def main():
     sys.exit(run_commandline())
+
+
+# -- reference launch.py surface (launch.py:426-546 of the JAX package:
+#    constants, controller selection, argparse action factories) -------------
+
+CACHE_FOLDER = os.path.join(os.path.expanduser("~"), ".horovod")
+CACHE_STALENESS_THRESHOLD_MINUTES = 60
+SSH_ATTEMPTS = 3
+SSH_CONNECT_TIMEOUT_S = 10
+
+
+def is_gloo_used(use_gloo=None, use_mpi=None, use_jsrun=None):
+    """Reference launch.py is_gloo_used: gloo (the store controller's
+    role here) is the launcher unless MPI or jsrun was asked for by name,
+    which the port refuses (runner/mpi_run.py, runner/js_run.py)."""
+    return bool(use_gloo) or not (use_mpi or use_jsrun)
+
+
+def run_controller(use_gloo, gloo_run_fn, use_mpi, mpi_run_fn,
+                   use_jsrun, js_run_fn, verbosity=0):
+    """Pick and invoke the launch path (reference launch.py
+    run_controller).  The gloo-role path is the only live one; an
+    explicit MPI or jsrun request reaches its run fn, which raises
+    naming the supported launcher."""
+    if use_mpi:
+        return mpi_run_fn()
+    if use_jsrun:
+        return js_run_fn()
+    return gloo_run_fn()
+
+
+def make_override_action(override_args):
+    """argparse action recording which flags the user set explicitly,
+    so config-file values don't clobber them (reference launch.py
+    make_override_action; consumed by
+    common.util.config_parser.set_args_from_config)."""
+
+    class StoreOverrideAction(argparse.Action):
+        def __init__(self, option_strings, dest, default=None,
+                     type=None, choices=None, required=False,
+                     help=None, nargs=None, const=None, metavar=None):
+            super().__init__(option_strings=option_strings, dest=dest,
+                             default=default, type=type,
+                             choices=choices, required=required,
+                             help=help, nargs=nargs, const=const,
+                             metavar=metavar)
+
+        def __call__(self, parser, args, values, option_string=None):
+            override_args.add(self.dest)
+            setattr(args, self.dest, values)
+
+    return StoreOverrideAction
+
+
+def make_override_bool_action(override_args, bool_value):
+    """Const-storing flag action (reference launch.py:185): --flag
+    pairs register one action with True and its --no-flag twin with
+    False, both recording the override."""
+
+    class StoreOverrideBoolAction(argparse.Action):
+        def __init__(self, option_strings, dest, required=False,
+                     help=None):
+            super().__init__(option_strings=option_strings, dest=dest,
+                             const=bool_value, nargs=0, default=None,
+                             required=required, help=help)
+
+        def __call__(self, parser, args, values, option_string=None):
+            override_args.add(self.dest)
+            setattr(args, self.dest, self.const)
+
+    return StoreOverrideBoolAction
+
+
+def make_override_true_action(override_args):
+    return make_override_bool_action(override_args, True)
+
+
+def make_override_false_action(override_args):
+    return make_override_bool_action(override_args, False)
+
+
+def make_deprecated_bool_action(override_args, replacement_option):
+    class DeprecatedBoolAction(argparse.Action):
+        def __init__(self, option_strings, dest, **kwargs):
+            kwargs.setdefault("nargs", 0)
+            kwargs.pop("const", None)
+            super().__init__(option_strings, dest, **kwargs)
+
+        def __call__(self, parser, args, values, option_string=None):
+            import warnings
+            warnings.warn(
+                f"Argument {option_string} is deprecated; use "
+                f"{replacement_option} instead", DeprecationWarning)
+            override_args.add(self.dest)
+            setattr(args, self.dest, True)
+
+    return DeprecatedBoolAction
+
+
+def make_check_build_action(np_arg):
+    class CheckBuildAction(argparse.Action):
+        def __init__(self, option_strings, dest, **kwargs):
+            kwargs.setdefault("nargs", 0)
+            super().__init__(option_strings, dest, **kwargs)
+
+        def __call__(self, parser, args, values, option_string=None):
+            check_build()
+            parser.exit()
+
+    return CheckBuildAction
+
+
+def make_nic_action(_override_args=None):
+    class StoreNicAction(argparse.Action):
+        def __call__(self, parser, args, values, option_string=None):
+            if _override_args is not None:
+                _override_args.add(self.dest)
+            setattr(args, self.dest,
+                    set(v.strip() for v in str(values).split(",")
+                        if v.strip()))
+
+    return StoreNicAction
 
 
 if __name__ == "__main__":

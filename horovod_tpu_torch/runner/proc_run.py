@@ -12,8 +12,10 @@ process's ``init_process_group`` meets (basics.init).
 
 A worker process hosts ``ranks_per_proc`` ranks as threads (the JAX
 package's pod shape), or with ``ranks_per_proc="host"`` one process per
-host entry holds that entry's slots.  Workers are spawned on this host
-only: remote hosts are ROADMAP.md A25.
+host entry holds that entry's slots.  A worker on this host is a
+subprocess; a worker on another host is spawned over ``ssh`` (JAX
+proc_run.py:297-344, reference gloo_run.py exec_command :203-229), its
+env handoff on ssh's stdin.
 """
 
 import functools
@@ -59,8 +61,8 @@ def ssh_command(hostname: str, command: List[str], env: dict,
                 cwd: str = None, ssh_port: int = None, extra_keys=()):
     """Build the ssh invocation that runs ``command`` on ``hostname``
     (reference runner/util/remote.py get_remote_command + gloo
-    exec_command).  Returns ``(argv, stdin_payload)``.  Only builds it:
-    the launcher spawns local workers (see :func:`launch_procs`).
+    exec_command).  Returns ``(argv, stdin_payload)``; :func:`launch_procs`
+    spawns it for every worker of a remote host.
 
     The worker env, ``HOROVOD_SECRET_KEY`` included, travels on **stdin**
     (sourced by the remote shell), never in argv, so it is invisible to
@@ -223,19 +225,23 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
 
     ``output_filename``: directory for per-process output capture, worker
     stdout/stderr in ``<dir>/rank.<NNN>/{stdout,stderr}`` (reference
-    ``horovodrun --output-filename``, launch.py:332).
+    ``horovodrun --output-filename``, launch.py:332).  A remote worker's
+    streams come back through its ssh client and are captured the same
+    way.
 
-    Only local spawning is wired (subprocess); a remote host raises
-    (ROADMAP.md A25; the ssh command :func:`ssh_command` builds is what
-    the reference's exec_command runs)."""
+    A worker on this host is a subprocess with the env handoff in its
+    environment.  A worker on a host that is not this machine
+    (:func:`is_local`) runs through :func:`ssh_command`: the ssh client
+    gets the launcher's own environment (``os.environ``), and the worker's
+    env goes on ssh's stdin, filtered to ``_REMOTE_ENV_PREFIXES`` plus the
+    keys of ``env``.  The workers then reach the rendezvous service at
+    this host's :func:`local_ip`, and the ``torch.distributed`` store at
+    rank 0's host.  There is no fallback: a host ssh cannot reach fails
+    the job with ssh's exit code, and a missing ``ssh`` raises
+    ``FileNotFoundError`` naming it."""
     hosts = hosts or f"localhost:{np}"
     host_infos = parse_hosts(hosts)
-    remote = [h.hostname for h in host_infos if not is_local(h.hostname)]
-    if remote:
-        raise NotImplementedError(
-            f"remote hosts {remote}: the launcher spawns local workers "
-            f"only; workers on remote hosts are not ported yet "
-            f"(ROADMAP.md A25)")
+    any_remote = any(not is_local(h.hostname) for h in host_infos)
     ranks_of_proc = None
     if ranks_per_proc == "host":
         # host entry i => process i with slots_i ranks, filled in order
@@ -275,9 +281,15 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
         fusion_threshold_bytes=fusion_threshold_bytes,
         **coordinator_kwargs(launcher_env))
     rdv_port = server.start()
-    rdv_addr = "127.0.0.1"
-    # the torch.distributed store is hosted by PROCESS 0, on this host
-    coordinator = f"{rdv_addr}:{_free_port()}"
+    rdv_addr = local_ip() if any_remote else "127.0.0.1"
+    # the torch.distributed store is hosted by PROCESS 0, so its address
+    # is rank 0's host.  The port is probed free here: on a local rank 0
+    # it is free where the store binds; on a remote one it is a high
+    # random port (a collision shows as an init timeout, the reference's
+    # probe-then-bind race)
+    rank0_host = slots[0].hostname
+    coord_host = rdv_addr if is_local(rank0_host) else rank0_host
+    coordinator = f"{coord_host}:{_free_port()}"
 
     pool = ProcessPool()
     hof = host_of_rank_env(slots)
@@ -294,8 +306,17 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
                 else ranks_per_proc,
                 platform=platform, host_of_rank=hof,
                 ranks_of_proc=ranks_of_proc))
+            if is_local(slot.hostname):
+                cmd, payload, spawn_env = command, None, child_env
+            else:
+                # the worker env rides on stdin; ssh itself runs with the
+                # launcher's own env
+                cmd, payload = ssh_command(
+                    slot.hostname, command, child_env, cwd=os.getcwd(),
+                    extra_keys=set(env or {}))
+                spawn_env = dict(os.environ)
             if verbose:
-                print(f"[horovodrun] rank {slot.rank} -> {command}",
+                print(f"[horovodrun] rank {slot.rank} -> {cmd}",
                       file=sys.stderr)
             stdout = stderr = None
             if output_filename:
@@ -305,7 +326,8 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
                 stdout = open(os.path.join(d, "stdout"), "wb")
                 stderr = open(os.path.join(d, "stderr"), "wb")
                 out_files += [stdout, stderr]
-            pool.spawn(command, child_env, stdout=stdout, stderr=stderr)
+            pool.spawn(cmd, spawn_env, stdout=stdout, stderr=stderr,
+                       stdin_data=payload)
         codes = pool.wait(timeout=start_timeout,
                           stop_on_failure=stop_on_failure)
     finally:

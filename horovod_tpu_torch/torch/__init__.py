@@ -9,6 +9,9 @@ broadcast.
 from ..common.basics import (  # noqa: F401
     init, shutdown, is_initialized, rank, size, local_rank, local_size,
     cross_rank, cross_size, is_homogeneous, bind_rank, unbind_rank, device,
+    mpi_threads_supported, mpi_built, gloo_built, nccl_built, ddl_built,
+    ccl_built, cuda_built, rocm_built, xla_built, tpu_built,
+    mpi_enabled, gloo_enabled,
 )
 from ..common.exceptions import HorovodInternalError  # noqa: F401
 from ..common.process_sets import (  # noqa: F401

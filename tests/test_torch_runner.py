@@ -202,14 +202,10 @@ def test_cli_takes_the_hybrid_and_bypass_flags():
 
 
 def test_refusals_outside_the_cli(monkeypatch):
-    """What the launcher still refuses: workers on remote hosts (A25),
-    an np that the rank threads per process do not divide (as the JAX
-    package's launcher), elastic and chaos (A17)."""
-    monkeypatch.setattr(torch_proc_run, "is_local",
-                        lambda h: h != "remote-host")
-    with pytest.raises(NotImplementedError, match="A25"):
-        torch_proc_run.launch_procs(["true"], np=2,
-                                    hosts="remote-host:2")
+    """What the launcher still refuses: an np that the rank threads per
+    process do not divide, or that is over the slots of ``-H`` (as the
+    JAX package's launcher), elastic and chaos (A17).  Workers on remote
+    hosts are ported (tests/test_torch_remote.py)."""
     with pytest.raises(ValueError, match="ranks_per_proc='host'"):
         torch_proc_run.launch_procs(["true"], np=3, ranks_per_proc=2)
     with pytest.raises(ValueError, match="exceeds"):
