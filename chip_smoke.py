@@ -303,7 +303,29 @@ Phases (a failure in any one exits non-zero):
     ssh: every assert of its worker, the slot table's local and cross
     ranks and sizes (2 and 2) among them, within ``P19_TIMEOUT``.  It
     prints (a)'s steady median step time, img/s, busy share, seconds to
-    the first step and B1 launches per process, and both jobs' walls.
+    the first step and B1 launches per process, and both jobs' walls;
+20. elastic training: two jobs of the port's ``horovodrun`` in elastic
+    mode (``--min-np 1 --max-np 2 --host-discovery-script``, its CLI run
+    with the driver's log on stderr) whose workers (``chip_smoke.py
+    --worker20``, one a slot, both on cuda:0 over gloo) train phase 4's
+    full-width bf16 ResNet-50 (weights and batches, 64 images a rank)
+    through ``DistributedOptimizer(SGD, momentum 0.9)`` inside
+    ``hvd_torch.elastic.run`` with a ``TorchState`` committed after
+    every step, 6 steps.  (a) ``-np 2``, discovery ``localhost:1`` and
+    ``127.0.0.1:1``: the 127.0.0.1 worker exits 17 before step 3's
+    allreduce in round 1; the job exits 0 after exactly one more round,
+    of size 1, the host blacklisted, the survivor running steps 3-5 at
+    size 1 from the commit after step 2.  (b) ``-np 1``, discovery adding
+    ``127.0.0.1:1`` once step 2 is committed: the first worker takes
+    ``HostsUpdatedInterrupt`` at that commit and re-initializes in place
+    (one start, one pid), the newcomer's sync leaves the replicas bit
+    for bit the same before step 3 and at the end, steps 3-5 run at size
+    2.  In both, what the steps changed (parameters and momentum) is
+    within ``P20_REL_L2`` of an in-process replay at the same sizes.  It
+    prints each round's median step ms, the commit's ms, the seconds
+    from the exit or the discovery change to the next round's first
+    step, the rounds and resets, B1 launches per process and each job's
+    wall.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
@@ -312,8 +334,10 @@ leg's capture under ``compiled_sharded``, each kernel's launches in
 phase 15 under ``phase15_launches``, B1-B3's per phase-16 leg and
 process under ``phase16_launches``, every kernel's per phase-17 leg
 and process, through its wrapper, under ``phase17_launches``,
-B1-B3's per phase-18 leg and process under ``phase18_launches``, and B1's
-per phase-19 (a) process under ``phase19_launches``); the last
+B1-B3's per phase-18 leg and process under ``phase18_launches``, B1's
+per phase-19 (a) process under ``phase19_launches``, and B1's per
+phase-20 leg and process, localhost's then 127.0.0.1's, under
+``phase20_launches``); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15 also print the profile tables of one steady
 step each.
@@ -483,6 +507,37 @@ P19_HOSTS_A = f"localhost:1,{P19_REMOTE}:1"
 P19_HOSTS_B = f"localhost:2,{P19_REMOTE}:2"
 P19_TIMEOUT = 240
 P19_LAUNCHER_ONLY = "HVD19_LAUNCHER_ONLY"
+# phase 20: elastic jobs through the port's horovodrun (``P20_LAUNCHER``
+# runs its CLI with the elastic driver's INFO log on stderr, where the
+# rounds and the blacklisting are read).  One worker a slot, both slots on
+# cuda:0 over gloo; in (a) the worker on ``P20_DYING`` exits with
+# ``P20_EXIT`` before step 3's allreduce in round 1; the blacklist's
+# cooldown outlasts the job, so the host stays out.  (b)'s first worker
+# holds at the commit after step 2 (at most ``P20_HOLD_S``) until the
+# driver's new round reaches it, so steps 3-5 run at size 2.  Each job
+# must end within ``P20_TIMEOUT``; the change the six steps made is held
+# to an in-process replay within ``P20_REL_L2`` (relative L2).
+P20_TIMEOUT = 300
+P20_HOLD_S = 120
+P20_DYING = "127.0.0.1"
+P20_EXIT = 17
+P20_REL_L2 = 1e-3
+P20_LAUNCHER = (
+    "import logging, sys\n"
+    "logging.basicConfig(level=logging.INFO, stream=sys.stderr, "
+    "format='%(asctime)s %(name)s %(message)s')\n"
+    "from horovod_tpu_torch.runner.launch import run_commandline\n"
+    "sys.exit(run_commandline(sys.argv[1:]))\n")
+P20_DISCOVERY = {
+    "a": "#!/bin/sh\necho localhost:1\necho 127.0.0.1:1\n",
+    # the second host appears once the log shows step 2 committed; the
+    # first time it does, the script stamps the change's time
+    "b": ("#!/bin/sh\necho localhost:1\n"
+          "if grep -q 'committed 2 ' {tmp}/commits.log 2>/dev/null; then\n"
+          "  [ -f {tmp}/t_change ] || date +%s.%N > {tmp}/t_change\n"
+          "  echo 127.0.0.1:1\nfi\n")}
+P20_LEGS = {"a": ["-np", "2", "--min-np", "1", "--max-np", "2"],
+            "b": ["-np", "1", "--min-np", "1", "--max-np", "2"]}
 REPORTED_ENV = ("HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_TPU_COORDINATOR",
                 "HOROVOD_HOSTNAME", "HOROVOD_GPU_OPERATIONS",
                 "HOROVOD_SECRET_KEY", "CUDA_VISIBLE_DEVICES", "PYTHONPATH",
@@ -5162,6 +5217,437 @@ def phase17_report(card, res, params, refs, walls, b16_ms):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: elastic training
+
+def _b1_launches():
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    return sum(K.launches[k] for k in ("fused_scale_cast", "pack_scale_cast",
+                                       "unpack_scale_cast"))
+
+
+def _elastic_snapshot(model, opt):
+    """A replica's parameters and momentum buffers, on the CPU, by name."""
+    return {"params": {k: p.detach().cpu() for k, p in
+                       model.named_parameters()},
+            "momentum": {k: opt.state[p]["momentum_buffer"].detach().cpu()
+                         for k, p in model.named_parameters()
+                         if "momentum_buffer" in opt.state.get(p, {})}}
+
+
+def _snapshot_digest(snap):
+    """One digest over every tensor of a snapshot: replicas compare
+    exactly across processes."""
+    import hashlib
+    h = hashlib.sha256()
+    for part in ("params", "momentum"):
+        for k in sorted(snap[part]):
+            h.update(f"{part}/{k}:{_digest(snap[part][k])}".encode())
+    return h.hexdigest()
+
+
+def phase20_worker(leg, tmp):
+    """One process of a phase-20 job (``chip_smoke.py --worker20 <leg>
+    <dir>``), spawned by the port's elastic driver for a slot: phase 4's
+    full-width bf16 ResNet-50 (weights and batches from ``dir``) through
+    ``DistributedOptimizer(SGD, momentum 0.9)`` inside
+    ``hvd_torch.elastic.run`` with ``TorchState(model, optimizer,
+    batch=0)``, a commit after every step, ``STEPS`` steps, rank r
+    training on batch r.  A round of one process averages its gradients
+    through the engine itself (``grouped_allreduce_``: the optimizer
+    reduces nothing at one process), so B1 runs in every round.  It
+    reports through ``events_<host>.jsonl`` and ``commits.log`` in
+    ``dir``; a failure exits non-zero."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+    t_start = time.time()
+    hvd.init(device=torch.device("cuda:0"))
+    import torch.nn.functional as F
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.exceptions import (
+        HorovodInternalError, HostsUpdatedInterrupt)
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dev = hvd.device()
+    host = os.environ["HOROVOD_HOSTNAME"]
+    events = open(os.path.join(tmp, f"events_{host}.jsonl"), "a")
+
+    def ev(kind, **kw):
+        events.write(json.dumps({"ev": kind, "t": time.time(),
+                                 "pid": os.getpid(),
+                                 "round": basics._elastic_round,
+                                 **kw}) + "\n")
+        events.flush()
+
+    ev("start", t_start=t_start, rank=hvd.rank(), size=hvd.size())
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(torch.load(os.path.join(tmp, "state.pt")))
+    opt = hvd_torch.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    st = hvd_torch.elastic.TorchState(model=model, optimizer=opt, batch=0)
+    st.register_reset_callbacks([lambda: ev(
+        "reset", batch=st.batch, rank=hvd.rank(), size=hvd.size())])
+    data = [tuple(t.to(dev) for t in torch.load(
+        os.path.join(tmp, f"batch{r}.pt"))) for r in range(NP)]
+    params = list(model.parameters())
+    marker = os.path.join(tmp, "exited")
+    K.reset_launches()
+
+    @hvd_torch.elastic.run
+    def train(st):
+        digested = False
+        while st.batch < STEPS:
+            step, r, s = st.batch, hvd.rank(), hvd.size()
+            if leg == "a" and step == 3 and s == 2 and host == P20_DYING \
+                    and not os.path.exists(marker):
+                open(marker, "w").close()
+                ev("exit", step=step, rank=r, size=s, b1=_b1_launches())
+                os._exit(P20_EXIT)
+            if leg == "b" and step == 3 and s == 2 and not digested:
+                # what the newcomer's sync made of the replicas
+                digested = True
+                ev("digest", step=step, rank=r, digest=_snapshot_digest(
+                    _elastic_snapshot(model, opt)))
+            x, y = step_batch(*data[r], step)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                opt.zero_grad()
+                loss = F.cross_entropy(model(x), y)
+                loss.backward()
+                if s == 1:
+                    hvd.grouped_allreduce_([p.grad for p in params],
+                                           name="p20.grads")
+                opt.step()
+                torch.cuda.synchronize()
+            except HorovodInternalError as exc:
+                ev("internal_error", step=step, rank=r, size=s,
+                   error=str(exc)[:300])
+                raise
+            ev("step", step=step, rank=r, size=s, t0=t0,
+               ms=(time.time() - t0) * 1e3, loss=float(loss.detach()))
+            st.batch += 1
+            t1 = time.time()
+            try:
+                st.commit()
+                ev("commit", step=step, ms=(time.time() - t1) * 1e3)
+                with open(os.path.join(tmp, "commits.log"), "a") as f:
+                    f.write(f"committed {step} size {s} host {host}\n")
+                if leg == "b" and step == 2 and s == 1:
+                    # hold at this commit until the driver's new round
+                    # (the discovery script adds the second host on
+                    # reading the line above) reaches this worker
+                    deadline = time.monotonic() + P20_HOLD_S
+                    while time.monotonic() < deadline:
+                        st.check_host_updates()
+                        time.sleep(0.02)
+                    raise AssertionError(
+                        f"phase 20 (b): no new round within {P20_HOLD_S} s")
+            except HostsUpdatedInterrupt:
+                ev("interrupt", step=step, rank=r, size=s)
+                raise
+
+    train(st)
+    snap = _elastic_snapshot(model, opt)
+    torch.save(snap, os.path.join(tmp, f"final_{host}.pt"))
+    ev("done", rank=hvd.rank(), size=hvd.size(), b1=_b1_launches(),
+       digest=_snapshot_digest(snap))
+    hvd.shutdown()
+    return 0
+
+
+def p20_job(leg, tmp):
+    """One elastic job through the port's CLI, in a session of its own
+    so that every process it starts is stopped at the end.  Returns
+    (exit code, stderr, wall seconds)."""
+    import signal
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write(P20_DISCOVERY[leg].format(tmp=tmp))
+    os.chmod(disc, 0o755)
+    cmd = [sys.executable, "-c", P20_LAUNCHER, *P20_LEGS[leg],
+           "--host-discovery-script", disc,
+           "--blacklist-cooldown-range", "600", "600",
+           "--start-timeout", "120", "--", sys.executable,
+           os.path.join(ROOT, "chip_smoke.py"), "--worker20", leg, tmp]
+    env = {**os.environ, **_GLOO, "PYTHONPATH": ROOT,
+           "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES",
+                                                  "0")}
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=P20_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, err = p.communicate()
+        raise AssertionError(f"phase 20 ({leg}): the job outlived "
+                             f"{P20_TIMEOUT} s; stderr:\n{err[-4000:]}")
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return p.returncode, out + err, time.perf_counter() - t0
+
+
+def p20_replay(dev, state, batches, sizes):
+    """The job's six steps in this process: steps 0-2 at ``sizes[0]``
+    rank threads, then steps 3-5 at ``sizes[1]`` from the state the
+    first segment left (rank r on batch r, a one-rank segment averaging
+    through the engine as the workers do).  Returns the final snapshot."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    xs, ys = batches
+    carry = {"model": state}
+
+    def segment(steps, np_):
+        def fn():
+            r = hvd.rank()
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+            model.load_state_dict(carry["model"])
+            opt = hvd_torch.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+                named_parameters=model.named_parameters())
+            if "opt" in carry:
+                # a copy each: load_state_dict keeps the tensors it is
+                # given, and two ranks must not share momentum buffers
+                opt.load_state_dict(copy.deepcopy(carry["opt"]))
+            params = list(model.parameters())
+            x0 = torch.from_numpy(xs[r]).to(dev)
+            y0 = torch.from_numpy(ys[r]).to(dev)
+            for step in steps:
+                x, y = step_batch(x0, y0, step)
+                opt.zero_grad()
+                loss = F.cross_entropy(model(x), y)
+                loss.backward()
+                if np_ == 1:
+                    hvd.grouped_allreduce_([p.grad for p in params],
+                                           name="p20.grads")
+                opt.step()
+            torch.cuda.synchronize()
+            if r == 0:
+                return ({k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()},
+                        copy.deepcopy(opt.state_dict()),
+                        _elastic_snapshot(model, opt))
+            return None
+        out = hvd.run(fn, np=np_, device=dev)[0]
+        carry["model"], carry["opt"], snap = out
+        return snap
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        segment(range(3), sizes[0])
+        return segment(range(3, STEPS), sizes[1])
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def p20_change_error(got, want, init):
+    """Relative L2 distance of what the six steps changed in the job
+    (``got``) from what they changed in the replay (``want``): parameters
+    final minus initial, momentum (zero at the start) as it ends; and
+    whether the two are bit for bit."""
+    num = den = 0.0
+    exact = True
+    for part in ("params", "momentum"):
+        if set(got[part]) != set(want[part]):
+            raise AssertionError(f"phase 20: {part} names differ")
+        for k, w in want[part].items():
+            g = got[part][k]
+            exact = exact and torch_equal(g, w)
+            base = init[k].to(w.dtype).float() if part == "params" \
+                else 0.0
+            dg, dw = g.float() - base, w.float() - base
+            num += float((dg - dw).norm()) ** 2
+            den += float(dw.norm()) ** 2
+    return math.sqrt(num / den), exact
+
+
+def _p20_events(tmp, host):
+    path = os.path.join(tmp, f"events_{host}.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _p20_rounds(log_text):
+    """(round, size) of every round the driver started, from its log."""
+    import re
+    return [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
+        r"round (\d+): (\d+) workers", log_text)]
+
+
+def _median(v):
+    v = sorted(v)
+    if not v:
+        return float("nan")
+    n = len(v)
+    return v[n // 2] if n % 2 else 0.5 * (v[n // 2 - 1] + v[n // 2])
+
+
+def phase_elastic(dev, card, state, batches):
+    """Phase 20: elastic training through the port's ``horovodrun``
+    (``--min-np``/``--max-np``/``--host-discovery-script``), two jobs of
+    ``chip_smoke.py --worker20`` on cuda:0 over gloo.  (a) ``-np 2
+    --min-np 1 --max-np 2``, discovery ``localhost:1`` and
+    ``127.0.0.1:1``: in round 1 the worker on 127.0.0.1 exits 17 before
+    step 3's allreduce; the job exits 0 after exactly one more round, of
+    size 1, with 127.0.0.1 blacklisted, and the survivor ran steps 3-5 at
+    size 1 from the commit after step 2.  (b) ``-np 1 --min-np 1
+    --max-np 2``, discovery adding 127.0.0.1:1 once step 2 is committed:
+    the first worker takes ``HostsUpdatedInterrupt`` at that commit and
+    re-initializes in place (one start, one pid), the newcomer's
+    ``TorchState.sync`` leaves the replicas bit for bit the same before
+    step 3 and at the end, steps 3-5 run at size 2, the job exits 0.  In
+    both, what the six steps changed (parameters and momentum) is within
+    ``P20_REL_L2`` of an in-process replay (a: 2 rank threads then 1;
+    b: 1 then 2), bit for bit or not as printed."""
+    import torch
+    xs, ys = batches
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg in "ab":
+            d = os.path.join(tmp, leg)
+            os.makedirs(d)
+            torch.save(state, os.path.join(d, "state.pt"))
+            for r in range(NP):
+                torch.save((torch.from_numpy(xs[r]),
+                            torch.from_numpy(ys[r])),
+                           os.path.join(d, f"batch{r}.pt"))
+            code, text, wall = p20_job(leg, d)
+            with open(os.path.join(d, "commits.log")) as f:
+                commits = f.read()
+            res[leg] = {
+                "code": code, "text": text, "wall": wall,
+                "commits": commits,
+                "events": {h: _p20_events(d, h)
+                           for h in ("localhost", P20_DYING)},
+                "final": {h: torch.load(os.path.join(d, f"final_{h}.pt"))
+                          for h in ("localhost", P20_DYING)
+                          if os.path.exists(os.path.join(d, f"final_{h}.pt"))},
+                "t_change": float(open(os.path.join(d, "t_change")).read())
+                if os.path.exists(os.path.join(d, "t_change")) else None}
+            if code != 0:
+                raise AssertionError(
+                    f"phase 20 ({leg}): the job exited {code}; log:\n"
+                    f"{text[-6000:]}")
+    torch.cuda.empty_cache()
+    replay = {"a": p20_replay(dev, state, batches, (2, 1)),
+              "b": p20_replay(dev, state, batches, (1, 2))}
+    out = {"launches": {}, "steady_ms": {}}
+    for leg in "ab":
+        r = res[leg]
+        rounds = _p20_rounds(r["text"])
+        ev = r["events"]
+        steps = {h: [e for e in ev[h] if e["ev"] == "step"] for h in ev}
+        by_round = {}
+        for h in ev:
+            for e in steps[h]:
+                by_round.setdefault((e["round"], e["size"]), []).append(
+                    e["ms"])
+        step_ms = {f"round {k[0]} (size {k[1]})": round(_median(v), 2)
+                   for k, v in sorted(by_round.items())}
+        commit_ms = _median([e["ms"] for h in ev for e in ev[h]
+                             if e["ev"] == "commit"])
+        # the next round's first step begins once its last process is in
+        first_next = max(min(e["t0"] for e in steps[h] if e["round"] == 2)
+                         for h in ev
+                         if any(e["round"] == 2 for e in steps[h]))
+        done = {h: [e for e in ev[h] if e["ev"] == "done"] for h in ev}
+        b1 = {h: (done[h] or [e for e in ev[h] if e["ev"] == "exit"]
+                  or [{"b1": 0}])[-1]["b1"] for h in ev}
+        resets = {h: [e for e in ev[h] if e["ev"] == "reset"] for h in ev}
+        if leg == "a":
+            surv = ev["localhost"]
+            exits = [e for e in ev[P20_DYING] if e["ev"] == "exit"]
+            late = [(e["step"], e["size"], e["round"])
+                    for e in steps["localhost"] if e["step"] >= 3]
+            bad = []
+            if rounds != [(1, 2), (2, 1)]:
+                bad.append(f"rounds {rounds}")
+            if "blacklisting host 127.0.0.1" not in r["text"]:
+                bad.append("127.0.0.1 was not blacklisted")
+            if len(exits) != 1 or exits[0]["step"] != 3:
+                bad.append(f"exits {exits}")
+            if late != [(3, 1, 2), (4, 1, 2), (5, 1, 2)]:
+                bad.append(f"survivor's steps 3-5 (step, size, round) "
+                           f"{late}")
+            if [e["batch"] for e in resets["localhost"]] != [3]:
+                bad.append(f"survivor's resets {resets['localhost']}")
+            if bad:
+                raise AssertionError("phase 20 (a): " + "; ".join(bad))
+            t_event = exits[0]["t"]
+            final = r["final"]["localhost"]
+            pids = sorted({e["pid"] for e in surv})
+        else:
+            first = ev["localhost"]
+            starts = [e for e in first if e["ev"] == "start"]
+            intr = [e for e in first if e["ev"] == "interrupt"]
+            digs = [e["digest"] for h in ev for e in ev[h]
+                    if e["ev"] == "digest"]
+            ends = [done[h][-1]["digest"] for h in ev if done[h]]
+            late = sorted((e["step"], e["size"], e["round"])
+                          for h in ev for e in steps[h] if e["step"] >= 3)
+            bad = []
+            if rounds != [(1, 1), (2, 2)]:
+                bad.append(f"rounds {rounds}")
+            if len(starts) != 1 or len({e["pid"] for e in first}) != 1:
+                bad.append(f"the first worker started {len(starts)} times "
+                           f"with pids {sorted({e['pid'] for e in first})}")
+            if [(e["step"], e["size"]) for e in intr] != [(2, 1)]:
+                bad.append(f"interrupts {intr}")
+            if len(digs) != 2 or len(set(digs)) != 1:
+                bad.append(f"replicas after the sync: digests {digs}")
+            if len(ends) != 2 or len(set(ends)) != 1:
+                bad.append(f"final replicas: digests {ends}")
+            if late != sorted([(s, 2, 2) for s in (3, 4, 5)] * 2):
+                bad.append(f"steps 3-5 (step, size, round) {late}")
+            if bad:
+                raise AssertionError("phase 20 (b): " + "; ".join(bad))
+            t_event = r["t_change"]
+            final = r["final"]["localhost"]
+            pids = sorted({e["pid"] for e in first})
+        err, exact = p20_change_error(final, replay[leg], state)
+        if not err <= P20_REL_L2:
+            raise AssertionError(
+                f"phase 20 ({leg}): the change is {err:.3g} (relative L2) "
+                f"from the replay's, bound {P20_REL_L2}")
+        to_next = first_next - t_event
+        out["launches"][leg] = [b1["localhost"], b1[P20_DYING]]
+        out["steady_ms"][leg] = step_ms
+        log(f"phase 20 ({leg}) ({card}): rounds (round, size) {rounds}; "
+            f"resets {[(e['batch'], e['size']) for h in ev for e in resets[h]]} "
+            f"(batch restored or kept, new size); median step ms by round "
+            f"{step_ms}; median commit ms {commit_ms:.1f} (save and spill); "
+            f"{to_next:.2f} s from the "
+            f"{'worker exit' if leg == 'a' else 'discovery change'} to the "
+            f"next round's first step; first worker's pids {pids}; B1 "
+            f"launches (localhost, 127.0.0.1) {out['launches'][leg]}; "
+            f"change vs the replay {err:.3g} (relative L2, bound "
+            f"{P20_REL_L2}), bit for bit: {exact}; job wall {r['wall']:.1f} s")
+    log(f"phase 20 ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -5177,6 +5663,8 @@ def main():
         return phase16_worker(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--worker18"]:
         return phase18_worker(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--worker20"]:
+        return phase20_worker(sys.argv[2], sys.argv[3])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -5321,6 +5809,9 @@ def main():
     log(f"phase 19 (a) against phase 16 (b): {remote['steady_ms']:.2f} ms "
         f"with rank 1 through ssh, {multi['b']['steady_ms']:.2f} ms with "
         f"both local")
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic = phase_elastic(dev, card, state, batches)
     del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
@@ -5364,6 +5855,7 @@ def main():
         "phase18_launches": phase18_launches(
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "phase19_launches": remote["launches"],
+        "phase20_launches": elastic["launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]

@@ -18,6 +18,14 @@ threads (or its entry of ``HOROVOD_TPU_RANKS_OF_PROC`` in a
 heterogeneous host:slots job), CPU tensors over gloo, CUDA tensors over
 NCCL unless ``HOROVOD_GPU_OPERATIONS=gloo``, with a second group of
 every process for the compiled path (``ops/compiled.py``).
+
+A worker of an elastic job (``HOROVOD_ELASTIC=1``, spawned by
+``runner/elastic/driver.py``) takes its process index, the job's size,
+the ``torch.distributed`` address and the host layout from the round the
+driver publishes at ``/elastic/round`` (:func:`_elastic_rendezvous`),
+not from the static handoff; every round has an address of its own, so
+an elastic reset re-initializes in place (:func:`shutdown`, then
+:func:`init`).
 """
 
 import datetime
@@ -39,6 +47,15 @@ _tls = threading.local()
 _host_of_rank = None
 #: True while init() owns a torch.distributed default process group
 _dist_up = False
+#: the elastic round this process last joined (0: none yet); the next
+#: rendezvous waits for a newer one
+_elastic_round = 0
+#: a one-rank process's context: an elastic re-init rebinds this object
+#: to the new round's rank, so what holds it (the optimizer's gradient
+#: hooks) follows the process into the next round
+_proc_ctx = None
+#: set by shutdown() when the engine thread outlived the teardown's bound
+_teardown_wedged = False
 
 
 class RankContext:
@@ -105,13 +122,15 @@ def check_gpu_operations(device_uuids, gpu_operations):
         seen[uuid] = proc
 
 
-def _exchange_device_uuids(client, proc, num_procs, device):
-    """Every process's device UUID, through the rendezvous KV store."""
+def _exchange_device_uuids(client, proc, num_procs, device, round_id=0):
+    """Every process's device UUID, through the rendezvous KV store (keyed
+    by the elastic round: a process index of an earlier round may have
+    been another process)."""
     own = str(torch.cuda.get_device_properties(device).uuid)
-    client.put(f"/hvd_torch/device_uuid/{proc}", own.encode())
+    client.put(f"/hvd_torch/device_uuid/{round_id}/{proc}", own.encode())
     uuids = []
     for p in range(num_procs):
-        v = client.get(f"/hvd_torch/device_uuid/{p}", wait=60.0)
+        v = client.get(f"/hvd_torch/device_uuid/{round_id}/{p}", wait=60.0)
         if v is None:
             raise HorovodInitError(
                 f"process {p} never published its device UUID")
@@ -124,18 +143,90 @@ def _exchange_device_uuids(client, proc, num_procs, device):
 BYPASS_VOTE_TIMEOUT_SECS = 7 * 24 * 3600
 
 
+def _elastic_rendezvous(client):
+    """This worker's place in the next elastic round, from the driver's
+    ``/elastic/round`` record on the launcher's KV store (reference:
+    rank and size re-fetched from the rendezvous server on every reset,
+    gloo_context.cc:168-206; basics.py:66-113 of the JAX package).
+    Returns ``(proc, size, coordinator, round, host_of_proc)``: the
+    host index of each process, by its host's first place in rank
+    order, is the round's own layout."""
+    import json
+    import logging
+    import time
+
+    global _elastic_round
+    identity = (f"{env_mod.get_str(env_mod.HOROVOD_HOSTNAME, 'localhost')}"
+                f":{env_mod.get_int(env_mod.HOROVOD_LOCAL_RANK, 0)}")
+    deadline = time.monotonic() + env_mod.get_float(
+        env_mod.HOROVOD_ELASTIC_TIMEOUT, 600.0)
+    while time.monotonic() < deadline:
+        raw = client.get("/elastic/round", wait=10.0)
+        if raw is None:
+            continue
+        info = json.loads(raw)
+        if info.get("suspended") and info["round"] > _elastic_round:
+            # the job was preempted to zero workers (driver.suspend): the
+            # last commit is in the spill and the control plane stays up,
+            # so a worker that outlives the suspension exits cleanly and
+            # the resumed round restores the commit in fresh workers
+            logging.getLogger("horovod_tpu_torch").warning(
+                "job suspended at round %d; exiting cleanly (state "
+                "committed to the spill)", info["round"])
+            raise SystemExit(0)
+        if info["round"] <= _elastic_round:
+            time.sleep(0.2)
+            continue
+        if identity not in info["assignments"]:
+            # not part of this round (blacklisted, or beyond max_np):
+            # keep waiting; the driver terminates us if we stay out
+            time.sleep(0.5)
+            continue
+        _elastic_round = info["round"]
+        proc = info["assignments"][identity]
+        # round-formation marker: the driver's elastic timeout watches
+        # these to tell a forming round from a stuck one
+        client.put(f"/elastic/joined/{info['round']}/{proc}", b"1")
+        hosts = []
+        by_rank = sorted(info["assignments"].items(), key=lambda kv: kv[1])
+        for key, _ in by_rank:
+            host = key.rsplit(":", 1)[0]
+            if host not in hosts:
+                hosts.append(host)
+        host_of_proc = [hosts.index(key.rsplit(":", 1)[0])
+                        for key, _ in by_rank]
+        return (proc, info["size"], info["coordinator"], info["round"],
+                host_of_proc)
+    raise HorovodInitError("timed out waiting for elastic rendezvous")
+
+
 def _init_multiproc(device, num_ranks, config):
     """The launcher's env handoff (engine.py/basics.py:193-300 of the
     JAX package): controller, ``torch.distributed`` and the engine."""
     global _host_of_rank, _dist_up
     from ..core.engine import Engine
     from ..core.store_controller import StoreController
+    from ..runner.http.http_client import StoreClient
 
+    secret = env_mod.get_str(env_mod.HOROVOD_SECRET_KEY)
+    rdv = (env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR, "127.0.0.1"),
+           env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
+           bytes.fromhex(secret) if secret else None)
     rpp = num_ranks or env_mod.get_int(env_mod.HOROVOD_TPU_RANKS_PER_PROC,
                                        1) or 1
-    proc = env_mod.get_int(env_mod.HOROVOD_TPU_PROC_INDEX, 0)
-    num_procs = env_mod.get_int(env_mod.HOROVOD_TPU_NUM_PROCS, 1)
-    coordinator = env_mod.get_str(env_mod.HOROVOD_TPU_COORDINATOR)
+    round_id = 0
+    host_of_proc = None
+    if config.elastic:
+        if rpp != 1:
+            raise HorovodInitError(
+                f"an elastic worker hosts one rank, not {rpp} (the "
+                f"elastic driver sets HOROVOD_TPU_RANKS_PER_PROC=1)")
+        proc, num_procs, coordinator, round_id, host_of_proc = \
+            _elastic_rendezvous(StoreClient(*rdv))
+    else:
+        proc = env_mod.get_int(env_mod.HOROVOD_TPU_PROC_INDEX, 0)
+        num_procs = env_mod.get_int(env_mod.HOROVOD_TPU_NUM_PROCS, 1)
+        coordinator = env_mod.get_str(env_mod.HOROVOD_TPU_COORDINATOR)
     if not coordinator:
         raise HorovodInitError(
             "HOROVOD_CONTROLLER=http without HOROVOD_TPU_COORDINATOR: "
@@ -143,7 +234,8 @@ def _init_multiproc(device, num_ranks, config):
     # heterogeneous host:slots jobs carry per-process rank counts; the
     # uniform layout is rpp ranks in every process (basics.py:294-307 of
     # the JAX package)
-    rop = env_mod.get_str(env_mod.HOROVOD_TPU_RANKS_OF_PROC)
+    rop = None if config.elastic else \
+        env_mod.get_str(env_mod.HOROVOD_TPU_RANKS_OF_PROC)
     ranks_of_proc = None
     if rop:
         ranks_of_proc = [int(x) for x in rop.split(",")]
@@ -153,18 +245,15 @@ def _init_multiproc(device, num_ranks, config):
                 f"entries for {num_procs} processes (stale environment?)")
         rpp = ranks_of_proc[proc]
     counts = ranks_of_proc or [rpp] * num_procs
-    secret = env_mod.get_str(env_mod.HOROVOD_SECRET_KEY)
-    controller = StoreController(
-        env_mod.get_str(env_mod.HOROVOD_RENDEZVOUS_ADDR, "127.0.0.1"),
-        env_mod.get_int(env_mod.HOROVOD_RENDEZVOUS_PORT, 0),
-        bytes.fromhex(secret) if secret else None, proc, num_procs, rpp)
+    controller = StoreController(*rdv, proc, num_procs, rpp,
+                                 round_id=round_id)
     dev = resolve_device(device)
     gpu_ops = env_mod.get_str(env_mod.HOROVOD_GPU_OPERATIONS,
                               "nccl").lower()
     uuids = []
     if dev.type == "cuda" and gpu_ops == "nccl":
         uuids = _exchange_device_uuids(controller.client, proc, num_procs,
-                                       dev)
+                                       dev, round_id)
     check_gpu_operations(uuids, gpu_ops)
     # CPU tensors always ride gloo; CUDA tensors NCCL or, when asked
     # for, gloo
@@ -189,9 +278,10 @@ def _init_multiproc(device, num_ranks, config):
         ranks=list(range(num_procs)), backend="gloo",
         timeout=datetime.timedelta(seconds=config.stall_shutdown_secs
                                    or BYPASS_VOTE_TIMEOUT_SECS))
-    hof = env_mod.get_str(env_mod.HOROVOD_TPU_HOST_OF_RANK)
-    host_of_proc = [int(x) for x in hof.split(",")] if hof \
-        else list(range(num_procs))
+    if host_of_proc is None:
+        hof = env_mod.get_str(env_mod.HOROVOD_TPU_HOST_OF_RANK)
+        host_of_proc = [int(x) for x in hof.split(",")] if hof \
+            else list(range(num_procs))
     if len(host_of_proc) != num_procs:
         raise HorovodInitError(
             f"HOROVOD_TPU_HOST_OF_RANK has {len(host_of_proc)} entries "
@@ -227,6 +317,7 @@ def init(device=None, num_ranks=None, process_sets=None):
             _engine = Engine(num_ranks or 1, resolve_device(device),
                              config=config)
             _host_of_rank = [0] * _engine.num_ranks
+        _rebind_proc_ctx()
         _bind_thread_if_unbound()
         if process_sets:
             from . import process_sets as ps_mod
@@ -235,9 +326,22 @@ def init(device=None, num_ranks=None, process_sets=None):
 
 
 def _bind_thread_if_unbound():
+    global _proc_ctx
     if getattr(_tls, "ctx", None) is None and _engine is not None \
             and _engine.num_local == 1:
         _tls.ctx = RankContext(_engine.rank_offset)
+        if _proc_ctx is None:
+            _proc_ctx = _tls.ctx
+
+
+def _rebind_proc_ctx():
+    """After a re-init of a one-rank process: the first context of the
+    earlier init takes the new rank (and restarts its op names, as a new
+    process's would) and is bound to this thread."""
+    if _proc_ctx is not None and _engine.num_local == 1:
+        _proc_ctx.rank = _engine.rank_offset
+        _proc_ctx._counters.clear()
+        _tls.ctx = _proc_ctx
 
 
 def bind_rank(rank):
@@ -295,10 +399,37 @@ def is_initialized():
     return _engine is not None
 
 
+def needs_exec_restart():
+    """True when recovery needs a fresh process (basics.py:478 of the
+    JAX package, whose distributed client cannot outlive a peer's
+    death): the engine aborted while NCCL carries this process's CUDA
+    tensors, and a NCCL communicator whose peer died cannot be torn down
+    in place.  Gloo groups can, so an aborted gloo job re-initializes
+    in place."""
+    if _engine is None or _engine._aborted is None or not _dist_up \
+            or _engine.device.type != "cuda":
+        return False
+    return env_mod.get_str(env_mod.HOROVOD_GPU_OPERATIONS,
+                           "nccl").lower() == "nccl"
+
+
+def take_teardown_wedged():
+    """True (once) when the last :func:`shutdown` left an engine thread
+    blocked in a collective (basics.py:490-498 of the JAX package): the
+    process group it blocks in cannot be destroyed under it, so the
+    elastic reset exec-restarts this worker."""
+    global _teardown_wedged
+    wedged, _teardown_wedged = _teardown_wedged, False
+    return wedged
+
+
 def shutdown():
     """Stop the engine (a multi-process one says goodbye to the
-    coordinator first) and destroy the process group init() made."""
-    global _engine, _host_of_rank, _dist_up
+    coordinator first) and destroy the process group init() made.  An
+    engine thread that outlives the teardown's bound (blocked in a
+    collective with a peer that left) keeps its group: it is flagged
+    for :func:`take_teardown_wedged` instead."""
+    global _engine, _host_of_rank, _dist_up, _teardown_wedged
     with _state_lock:
         if _engine is None:
             return
@@ -309,12 +440,21 @@ def shutdown():
         reset_compiled_state()
         ps_mod._reset()
         _engine.shutdown()
+        wedged = _engine.wedged
         _engine = None
         _host_of_rank = None
         _tls.ctx = None
         if _dist_up:
             _dist_up = False
-            dist.destroy_process_group()
+            if wedged:
+                import logging
+                logging.getLogger("horovod_tpu_torch").warning(
+                    "the engine thread is still blocked in a collective "
+                    "after the teardown's bound; leaving its process group "
+                    "(this worker exec-restarts into the next round)")
+                _teardown_wedged = True
+            else:
+                dist.destroy_process_group()
 
 
 # -- topology queries (common/topology.py's Topology of the JAX package):

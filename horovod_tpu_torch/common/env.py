@@ -67,6 +67,16 @@ HOROVOD_BYPASS_WAIT_SECONDS = "HOROVOD_BYPASS_WAIT_SECONDS"
 # per-process rank counts of a heterogeneous host:slots job (the
 # launcher's ranks_per_proc="host"), one entry per process
 HOROVOD_TPU_RANKS_OF_PROC = "HOROVOD_TPU_RANKS_OF_PROC"
+# elastic jobs (runner/elastic/driver.py spawns every worker with
+# HOROVOD_ELASTIC=1): the crash-durable state spill directory
+# (common/elastic.py), the bound on a worker's wait for its round at the
+# rendezvous (the reference's --elastic-timeout), and the bound on an
+# elastic teardown's wait for the engine thread (a thread wedged in a
+# collective with a peer that left makes the worker exec-restart)
+HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
+HOROVOD_STATE_SPILL = "HOROVOD_STATE_SPILL"
+HOROVOD_ELASTIC_TIMEOUT = "HOROVOD_ELASTIC_TIMEOUT"
+HOROVOD_TEARDOWN_BARRIER_SECONDS = "HOROVOD_TEARDOWN_BARRIER_SECONDS"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -146,3 +156,5 @@ class Config:
         # cycles by default, as the JAX package's do (env.py:506-509)
         self.bypass_after_cycles = get_int(HOROVOD_BYPASS_AFTER_CYCLES, 5)
         self.bypass_wait_secs = get_float(HOROVOD_BYPASS_WAIT_SECONDS, 10.0)
+        # a worker of an elastic job (env.py:469 of the JAX package)
+        self.elastic = get_bool(HOROVOD_ELASTIC)

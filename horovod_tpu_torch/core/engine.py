@@ -201,6 +201,8 @@ class Engine:
         self._lock = threading.Condition()
         self._shutdown = False
         self._aborted: Optional[BaseException] = None
+        #: True when shutdown() left the engine thread blocked
+        self.wedged = False
         self._hold_depth = 0
         self._stall_warned = set()
         self.process_sets: Dict[int, ProcessSetState] = {
@@ -1099,6 +1101,12 @@ class Engine:
             for e in entries:
                 for sub in e.subs.values():
                     sub.handle.set_error(wrapped)
+            if self.config.elastic:
+                # a collective of an elastic job fails when a peer died
+                # (gloo: "connection closed by peer"): the process group
+                # is broken, so every pending collective fails now, into
+                # the elastic restore path
+                self.abort(wrapped)
         finally:
             with self._lock:
                 ps.running -= len(entries)
@@ -1921,7 +1929,14 @@ class Engine:
             for ev in self._removal_events.values():
                 ev.set()
             self._lock.notify_all()
-        self._thread.join(timeout=30)
+        # an elastic teardown bounds its wait: an engine thread blocked in
+        # a collective with a peer that left the round (an armed bypass
+        # vote racing a resize) never returns, and the worker then
+        # exec-restarts instead (basics.take_teardown_wedged)
+        self._thread.join(timeout=env_mod.get_float(
+            env_mod.HOROVOD_TEARDOWN_BARRIER_SECONDS, 10.0)
+            if self.config.elastic else 30)
+        self.wedged = self._thread.is_alive()
         if self.multiproc:
             # stop beating (with a goodbye) so a clean teardown never
             # reads as a missed-heartbeat death

@@ -12,20 +12,32 @@ collectives in the same order, as one process group needs.
 The negotiation bypass's vote (``bypass_ready``) and the poll's cut at
 the ``bypass_arm`` record are ported (core/bypass.py).  The JAX
 package's coordinator-restart recovery (the epoch resync and the
-drain-then-rereport handshake), its elastic rounds and per-host
-aggregator route (ROADMAP.md A17) are not: the port's coordinator never
-restarts, so :meth:`StoreController.take_rereport` is always False.
-The elastic round id is kept all the same (``round_id``, 0 until
-elastic rounds exist): the compiled path's signature exchange keys its
-records by it, as the JAX package's does.
+drain-then-rereport handshake) and per-host aggregator route
+(ROADMAP.md A17) are not: the port's coordinator never restarts, so
+:meth:`StoreController.take_rereport` is always False.
+
+Every request carries the elastic round (``round_id``, the round the
+worker joined at the rendezvous; 0 in a static job).  A coordinator that
+has moved to a newer round answers ``{"stale": true}``, which raises
+:class:`StaleRoundError` (a ``HorovodInternalError``): the engine aborts,
+and every pending collective of the old round fails into the elastic
+restore path (store_controller.py:135-172 of the JAX package).
 """
 
 import json
 import secrets
 import threading
 
+from ..common.exceptions import HorovodInternalError
 from ..runner.http.contract import CACHEABLE_TYPES as _CACHEABLE_TYPES
 from ..runner.http.http_client import StoreClient
+
+
+class StaleRoundError(HorovodInternalError):
+    """The coordinator moved to a new elastic round: every in-flight
+    collective of the old round must fail so workers fall into the
+    restore/re-rendezvous path instead of hanging (reference: gloo
+    context failure -> HorovodInternalError -> state.restore)."""
 
 
 def _fingerprint(meta):
@@ -47,8 +59,7 @@ class StoreController:
         self.num_procs = num_procs
         self.nlocal = nlocal
         self.poll_wait = poll_wait
-        #: the launcher's elastic round (0 outside elastic rounds, which
-        #: are not ported, ROADMAP.md A17)
+        #: the launcher's elastic round (0 in a static job)
         self.round_id = round_id
         self._cursor = 0
         self._reported = set()
@@ -62,6 +73,16 @@ class StoreController:
         # deduplicated against the previous controller's counters
         self._sid = secrets.token_hex(8)
 
+    def _coord(self, verb, payload, timeout=None, budget=None):
+        """One coordinator verb stamped with this worker's round; a
+        stale-round reply raises :class:`StaleRoundError`."""
+        out = self.client.coord(verb, {**payload, "round": self.round_id},
+                                timeout=timeout, budget=budget)
+        if out.get("stale"):
+            raise StaleRoundError(
+                f"coordinator moved to round {out.get('round')}")
+        return out
+
     # -- the negotiation bypass ----------------------------------------------
 
     def take_rereport(self):
@@ -74,9 +95,8 @@ class StoreController:
     def bypass_ready(self, fp):
         """Vote this worker's stable cycle fingerprint (core/bypass.py
         step 1 -> 2).  Idempotent on the coordinator; advisory here."""
-        self.client.coord("bypass_ready", {
-            "proc": self.proc_id, "round": self.round_id,
-            "sid": self._sid, "fp": fp}, timeout=5.0)
+        self._coord("bypass_ready", {
+            "proc": self.proc_id, "sid": self._sid, "fp": fp}, timeout=5.0)
 
     def clear_reported(self):
         """Drop every reported-key mark.  The engine calls it when the
@@ -123,7 +143,7 @@ class StoreController:
         with self._lock:
             self._rid += 1
             rid = self._rid
-        out = self.client.coord("ready", {
+        out = self._coord("ready", {
             "proc": self.proc_id, "nlocal": self.nlocal,
             "entries": entries, "rid": rid, "sid": self._sid})
         uncached = out.get("uncached")
@@ -168,15 +188,15 @@ class StoreController:
         # the goodbye races teardown: a dead rendezvous service must
         # not wedge clean worker exit behind the outage-spanning retry
         # budget — one bounded retry, then give up
-        out = self.client.coord("heartbeat", payload, timeout=5.0,
-                                budget=(2, 3.0) if bye else None)
+        out = self._coord("heartbeat", payload, timeout=5.0,
+                          budget=(2, 3.0) if bye else None)
         return bool(out.get("dead"))
 
     def report_join(self, ps_id, rank, ps_size, proc_members=1):
         with self._lock:
             self._jid += 1
             jid = self._jid
-        self.client.coord("join", {"ps": ps_id, "rank": rank,
+        self._coord("join", {"ps": ps_id, "rank": rank,
                                    "ps_size": ps_size,
                                    "proc": self.proc_id,
                                    "proc_members": proc_members,
@@ -189,7 +209,7 @@ class StoreController:
         dicts ({kind: batch|error|join_done|stall|dead|bypass_arm,
         ...}), cut after a ``bypass_arm`` record."""
         wait = self.poll_wait if wait is None else wait
-        out = self.client.coord(
+        out = self._coord(
             "poll", {"cursor": self._cursor, "proc": self.proc_id,
                      "wait": wait},
             timeout=wait + 30)

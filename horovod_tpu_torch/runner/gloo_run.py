@@ -1,12 +1,11 @@
-"""Gloo-role launch surface (port of the static part of
-``horovod_tpu/runner/gloo_run.py``; reference
-``horovod/runner/gloo_run.py``).
+"""Gloo-role launch surface (port of ``horovod_tpu/runner/gloo_run.py``;
+reference ``horovod/runner/gloo_run.py``).
 
 The gloo controller's role (rendezvous, per-slot env handoff, worker
 spawn) is played by the HMAC-HTTP store controller and
-``proc_run.launch_procs``; this module keeps the reference's static entry
-points and helpers on top of that machinery.  The elastic ones
-(``launch_gloo_elastic``, ``gloo_run_elastic``) are ROADMAP.md A17.
+``proc_run.launch_procs``, or in an elastic job by the elastic driver
+(``runner/elastic_run.py``); this module keeps the reference's static
+and elastic entry points and helpers on top of that machinery.
 """
 
 import os
@@ -31,9 +30,6 @@ def create_slot_env_vars(slot_info):
 def create_run_env_vars(server_ip, nics, port, elastic=False):
     """Rendezvous-location env (reference gloo_run.py:203), with the
     port's CPU backend (gloo)."""
-    if elastic:
-        raise NotImplementedError(
-            "elastic runs are not ported yet (ROADMAP.md A17)")
     env = {
         "HOROVOD_GLOO_RENDEZVOUS_ADDR": server_ip,
         "HOROVOD_GLOO_RENDEZVOUS_PORT": str(port),
@@ -42,6 +38,8 @@ def create_run_env_vars(server_ip, nics, port, elastic=False):
     }
     if nics:
         env["HOROVOD_GLOO_IFACE"] = list(nics)[0]
+    if elastic:
+        env["HOROVOD_ELASTIC"] = "1"
     return env
 
 
@@ -76,7 +74,45 @@ def gloo_run(settings, nics, env, server_ip, command):
             f"non-zero status: {failed}")
 
 
+def launch_gloo_elastic(command_or_func, exec_command, settings, env,
+                        get_common_interfaces, rendezvous,
+                        executable=None):
+    """Elastic launch (reference gloo_run.py:303): the elastic driver and
+    the KV rendezvous (runner/elastic_run.py).  ``exec_command``,
+    ``get_common_interfaces`` and ``rendezvous`` belong to the
+    reference's ssh+gloo machinery and are accepted and unused.  Returns
+    the job's exit code."""
+    from argparse import Namespace
+
+    from .elastic_run import run_elastic
+
+    discovery = getattr(settings, "discovery", None)
+    args = Namespace(
+        np=settings.num_proc,
+        min_np=getattr(settings, "min_num_proc", None),
+        max_np=getattr(settings, "max_num_proc", None),
+        hosts=getattr(settings, "hosts", None),
+        discovery=discovery if not isinstance(discovery, str) else None,
+        host_discovery_script=discovery if isinstance(discovery, str)
+        else getattr(settings, "discovery_script", None),
+        slots_per_host=getattr(settings, "slots", None),
+        blacklist_cooldown_range=getattr(settings, "cooldown_range", None),
+        command=command_or_func
+        if isinstance(command_or_func, (list, tuple))
+        else [command_or_func],
+        verbose=bool(settings.verbose),
+        start_timeout=None,
+        output_filename=settings.output_filename,
+        reset_limit=getattr(settings, "reset_limit", None),
+        elastic_timeout=getattr(settings, "elastic_timeout", None) or 600,
+        cpu=False,
+        ranks_per_worker=1,
+        extra_env=dict(env) if env else None,
+    )
+    return run_elastic(args)
+
+
 def gloo_run_elastic(settings, env, command_or_func, executable=None):
-    """Reference gloo_run.py:370: ROADMAP.md A17."""
-    raise NotImplementedError(
-        "elastic runs are not ported yet (ROADMAP.md A17)")
+    """Reference gloo_run.py:370."""
+    return launch_gloo_elastic(command_or_func, None, settings, env,
+                               None, None, executable)

@@ -21,6 +21,11 @@ The steady-state negotiation bypass's coordinator side is here: the
 voted one fingerprint, and the disarm when a worker reports entries or
 joins again (core/bypass.py).
 
+Elastic rounds are here too: the driver's ``reset(world_size,
+round_id)`` starts a round with fresh negotiation state, and a request
+stamped with an earlier round gets ``{"stale": true}``, which fails the
+worker's pending collectives (core/store_controller.py).
+
 Not ported (ROADMAP.md): the aggregator tier's verbs, journal restore
 and compaction (with it the replay of a ``bypass_arm`` record after a
 restart), coordinator-side chaos and the ``/metrics`` and ``/timeline``
@@ -257,6 +262,10 @@ class Coordinator:
         # the coordinator generation the JAX package bumps on a journal
         # replay; the port never restarts one (A17), so it stays 1
         self.coord_epoch = 1
+        # the elastic round (runner/elastic/driver.py): reset() starts a
+        # new one, and a request stamped with another round is answered
+        # ``{"stale": true}`` (0 in a static job, whose workers stamp 0)
+        self.round_id = 0
         self._journal = journal
         # coordinator-side stall inspector (reference
         # stall_inspector.cc relocated with the coordinator): an entry
@@ -331,7 +340,60 @@ class Coordinator:
         self._log.append(rec)
         self._j({"k": "log", "i": idx, "r": rec})
 
+    def procs_seen(self) -> int:
+        """How many worker processes have polled this round: the
+        round-formation signal the elastic driver's re-init timeout
+        watches."""
+        with self._lock:
+            return len(self._cursors)
+
+    def reset(self, world_size: int, round_id: int = 0):
+        """New elastic round: fresh negotiation state; stale-round
+        requests are rejected (reference: a new gloo context per
+        rendezvous, gloo_context.cc:168-206)."""
+        with self._lock:
+            self._j({"k": "reset", "world": world_size,
+                     "round": round_id})
+            self.world_size = world_size
+            self.round_id = round_id
+            self._bypass_votes.clear()
+            self._bypass_armed_fp = None
+            self._pending.clear()
+            self._log.clear()
+            self._log_base = 0
+            self._cursors.clear()
+            self._joined.clear()
+            self._proc_joined.clear()
+            self._exhausted.clear()
+            self._join_seen.clear()
+            self._ready_seen.clear()
+            self._ready_reply.clear()
+            self._proc_sid.clear()
+            self._session_base.clear()
+            self._errors.clear()
+            self._pending_since.clear()
+            self._stall_warned_keys.clear()
+            self._cache.clear()
+            self._cache_by_key.clear()
+            self._beats.clear()
+            self._proc_ranks.clear()
+            self._proc_hosts.clear()
+            self._dead.clear()
+            self._lock.notify_all()
+
+    def dead_procs(self):
+        """Declared-dead procs this round: {proc: {ranks, host, age}}.
+        The elastic driver polls this to blacklist hung hosts that never
+        exit (runner/elastic/driver.py); it doubles as a scan clock, for
+        a job whose workers are all armed on the bypass (no polls) and
+        all hung (no beats)."""
+        with self._lock:
+            self._scan_heartbeats()
+            return {p: dict(info) for p, info in self._dead.items()}
+
     def handle(self, verb, req):
+        if req.get("round", self.round_id) != self.round_id:
+            return {"stale": True, "round": self.round_id}
         if verb == "ready":
             return self._on_ready(req)
         if verb == "poll":
@@ -928,10 +990,15 @@ class Coordinator:
     def _on_poll(self, req):
         """Long-poll for responses after cursor (absolute)."""
         cursor = req["cursor"]
+        round_at_entry = req.get("round", self.round_id)
         timeout = req.get("wait", 10.0)
         proc = req.get("proc")
         deadline = time.monotonic() + timeout
         with self._lock:
+            if self.round_id != round_at_entry:
+                # a reset raced us past handle()'s unlocked check: don't
+                # let a stale cursor poison the new round's GC
+                return {"stale": True, "round": self.round_id}
             # polls arrive every worker cycle, so they are the stall
             # inspector's and the liveness scan's clock (the
             # coordinator has no thread of its own)
@@ -950,11 +1017,18 @@ class Coordinator:
                                           cursor)
                 self._gc_log()
             while self._log_base + len(self._log) <= cursor:
+                if self.round_id != round_at_entry:
+                    # an elastic reset happened while we were waiting:
+                    # this worker's round is over, so never hand it the
+                    # new round's responses
+                    return {"stale": True, "round": self.round_id}
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     return {"responses": [], "cursor": cursor,
                             "epoch": self.coord_epoch}
                 self._lock.wait(remaining)
+            if self.round_id != round_at_entry:
+                return {"stale": True, "round": self.round_id}
             resp = self._log[max(0, cursor - self._log_base):]
             return {"responses": resp,
                     "cursor": self._log_base + len(self._log),

@@ -7,11 +7,14 @@ run_commandline :830, _run :806).
 A static job spawns one worker process per ``--ranks-per-worker`` ranks
 (or per host entry with ``--ranks-per-worker host``) with the full
 ``HOROVOD_*`` env handoff (proc_run.py); a ``-H`` host that is not this
-machine gets its workers over ssh.  ``--mpi`` and ``--gloo`` are
-accepted and change nothing, as in the JAX package.  The parser is the JAX
-package's, flag for flag; the flags of features the port has not ported
-yet are refused with the ROADMAP.md item that ports them (elastic,
-fleet, chaos, tracing, telemetry and the aggregator tier: A17;
+machine gets its workers over ssh.  ``--min-np``, ``--max-np`` or
+``--host-discovery-script`` make the job elastic (elastic_run.py): the
+elastic driver spawns one worker a slot, each holding one rank, and
+re-forms the job when a worker dies or discovery changes.  ``--mpi`` and
+``--gloo`` are accepted and change nothing, as in the JAX package.  The
+parser is the JAX package's, flag for flag; the flags of features the
+port has not ported yet are refused with the ROADMAP.md item that ports
+them (fleet, chaos, tracing, telemetry and the aggregator tier: A17;
 autotune: A14; the 2-D algorithms and per-hop wires: A8; pipelining:
 A15; serving: A16).
 """
@@ -26,9 +29,6 @@ from .hosts import parse_host_files
 #: (parsed attribute, ROADMAP.md item): flags whose features are not
 #: ported; a run that sets one is refused
 _UNPORTED_FLAGS = (
-    ("min_np", "A17"), ("max_np", "A17"), ("host_discovery_script", "A17"),
-    ("slots_per_host", "A17"), ("reset_limit", "A17"),
-    ("blacklist_cooldown_range", "A17"), ("elastic_timeout", "A17"),
     ("fleet_spec", "A17"), ("fault_plan", "A17"), ("fault_seed", "A17"),
     ("coord_outage_deadline_seconds", "A17"),
     ("control_plane_tier", "A17"), ("agg_linger_ms", "A17"),
@@ -419,6 +419,11 @@ def _run_static(args):
     return max(codes) if codes else 0
 
 
+def _run_elastic(args):
+    from .elastic_run import run_elastic
+    return run_elastic(args)
+
+
 def run_commandline(argv=None):
     args = parse_args(argv)
     if args.version:
@@ -443,6 +448,8 @@ def run_commandline(argv=None):
     if args.np is None:
         print("horovodrun: -np is required", file=sys.stderr)
         return 2
+    if args.host_discovery_script or args.min_np or args.max_np:
+        return _run_elastic(args)
     return _run_static(args)
 
 

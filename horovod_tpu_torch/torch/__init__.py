@@ -3,7 +3,8 @@
 API parity with ``horovod_tpu/torch`` for the ported slices: collectives
 over device tensors, ``DistributedOptimizer`` (with autograd hooks, or
 weight-update sharded), compression, parameter and optimizer-state
-broadcast.
+broadcast, and the elastic frontend (``elastic.run``, ``TorchState``,
+``ElasticSampler``).
 """
 
 from ..common.basics import (  # noqa: F401
@@ -39,3 +40,4 @@ from .mpi_ops import (  # noqa: F401
     HorovodReducescatter, HorovodGroupedReducescatter,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401
+from . import elastic  # noqa: F401

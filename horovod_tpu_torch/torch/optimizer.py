@@ -114,7 +114,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._group_pending = {gi: set() for gi in
                                range(len(self._groups or []))}
 
-        if basics.size() > 1:
+        # an elastic job may grow past one process later, so its hooks
+        # go in at any size (reference optimizer.py: size() > 1 or
+        # HOROVOD_ELASTIC)
+        if basics.size() > 1 or basics.engine().config.elastic:
             self._register_hooks()
 
     # -- hook plumbing ------------------------------------------------------
@@ -135,7 +138,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return hook
 
     def _on_grad_ready(self, p):
-        if p.grad is None:
+        if p.grad is None or basics.size() <= 1:
+            # one process reduces nothing (an elastic round of one)
             return
         if p in self._handles and self._handles[p][0] is not None:
             if self._allreduce_delay[p] <= 0:
@@ -152,12 +156,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._allreduce_delay[p] -= 1
         if self._allreduce_delay[p] == 0:
             gi = self._group_of.get(id(p))
-            if gi is None:
-                self._handles[p] = self._allreduce_grad_async(p)
-            else:
-                self._group_pending[gi].add(p)
-                if len(self._group_pending[gi]) == len(self._groups[gi]):
-                    self._grouped_allreduce_async(gi)
+            try:
+                if gi is None:
+                    self._handles[p] = self._allreduce_grad_async(p)
+                else:
+                    self._group_pending[gi].add(p)
+                    if len(self._group_pending[gi]) == \
+                            len(self._groups[gi]):
+                        self._grouped_allreduce_async(gi)
+            except BaseException:
+                self._drop_handles()
+                raise
 
     # -- collective launches -------------------------------------------------
 
@@ -250,6 +259,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if basics.size() <= 1:
             self._synchronized = True
             return
+        try:
+            self._synchronize()
+        except BaseException:
+            self._drop_handles()
+            raise
+        self._synchronized = True
+
+    def _drop_handles(self):
+        """Forget every in-flight allreduce after one failed (a peer died,
+        or the elastic round moved on): the elastic loop restores and
+        steps again, and a stale handle would refuse its ``zero_grad``."""
+        self._handles.clear()
+        for pending in self._group_pending.values():
+            pending.clear()
+        for p in self._allreduce_delay:
+            self._allreduce_delay[p] = self.backward_passes_per_step
+
+    def _synchronize(self):
         with basics.bound_context(self._rank_ctx):
             # params whose hook never fired (unused in forward) or fired
             # fewer than backward_passes_per_step times still get
@@ -277,7 +304,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                         p.grad.copy_(out.view_as(p.grad))
                 self._allreduce_delay[p] = self.backward_passes_per_step
             self._handles.clear()
-        self._synchronized = True
 
     @contextmanager
     def skip_synchronize(self):

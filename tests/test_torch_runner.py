@@ -3,7 +3,7 @@
 assignment, the config file and the CLI's argument parsing give the same
 results for the same inputs, and ``slot_env`` hands a worker the same
 environment but for the platform and backend keys.  Plus the port's
-refusals (the hybrid layout, elastic and other unported flags, autotune,
+refusals (the hybrid layout, chaos and other unported flags, autotune,
 what the compiled path still refuses on a multi-process engine) and its
 backend rule for CUDA tensors, checked with fake device UUIDs; the
 compiled path over a one-process gloo group against the stacked program
@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 from horovod_tpu.common.topology import Topology
 from horovod_tpu.runner import config_parser as jax_config
+from horovod_tpu.runner import gloo_run as jax_gloo_run
 from horovod_tpu.runner import hosts as jax_hosts
 from horovod_tpu.runner import launch as jax_launch
 from horovod_tpu.runner import proc_run as jax_proc_run
@@ -166,16 +167,17 @@ def test_gloo_run_env_helpers():
 
 @pytest.mark.parametrize("argv,item", [
     (["-np", "2", "--pipeline-stages", "2"], "A15"),
-    (["-np", "2", "--min-np", "1"], "A17"),
-    (["-np", "2", "--host-discovery-script", "d.sh"], "A17"),
+    (["-np", "2", "--fault-plan", "{}"], "A17"),
+    (["-np", "2", "--control-plane-tier", "host"], "A17"),
     (["-np", "2", "--autotune"], "A14"),
     (["-np", "2", "--hierarchical-allreduce"], "A8"),
     (["-np", "2", "--timeline-filename", "t.json"], "A17"),
     (["-np", "2", "--serve"], "A16"),
 ])
 def test_cli_refuses_unported_flags(argv, item):
-    """What the CLI still refuses; ``--ranks-per-worker`` and the bypass
-    flags are ported (``test_cli_takes_the_hybrid_and_bypass_flags``)."""
+    """What the CLI still refuses; ``--ranks-per-worker``, the bypass
+    flags (``test_cli_takes_the_hybrid_and_bypass_flags``) and the elastic
+    flags (tests/test_torch_elastic_jobs.py) are ported."""
     with pytest.raises(NotImplementedError, match=item):
         torch_launch.run_commandline(argv + ["--", "python", "t.py"])
 
@@ -204,8 +206,10 @@ def test_cli_takes_the_hybrid_and_bypass_flags():
 def test_refusals_outside_the_cli(monkeypatch):
     """What the launcher still refuses: an np that the rank threads per
     process do not divide, or that is over the slots of ``-H`` (as the
-    JAX package's launcher), elastic and chaos (A17).  Workers on remote
-    hosts are ported (tests/test_torch_remote.py)."""
+    JAX package's launcher), and chaos (A17), in an elastic job too.
+    Workers on remote hosts (tests/test_torch_remote.py) and elastic runs
+    (tests/test_torch_elastic_jobs.py) are ported: the elastic handoff
+    adds what the JAX package's adds."""
     with pytest.raises(ValueError, match="ranks_per_proc='host'"):
         torch_proc_run.launch_procs(["true"], np=3, ranks_per_proc=2)
     with pytest.raises(ValueError, match="exceeds"):
@@ -214,10 +218,21 @@ def test_refusals_outside_the_cli(monkeypatch):
     with pytest.raises(NotImplementedError, match="A17"):
         torch_config.set_env_from_args(
             {}, argparse.Namespace(fault_plan="{}"))
+    from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
+    from horovod_tpu_torch.runner.elastic.settings import ElasticSettings
+    settings = ElasticSettings(
+        discovery=FixedHosts({"localhost": 1}), min_num_proc=1,
+        max_num_proc=1, elastic_timeout=10, reset_limit=None, num_proc=1)
     with pytest.raises(NotImplementedError, match="A17"):
-        torch_gloo_run.gloo_run_elastic(None, {}, ["python"])
-    with pytest.raises(NotImplementedError, match="A17"):
-        torch_gloo_run.create_run_env_vars("h", None, 1, elastic=True)
+        torch_gloo_run.gloo_run_elastic(
+            settings, {"HOROVOD_FAULT_PLAN": "{}"}, ["python"])
+
+    def elastic_keys(mod):
+        on = mod.create_run_env_vars("h", None, 1, elastic=True)
+        off = mod.create_run_env_vars("h", None, 1)
+        return {k: v for k, v in on.items() if off.get(k) != v}
+    assert elastic_keys(torch_gloo_run) == elastic_keys(jax_gloo_run) == {
+        "HOROVOD_ELASTIC": "1"}
 
 
 def test_init_refuses_the_hybrid_layout(monkeypatch):
