@@ -325,7 +325,34 @@ Phases (a failure in any one exits non-zero):
     prints each round's median step ms, the commit's ms, the seconds
     from the exit or the discovery change to the next round's first
     step, the rounds and resets, B1 launches per process and each job's
-    wall.
+    wall;
+21. the control plane's faults, driven by seeded fault plans.  (a) Two
+    jobs of the port's ``launch_procs`` (``chip_smoke.py --worker21``,
+    np=2 processes on cuda:0 over gloo, ``HOROVOD_CONTROL_PLANE_TIER=
+    host``: process 0 hosts the host's aggregator and both route their
+    control traffic through it), phase 4's full-width bf16 ResNet-50
+    through ``DistributedOptimizer(SGD, momentum 0.9, groups=1)`` (one
+    grouped allreduce a step, B1 on the path), the negotiation bypass
+    armed after ``P21_K`` stable cycles, ``P21_STEPS`` steps, then a
+    ``hvd.barrier()``.  The first job runs ``P21_PLAN`` with a
+    coordinator journal: ``agg_restart`` on the aggregator's 10th
+    request (1.5 s down), ``coord_restart`` (3 s down, rebuilt from the
+    journal on the same port) on the coordinator's first ``clock``
+    request, which rank 0 sends once the bypass armed; the second runs
+    undisturbed.  Gates: both jobs exit 0; every replica (parameters and
+    momentum) bit for bit the others, across the jobs too; the workers
+    read coordinator epoch 2 after the faults, and aggregator epoch 2
+    unless they fell back to the coordinator's route; no
+    ``dead`` record in the journal; steps ran while the coordinator was
+    down, all on the bypass.  (b) Phase 20 (a)'s elastic job with its
+    failure from a plan: ``kill`` on the 127.0.0.1 worker's
+    ``P21_KILL_AT``-th collective (step 3's first: the state's sync,
+    then 161 a step), not the worker's own exit; the same rounds, the
+    blacklisting and the survivor's steps 3-5 at size 1 as 20 (a), bit
+    for bit phase 20 (a)'s in-process replay.  It prints each step's ms,
+    the outages, the seconds from the coordinator's restart to the first
+    reply, the epochs, the steps during the outage, B1 launches per
+    process and the killed injector's fired record.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
@@ -335,9 +362,10 @@ phase 15 under ``phase15_launches``, B1-B3's per phase-16 leg and
 process under ``phase16_launches``, every kernel's per phase-17 leg
 and process, through its wrapper, under ``phase17_launches``,
 B1-B3's per phase-18 leg and process under ``phase18_launches``, B1's
-per phase-19 (a) process under ``phase19_launches``, and B1's per
+per phase-19 (a) process under ``phase19_launches``, B1's per
 phase-20 leg and process, localhost's then 127.0.0.1's, under
-``phase20_launches``); the last
+``phase20_launches``, and B1's per phase-21 (a) job and process and
+per (b) process under ``phase21_launches``); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15 also print the profile tables of one steady
 step each.
@@ -538,6 +566,26 @@ P20_DISCOVERY = {
           "  echo 127.0.0.1:1\nfi\n")}
 P20_LEGS = {"a": ["-np", "2", "--min-np", "1", "--max-np", "2"],
             "b": ["-np", "1", "--min-np", "1", "--max-np", "2"]}
+# phase 21: (a)'s steps, the bypass's stable cycles, the bound on each
+# job, and its fault plan: the aggregator restarts on its 10th request
+# (1.5 s down), the coordinator from its journal on its first ``clock``
+# request (3 s down), which rank 0 sends once the bypass armed.  (b):
+# phase 20 (a)'s job with the kill from a plan, on the 127.0.0.1
+# worker's (proc 0 of round 1) ``P21_KILL_AT``-th collective: the
+# elastic state's sync reports 271 (161 parameters and 110 buffers and
+# objects), then each step 161, so step 3's first collective is
+# 271 + 3 x 161 + 1 (counted on the CPU with the same model and state)
+P21_STEPS = 8
+P21_K = 2
+P21_TIMEOUT = 240
+P21_PLAN = {"seed": 21, "events": [
+    {"kind": "agg_restart", "proc": 0, "after": 10, "ms": 1500},
+    {"kind": "coord_restart", "verb": "clock", "after": 1, "ms": 3000}]}
+P21_KILL_AT = 271 + 3 * 161 + 1
+P21_KILL_PLAN = {"seed": 21, "events": [
+    {"kind": "kill", "proc": 0, "after_collectives": P21_KILL_AT}]}
+P20_DISCOVERY["k"] = P20_DISCOVERY["a"]
+P20_LEGS["k"] = P20_LEGS["a"] + ["--fault-plan", json.dumps(P21_KILL_PLAN)]
 REPORTED_ENV = ("HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_TPU_COORDINATOR",
                 "HOROVOD_HOSTNAME", "HOROVOD_GPU_OPERATIONS",
                 "HOROVOD_SECRET_KEY", "CUDA_VISIBLE_DEVICES", "PYTHONPATH",
@@ -5256,7 +5304,10 @@ def phase20_worker(leg, tmp):
     through the engine itself (``grouped_allreduce_``: the optimizer
     reduces nothing at one process), so B1 runs in every round.  It
     reports through ``events_<host>.jsonl`` and ``commits.log`` in
-    ``dir``; a failure exits non-zero."""
+    ``dir``; a failure exits non-zero.  Leg ``k`` (phase 21 (b)) is leg
+    ``a`` whose failure comes from the fault plan's ``kill`` instead of
+    the worker's own exit; it logs the plan's collectives counter at
+    each step's start."""
     import torch
     sys.path.insert(0, ROOT)
     import horovod_tpu_torch as hvd
@@ -5267,6 +5318,7 @@ def phase20_worker(leg, tmp):
     from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.common.exceptions import (
         HorovodInternalError, HostsUpdatedInterrupt)
+    from horovod_tpu_torch import chaos
     from horovod_tpu_torch.models.resnet import ResNet50
     from horovod_tpu_torch.ops import cuda_kernels as K
 
@@ -5305,6 +5357,10 @@ def phase20_worker(leg, tmp):
         digested = False
         while st.batch < STEPS:
             step, r, s = st.batch, hvd.rank(), hvd.size()
+            if leg == "k":
+                # the fault plan's collectives counter at the step's start
+                ev("begin", step=step, rank=r, size=s,
+                   coll=chaos.current()._collectives, b1=_b1_launches())
             if leg == "a" and step == 3 and s == 2 and host == P20_DYING \
                     and not os.path.exists(marker):
                 open(marker, "w").close()
@@ -5644,6 +5700,272 @@ def phase_elastic(dev, card, state, batches):
             f"change vs the replay {err:.3g} (relative L2, bound "
             f"{P20_REL_L2}), bit for bit: {exact}; job wall {r['wall']:.1f} s")
     log(f"phase 20 ({card}): {time.perf_counter() - t_phase:.1f} s")
+    out["replay_a"] = replay["a"]
+    return out
+
+
+def phase21_worker(label, tmp):
+    """One process of a phase-21 (a) job (``chip_smoke.py --worker21
+    <label> <dir>``): phase 4's full-width bf16 ResNet-50 through
+    ``DistributedOptimizer(SGD, momentum 0.9, groups=1)``, rank r on
+    batch r, ``P21_STEPS`` steps, then ``hvd.barrier()``.  In the
+    faulted job (label ``f``) rank 0 sends the coordinator one ``clock``
+    request once the bypass armed (from a thread of its own, so that its
+    steps go on), the plan's ``coord_restart`` trigger.  Reports to
+    ``<label>_<rank>.json`` and ``<label>_final<rank>.pt``."""
+    import threading
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+    t_start = time.time()
+    hvd.init(device=torch.device("cuda:0"))
+    import torch.nn.functional as F
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dev = hvd.device()
+    r = hvd.rank()
+    eng = hvd.engine()
+    ctl = eng.controller
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(torch.load(os.path.join(tmp, "state.pt")))
+    opt = hvd_torch.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(), groups=1)
+    x0, y0 = (t.to(dev) for t in torch.load(os.path.join(
+        tmp, f"batch{r}.pt")))
+    K.reset_launches()
+    steps, t_clock = [], None
+    for step in range(P21_STEPS):
+        x, y = step_batch(x0, y0, step)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        steps.append({"step": step, "t0": t0, "t1": t1,
+                      "ms": (t1 - t0) * 1e3, "hits": eng.bypass_hits,
+                      "loss": float(loss.detach())})
+        if label == "f" and r == 0 and t_clock is None \
+                and eng.bypass_hits >= 1:
+            t_clock = time.time()
+            threading.Thread(target=ctl.client.coord,
+                             args=("clock", {}), daemon=True).start()
+    t_barrier = time.time()
+    hvd.barrier()
+    t_reply = time.time()
+    snap = _elastic_snapshot(model, opt)
+    torch.save(snap, os.path.join(tmp, f"{label}_final{r}.pt"))
+    out = {"rank": r, "t_start": t_start, "steps": steps,
+           "t_clock": t_clock, "t_barrier": t_barrier, "t_reply": t_reply,
+           "epoch": ctl.epoch, "agg_epoch": ctl.agg_epoch,
+           "via_agg": getattr(ctl.client, "via_agg", None),
+           "hits": eng.bypass_hits, "fallbacks": eng.bypass_fallbacks,
+           "requests": dict(ctl.client.coord_requests),
+           "b1": _b1_launches(), "digest": _snapshot_digest(snap)}
+    with open(os.path.join(tmp, f"{label}_{r}.json"), "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def _p21_job(label, tmp):
+    """One phase-21 (a) job through ``launch_procs`` in this process (the
+    coordinator, its journal and its fault runner live here); the
+    faulted one (``f``) with ``P21_PLAN``.  Returns the workers' reports
+    and the job's wall seconds."""
+    from horovod_tpu_torch.runner.proc_run import launch_procs
+    env = {**_GLOO, "PYTHONPATH": ROOT,
+           "HOROVOD_CONTROL_PLANE_TIER": "host",
+           "HOROVOD_BYPASS_AFTER_CYCLES": str(P21_K)}
+    if label == "f":
+        env.update({
+            "HOROVOD_FAULT_PLAN": json.dumps(P21_PLAN),
+            "HOROVOD_COORD_JOURNAL": os.path.join(tmp, "journal.jsonl"),
+            "HOROVOD_FAULT_COORD_LOG": os.path.join(tmp, "coord.log"),
+            "HOROVOD_FAULT_AGG_LOG": os.path.join(tmp, "agg.log")})
+    t0 = time.perf_counter()
+    codes = launch_procs(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker21",
+         label, tmp], np=NP, env=env, start_timeout=P21_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if codes != [0] * NP:
+        raise AssertionError(f"phase 21 (a) job {label}: workers exited "
+                             f"{codes}")
+    reps = []
+    for r in range(NP):
+        with open(os.path.join(tmp, f"{label}_{r}.json")) as f:
+            reps.append(json.load(f))
+    return reps, wall
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_chaos(dev, card, state, batches, replay_a):
+    """Phase 21: the control plane's faults from seeded fault plans (see
+    the module docstring).  (a) ``P21_PLAN``'s job and the undisturbed
+    one; (b) phase 20 (a)'s elastic job with its kill from
+    ``P21_KILL_PLAN``, held to phase 20 (a)'s replay (``replay_a``)."""
+    import re
+    import torch
+    xs, ys = batches
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        for r in range(NP):
+            torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
+                       os.path.join(tmp, f"batch{r}.pt"))
+        faulted, wall_f = _p21_job("f", tmp)
+        calm, wall_c = _p21_job("u", tmp)
+        coord = _jsonl(os.path.join(tmp, "coord.log"))
+        agg = _jsonl(os.path.join(tmp, "agg.log"))
+        journal = _jsonl(os.path.join(tmp, "journal.jsonl"))
+    bad = []
+    if [(c["kind"], c["n"]) for c in coord] != [("coord_restart", 1.0)]:
+        bad.append(f"coordinator faults {coord}")
+    if [(a["kind"], a["n"], a["agg"]) for a in agg] != \
+            [("agg_restart", 10.0, 0)]:
+        bad.append(f"aggregator faults {agg}")
+    if bad:
+        raise AssertionError("phase 21 (a): " + "; ".join(bad))
+    t_stop, t_start = coord[0]["t_stop"], coord[0]["t_start"]
+    digests = {d for rep in faulted + calm for d in [rep["digest"]]}
+    # steps that ended while the coordinator was down
+    during = [[s["step"] for s in rep["steps"]
+               if t_stop < s["t1"] < t_start] for rep in faulted]
+    unarmed = [[s["step"] for s in rep["steps"]
+                if t_stop < s["t1"] < t_start and s["hits"] < 1]
+               for rep in faulted]
+    dead = [rec for rec in journal if rec.get("k") == "log"
+            and rec["r"].get("kind") == "dead"]
+    epochs = [rec["epoch"] for rec in journal if rec.get("k") == "epoch"]
+    if len(digests) != 1:
+        bad.append(f"replicas differ: digests {sorted(digests)}")
+    # a worker is on the aggregator's successor (agg_epoch 2), or fell
+    # back to the coordinator (no agg_epoch) if the outage outlasted its
+    # retries
+    if any(rep["epoch"] != 2 or (rep["agg_epoch"], rep["via_agg"])
+           not in ((2, True), (None, False)) for rep in faulted):
+        bad.append(f"epochs after the faults (coord, agg, via the "
+                   f"aggregator) {[(rep['epoch'], rep['agg_epoch'], rep['via_agg']) for rep in faulted]}")
+    if epochs != [1, 2]:
+        bad.append(f"journal epochs {epochs}")
+    if dead:
+        bad.append(f"declared dead: {dead}")
+    if not all(during) or any(unarmed):
+        bad.append(f"steps during the outage {during}, unarmed {unarmed}")
+    if dev.type == "cuda" and not all(rep["b1"] > 0
+                                      for rep in faulted + calm):
+        bad.append(f"B1 launches per process "
+                   f"{[rep['b1'] for rep in faulted + calm]}")
+    if bad:
+        raise AssertionError("phase 21 (a): " + "; ".join(bad))
+    out["launches"]["a"] = {"faulted": [rep["b1"] for rep in faulted],
+                            "undisturbed": [rep["b1"] for rep in calm]}
+    ms = {lbl: [[round(s["ms"], 2) for s in rep["steps"]] for rep in reps]
+          for lbl, reps in (("faulted", faulted), ("undisturbed", calm))}
+    # the barrier is each rank's first negotiated request after the
+    # steps: its reply, counted from the restart (or from the barrier's
+    # own start when the coordinator was back before it)
+    first_reply = [round(rep["t_reply"] - max(t_start, rep["t_barrier"]),
+                         3) for rep in faulted]
+    log(f"phase 21 (a) ({card}): np=2 over gloo on cuda:0, "
+        f"--control-plane-tier host, bypass after {P21_K} cycles, "
+        f"{P21_STEPS} steps; step ms per rank {ms}; aggregator outage "
+        f"{agg[0]['t_start'] - agg[0]['t_stop']:.3f} s; coordinator "
+        f"outage {t_start - t_stop:.3f} s (restart from the journal, "
+        f"epochs {epochs}); s from the restart to the first reply (each "
+        f"rank's barrier, from its start if later) {first_reply}; steps during the outage per "
+        f"rank {during} (ended while it was down), all armed; epochs after "
+        f"(coord, agg, via the aggregator) "
+        f"{[(rep['epoch'], rep['agg_epoch'], rep['via_agg']) for rep in faulted]}; "
+        f"bypass hits / fallbacks {[(rep['hits'], rep['fallbacks']) for rep in faulted]}; "
+        f"coordinator requests per rank {[rep['requests'] for rep in faulted]}; "
+        f"declared dead: none; replicas bit for bit each other and the "
+        f"undisturbed job's; B1 launches per process {out['launches']['a']}; "
+        f"job walls {wall_f:.1f} / {wall_c:.1f} s")
+
+    # (b) the elastic job with its kill from the plan
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "k")
+        os.makedirs(d)
+        torch.save(state, os.path.join(d, "state.pt"))
+        for r in range(NP):
+            torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
+                       os.path.join(d, f"batch{r}.pt"))
+        code, text, wall = p20_job("k", d)
+        if code != 0:
+            raise AssertionError(f"phase 21 (b): the job exited {code}; "
+                                 f"log:\n{text[-6000:]}")
+        ev = {h: _p20_events(d, h) for h in ("localhost", P20_DYING)}
+        final_path = os.path.join(d, "final_localhost.pt")
+        final = torch.load(final_path) if os.path.exists(final_path) \
+            else None
+    rounds = _p20_rounds(text)
+    fired = [{"kind": m.group(1), "event": int(m.group(2)),
+              "trigger": m.group(3), "n": int(m.group(4))}
+             for m in re.finditer(
+                 r"chaos: injecting (\w+) \(event #(\d+), (\w+)=(\d+), "
+                 r"proc 0\)", text)]
+    begins = [e for e in ev[P20_DYING] if e["ev"] == "begin"]
+    late = [(e["step"], e["size"], e["round"]) for e in ev["localhost"]
+            if e["ev"] == "step" and e["step"] >= 3]
+    resets = [e["batch"] for e in ev["localhost"] if e["ev"] == "reset"]
+    dying_done = [e for e in ev[P20_DYING] if e["ev"] == "done"]
+    bad = []
+    if rounds != [(1, 2), (2, 1)]:
+        bad.append(f"rounds {rounds}")
+    if "blacklisting host 127.0.0.1" not in text:
+        bad.append("127.0.0.1 was not blacklisted")
+    if fired != [{"kind": "kill", "event": 0, "trigger": "collectives",
+                  "n": P21_KILL_AT}]:
+        bad.append(f"fired {fired}")
+    if not begins or (begins[-1]["step"], begins[-1]["coll"]) != \
+            (3, P21_KILL_AT - 1) or dying_done:
+        bad.append(f"the killed worker's last step start "
+                   f"{begins[-1:] if begins else None}, done {dying_done}")
+    if late != [(3, 1, 2), (4, 1, 2), (5, 1, 2)]:
+        bad.append(f"survivor's steps 3-5 (step, size, round) {late}")
+    if resets != [3]:
+        bad.append(f"survivor's resets {resets}")
+    if final is None:
+        bad.append("no final state from the survivor")
+    if bad:
+        raise AssertionError("phase 21 (b): " + "; ".join(bad) +
+                             f"; log:\n{text[-3000:]}")
+    err, exact = p20_change_error(final, replay_a, state)
+    if not exact:
+        raise AssertionError(f"phase 21 (b): the survivor is not bit for "
+                             f"bit the replay ({err:.3g} relative L2)")
+    done = [e for e in ev["localhost"] if e["ev"] == "done"]
+    out["launches"]["b"] = [done[-1]["b1"], begins[-1]["b1"]]
+    exit_t = max(e["t"] for e in begins)
+    first_next = min(e["t0"] for e in ev["localhost"]
+                     if e["ev"] == "step" and e["round"] == 2)
+    log(f"phase 21 (b) ({card}): phase 20 (a)'s elastic job, the failure "
+        f"from the plan's kill (after_collectives {P21_KILL_AT}); rounds "
+        f"{rounds}; the killed injector's fired record {fired} (from its "
+        f"log line: SIGKILL follows the record at once); its last step "
+        f"start {(begins[-1]['step'], begins[-1]['coll'])} (step, "
+        f"collectives); survivor's resets {resets}, steps 3-5 {late}; "
+        f"{first_next - exit_t:.2f} s from the killed worker's last step "
+        f"start to the survivor's next step; bit for bit phase 20 (a)'s "
+        f"replay: {exact}; B1 launches (survivor, the killed worker at its "
+        f"last step start) {out['launches']['b']}; "
+        f"job wall {wall:.1f} s")
+    log(f"phase 21 ({card}): {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -5665,6 +5987,8 @@ def main():
         return phase18_worker(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--worker20"]:
         return phase20_worker(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--worker21"]:
+        return phase21_worker(sys.argv[2], sys.argv[3])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -5812,6 +6136,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     elastic = phase_elastic(dev, card, state, batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    faults = phase_chaos(dev, card, state, batches,
+                         elastic.pop("replay_a"))
     del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
@@ -5856,6 +6184,7 @@ def main():
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "phase19_launches": remote["launches"],
         "phase20_launches": elastic["launches"],
+        "phase21_launches": faults["launches"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]

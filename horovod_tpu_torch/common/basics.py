@@ -26,8 +26,15 @@ driver publishes at ``/elastic/round`` (:func:`_elastic_rendezvous`),
 not from the static handoff; every round has an address of its own, so
 an elastic reset re-initializes in place (:func:`shutdown`, then
 :func:`init`).
+
+Under ``HOROVOD_CONTROL_PLANE_TIER=host`` the lowest-indexed process of
+each host starts that host's aggregator (runner/http/aggregator.py) and
+every process of the host routes its control traffic through it; under
+``HOROVOD_FAULT_PLAN`` the seeded fault injector (chaos/inject.py) is
+installed before the engine starts and handed to it.
 """
 
+import atexit
 import datetime
 import threading
 from contextlib import contextmanager
@@ -56,6 +63,8 @@ _elastic_round = 0
 _proc_ctx = None
 #: set by shutdown() when the engine thread outlived the teardown's bound
 _teardown_wedged = False
+#: True once the interpreter-exit teardown is registered
+_atexit_registered = False
 
 
 class RankContext:
@@ -245,8 +254,29 @@ def _init_multiproc(device, num_ranks, config):
                 f"entries for {num_procs} processes (stale environment?)")
         rpp = ranks_of_proc[proc]
     counts = ranks_of_proc or [rpp] * num_procs
+    if host_of_proc is None:
+        hof = env_mod.get_str(env_mod.HOROVOD_TPU_HOST_OF_RANK)
+        host_of_proc = [int(x) for x in hof.split(",")] if hof \
+            else list(range(num_procs))
+    if len(host_of_proc) != num_procs:
+        raise HorovodInitError(
+            f"HOROVOD_TPU_HOST_OF_RANK has {len(host_of_proc)} entries "
+            f"for {num_procs} processes (stale environment?)")
+    # per-host aggregator tier (basics.py:345-360 of the JAX package):
+    # the lowest-indexed process of each host starts the aggregator and
+    # publishes its address in the launcher's KV store; every process of
+    # the host routes its control traffic through it, the coordinator
+    # staying the fallback route (TieredStoreClient)
+    agg_addr = agg_port = None
+    from ..runner.http import aggregator as agg_mod
+    if agg_mod.tier_enabled() and num_procs > 1:
+        agg_addr, agg_port, _agg_id = agg_mod.ensure_host_aggregator(
+            rdv[0], rdv[1], rdv[2], proc, host_of_proc, round_id=round_id)
     controller = StoreController(*rdv, proc, num_procs, rpp,
-                                 round_id=round_id)
+                                 round_id=round_id, agg_addr=agg_addr,
+                                 agg_port=agg_port)
+    chaos = _install_chaos(config, proc, sum(counts[:proc]), rpp,
+                           controller.client)
     dev = resolve_device(device)
     gpu_ops = env_mod.get_str(env_mod.HOROVOD_GPU_OPERATIONS,
                               "nccl").lower()
@@ -278,14 +308,6 @@ def _init_multiproc(device, num_ranks, config):
         ranks=list(range(num_procs)), backend="gloo",
         timeout=datetime.timedelta(seconds=config.stall_shutdown_secs
                                    or BYPASS_VOTE_TIMEOUT_SECS))
-    if host_of_proc is None:
-        hof = env_mod.get_str(env_mod.HOROVOD_TPU_HOST_OF_RANK)
-        host_of_proc = [int(x) for x in hof.split(",")] if hof \
-            else list(range(num_procs))
-    if len(host_of_proc) != num_procs:
-        raise HorovodInitError(
-            f"HOROVOD_TPU_HOST_OF_RANK has {len(host_of_proc)} entries "
-            f"for {num_procs} processes (stale environment?)")
     # processes on one host share its local-rank space
     _host_of_rank = [host_of_proc[p] for p in range(num_procs)
                      for _ in range(counts[p])]
@@ -293,7 +315,29 @@ def _init_multiproc(device, num_ranks, config):
                   rank_offset=sum(counts[:proc]), global_size=sum(counts),
                   world_group=dist.group.WORLD,
                   compiled_group=compiled_group,
-                  ranks_of_proc=ranks_of_proc, vote_group=vote_group)
+                  ranks_of_proc=ranks_of_proc, vote_group=vote_group,
+                  chaos=chaos)
+
+
+def _install_chaos(config, proc, rank_offset, num_local, client=None):
+    """The seeded fault plan's injector for this process (basics.py:
+    373-400 of the JAX package), or None without a plan.  Installed
+    before the engine exists, so request-count triggers see every fabric
+    request, and hooked into the controller's client (wire faults); the
+    engine takes it for ``slow_rank`` and ``hang``.  An elastic re-init
+    or a second init in one process rebinds the one injector to the
+    process's new index and rank threads, so its trigger counters span
+    the process's life.  A malformed plan, or one naming a kind the port
+    has not ported, raises here: a fault test whose faults never
+    installed would pass vacuously."""
+    if not config.fault_plan:
+        return None
+    from .. import chaos as chaos_mod
+    plan = chaos_mod.plan_from_env()
+    if plan is None or not plan.events:
+        return None
+    return chaos_mod.install(plan, proc=proc, rank_offset=rank_offset,
+                             num_local=num_local, client=client)
 
 
 def init(device=None, num_ranks=None, process_sets=None):
@@ -314,15 +358,40 @@ def init(device=None, num_ranks=None, process_sets=None):
         if env_mod.get_str(env_mod.HOROVOD_CONTROLLER) == "http":
             _engine = _init_multiproc(device, num_ranks, config)
         else:
-            _engine = Engine(num_ranks or 1, resolve_device(device),
-                             config=config)
+            n = num_ranks or 1
+            _engine = Engine(n, resolve_device(device), config=config,
+                             chaos=_install_chaos(config, 0, 0, n))
             _host_of_rank = [0] * _engine.num_ranks
         _rebind_proc_ctx()
         _bind_thread_if_unbound()
+        _register_exit_teardown()
         if process_sets:
             from . import process_sets as ps_mod
             for ps in process_sets:
                 ps_mod.add_process_set(ps)
+
+
+def _register_exit_teardown():
+    """Tear the runtime down at interpreter exit when the script did not.
+    A worker that returns from its training function without
+    ``shutdown()`` otherwise exits with its engine thread, its heartbeat
+    thread and its gloo process group alive: the coordinator reads the
+    silence as a death, and gloo's destructor can abort the process
+    (``terminate called without an active exception``, exit -6), which
+    the elastic driver would take for a failed worker.  ``atexit`` runs
+    while daemon threads still run, so the teardown joins the engine
+    thread, says goodbye to the coordinator and destroys the group."""
+    global _atexit_registered
+    if not _atexit_registered:
+        _atexit_registered = True
+        atexit.register(_exit_teardown)
+
+
+def _exit_teardown():
+    try:
+        shutdown()
+    except Exception:  # noqa: BLE001 — the interpreter is exiting
+        pass
 
 
 def _bind_thread_if_unbound():

@@ -130,9 +130,9 @@ class State:
         """Write the spill with a CRC trailer, keeping the previous
         generation as ``<path>.prev``: a torn or corrupted write is
         detected at load, and recovery falls back to the previous commit
-        instead of deserializing garbage.  (The JAX package's chaos
-        ``corrupt_spill`` fault rides this write; chaos is ROADMAP.md
-        A17.)"""
+        instead of deserializing garbage.  The chaos ``corrupt_spill``
+        fault rides this write (common/elastic.py:105-120 of the JAX
+        package)."""
         path = _spill_path()
         payload = self._spill_payload()
         if path is None or payload is None:
@@ -141,6 +141,13 @@ class State:
         try:
             blob = append_crc_trailer(
                 pickle.dumps(payload, protocol=pickle.HIGHEST_PROTOCOL))
+            from .. import chaos as chaos_mod
+            inj = chaos_mod.current()
+            if inj is not None:
+                # corrupt_spill rides the real write: the CRC was
+                # computed over the true bytes, so the flipped blob is
+                # what a torn write leaves behind
+                blob = inj.corrupt_spill(blob)
             fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
             with os.fdopen(fd, "wb") as f:
                 f.write(blob)

@@ -77,6 +77,39 @@ HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
 HOROVOD_STATE_SPILL = "HOROVOD_STATE_SPILL"
 HOROVOD_ELASTIC_TIMEOUT = "HOROVOD_ELASTIC_TIMEOUT"
 HOROVOD_TEARDOWN_BARRIER_SECONDS = "HOROVOD_TEARDOWN_BARRIER_SECONDS"
+# chaos and fabric hardening (the JAX package's names and defaults):
+# HOROVOD_FAULT_PLAN names a seeded fault plan (inline JSON, @path or a
+# bare file path; horovodrun --fault-plan), HOROVOD_FAULT_SEED overrides
+# its seed; the coordinator declares a proc dead after
+# HEARTBEAT_WINDOW seconds without a beat (0 = 1.5x the interval);
+# fabric retries are bounded by attempts and a wall deadline
+HOROVOD_FAULT_PLAN = "HOROVOD_FAULT_PLAN"
+HOROVOD_FAULT_SEED = "HOROVOD_FAULT_SEED"
+HOROVOD_HEARTBEAT_WINDOW_SECONDS = "HOROVOD_HEARTBEAT_WINDOW_SECONDS"
+HOROVOD_FABRIC_RETRY_ATTEMPTS = "HOROVOD_FABRIC_RETRY_ATTEMPTS"
+HOROVOD_FABRIC_RETRY_DEADLINE_SECONDS = \
+    "HOROVOD_FABRIC_RETRY_DEADLINE_SECONDS"
+# coordinator crash survival: COORD_JOURNAL names the launcher-side
+# control-plane journal a restarted rendezvous service replays
+# (epoch-fenced), with its compaction threshold and per-value KV cap;
+# COORD_OUTAGE_DEADLINE bounds how long connection failures and
+# replay-safe requests keep retrying across a coordinator outage
+HOROVOD_COORD_JOURNAL = "HOROVOD_COORD_JOURNAL"
+HOROVOD_COORD_JOURNAL_MAX_BYTES = "HOROVOD_COORD_JOURNAL_MAX_BYTES"
+HOROVOD_COORD_JOURNAL_KV_MAX_BYTES = \
+    "HOROVOD_COORD_JOURNAL_KV_MAX_BYTES"
+HOROVOD_COORD_OUTAGE_DEADLINE_SECONDS = \
+    "HOROVOD_COORD_OUTAGE_DEADLINE_SECONDS"
+# per-host aggregator tier (runner/http/aggregator.py): TIER selects the
+# control-plane topology (flat = every proc talks to the coordinator,
+# host = one aggregator per host batches its workers' traffic
+# upstream); LINGER_MS is the aggregator's batching window;
+# FALLBACK_DEADLINE bounds a worker's retries against a silent
+# aggregator before it falls back to direct coordinator mode
+HOROVOD_CONTROL_PLANE_TIER = "HOROVOD_CONTROL_PLANE_TIER"
+HOROVOD_AGG_LINGER_MS = "HOROVOD_AGG_LINGER_MS"
+HOROVOD_AGG_FALLBACK_DEADLINE_SECONDS = \
+    "HOROVOD_AGG_FALLBACK_DEADLINE_SECONDS"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -158,3 +191,5 @@ class Config:
         self.bypass_wait_secs = get_float(HOROVOD_BYPASS_WAIT_SECONDS, 10.0)
         # a worker of an elastic job (env.py:469 of the JAX package)
         self.elastic = get_bool(HOROVOD_ELASTIC)
+        # the seeded fault plan's source (chaos/plan.py reads it)
+        self.fault_plan = get_str(HOROVOD_FAULT_PLAN)

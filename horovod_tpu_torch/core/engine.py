@@ -180,8 +180,15 @@ class Engine:
 
     def __init__(self, num_ranks, device, config=None, controller=None,
                  rank_offset=0, global_size=None, world_group=None,
-                 compiled_group=None, ranks_of_proc=None, vote_group=None):
+                 compiled_group=None, ranks_of_proc=None, vote_group=None,
+                 chaos=None):
         self.config = config or env_mod.Config()
+        #: chaos fault injector (chaos/inject.py FaultInjector): the
+        #: engine calls its ``on_collectives`` hook right before each
+        #: ready report (where ``slow_rank`` fires), and its ``hung``
+        #: flag stops the heartbeat (engine.py:247-251 of the JAX
+        #: package)
+        self.chaos = chaos
         self.num_local = num_ranks
         self.device = torch.device(device)
         self.controller = controller
@@ -314,6 +321,10 @@ class Engine:
                            self.rank_offset + self.num_local))
         host = env_mod.get_str(env_mod.HOROVOD_HOSTNAME)
         while not self._hb_stop.is_set():
+            if self.chaos is not None and self.chaos.hung:
+                # a chaos ``hang``: stop beating, so the coordinator's
+                # liveness scan declares this process dead
+                return
             try:
                 if self.controller.heartbeat(ranks=ranks, host=host):
                     self.abort(HorovodInternalError(
@@ -330,7 +341,8 @@ class Engine:
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=2.0)
             self._hb_thread = None
-            if self._aborted is None:
+            if not (self.chaos is not None and self.chaos.hung) \
+                    and self._aborted is None:
                 # clean shutdown: deregister so it never reads as a death
                 try:
                     self.controller.heartbeat(bye=True)
@@ -661,6 +673,10 @@ class Engine:
                         self._store_cycle(work)
                     continue
                 for ps, batch in work:
+                    if self.chaos is not None:
+                        # single-process twin of the store cycle's hook:
+                        # slow-rank faults delay dispatch here
+                        self.chaos.on_collectives(len(batch))
                     try:
                         self._execute_batch(ps, batch)
                     finally:
@@ -834,6 +850,11 @@ class Engine:
         if not (metas or outstanding) and now - self._last_poll < 0.05:
             return
         self._last_poll = now
+        if self.chaos is not None and metas:
+            # chaos slow_rank fires here, after the entries went locally
+            # ready and before report_ready, so this process is the
+            # straggler the coordinator's stall attribution names
+            self.chaos.on_collectives(len(metas))
         try:
             if metas:
                 self.controller.report_ready(metas)
@@ -849,9 +870,9 @@ class Engine:
             self._bypass_track(responses)
             self.bypass_track_seconds += time.perf_counter() - t0
         if self.controller.take_rereport():
-            # a restarted coordinator's replayed log is drained: report
-            # again what its lost pending table held (never, until the
-            # coordinator restarts, ROADMAP.md A17)
+            # the epoch resync drained the restarted coordinator's (or
+            # aggregator's) replayed log; whatever is still awaiting was
+            # lost with the old pending table: report it again
             self._rereport_awaiting()
 
     # ------------------------------------------------------------------
@@ -907,6 +928,12 @@ class Engine:
         if decision is None:
             return
         vote, reason = decision
+        if self.chaos is not None and vote == 1:
+            # after_collectives triggers keep counting (and slow_rank
+            # keeps making a straggler) while armed: the bypass replaces
+            # report_ready, so the hook fires before the vote (fallback
+            # cycles count through _rereport_awaiting's report instead)
+            self.chaos.on_collectives(len(awaiting_fps))
         t0 = time.perf_counter()
         try:
             agreed = self._bypass_vote(ps0, vote)
@@ -995,6 +1022,10 @@ class Engine:
                 metas.append(self._meta_for(ps, entry))
         if not metas:
             return
+        if self.chaos is not None:
+            # this is a ready report: the chaos collectives counter (and
+            # slow_rank's pre-report sleep) sees it, as in _store_cycle
+            self.chaos.on_collectives(len(metas))
         try:
             self.controller.report_ready(metas)
         except Exception as exc:  # noqa: BLE001 — coordinator death

@@ -106,9 +106,12 @@ def set_env_from_args(env: dict, args) -> dict:
         env[HOROVOD_METRICS_PUSH_SECONDS] = str(
             args.metrics_push_seconds)
     if getattr(args, "fault_plan", None):
-        raise NotImplementedError(
-            "--fault-plan: chaos fault injection is not ported yet "
-            "(ROADMAP.md A17)")
+        # inline the file contents so remote workers (env over ssh)
+        # need no plan on their filesystem; parsing it here refuses a
+        # plan the port cannot run before any worker starts
+        from ..chaos.plan import parse_plan, read_plan_source
+        env[HOROVOD_FAULT_PLAN] = read_plan_source(args.fault_plan)
+        parse_plan(env[HOROVOD_FAULT_PLAN])
     if getattr(args, "fault_seed", None) is not None:
         env[HOROVOD_FAULT_SEED] = str(args.fault_seed)
     if getattr(args, "heartbeat_interval_seconds", None) is not None:

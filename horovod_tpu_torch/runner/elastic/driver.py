@@ -88,6 +88,9 @@ class ElasticDriver:
         # monitor already acted on this round (missed-heartbeat feed —
         # catches HUNG workers that never exit; docs/fault_tolerance)
         self._dead_handled: set = set()
+        # slots whose worker exited 0 in the current round: the job is
+        # finishing, and such a slot is never spawned again
+        self._finished_slots: set = set()
         self._notify_version = 0
         # committed worker state spills here so crash recovery can
         # restore it across process restarts
@@ -329,6 +332,37 @@ class ElasticDriver:
         with self._lock:
             if self._suspended:
                 return
+            # reap first, then decide: a worker that already exited is
+            # recorded before the round is formed.  A survivor that
+            # finished (exit 0) between two rounds would otherwise read
+            # as a dead slot and be respawned, and its successor would
+            # restore the last commit and train its steps a second time
+            rid = self._registry.last_rendezvous()
+            failed_hosts = self._reap_exits_locked(time.monotonic())
+            if self._shutdown.is_set() or \
+                    self._registry.last_rendezvous() != rid:
+                # the reap completed the registry: the job ended, or the
+                # registry's resume already formed the next round
+                return
+            if self._finished_slots:
+                # a worker of this round exited 0: the job is finishing.
+                # No new round; once no worker of the round is left the
+                # job ends (all successes already stopped it through the
+                # registry, so what remains is a failure after a success)
+                if not any(p.poll() is None
+                           for key, p in self._procs.items()
+                           if key in self._assignments):
+                    logger.error("a worker finished while another "
+                                 "failed; ending the job")
+                    self.stop(error=True)
+                return
+            if failed_hosts:
+                for host in failed_hosts:
+                    self._host_manager.blacklist(host)
+                if not self._registry.note_reset():
+                    self.stop(error=True)
+                    return
+                self._host_manager.update_available_hosts()
             slots = self._compute_assignments()
             if len(slots) < self._min_np:
                 logger.warning(
@@ -373,7 +407,9 @@ class ElasticDriver:
             self._round_started_at = time.monotonic()
             self._churn_respawns.clear()
             self._dead_handled.clear()
-            # spawn processes for slots without a live worker
+            self._finished_slots.clear()
+            # spawn processes for slots without a live worker (every
+            # exit was reaped above, so a slot without one lost it)
             for key in self._assignments:
                 p = self._procs.get(key)
                 self._deassigned.pop(key, None)
@@ -553,6 +589,66 @@ class ElasticDriver:
             self._host_manager.update_available_hosts()
             self._start_round()
 
+    def _reap_exits_locked(self, now):
+        """Record every worker exit that is already visible (``poll()``
+        is not None) and return the hosts of the failed ones.  Each exit
+        is reaped once: its worker leaves ``_procs`` here.  Both the
+        monitor and :meth:`_start_round` reap first, so a round is never
+        decided on a slot whose exit is visible but unrecorded.  Must
+        hold the lock."""
+        failed_hosts = []
+        exits = [(key, p.poll()) for key, p in list(self._procs.items())
+                 if p.poll() is not None]
+        # successes first: a round with a finished worker is finishing,
+        # and a peer's abort seen in the same pass is then no churn
+        exits.sort(key=lambda kc: kc[1] != 0)
+        for key, code in exits:
+            del self._procs[key]
+            if key in self._deassigned:
+                self._deassigned.pop(key, None)
+                continue       # expected exit of a removed slot
+            host, slot = key.rsplit(":", 1)
+            self._emit("worker_exit", host=host,
+                       slot=int(slot), code=code,
+                       round=self._round)
+            in_churn = (now - self._round_started_at) < 25.0
+            churns = self._churn_respawns.get(key, 0)
+            is_churn_exit = code in (-6, 134) or \
+                (code == 1 and in_churn)
+            if code == 0:
+                self._finished_slots.add(key)
+                self._registry.record_success(host, int(slot))
+            elif is_churn_exit and churns < 10 and \
+                    not self._finished_slots:
+                # SIGABRT / early-round deaths are a worker that
+                # lost its peers or its round while re-forming
+                # (a process-group init that timed out, a stale
+                # rendezvous): churn, not a bad host, so respawn
+                # against the current round (committed state
+                # restores from the spill).  Not once a peer of the
+                # round finished: the job is done training, and a
+                # respawn would train its last steps again
+                logger.info("worker %s exited (%d) during "
+                            "re-rendezvous churn; respawning",
+                            key, code)
+                self._churn_respawns[key] = churns + 1
+                if key in self._assignments and \
+                        not self._shutdown.is_set():
+                    self._spawn_worker(key)
+            else:
+                logger.warning("worker %s exited with %d",
+                               key, code)
+                # distinct from worker_exit (which ALSO fires
+                # for churn/clean exits): this is the event
+                # consumers like the fleet controller treat as
+                # a real slot failure (docs/fleet.md)
+                self._emit("worker_failed", host=host,
+                           slot=int(slot), code=code,
+                           round=self._round)
+                self._registry.record_failure(host, int(slot))
+                failed_hosts.append(host)
+        return failed_hosts
+
     def _monitor_workers(self):
         while not self._shutdown.is_set():
             failed_hosts = []
@@ -568,50 +664,7 @@ class ElasticDriver:
                         self._deassigned.pop(key, None)
                     elif now > deadline:
                         p.terminate()
-                for key, p in list(self._procs.items()):
-                    code = p.poll()
-                    if code is None:
-                        continue
-                    del self._procs[key]
-                    if key in self._deassigned:
-                        self._deassigned.pop(key, None)
-                        continue       # expected exit of a removed slot
-                    host, slot = key.rsplit(":", 1)
-                    self._emit("worker_exit", host=host,
-                               slot=int(slot), code=code,
-                               round=self._round)
-                    in_churn = (now - self._round_started_at) < 25.0
-                    churns = self._churn_respawns.get(key, 0)
-                    is_churn_exit = code in (-6, 134) or \
-                        (code == 1 and in_churn)
-                    if code == 0:
-                        self._registry.record_success(host, int(slot))
-                    elif is_churn_exit and churns < 10:
-                        # SIGABRT / early-round deaths are a worker that
-                        # lost its peers or its round while re-forming
-                        # (a process-group init that timed out, a stale
-                        # rendezvous): churn, not a bad host, so respawn
-                        # against the current round (committed state
-                        # restores from the spill)
-                        logger.info("worker %s exited (%d) during "
-                                    "re-rendezvous churn; respawning",
-                                    key, code)
-                        self._churn_respawns[key] = churns + 1
-                        if key in self._assignments and \
-                                not self._shutdown.is_set():
-                            self._spawn_worker(key)
-                    else:
-                        logger.warning("worker %s exited with %d",
-                                       key, code)
-                        # distinct from worker_exit (which ALSO fires
-                        # for churn/clean exits): this is the event
-                        # consumers like the fleet controller treat as
-                        # a real slot failure (docs/fleet.md)
-                        self._emit("worker_failed", host=host,
-                                   slot=int(slot), code=code,
-                                   round=self._round)
-                        self._registry.record_failure(host, int(slot))
-                        failed_hosts.append(host)
+                failed_hosts += self._reap_exits_locked(now)
                 # coordinator liveness feed: a proc whose heartbeats
                 # stopped but whose PROCESS never exited (hung worker,
                 # network partition) would otherwise survive until the

@@ -1,9 +1,11 @@
 """Elastic job entry (port of ``horovod_tpu/runner/elastic_run.py``;
 reference ``horovod/runner/gloo_run.py:303-368`` launch_gloo_elastic).
 
-The JAX package's coordinator-side fault plan (``HOROVOD_FAULT_PLAN``,
-chaos: ROADMAP.md A17) and the serving autoscaler (``HOROVOD_SERVING``,
-A16) are refused here.
+A fault plan (``HOROVOD_FAULT_PLAN``) installs its coordinator-side
+events into the elastic rendezvous service, as the JAX package's does;
+a plan naming a kind the port has not ported is refused when it is
+parsed (chaos/plan.py).  The serving autoscaler (``HOROVOD_SERVING``,
+ROADMAP.md A16) is refused here.
 """
 
 import os
@@ -16,10 +18,13 @@ from .http.http_server import RendezvousServer, coordinator_kwargs
 
 
 def check_elastic_env(env):
-    """Refuse the elastic features the port has not ported yet."""
+    """Refuse the elastic features the port has not ported yet: the
+    serving autoscaler, and a fault plan that names a kind or trigger
+    whose consumer is not ported (parsing the plan raises, naming the
+    item)."""
     if env.get("HOROVOD_FAULT_PLAN"):
-        raise NotImplementedError(
-            "HOROVOD_FAULT_PLAN: chaos is not ported yet (ROADMAP.md A17)")
+        from ..chaos.plan import plan_from_env
+        plan_from_env(env)
     if str(env.get("HOROVOD_SERVING", "")).strip().lower() in (
             "1", "true", "yes", "on"):
         raise NotImplementedError(
@@ -64,7 +69,18 @@ def run_elastic(args):
         secret=bytes.fromhex(_secrets.token_hex(16)), world_size=0,
         fusion_threshold_bytes=int((64 if mb is None else mb) * 1024 * 1024),
         **coordinator_kwargs(at_env))
+    coord_faults = None
+    if at_env.get("HOROVOD_FAULT_PLAN"):
+        # coordinator-side fault-plan events (side="coord") install into
+        # the elastic rendezvous service too; rules persist across round
+        # resets (elastic_run.py:43-54 of the JAX package)
+        from ..chaos import (
+            install_coordinator_rules, start_coordinator_faults,
+        )
+        install_coordinator_rules(server.coordinator, at_env)
     server.start()
+    if at_env.get("HOROVOD_FAULT_PLAN"):
+        coord_faults = start_coordinator_faults(server, at_env)
     cooldown = tuple(args.blacklist_cooldown_range) \
         if args.blacklist_cooldown_range else None
     driver = ElasticDriver(
@@ -88,5 +104,7 @@ def run_elastic(args):
         driver.join()
         return 1
     finally:
+        if coord_faults is not None:
+            coord_faults.stop()
         server.stop()
     return 0 if ok else 1

@@ -26,10 +26,22 @@ round_id)`` starts a round with fresh negotiation state, and a request
 stamped with an earlier round gets ``{"stale": true}``, which fails the
 worker's pending collectives (core/store_controller.py).
 
-Not ported (ROADMAP.md): the aggregator tier's verbs, journal restore
-and compaction (with it the replay of a ``bypass_arm`` record after a
-restart), coordinator-side chaos and the ``/metrics`` and ``/timeline``
-endpoints (A17); the coordinator-side autotuner (A14).
+Crash survival: the coordinator journals its state-changing
+transitions (journal.py); ``RendezvousServer.restart_from_journal``
+rebuilds store and coordinator from the journal alone on the same port,
+bumps the monotonic ``coord_epoch`` and opens a liveness grace window.
+Every verb but the exempt ones (contract.py ``EPOCH_EXEMPT_VERBS``) is
+fenced on the epoch before it runs; a fenced worker re-registers once
+through ``resync``, drains the replayed log and re-reports what is still
+awaiting (core/store_controller.py).  The per-host aggregator tier
+(aggregator.py) speaks the ``agg_*`` verbs here, each aggregator with a
+monotonic ``agg_epoch``.  Coordinator-side chaos rules (``http_error``,
+``delay_ms`` and the service fault runner's ``signal``) are checked by
+the handler before a verb runs (chaos/inject.py).
+
+Not ported (ROADMAP.md): the ``/metrics``, ``/timeline`` and
+``/trace/dump`` endpoints with the coordinator's telemetry families
+(A17's telemetry and utils items); the coordinator-side autotuner (A14).
 """
 
 import hashlib
@@ -45,7 +57,7 @@ from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler
 
 from . import journal as journal_mod
-from .contract import CACHEABLE_TYPES
+from .contract import CACHEABLE_TYPES, EPOCH_EXEMPT_VERBS
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -97,8 +109,14 @@ def coordinator_kwargs(env=None):
             env.get("HOROVOD_HEARTBEAT_WINDOW_SECONDS") or 0.0)
     except ValueError:
         kwargs["heartbeat_window"] = 0.0
+    # coordinator crash survival: journal control-plane transitions to
+    # this path so a restarted rendezvous service replays them
+    # (epoch-fenced).  REPLAY=1 opts a FRESH server into replaying an
+    # existing file (a restarted launcher); by default a new job
+    # truncates a stale journal on its path.
     if env.get("HOROVOD_COORD_JOURNAL"):
         kwargs["journal_path"] = env["HOROVOD_COORD_JOURNAL"]
+        kwargs["journal_replay"] = on("HOROVOD_COORD_JOURNAL_REPLAY")
     return kwargs
 
 
@@ -140,9 +158,9 @@ class _Handler(BaseHTTPRequestHandler):
         self._reply(OK)
 
     def do_GET(self):
+        path, _, query = self.path.partition("?")
         if not self._verify(b""):
             return self._reply(FORBIDDEN)
-        path, _, query = self.path.partition("?")
         params = dict(p.split("=", 1) for p in query.split("&") if "=" in p)
         wait = float(params.get("wait", 0))
         value = self.store.get(path, timeout=wait)
@@ -156,7 +174,6 @@ class _Handler(BaseHTTPRequestHandler):
         self.store.delete(self.path)
         self._reply(OK)
 
-
     def do_POST(self):
         """Coordinator RPCs: /coord/<verb>, JSON body."""
         length = int(self.headers.get("Content-Length", 0))
@@ -168,6 +185,15 @@ class _Handler(BaseHTTPRequestHandler):
         verb = self.path[len("/coord/"):]
         try:
             req = json.loads(body) if body else {}
+            # coordinator-side fault injection (fault-plan events with
+            # side="coord"): reject or stall this request before the
+            # verb runs — the client's backoff is what must recover
+            act = self.server.coordinator.chaos_check(verb, req)
+            if act is not None and act[0] == "error":
+                return self._reply(
+                    act[1], b"chaos: injected coordinator error")
+            if act is not None and act[0] == "stall":
+                time.sleep(act[1] / 1000.0)
             resp = self.server.coordinator.handle(verb, req)
         except Exception as exc:  # noqa: BLE001 — reported to caller
             return self._reply(BAD_REQUEST,
@@ -179,9 +205,12 @@ class _Handler(BaseHTTPRequestHandler):
 class KVStore:
     """Blocking-get key/value store (reference KVStoreHandler).
 
-    With a coordinator journal attached (``journal`` attribute), every
-    small write is recorded under the journal's size cap; the bulky
-    ephemeral namespaces are excluded."""
+    With a coordinator journal attached (``journal`` attribute, set by
+    RendezvousServer AFTER any replay so restored entries are not
+    re-journaled), every small write is recorded so a restarted
+    service resurrects the KV state — elastic round assignments, user
+    scopes — under the journal's size cap.  The bulky ephemeral
+    namespaces (telemetry pushes, trace buffers) are excluded."""
 
     def __init__(self):
         self._data = {}
@@ -192,7 +221,7 @@ class KVStore:
         j = self.journal
         if j is None or key.startswith(journal_mod.KV_EXCLUDE_PREFIXES):
             return
-        if value is not None and len(value) > journal_mod.KV_MAX_BYTES:
+        if value is not None and len(value) > j.kv_max_bytes:
             logger.debug("journal: skipping oversized KV value %s "
                          "(%d bytes)", key, len(value))
             return
@@ -216,6 +245,7 @@ class KVStore:
                     return self._data[key]
                 if timeout <= 0:
                     return None
+                import time
                 if deadline is None:
                     deadline = time.monotonic() + timeout
                 remaining = deadline - time.monotonic()
@@ -229,21 +259,35 @@ class KVStore:
             self._journal_write(key, None)
             self._cv.notify_all()
 
+    def restore(self, key, value: bytes):
+        """Journal replay: restore an entry without re-journaling."""
+        with self._cv:
+            if value is None:
+                self._data.pop(key, None)
+            else:
+                self._data[key] = value
+            self._cv.notify_all()
 
+    def scope(self, prefix):
+        with self._cv:
+            return {k: v for k, v in self._data.items()
+                    if k.startswith(prefix)}
 
 
 class Coordinator:
     """Server-side negotiation engine (the reference's rank-0
     coordinator, controller.cc ComputeResponseList/FuseResponses,
-    relocated into the launcher's store service).
+    relocated into the launcher's store service — same protocol, one
+    fewer hop).
 
     Response cache (reference response_cache.{h,cc}): batch responses
     assign each tensor a cache id workers learn from the response; on
     repeat iterations a worker reports ``{"key", "c": id}`` instead of
     the full negotiation meta, and entries whose reports all carry the
-    same id skip cross-process validation.  The LRU is
-    capacity-bounded; reports naming an evicted id get the key back in
-    ``uncached`` and resend the full meta."""
+    same id skip cross-process validation — the steady-state fast path
+    that replaces the reference's two-bitvector CoordinateCacheAndState
+    sync.  The LRU is capacity-bounded; reports naming an evicted id
+    get the key back in ``uncached`` and resend the full meta."""
 
     def __init__(self, world_size: int,
                  fusion_threshold_bytes: int = 128 * 1024 * 1024,
@@ -259,40 +303,63 @@ class Coordinator:
         self.world_size = world_size
         self.fusion_threshold = fusion_threshold_bytes
         self.cache_capacity = cache_capacity
-        # the coordinator generation the JAX package bumps on a journal
-        # replay; the port never restarts one (A17), so it stays 1
-        self.coord_epoch = 1
-        # the elastic round (runner/elastic/driver.py): reset() starts a
-        # new one, and a request stamped with another round is answered
-        # ``{"stale": true}`` (0 in a static job, whose workers stamp 0)
         self.round_id = 0
+        # crash-survival state (docs/fault_tolerance.md "Coordinator
+        # crash survival"): coord_epoch is a monotonic generation id
+        # bumped on every journal replay; StoreClients carry it on
+        # every verb and a mismatch triggers ONE resync handshake
+        # instead of blind replay.  The journal records state-changing
+        # transitions so restore_journal can rebuild this object.
+        self.coord_epoch = 1
         self._journal = journal
+        self._replaying = False
+        self._store = None              # attach_store (KV for snapshots)
+        self._journal_replayed = {}     # record kind -> replay count
+        # post-restart liveness grace: beats are only EXPECTED after a
+        # proc's first post-restart beat, and no death is declared
+        # before this instant — beats missed during the outage must
+        # not read as deaths
+        self._grace_until = 0.0
+        # steady-state negotiation bypass (core/bypass.py): per-proc
+        # cycle-fingerprint votes; when every proc votes the same
+        # fingerprint a ``bypass_arm`` record rides the response log —
+        # the coordinated instant all workers switch to the
+        # coordinator-free fast path
+        self._bypass_votes = {}
+        self._bypass_armed_fp = None
         # coordinator-side stall inspector (reference
         # stall_inspector.cc relocated with the coordinator): an entry
         # pending past this age gets a ``stall`` response naming the
         # GLOBAL ranks of the processes that never reported it.
         # 0 disables (HOROVOD_STALL_CHECK_DISABLE).
         self.stall_warning_secs = stall_warning_secs
-        # worker liveness: workers beat via the ``heartbeat`` verb; a
-        # proc whose beats stop for the window (default 1.5x the
-        # interval) is declared dead, and its pending negotiations fail
-        # at once with an error naming the global ranks it hosts.  A
-        # proc is only expected to beat after its FIRST beat, so slow
-        # starters are never false-positived.  0 disables.
+        # worker liveness (docs/fault_tolerance.md): workers beat via
+        # the ``heartbeat`` verb; a proc whose beats stop for the
+        # window (default 1.5x the interval) is declared dead — its
+        # pending negotiations fail IMMEDIATELY with an error naming
+        # the global ranks it hosts, instead of stall-timeout limbo.
+        # A proc is only expected to beat after its FIRST beat, so
+        # slow starters are never false-positived.  0 disables.
         self.heartbeat_secs = heartbeat_secs
         self.heartbeat_window = heartbeat_window
-        # steady-state negotiation bypass (core/bypass.py): per-proc
-        # cycle-fingerprint votes; when every proc votes the same
-        # fingerprint a ``bypass_arm`` record rides the response log, the
-        # instant all workers switch to the coordinator-free fast path
-        self._bypass_votes = {}
-        self._bypass_armed_fp = None
+        # suspect grace for aggregator-routed procs: when a proc's
+        # beats rode a now-silent aggregator, death is withheld for
+        # the time its direct-fallback probing needs — the worker's
+        # tight aggregator retry budget (the SAME env knob the
+        # workers read: launcher and workers share the handoff) plus
+        # one beat interval for the first direct beat to land
+        from ...common import env as _env_mod
+        self._agg_probe_grace = _env_mod.get_float(
+            _env_mod.HOROVOD_AGG_FALLBACK_DEADLINE_SECONDS, 5.0) \
+            + max(heartbeat_secs, 0.0)
         self._lock = threading.Condition()
         # key -> {proc_id -> meta}
         self._pending: "OrderedDict[str, dict]" = OrderedDict()
         # Ordered response log.  Client cursors are absolute; entries
         # every process has polled past are garbage-collected and
-        # _log_base keeps absolute cursors valid.
+        # _log_base keeps absolute cursors valid (without this the log
+        # grows with every collective for the lifetime of the round —
+        # millions of dicts over a long job).
         self._log = []
         self._log_base = 0
         self._cursors = {}      # proc_id -> highest absolute cursor seen
@@ -310,38 +377,78 @@ class Coordinator:
         self._cache = OrderedDict()  # cache_id -> meta template (LRU)
         self._cache_by_key = {}      # key -> cache_id
         self._next_cache_id = 0
-        # job-unique ids, one per scheduled negotiation entry (the JAX
-        # package's flow-event trace ids; the port's workers ignore
-        # them, the log keeps the JAX package's records)
+        # job-unique trace ids, one per scheduled negotiation entry:
+        # batch responses carry them so every rank's flow events for
+        # one collective chain on the same id (docs/timeline.md)
         self._next_trace_id = 0
+        # flight-recorder dump requests appended to the response log
+        # (stall auto-dumps, POST /trace/dump, GET /timeline)
         self._next_dump_id = 0
         # liveness state: proc -> last beat monotonic / hosted global
-        # ranks / hostname; _dead holds declared-dead procs
+        # ranks / hostname; _dead holds declared-dead procs until the
+        # next round reset (the elastic driver reads it to blacklist)
         self._beats = {}
         self._proc_ranks = {}
         self._proc_hosts = {}
         self._dead = {}
+        # per-host aggregator tier (docs/fault_tolerance.md "Per-host
+        # aggregator tier"): each host's aggregator registers a
+        # session (agg_resync) and batches its workers' verbs into
+        # agg_ready / agg_heartbeat / agg_poll.  _agg_epoch[agg] is
+        # the tier's OWN generation id — bumped on every NEW session
+        # of the same aggregator id, so a restarted (stateless)
+        # aggregator fences its workers exactly like a restarted
+        # coordinator fences everyone.  _proc_via_agg records each
+        # proc's last-known beat route: a silent aggregator makes its
+        # hosted procs SUSPECT, not dead — they get one extra liveness
+        # window to fall back to direct beats before any verdict.
+        self._agg_sid = {}      # agg -> session id
+        self._agg_epoch = {}    # agg -> generation (monotonic per agg)
+        self._agg_procs = {}    # agg -> hosted proc ids
+        self._agg_hosts = {}    # agg -> hostname
+        self._agg_beats = {}    # agg -> last upstream-contact monotonic
+        self._agg_warned = set()  # once-per-silence warning dedup
+        self._proc_via_agg = {}   # proc -> agg id (None = direct)
+        # control-plane fan-in accounting ((verb, tier) -> requests),
+        # exported through liveness_snapshot — the scale harness's
+        # "coordinator load scales with hosts, not procs" evidence
+        # coordinator-side chaos rules (fault-plan events with
+        # side="coord": reject or stall a chosen proc's requests) and
+        # the per-rule injection accounting exported via /metrics
+        self._chaos_rules = []
+        self._chaos_injected = {}
 
     def close(self):
         if self._journal is not None:
             self._journal.close()
 
-    # -- journal plumbing -----------------------------------------------------
+    # -- journal plumbing (docs/fault_tolerance.md) --------------------------
+
+    def attach_store(self, store):
+        """Give the coordinator its paired KV store, for journal
+        replay (restoring KV records) and compaction snapshots."""
+        self._store = store
 
     def _j(self, rec):
-        """Journal one record (no-op without a journal)."""
-        if self._journal is not None:
+        """Journal one record (no-op without a journal / during
+        replay)."""
+        if self._journal is not None and not self._replaying:
             self._journal.append(rec)
 
     def _log_append(self, rec):
         """THE response-log append point: journals the record with its
-        absolute index.  Must hold the lock."""
+        absolute index so a restarted service replays the log workers
+        have not consumed yet (their cursors stay valid).  Suppressed
+        during replay — replayed joins must not re-emit the join_done
+        records the journal already holds.  Must hold the lock."""
+        if self._replaying:
+            return
         idx = self._log_base + len(self._log)
         self._log.append(rec)
         self._j({"k": "log", "i": idx, "r": rec})
 
     def procs_seen(self) -> int:
-        """How many worker processes have polled this round: the
+        """How many worker processes have polled this round — the
         round-formation signal the elastic driver's re-init timeout
         watches."""
         with self._lock:
@@ -379,19 +486,37 @@ class Coordinator:
             self._proc_ranks.clear()
             self._proc_hosts.clear()
             self._dead.clear()
+            # aggregator sessions are round-scoped (surviving
+            # aggregators re-register on the stale reply, which bumps
+            # their agg_epoch and re-fences their workers into the
+            # new round); only the epoch counters survive — they are
+            # monotonic per agg id for the life of the coordinator
+            self._agg_sid.clear()
+            self._agg_procs.clear()
+            self._agg_beats.clear()
+            self._agg_warned.clear()
+            self._proc_via_agg.clear()
+            # chaos rules persist across rounds (the plan describes
+            # the whole job) but their request counters restart with
+            # the round's fresh proc numbering
+            for rule in self._chaos_rules:
+                rule["n"] = 0
             self._lock.notify_all()
 
-    def dead_procs(self):
-        """Declared-dead procs this round: {proc: {ranks, host, age}}.
-        The elastic driver polls this to blacklist hung hosts that never
-        exit (runner/elastic/driver.py); it doubles as a scan clock, for
-        a job whose workers are all armed on the bypass (no polls) and
-        all hung (no beats)."""
-        with self._lock:
-            self._scan_heartbeats()
-            return {p: dict(info) for p, info in self._dead.items()}
-
     def handle(self, verb, req):
+        if verb == "clock":
+            # NTP-style ping target (the JAX package's
+            # utils/clock_sync.py; the aggregator route's probe here):
+            # round-agnostic and lock-free
+            return {"t": time.time()}
+        epoch = req.get("epoch")
+        if epoch is not None and epoch != self.coord_epoch \
+                and verb not in EPOCH_EXEMPT_VERBS:
+            # epoch fence: a request minted against a pre-restart
+            # coordinator generation is rejected BEFORE any verb runs
+            # — the cross-outage dedup blind HTTP replays rely on.
+            # The client answers with one resync handshake.
+            return {"epoch_mismatch": True, "epoch": self.coord_epoch}
         if req.get("round", self.round_id) != self.round_id:
             return {"stale": True, "round": self.round_id}
         if verb == "ready":
@@ -402,8 +527,18 @@ class Coordinator:
             return self._on_join(req)
         if verb == "heartbeat":
             return self._on_heartbeat(req)
+        if verb == "resync":
+            return self._on_resync(req)
         if verb == "bypass_ready":
             return self._on_bypass_ready(req)
+        if verb == "agg_resync":
+            return self._on_agg_resync(req)
+        if verb == "agg_ready":
+            return self._on_agg_ready(req)
+        if verb == "agg_heartbeat":
+            return self._on_agg_heartbeat(req)
+        if verb == "agg_poll":
+            return self._on_agg_poll(req)
         raise ValueError(f"unknown coordinator verb {verb}")
 
     # -- worker liveness ----------------------------------------------------
@@ -416,44 +551,492 @@ class Coordinator:
         beat from an already-declared-dead proc (a hang that woke up,
         a network partition that healed) gets ``{"dead": true}`` back:
         its peers' collectives were already failed, so the only safe
-        move for that worker is to stop."""
+        move for that worker is to restart into the next round.
+
+        A DIRECT beat (this verb, as opposed to one relayed inside
+        ``agg_heartbeat``) also clears the proc's aggregator route:
+        it is the "direct-fallback probing succeeded" signal that
+        takes the proc off a silent aggregator's suspect list."""
         proc = req.get("proc")
         if proc is None:
             return {}
         with self._lock:
-            out = self._apply_heartbeat_locked(req)
+            out = self._apply_heartbeat_locked(req, via=None)
             # beats are a liveness-scan clock too (AFTER recording
             # this beat — the caller is alive by definition): while
             # every worker is armed on the negotiation bypass nobody
-            # polls, and a poll-clocked scan alone would never declare a
-            # hung bypassed worker dead
+            # polls, and a poll-clocked-only scan would never declare
+            # a hung bypassed worker dead.  The elastic driver's
+            # reaper reads dead_procs() in-process, so the verdict
+            # reaches it — and reaping the hung process is what
+            # unblocks the survivors' agreement collective.
             self._scan_heartbeats()
         return out
 
-    def _apply_heartbeat_locked(self, req):
-        """Beat-state mutation.  Must hold the lock."""
+    def _apply_heartbeat_locked(self, req, via=None):
+        """Beat-state mutation shared by the direct verb and the
+        aggregator relay (``via`` = relaying agg id, None = direct).
+        Must hold the lock."""
         proc = req.get("proc")
+        if proc is None:
+            return {}
         if req.get("bye"):
+            # the bye INTENT is journaled: a restarted coordinator
+            # must never re-arm liveness for a worker that already
+            # said goodbye (its bye would otherwise be lost with
+            # the in-memory beat table and the replayed first-beat
+            # expectation would read its silence as a death)
             if self._beats.pop(proc, None) is not None or \
                     proc in self._proc_ranks:
                 self._j({"k": "bye", "proc": proc})
             self._proc_ranks.pop(proc, None)
             self._proc_hosts.pop(proc, None)
+            self._proc_via_agg.pop(proc, None)
             return {}
         if proc in self._dead:
             return {"dead": True}
         if proc not in self._beats:
-            # first beat registers the proc with its rank/host
-            # attribution
+            # first beat registers the proc: journaled so a
+            # restarted coordinator keeps the rank/host attribution
+            # (liveness itself re-arms only on a post-restart beat)
             self._j({"k": "hb", "proc": proc,
                      "ranks": req.get("ranks"),
                      "host": req.get("host")})
         self._beats[proc] = time.monotonic()
+        self._proc_via_agg[proc] = via
         if req.get("ranks") is not None:
             self._proc_ranks[proc] = list(req["ranks"])
         if req.get("host"):
             self._proc_hosts[proc] = req["host"]
         return {}
+
+    # -- epoch fencing + steady-state bypass (docs/fault_tolerance.md) -------
+
+    def _on_resync(self, req):
+        """Epoch resync handshake: a worker whose request hit the
+        epoch fence re-registers here ONCE instead of blindly
+        replaying.  A journal-replayed session (same sid) keeps its
+        log position — the worker drains the replayed response log
+        from its own absolute cursor, then re-reports whatever is
+        still awaiting; a brand-new session starts at the log end as
+        usual.  Idempotent: re-sending the same (proc, sid) changes
+        nothing (REPLAY_SAFE_VERBS contract).
+
+        ``via_agg`` records the route the handshake arrived on (the
+        aggregator forwards its workers' resyncs upstream, stamping
+        its id): liveness treats beats whose route went silent as
+        suspect rather than dead.  A direct resync clears the route —
+        the worker fell back to the coordinator."""
+        proc = req.get("proc")
+        with self._lock:
+            if proc is not None:
+                self._check_session(proc, req.get("sid"))
+                self._proc_via_agg[proc] = req.get("via_agg")
+                if proc in self._beats:
+                    # the handshake itself proves liveness: a worker
+                    # resyncing off a dead aggregator route must not
+                    # be killed for the beats that died with it —
+                    # its own direct beats resume within one interval
+                    self._beats[proc] = max(self._beats[proc],
+                                            time.monotonic())
+            return {"epoch": self.coord_epoch, "round": self.round_id,
+                    "cursor": self._log_base + len(self._log)}
+
+    def _on_bypass_ready(self, req):
+        """One worker's vote that its negotiated response list has
+        been stable (same fingerprint) for K cycles.  When EVERY proc
+        has voted the same fingerprint, a ``bypass_arm`` record rides
+        the response log — consumed in log order, it is the
+        coordinated instant all workers switch to the coordinator-free
+        fast path (core/bypass.py).  Idempotent per (proc, fp): a
+        replayed vote re-writes the same slot and an armed coordinator
+        never re-arms the same fingerprint."""
+        proc = req.get("proc")
+        fp = req.get("fp")
+        if proc is None or not fp:
+            return {}
+        with self._lock:
+            self._check_session(proc, req.get("sid"))
+            if self._bypass_armed_fp == fp:
+                return {"armed": True}
+            self._bypass_votes[proc] = fp
+            world = max(self.world_size, 1)
+            if len(self._bypass_votes) >= world and \
+                    len(set(self._bypass_votes.values())) == 1:
+                self._bypass_armed_fp = fp
+                self._bypass_votes = {}
+                # entries reported in the race window right before the
+                # arm are dropped: every proc executes them through
+                # the bypass (they ARE the armed list), and a batch
+                # scheduled after the arm record would be consumed by
+                # fast pollers only.  Entries that turn out NOT to be
+                # coverable get re-reported by the unanimous fallback.
+                for key in list(self._pending):
+                    del self._pending[key]
+                    self._pending_since.pop(key, None)
+                    self._stall_warned_keys.discard(key)
+                logger.info(
+                    "steady-state negotiation bypass armed "
+                    "(fingerprint %s..., %d procs)", fp[:12], world)
+                self._log_append({"kind": "bypass_arm", "fp": fp})
+                self._lock.notify_all()
+                return {"armed": True}
+        return {}
+
+    def _disarm_bypass_locked(self):
+        if self._bypass_armed_fp is not None:
+            logger.info("steady-state negotiation bypass disarmed")
+        self._bypass_armed_fp = None
+        self._bypass_votes.clear()
+
+    # -- per-host aggregator tier (docs/fault_tolerance.md) ------------------
+
+    def _touch_agg_locked(self, agg):
+        """Any upstream contact from an aggregator is a liveness beat
+        for the tier (and re-arms the once-per-silence warning).
+        Must hold the lock."""
+        if agg is None:
+            return
+        self._agg_beats[agg] = time.monotonic()
+        self._agg_warned.discard(agg)
+
+    def _on_agg_resync(self, req):
+        """Aggregator session registration — the tier's resync
+        handshake, exempt from the epoch fence for the same reason
+        ``resync`` is (a restarted aggregator re-learns the epochs it
+        will fence everything else with).  A NEW session of a known
+        aggregator id bumps that aggregator's ``agg_epoch``: the
+        stateless restart contract — workers fencing on the
+        (coord_epoch, agg_epoch) pair get a mismatch on first contact
+        with the successor and answer with one worker-level resync,
+        exactly like a coordinator restart.  Idempotent per
+        (agg, sid); journaled so a restarted COORDINATOR keeps the
+        registration (and the epoch keeps climbing, never resets).
+        Round-agnostic: the reply carries the current round, which is
+        how a surviving aggregator follows an elastic reset."""
+        agg = req.get("agg")
+        sid = req.get("sid")
+        with self._lock:
+            self._touch_agg_locked(agg)
+            if agg is not None and self._agg_sid.get(agg) != sid:
+                self._agg_sid[agg] = sid
+                self._agg_epoch[agg] = self._agg_epoch.get(agg, 0) + 1
+                self._agg_procs[agg] = [int(p)
+                                        for p in req.get("procs", [])]
+                if req.get("host"):
+                    self._agg_hosts[agg] = req["host"]
+                now = time.monotonic()
+                for p in self._agg_procs[agg]:
+                    # a weak routing hint only: beats are authoritative
+                    # (a worker that already fell back direct must not
+                    # be re-attributed to the re-registered aggregator
+                    # until it actually routes through it again)
+                    self._proc_via_agg.setdefault(p, agg)
+                    # liveness grace, per tier (the agg-level twin of
+                    # the coordinator's post-restart _grace_until): a
+                    # NEW session means the old aggregator died — its
+                    # workers' beats were lost with it, and they need
+                    # a full window to re-fence/re-attach before
+                    # silence may read as death
+                    if p in self._beats and \
+                            self._proc_via_agg.get(p) == agg:
+                        self._beats[p] = max(self._beats[p], now)
+                self._j({"k": "aggsess", "agg": agg, "sid": sid,
+                         "host": self._agg_hosts.get(agg),
+                         "procs": self._agg_procs[agg],
+                         "epoch": self._agg_epoch[agg]})
+                logger.info(
+                    "aggregator %s (host %s) registered: %d hosted "
+                    "procs, agg_epoch %d", agg,
+                    self._agg_hosts.get(agg),
+                    len(self._agg_procs[agg]), self._agg_epoch[agg])
+            return {"epoch": self.coord_epoch,
+                    "agg_epoch": self._agg_epoch.get(agg, 0),
+                    "round": self.round_id,
+                    "cursor": self._log_base + len(self._log)}
+
+    def _on_agg_ready(self, req):
+        """One aggregator's batched ready stream: every hosted proc's
+        reports of this flush window in ONE request — the fan-in that
+        makes coordinator load scale with hosts, not procs.  Each
+        inner report dedups through the same per-proc rid high-water
+        as the direct verb (``_ready_seen``), so a replayed batch is
+        single-apply report-by-report; scheduling (``_advance``) runs
+        once per batch."""
+        agg = req.get("agg")
+        replies = {}
+        with self._lock:
+            self._touch_agg_locked(agg)
+            for rep in req.get("reports", []):
+                replies[str(rep.get("proc"))] = \
+                    self._apply_ready_locked(rep)
+            self._fail_dead_entries_locked()
+            self._advance()
+            self._lock.notify_all()
+        return {"replies": replies}
+
+    def _on_agg_heartbeat(self, req):
+        """One aggregator's batched liveness relay: every hosted proc
+        that beat since the last relay, in one request.  Beats apply
+        through the same idempotent ``_beats`` update as the direct
+        verb, stamped with the relaying aggregator id (the route the
+        suspect logic consults); the reply names the hosted procs the
+        coordinator has declared dead so the aggregator can answer
+        their local beats with ``{"dead": true}``."""
+        agg = req.get("agg")
+        dead = []
+        with self._lock:
+            self._touch_agg_locked(agg)
+            if req.get("host"):
+                self._agg_hosts[agg] = req["host"]
+            for beat in req.get("beats", []):
+                out = self._apply_heartbeat_locked(beat, via=agg)
+                if out.get("dead"):
+                    dead.append(beat.get("proc"))
+            self._scan_heartbeats()
+        return {"dead": dead} if dead else {}
+
+    def _on_agg_poll(self, req):
+        """One aggregator's shared long-poll: ONE upstream poll per
+        host mirrors the response log for every local worker.
+        ``acked`` carries the hosted workers' own consumed cursors
+        (clamped by their journaled session bases) so log GC — which
+        waits on every proc — keeps working with zero direct polls.
+        Clocks the stall / liveness / compaction scans exactly like
+        worker polls (the coordinator has no thread of its own)."""
+        cursor = req["cursor"]
+        agg = req.get("agg")
+        round_at_entry = req.get("round", self.round_id)
+        timeout = req.get("wait", 10.0)
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            if self.round_id != round_at_entry:
+                return {"stale": True, "round": self.round_id}
+            self._touch_agg_locked(agg)
+            self._scan_stalls()
+            self._scan_heartbeats()
+            self._maybe_compact_locked()
+            for p, c in (req.get("acked") or {}).items():
+                p = int(p)
+                c = int(c)
+                base = self._session_base.get(p)
+                if base is not None and c < base:
+                    c = base
+                self._cursors[p] = max(self._cursors.get(p, 0), c)
+            self._gc_log()
+            while self._log_base + len(self._log) <= cursor:
+                if self.round_id != round_at_entry:
+                    return {"stale": True, "round": self.round_id}
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return {"responses": [], "cursor": cursor,
+                            "epoch": self.coord_epoch,
+                            "agg_epoch": self._agg_epoch.get(agg, 0)}
+                self._lock.wait(remaining)
+            if self.round_id != round_at_entry:
+                return {"stale": True, "round": self.round_id}
+            resp = self._log[max(0, cursor - self._log_base):]
+            out = {"responses": resp,
+                   "cursor": self._log_base + len(self._log),
+                   "epoch": self.coord_epoch,
+                   "agg_epoch": self._agg_epoch.get(agg, 0)}
+            return out
+
+    # -- journal restore + compaction ----------------------------------------
+
+    def restore_journal(self, records):
+        """Rebuild control-plane state from journal records (the
+        restarted-service path: RendezvousServer.restart_from_journal).
+        Bumps the monotonic epoch and opens the liveness grace window;
+        the in-flight pending table is deliberately NOT restored —
+        workers re-report it after their resync handshake."""
+        with self._lock:
+            self._replaying = True
+            try:
+                for rec in records:
+                    self._restore_record_locked(rec)
+            finally:
+                self._replaying = False
+            self.coord_epoch += 1
+            grace = self.heartbeat_window or 1.5 * self.heartbeat_secs
+            self._grace_until = time.monotonic() + max(grace, 0.0)
+        self._j({"k": "epoch", "epoch": self.coord_epoch})
+        replayed = sum(self._journal_replayed.values())
+        logger.warning(
+            "coordinator restored from journal: %d records replayed, "
+            "epoch %d, round %d, %d response-log entries, liveness "
+            "grace %.1fs", replayed, self.coord_epoch, self.round_id,
+            len(self._log), max(self._grace_until - time.monotonic(),
+                                0.0))
+
+    def _restore_record_locked(self, rec):
+        kind = rec.get("k")
+        self._journal_replayed[kind] = \
+            self._journal_replayed.get(kind, 0) + 1
+        if kind == "epoch":
+            self.coord_epoch = int(rec["epoch"])
+        elif kind == "reset":
+            self.world_size = rec["world"]
+            self.round_id = rec["round"]
+            self._restore_clear_locked()
+        elif kind == "log":
+            if not self._log:
+                self._log_base = int(rec["i"])
+            self._log.append(rec["r"])
+            r = rec["r"]
+            if r.get("kind") == "dead":
+                self._dead[r["proc"]] = {
+                    "ranks": r.get("ranks", []), "age": 0.0,
+                    "host": r.get("host")}
+            elif r.get("kind") == "bypass_arm":
+                self._bypass_armed_fp = r.get("fp")
+        elif kind == "sess":
+            self._proc_sid[rec["proc"]] = rec["sid"]
+            self._session_base[rec["proc"]] = rec["base"]
+        elif kind == "join":
+            self._apply_join_locked(rec["req"])
+        elif kind == "hb":
+            if rec.get("ranks") is not None:
+                self._proc_ranks[rec["proc"]] = list(rec["ranks"])
+            if rec.get("host"):
+                self._proc_hosts[rec["proc"]] = rec["host"]
+        elif kind == "bye":
+            self._proc_ranks.pop(rec["proc"], None)
+            self._proc_hosts.pop(rec["proc"], None)
+        elif kind == "aggsess":
+            # a restarted coordinator keeps the aggregator tier's
+            # registrations (sid + monotonic agg_epoch + hosted
+            # procs): the surviving aggregators resync without an
+            # epoch bump, so their workers are never re-fenced by a
+            # coordinator-only outage.  Liveness (_agg_beats) re-arms
+            # only on post-restart contact, like worker beats.
+            self._agg_sid[rec["agg"]] = rec["sid"]
+            self._agg_epoch[rec["agg"]] = int(rec["epoch"])
+            self._agg_procs[rec["agg"]] = [int(p)
+                                           for p in rec.get("procs",
+                                                            [])]
+            if rec.get("host"):
+                self._agg_hosts[rec["agg"]] = rec["host"]
+            for p in self._agg_procs[rec["agg"]]:
+                self._proc_via_agg.setdefault(p, rec["agg"])
+        elif kind == "kv":
+            if self._store is not None:
+                self._store.restore(rec["key"],
+                                    journal_mod._unb64(rec["v"]))
+        elif kind == "kvdel":
+            if self._store is not None:
+                self._store.restore(rec["key"], None)
+        elif kind == "snap":
+            self._restore_snapshot_locked(rec["s"])
+
+    def _restore_clear_locked(self):
+        """Round-reset state clear during replay (mirrors reset())."""
+        self._pending.clear()
+        self._log.clear()
+        self._log_base = 0
+        self._joined.clear()
+        self._proc_joined.clear()
+        self._exhausted.clear()
+        self._join_seen.clear()
+        self._proc_sid.clear()
+        self._session_base.clear()
+        self._errors.clear()
+        self._proc_ranks.clear()
+        self._proc_hosts.clear()
+        self._dead.clear()
+        self._bypass_votes.clear()
+        self._bypass_armed_fp = None
+        self._agg_sid.clear()
+        self._agg_procs.clear()
+        self._agg_hosts.clear()
+        self._agg_beats.clear()
+        self._agg_warned.clear()
+        self._proc_via_agg.clear()
+
+    def _restore_snapshot_locked(self, s):
+        self._restore_clear_locked()
+        self.coord_epoch = s["epoch"]
+        self.round_id = s["round"]
+        self.world_size = s["world"]
+        self._log = list(s.get("log", []))
+        self._log_base = s.get("log_base", 0)
+        for proc, sid, base in s.get("sess", []):
+            self._proc_sid[proc] = sid
+            self._session_base[proc] = base
+        for ps, pairs in s.get("joined", {}).items():
+            self._joined[int(ps)] = {(p, r) for p, r in pairs}
+        for ps, counts in s.get("proc_joined", {}).items():
+            self._proc_joined[int(ps)] = {int(p): c
+                                          for p, c in counts.items()}
+        for ps, procs in s.get("exhausted", {}).items():
+            self._exhausted[int(ps)] = set(procs)
+        for ps, proc, jids in s.get("join_seen", []):
+            self._join_seen[(ps, proc)] = set(jids)
+        self._proc_ranks = {int(p): r
+                            for p, r in s.get("ranks", {}).items()}
+        self._proc_hosts = {int(p): h
+                            for p, h in s.get("hosts", {}).items()}
+        self._dead = {int(p): dict(info)
+                      for p, info in s.get("dead", {}).items()}
+        for agg, sid, epoch, host, procs in s.get("aggs", []):
+            self._agg_sid[agg] = sid
+            self._agg_epoch[agg] = int(epoch)
+            self._agg_hosts[agg] = host
+            self._agg_procs[agg] = [int(p) for p in procs]
+            for p in self._agg_procs[agg]:
+                self._proc_via_agg.setdefault(p, agg)
+        self._bypass_armed_fp = s.get("bypass_fp")
+        if self._store is not None:
+            for key, val in s.get("kv", {}).items():
+                self._store.restore(key, journal_mod._unb64(val))
+
+    def _journal_snapshot_locked(self):
+        """Full current state for journal compaction (coordinator lock
+        held; takes the store lock via scope() — lock order
+        coordinator -> store everywhere, never the reverse)."""
+        kv = {}
+        if self._store is not None:
+            for key, val in self._store.scope("").items():
+                if key.startswith(journal_mod.KV_EXCLUDE_PREFIXES):
+                    continue
+                if len(val) > self._journal.kv_max_bytes:
+                    continue
+                kv[key] = journal_mod._b64(val)
+        return {
+            "epoch": self.coord_epoch, "round": self.round_id,
+            "world": self.world_size,
+            "log": list(self._log), "log_base": self._log_base,
+            "sess": [[p, sid, self._session_base.get(p, 0)]
+                     for p, sid in self._proc_sid.items()],
+            "joined": {str(ps): sorted([p, r] for p, r in pairs)
+                       for ps, pairs in self._joined.items()},
+            "proc_joined": {str(ps): {str(p): c
+                                      for p, c in counts.items()}
+                            for ps, counts in self._proc_joined.items()},
+            "exhausted": {str(ps): sorted(procs)
+                          for ps, procs in self._exhausted.items()},
+            "join_seen": [[ps, proc, sorted(jids)]
+                          for (ps, proc), jids
+                          in self._join_seen.items()],
+            "ranks": {str(p): r for p, r in self._proc_ranks.items()},
+            "hosts": {str(p): h for p, h in self._proc_hosts.items()},
+            "dead": {str(p): dict(info)
+                     for p, info in self._dead.items()},
+            "aggs": [[agg, sid, self._agg_epoch.get(agg, 0),
+                      self._agg_hosts.get(agg),
+                      sorted(self._agg_procs.get(agg, []))]
+                     for agg, sid in sorted(self._agg_sid.items())],
+            "bypass_fp": self._bypass_armed_fp,
+            "kv": kv, "tuned": None,
+        }
+
+    def _maybe_compact_locked(self):
+        """Bound the journal: replace history with one snapshot record
+        once the file exceeds its cap (clocked by worker polls, like
+        the stall and liveness scans)."""
+        if self._journal is None or not self._journal.needs_compaction():
+            return
+        self._journal.compact(self._journal_snapshot_locked())
 
     def _scan_heartbeats(self):
         """Declare procs whose beats stopped for the window dead and
@@ -466,11 +1049,39 @@ class Coordinator:
         if self.heartbeat_secs <= 0 or not self._beats:
             return
         now = time.monotonic()
+        if now < self._grace_until:
+            # post-restart grace: beats missed during the outage are
+            # not deaths; liveness only counts beats after the window
+            return
         window = self.heartbeat_window or 1.5 * self.heartbeat_secs
         died = False
         for proc, last in list(self._beats.items()):
             if proc in self._dead or now - last <= window:
                 continue
+            agg = self._proc_via_agg.get(proc)
+            if agg is not None:
+                agg_last = self._agg_beats.get(agg)
+                if agg_last is None or now - agg_last > window:
+                    # the proc's beats rode an aggregator that is
+                    # itself silent: its hosted ranks are SUSPECT,
+                    # not dead — withhold the verdict for the probe
+                    # grace (the worker-side fallback budget + one
+                    # beat interval; a direct beat or resync clears
+                    # the route and normal rules resume); only a proc
+                    # still silent PAST that grace failed the direct
+                    # fallback too and is declared dead
+                    if agg not in self._agg_warned:
+                        self._agg_warned.add(agg)
+                        logger.warning(
+                            "aggregator %s (host %s) silent for "
+                            "%.1fs; treating its %d hosted procs as "
+                            "suspect pending direct-fallback probing",
+                            agg, self._agg_hosts.get(agg),
+                            (now - agg_last) if agg_last else
+                            float("inf"),
+                            len(self._agg_procs.get(agg, ())))
+                    if now - last <= window + self._agg_probe_grace:
+                        continue
             age = now - last
             ranks = self._proc_ranks.get(proc, [])
             self._dead[proc] = {"ranks": ranks, "age": round(age, 1),
@@ -520,55 +1131,88 @@ class Coordinator:
                         f"(missed heartbeats); {key} cannot complete")})
                 break
 
-    # -- steady-state negotiation bypass ---------------------------------------
-
-    def _on_bypass_ready(self, req):
-        """One worker's vote that its negotiated response list has been
-        stable (one fingerprint) for K cycles.  When EVERY proc has voted
-        the same fingerprint, a ``bypass_arm`` record rides the response
-        log: consumed in log order, it is the instant all workers switch
-        to the coordinator-free fast path (core/bypass.py).  Idempotent
-        per (proc, fp): a replayed vote re-writes the same slot, and an
-        armed coordinator never re-arms the same fingerprint."""
-        proc = req.get("proc")
-        fp = req.get("fp")
-        if proc is None or not fp:
-            return {}
+    def dead_procs(self):
+        """Declared-dead procs this round: {proc: {ranks, host, age}}.
+        The elastic driver polls this to blacklist hung hosts that
+        never exit (runner/elastic/driver.py).  Doubles as a scan
+        clock: with every worker bypassed (no polls) and ALL workers
+        hung (no beats either), the driver's monitor loop is the only
+        clock left."""
         with self._lock:
-            self._check_session(proc, req.get("sid"))
-            if self._bypass_armed_fp == fp:
-                return {"armed": True}
-            self._bypass_votes[proc] = fp
-            world = max(self.world_size, 1)
-            if len(self._bypass_votes) >= world and \
-                    len(set(self._bypass_votes.values())) == 1:
-                self._bypass_armed_fp = fp
-                self._bypass_votes = {}
-                # entries reported in the race window right before the arm
-                # are dropped: every proc runs them through the bypass
-                # (they ARE the armed list), and a batch scheduled after
-                # the arm record would be consumed by fast pollers only.
-                # Entries the list cannot cover are re-reported by the
-                # unanimous fallback.
-                for key in list(self._pending):
-                    del self._pending[key]
-                    self._pending_since.pop(key, None)
-                    self._stall_warned_keys.discard(key)
-                logger.info(
-                    "steady-state negotiation bypass armed "
-                    "(fingerprint %s..., %d procs)", fp[:12], world)
-                self._log_append({"kind": "bypass_arm", "fp": fp})
-                self._lock.notify_all()
-                return {"armed": True}
-        return {}
+            self._scan_heartbeats()
+            return {p: dict(info) for p, info in self._dead.items()}
 
-    def _disarm_bypass_locked(self):
-        if self._bypass_armed_fp is not None:
-            logger.info("steady-state negotiation bypass disarmed")
-        self._bypass_armed_fp = None
-        self._bypass_votes.clear()
+    # -- coordinator-side chaos ----------------------------------------------
 
-    # -- negotiation ----------------------------------------------------------
+    def add_chaos_rule(self, kind, proc=None, verb=None, after=1,
+                       count=1, code=503, ms=0.0, p=1.0, rng=None,
+                       event=None):
+        """Install one server-side fault rule: reject
+        (``kind="http_error"``) or stall (``kind="delay_ms"``) the
+        matching coordinator requests from the ``after``-th on, up to
+        ``count`` firings — matching on verb and/or requesting proc.
+        ``p`` gates each eligible request on a draw from ``rng`` (the
+        plan's seeded per-event stream; skipped requests redraw at
+        the next one, mirroring worker-side semantics).  Installed by
+        launchers from fault-plan events with ``side: "coord"``.
+        ``kind="signal"`` fires ``event.set()`` instead of perturbing
+        the request — the hook the chaos CoordFaultRunner uses to
+        trigger a coordinator kill/restart on the n-th request."""
+        if kind not in ("http_error", "delay_ms", "signal"):
+            raise ValueError(
+                f"coordinator chaos supports http_error/delay_ms/"
+                f"signal, not {kind}")
+        if kind == "signal" and event is None:
+            raise ValueError("signal rules need an event to set")
+        import random as _random
+        with self._lock:
+            self._chaos_rules.append({
+                "kind": kind, "proc": proc, "verb": verb,
+                "after": int(after), "count": int(count),
+                "code": int(code), "ms": float(ms),
+                "p": float(p), "rng": rng or _random.Random(0),
+                "event": event, "n": 0, "fires": 0})
+
+    def chaos_check(self, verb, req):
+        """Consulted by the HTTP handler before dispatching a verb.
+        Returns None, ``("error", status)`` or ``("stall", ms)``."""
+        if not self._chaos_rules:
+            return None
+        proc = req.get("proc") if isinstance(req, dict) else None
+        action = None
+        with self._lock:
+            for rule in self._chaos_rules:
+                if rule["verb"] not in (None, verb):
+                    continue
+                if rule["proc"] is not None and proc != rule["proc"]:
+                    continue
+                rule["n"] += 1
+                if (action is not None and rule["kind"] != "signal") \
+                        or rule["fires"] >= rule["count"] \
+                        or rule["n"] < rule["after"]:
+                    continue
+                if rule["p"] < 1.0 and \
+                        rule["rng"].random() >= rule["p"]:
+                    continue    # probabilistic skip: redraw next time
+                rule["fires"] += 1
+                if rule["kind"] == "signal":
+                    # trigger hook for the launcher-side coordinator
+                    # fault runner (kill/restart on the n-th request);
+                    # the request itself proceeds untouched
+                    rule["event"].set()
+                    continue
+                if rule["kind"] == "http_error":
+                    label = "coord_http_error"
+                    action = ("error", rule["code"])
+                else:
+                    label = "coord_stall"
+                    action = ("stall", rule["ms"])
+                self._chaos_injected[label] = \
+                    self._chaos_injected.get(label, 0) + 1
+                logger.warning(
+                    "chaos: coordinator injecting %s on %s from "
+                    "proc %s", rule["kind"], verb, proc)
+        return action
 
     def _check_session(self, proc, sid):
         """A fresh controller session (engine re-init against this
@@ -603,6 +1247,9 @@ class Coordinator:
             # new sessions start polling at the CURRENT log end
             self._session_base[proc] = self._log_base + len(self._log)
             self._cursors.pop(proc, None)
+            # journaled so a restarted coordinator recognizes the SAME
+            # session (no state wipe, cursor fencing intact) instead of
+            # treating the surviving worker as a fresh one
             self._j({"k": "sess", "proc": proc, "sid": sid,
                      "base": self._session_base[proc]})
 
@@ -624,8 +1271,11 @@ class Coordinator:
         return reply
 
     def _apply_ready_locked(self, req):
-        """Ready-report mutation.  Must hold the lock; the caller runs
-        ``_fail_dead_entries_locked`` + ``_advance``."""
+        """Ready-report mutation shared by the direct verb and the
+        aggregator batch (``agg_ready`` applies one per report under a
+        single lock hold).  Must hold the lock; the caller runs
+        ``_fail_dead_entries_locked`` + ``_advance`` once per
+        request."""
         proc = req["proc"]
         uncached = []
         self._check_session(proc, req.get("sid"))
@@ -649,9 +1299,9 @@ class Coordinator:
                 return {}
             self._ready_seen[proc] = rid
         if req.get("entries"):
-            # a worker reporting entries has left the bypass fast path
-            # (the agreement vote made the exit unanimous): disarm, so a
-            # fresh stable phase must vote again
+            # a worker reporting entries has left the bypass fast
+            # path (the agreement vote made the exit unanimous):
+            # disarm so a fresh stable phase must re-vote
             self._disarm_bypass_locked()
         for meta in req["entries"]:
             key = meta["key"]
@@ -739,6 +1389,11 @@ class Coordinator:
         with self._lock:
             self._check_session(proc, req.get("sid"))
             if self._apply_join_locked(req):
+                # journaled post-dedup: a restarted coordinator must
+                # not lose joined/exhausted state (or the exhausted
+                # proc's peers would wait for reports that never come),
+                # and the replayed jid keeps outage-spanning join
+                # retries single-apply
                 self._j({"k": "join", "req": {
                     "ps": ps, "proc": proc, "rank": req.get("rank"),
                     "jid": req.get("jid"),
@@ -750,8 +1405,8 @@ class Coordinator:
         return {}
 
     def _apply_join_locked(self, req) -> bool:
-        """Join-state mutation.  Returns False when the jid was already
-        seen (dedup)."""
+        """Join-state mutation shared by the live verb and journal
+        replay.  Returns False when the jid was already seen (dedup)."""
         ps = req.get("ps", 0)
         proc = req.get("proc", -1)
         jid = req.get("jid")
@@ -996,14 +1651,16 @@ class Coordinator:
         deadline = time.monotonic() + timeout
         with self._lock:
             if self.round_id != round_at_entry:
-                # a reset raced us past handle()'s unlocked check: don't
-                # let a stale cursor poison the new round's GC
+                # a reset raced us past handle()'s unlocked check:
+                # don't let a stale cursor poison the new round's GC
                 return {"stale": True, "round": self.round_id}
             # polls arrive every worker cycle, so they are the stall
-            # inspector's and the liveness scan's clock (the
-            # coordinator has no thread of its own)
+            # inspector's, the liveness scan's AND the journal
+            # compactor's clock (the coordinator has no thread of its
+            # own)
             self._scan_stalls()
             self._scan_heartbeats()
+            self._maybe_compact_locked()
             if proc is not None:
                 # a re-sessioned controller polls from cursor 0; its
                 # session starts at the log position recorded when the
@@ -1019,7 +1676,7 @@ class Coordinator:
             while self._log_base + len(self._log) <= cursor:
                 if self.round_id != round_at_entry:
                     # an elastic reset happened while we were waiting:
-                    # this worker's round is over, so never hand it the
+                    # this worker's round is over — never hand it the
                     # new round's responses
                     return {"stale": True, "round": self.round_id}
                 remaining = deadline - time.monotonic()
@@ -1030,6 +1687,8 @@ class Coordinator:
             if self.round_id != round_at_entry:
                 return {"stale": True, "round": self.round_id}
             resp = self._log[max(0, cursor - self._log_base):]
+            # poll replies carry the epoch: the worker adopts it on
+            # first contact and fences every later verb with it
             return {"responses": resp,
                     "cursor": self._log_base + len(self._log),
                     "epoch": self.coord_epoch}
@@ -1053,7 +1712,10 @@ class _ThreadingHTTPServer(socketserver.ThreadingMixIn,
     allow_reuse_address = True
 
     def __init__(self, *args, **kwargs):
-        # live keep-alive connections, so stop() can sever them
+        # live keep-alive connections, so a coordinator kill/restart
+        # can sever them: a handler thread parked on an old keep-alive
+        # would otherwise keep serving the PRE-restart coordinator
+        # object, quietly splitting the control plane in two
         self._conns = set()
         self._conns_lock = threading.Lock()
         super().__init__(*args, **kwargs)
@@ -1092,7 +1754,6 @@ class _ThreadingHTTPServer(socketserver.ThreadingMixIn,
         super().handle_error(request, client_address)
 
 
-
 class RendezvousServer:
     """KV + coordinator HTTP service hosted by the launcher (reference
     RendezvousServer, http_server.py:192)."""
@@ -1103,31 +1764,57 @@ class RendezvousServer:
                  stall_warning_secs: float = 60.0,
                  heartbeat_secs: float = 5.0,
                  heartbeat_window: float = 0.0,
-                 journal_path: str = None):
-        journal = None
-        if journal_path:
-            journal = journal_mod.CoordJournal(journal_path)
-            if os.path.exists(journal_path):
-                # a new job truncates whatever a previous job left there
-                journal.truncate()
-        self.secret = secret
-        self.store = KVStore()
-        self.coordinator = Coordinator(
+                 journal_path: str = None,
+                 journal_replay: bool = False):
+        self._coord_kwargs = dict(
             world_size=world_size,
             fusion_threshold_bytes=fusion_threshold_bytes,
             cache_capacity=cache_capacity, autotune=autotune,
             stall_warning_secs=stall_warning_secs,
             heartbeat_secs=heartbeat_secs,
-            heartbeat_window=heartbeat_window, journal=journal)
-        if journal is not None:
-            # first record of a fresh journal: the base epoch
-            self.coordinator._j({"k": "epoch",
-                                 "epoch": self.coordinator.coord_epoch})
-            self.store.journal = journal
+            heartbeat_window=heartbeat_window)
+        self._journal_path = journal_path
+        self.secret = secret
         self._httpd = None
         self._thread = None
+        self._bound_port = None
+        self._build(replay=journal_replay)
+
+    def _build(self, replay):
+        """(Re)build store + coordinator.  With a journal path: a
+        fresh job truncates whatever a previous job left there, while
+        ``replay=True`` (restart_from_journal, or
+        ``HOROVOD_COORD_JOURNAL_REPLAY=1`` for a restarted launcher)
+        rebuilds the control plane from the records and bumps the
+        epoch."""
+        journal = records = None
+        if self._journal_path:
+            journal = journal_mod.CoordJournal(self._journal_path)
+            if replay:
+                records = journal.read()
+            elif os.path.exists(self._journal_path):
+                journal.truncate()
+        self.store = KVStore()
+        self.coordinator = Coordinator(journal=journal,
+                                       **self._coord_kwargs)
+        self.coordinator.attach_store(self.store)
+        if journal is not None:
+            if records:
+                self.coordinator.restore_journal(records)
+            else:
+                # first record of a fresh journal: the base epoch
+                self.coordinator._j(
+                    {"k": "epoch",
+                     "epoch": self.coordinator.coord_epoch})
+            # KV journaling goes live only AFTER replay so restored
+            # entries are not re-journaled
+            self.store.journal = journal
 
     def start(self, port=0) -> int:
+        if port == 0 and self._bound_port:
+            # a restarted service must come back on the SAME port —
+            # workers have the address baked into their env handoff
+            port = self._bound_port
         self._httpd = _ThreadingHTTPServer(("0.0.0.0", port), _Handler)
         self._httpd.store = self.store
         self._httpd.coordinator = self.coordinator
@@ -1135,21 +1822,48 @@ class RendezvousServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="hvd-rendezvous", daemon=True)
         self._thread.start()
-        return self._httpd.server_address[1]
+        self._bound_port = self._httpd.server_address[1]
+        return self._bound_port
 
     @property
     def port(self):
-        return self._httpd.server_address[1] if self._httpd else None
+        # while the HTTP service is down (coord_kill window) the bound
+        # port is still the service's identity: an elastic round reset
+        # mid-outage must bake the REAL port into worker env, not None
+        if self._httpd is not None:
+            return self._httpd.server_address[1]
+        return self._bound_port
 
-    def stop(self):
-        self.coordinator.close()
+    def stop_http(self):
+        """Tear down the HTTP service only (chaos ``coord_kill``):
+        state and journal stay, workers see connection failures and
+        ride the bypass / outage-deadline retry path."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
-            # sever live keep-alives too: their handler threads would
-            # otherwise keep answering
+            # sever live keep-alives too: their handler threads hold
+            # the OLD coordinator object and would keep answering
             self._httpd.close_all_connections()
             self._httpd = None
+
+    def restart_from_journal(self) -> int:
+        """Crash-recovery drill (chaos ``coord_restart``): drop ALL
+        in-memory state, rebuild store + coordinator purely from the
+        journal (epoch bumped, liveness grace armed) and re-serve on
+        the same port.  Proves the journal alone carries the control
+        plane."""
+        if not self._journal_path:
+            raise RuntimeError(
+                "restart_from_journal requires a journal "
+                "(HOROVOD_COORD_JOURNAL)")
+        self.stop_http()
+        self.coordinator.close()
+        self._build(replay=True)
+        return self.start()
+
+    def stop(self):
+        self.coordinator.close()
+        self.stop_http()
 
 
 def free_port():

@@ -14,7 +14,7 @@ re-forms the job when a worker dies or discovery changes.  ``--mpi`` and
 ``--gloo`` are accepted and change nothing, as in the JAX package.  The
 parser is the JAX package's, flag for flag; the flags of features the
 port has not ported yet are refused with the ROADMAP.md item that ports
-them (fleet, chaos, tracing, telemetry and the aggregator tier: A17;
+them (the fleet, tracing and telemetry: A17;
 autotune: A14; the 2-D algorithms and per-hop wires: A8; pipelining:
 A15; serving: A16).
 """
@@ -29,10 +29,7 @@ from .hosts import parse_host_files
 #: (parsed attribute, ROADMAP.md item): flags whose features are not
 #: ported; a run that sets one is refused
 _UNPORTED_FLAGS = (
-    ("fleet_spec", "A17"), ("fault_plan", "A17"), ("fault_seed", "A17"),
-    ("coord_outage_deadline_seconds", "A17"),
-    ("control_plane_tier", "A17"), ("agg_linger_ms", "A17"),
-    ("agg_fallback_deadline_seconds", "A17"),
+    ("fleet_spec", "A17"),
     ("timeline_filename", "A17"), ("timeline_mark_cycles", "A17"),
     ("trace_ring_events", "A17"), ("trace_dump_dir", "A17"),
     ("trace_clock_sync_seconds", "A17"), ("metrics_port", "A17"),

@@ -280,7 +280,21 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
         secret=bytes.fromhex(secret_hex), world_size=num_procs,
         fusion_threshold_bytes=fusion_threshold_bytes,
         **coordinator_kwargs(launcher_env))
+    # fault-plan events with side="coord" are the launcher's to apply
+    # (reject or stall chosen procs' coordinator requests on the
+    # server); worker-side events ride the HOROVOD_FAULT_PLAN handoff
+    coord_faults = None
+    if launcher_env.get("HOROVOD_FAULT_PLAN"):
+        from ..chaos import (
+            install_coordinator_rules, start_coordinator_faults,
+        )
+        install_coordinator_rules(server.coordinator, launcher_env)
     rdv_port = server.start()
+    if launcher_env.get("HOROVOD_FAULT_PLAN"):
+        # service-targeting faults (coord_kill/coord_restart) act on the
+        # running server: armed after the port is bound, so a restart
+        # can bind it again
+        coord_faults = start_coordinator_faults(server, launcher_env)
     rdv_addr = local_ip() if any_remote else "127.0.0.1"
     # the torch.distributed store is hosted by PROCESS 0, so its address
     # is rank 0's host.  The port is probed free here: on a local rank 0
@@ -332,6 +346,8 @@ def launch_procs(command: List[str], np: int, hosts: str = None,
                           stop_on_failure=stop_on_failure)
     finally:
         pool.terminate()
+        if coord_faults is not None:
+            coord_faults.stop()
         server.stop()
         for f in out_files:
             f.close()

@@ -887,15 +887,26 @@ def test_exec_restart_rule(monkeypatch):
 # -- what stays refused; the remote spawn ----------------------------------------
 
 def test_elastic_refusals():
-    """An elastic job still refuses chaos's fault plan (A17) and the
-    serving autoscaler (A16), and rank threads: an elastic worker holds
-    one rank."""
+    """An elastic job still refuses a fault plan naming a kind or
+    trigger whose consumer is not ported (the data plane's shard kill,
+    A17; serving's predict trigger, A16) and the serving autoscaler
+    (A16), and rank threads: an elastic worker holds one rank.  A plan of
+    ported kinds passes."""
     import argparse
     from horovod_tpu_torch.runner import elastic_run
-    for key, item in (("HOROVOD_FAULT_PLAN", "A17"),
-                      ("HOROVOD_SERVING", "A16")):
+    shard = {"events": [{"kind": "kill_shard_server", "proc": 0,
+                         "after_samples": 3}]}
+    predict = {"events": [{"kind": "kill", "proc": 0,
+                           "after_predicts": 3}]}
+    for key, value, item in (
+            ("HOROVOD_FAULT_PLAN", json.dumps(shard), "A17"),
+            ("HOROVOD_FAULT_PLAN", json.dumps(predict), "A16"),
+            ("HOROVOD_SERVING", "1", "A16")):
         with pytest.raises(NotImplementedError, match=item):
-            elastic_run.check_elastic_env({key: "1"})
+            elastic_run.check_elastic_env({key: value})
+    elastic_run.check_elastic_env({"HOROVOD_FAULT_PLAN": json.dumps(
+        {"events": [{"kind": "kill", "proc": 1,
+                     "after_collectives": 3}]})})
     with pytest.raises(ValueError, match="one rank"):
         elastic_run.run_elastic(argparse.Namespace(ranks_per_proc=2))
 

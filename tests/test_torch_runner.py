@@ -167,8 +167,10 @@ def test_gloo_run_env_helpers():
 
 @pytest.mark.parametrize("argv,item", [
     (["-np", "2", "--pipeline-stages", "2"], "A15"),
-    (["-np", "2", "--fault-plan", "{}"], "A17"),
-    (["-np", "2", "--control-plane-tier", "host"], "A17"),
+    (["-np", "2", "--fault-plan",
+      '{"events": [{"kind": "revoke_host", "host": "h", "after": 1}]}'],
+     "A17"),
+    (["-np", "2", "--fleet-spec", "fleet.json"], "A17"),
     (["-np", "2", "--autotune"], "A14"),
     (["-np", "2", "--hierarchical-allreduce"], "A8"),
     (["-np", "2", "--timeline-filename", "t.json"], "A17"),
@@ -176,8 +178,11 @@ def test_gloo_run_env_helpers():
 ])
 def test_cli_refuses_unported_flags(argv, item):
     """What the CLI still refuses; ``--ranks-per-worker``, the bypass
-    flags (``test_cli_takes_the_hybrid_and_bypass_flags``) and the elastic
-    flags (tests/test_torch_elastic_jobs.py) are ported."""
+    flags (``test_cli_takes_the_hybrid_and_bypass_flags``), the elastic
+    flags (tests/test_torch_elastic_jobs.py), and the chaos, journal and
+    aggregator-tier flags (tests/test_torch_chaos.py) are ported: a fault
+    plan is refused only where it names a kind whose consumer is not
+    ported."""
     with pytest.raises(NotImplementedError, match=item):
         torch_launch.run_commandline(argv + ["--", "python", "t.py"])
 
@@ -206,7 +211,9 @@ def test_cli_takes_the_hybrid_and_bypass_flags():
 def test_refusals_outside_the_cli(monkeypatch):
     """What the launcher still refuses: an np that the rank threads per
     process do not divide, or that is over the slots of ``-H`` (as the
-    JAX package's launcher), and chaos (A17), in an elastic job too.
+    JAX package's launcher), and a fault plan that names a kind whose
+    consumer is not ported (the integrity flips, A14; the fleet's host
+    revocation, A17), in an elastic job too.
     Workers on remote hosts (tests/test_torch_remote.py) and elastic runs
     (tests/test_torch_elastic_jobs.py) are ported: the elastic handoff
     adds what the JAX package's adds."""
@@ -215,9 +222,11 @@ def test_refusals_outside_the_cli(monkeypatch):
     with pytest.raises(ValueError, match="exceeds"):
         torch_proc_run.launch_procs(["true"], np=4, ranks_per_proc="host",
                                     hosts="localhost:2,127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(NotImplementedError, match="A14"):
         torch_config.set_env_from_args(
-            {}, argparse.Namespace(fault_plan="{}"))
+            {}, argparse.Namespace(fault_plan=json.dumps(
+                {"events": [{"kind": "bitflip_wire", "proc": 0,
+                             "after_buckets": 2}]})))
     from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
     from horovod_tpu_torch.runner.elastic.settings import ElasticSettings
     settings = ElasticSettings(
@@ -225,7 +234,9 @@ def test_refusals_outside_the_cli(monkeypatch):
         max_num_proc=1, elastic_timeout=10, reset_limit=None, num_proc=1)
     with pytest.raises(NotImplementedError, match="A17"):
         torch_gloo_run.gloo_run_elastic(
-            settings, {"HOROVOD_FAULT_PLAN": "{}"}, ["python"])
+            settings, {"HOROVOD_FAULT_PLAN": json.dumps(
+                {"events": [{"kind": "revoke_host", "host": "h",
+                             "after": 1}]})}, ["python"])
 
     def elastic_keys(mod):
         on = mod.create_run_env_vars("h", None, 1, elastic=True)
