@@ -352,7 +352,50 @@ Phases (a failure in any one exits non-zero):
     for bit phase 20 (a)'s in-process replay.  It prints each step's ms,
     the outages, the seconds from the coordinator's restart to the first
     reply, the epochs, the steps during the outage, B1 launches per
-    process and the killed injector's fired record.
+    process and the killed injector's fired record;
+22. the rest of the torch frontend and the LM's memory path, in this
+    process, cuDNN deterministic for (a) and (b).  (a) Adasum: phase
+    4's run in f32 (full-width ResNet-50, 2 rank threads x 64 images)
+    through ``DistributedOptimizer(SGD, momentum 0.9, op=Adasum)`` for
+    ``P22_STEPS`` steps at the default fusion threshold (replicas bit
+    for bit, the loss falls), again at ``HOROVOD_FUSION_THRESHOLD=0``
+    (step 1's reduced gradients bit for bit a per-tensor
+    ``adasum_reduce`` of the two ranks' local gradients), and through
+    ``make_compiled_train_step(op=Adasum)`` as one CUDA graph (step 1's
+    update within ``P22_COMPILED_REL_L2`` of the same per-leaf
+    reference, replicas bit for bit).  (b) SyncBatchNorm: every
+    ``BatchNorm`` of that f32 ResNet-50 swapped for
+    ``hvd_torch.SyncBatchNorm`` (``swap_batch_norm``), 2 rank threads x
+    64 images, ``P22_STEPS - 1`` steps, every backward on its rank's own
+    thread, under a stall shutdown of ``P22_STALL_S``, and the same in
+    f64 for 2 steps: the losses and averaged gradients of steps 1 and 2
+    (step 1 moves the zero-init last scale of every block, so step 2's
+    gradients are nonzero everywhere) against two plain steps on the
+    128 images with ``torch.nn.BatchNorm2d`` in the same dtype (the
+    bounds at ``P22_SYNC_BN_REL_L2``: in f64 all within
+    ``P22_SYNC_BN_F64``; in f32 step 1 within ``P22_SYNC_BN_REL_L2``, and
+    both steps no further from the f64 plain step than
+    ``P22_SYNC_BN_VS_PLAIN`` times the f32 plain step), parameters and
+    running statistics bit for bit across ranks.  (c) Sparse gradients:
+    ``nn.Embedding(32000, 1024, sparse=True)``, a mean over positions
+    and a linear head, 2 rank threads x 5 x 2048 seeded tokens, SGD,
+    ``P22_STEPS - 1`` steps on the sparse path and with
+    ``sparse_as_dense=True``: replicas bit for bit, the two paths'
+    weights within ``P22_SPARSE_REL`` of each other.  (d) The 436M LM
+    of phase 7 on its weights and tokens through
+    ``make_lm_train_step(fused_ce=True)``, ``P22_LM_STEPS`` steps each
+    with no remat and with the ``"full"``, ``"dots"`` and
+    ``"dots_flash"`` policies: step 1's loss within ``P22_LOSS_ABS`` of
+    phase 7's, every remat leg's losses and step-1 gradients bit for bit
+    the no-remat leg's, flash launches per step (forward 24 without
+    remat and under ``"dots_flash"``, 48 under ``"full"`` and
+    ``"dots"``; dq and dk/dv 24), each leg's peak memory above what the
+    process held before its steps below phase 7's.  B2-B5 and B9-B10
+    are read before and after the phase, and must not have launched.  It
+    prints every comparison, B1 launches per leg and, per LM leg, each
+    step's ms and ``cudaMalloc`` calls, the median step from step 2 on as
+    ms, tok/s and model TFLOP/s, the peak memory and the caching
+    allocator's retries.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
@@ -365,10 +408,13 @@ B1-B3's per phase-18 leg and process under ``phase18_launches``, B1's
 per phase-19 (a) process under ``phase19_launches``, B1's per
 phase-20 leg and process, localhost's then 127.0.0.1's, under
 ``phase20_launches``, and B1's per phase-21 (a) job and process and
-per (b) process under ``phase21_launches``); the last
+per (b) process under ``phase21_launches``, and every kernel's per
+phase-22 leg under ``phase22_launches``); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
-7, 9, 11, 12, 14 and 15 also print the profile tables of one steady
-step each.
+7, 9, 11, 12, 14 and 15, and phase 22 (d)'s no-remat and
+``"dots_flash"`` legs, also print the profile tables of one steady step
+each.  ``--phase22`` builds the kernels and runs phases 7 and 22 alone
+(no kernels line, no last line: not the contract's run).
 """
 
 import gc
@@ -586,6 +632,38 @@ P21_KILL_PLAN = {"seed": 21, "events": [
     {"kind": "kill", "proc": 0, "after_collectives": P21_KILL_AT}]}
 P20_DISCOVERY["k"] = P20_DISCOVERY["a"]
 P20_LEGS["k"] = P20_LEGS["a"] + ["--fault-plan", json.dumps(P21_KILL_PLAN)]
+# phase 22: the steps of (a) ((b) f32 and (c) run one fewer, (d)
+# ``P22_LM_STEPS`` a leg), the stall
+# shutdown that turns a hung SyncBatchNorm collective into an error, and
+# the bounds: (a) the compiled step's step-1 update against the per-leaf
+# reference, relative L2 per tensor (its gradients come from
+# ``torch.autograd.grad`` over ``functional_call``, the reference's from
+# the eager model's backward); (b) SyncBatchNorm against one plain step on
+# the 128 images: the loss, and the gradients over all parameters, within
+# ``P22_SYNC_BN_REL_L2`` (relative L2), each nonzero tensor within
+# ``P22_SYNC_BN_TENSOR``; the f64 runs within ``P22_SYNC_BN_F64`` (the
+# algorithm itself: on an NVIDIA H100 they agree to 1.7e-14 a tensor).
+# In f32 this random ResNet-50's gradients are ill-conditioned: at step 2
+# the plain f32 step itself lies 1.42e-3 (all parameters) and up to
+# 0.0329 (a tensor) from the f64 one, so past step 1 the f32 run is held
+# to ``P22_SYNC_BN_VS_PLAIN`` times the plain f32 step's own distance
+# from the f64 step (read 1.39-1.79x) rather than to a fixed bound;
+# (c) the sparse and the dense path's weights after the steps, relative
+# L2 of their difference to the change the steps made (two summation
+# orders of the same duplicates); (d) the fused loss against phase 7's
+# unfused step-1 loss (the same f32 logits, chunked)
+P22_STEPS = 4
+P22_STALL_S = 120
+P22_COMPILED_REL_L2 = 1e-3
+P22_SYNC_BN_REL_L2 = 1e-3
+P22_SYNC_BN_TENSOR = 1e-2
+P22_SYNC_BN_F64 = 1e-8
+P22_SYNC_BN_VS_PLAIN = 3.0
+P22_LM_STEPS = 5
+P22_SPARSE = dict(vocab=32000, width=1024, classes=16, lr=0.5)
+P22_SPARSE_REL = 1e-4
+P22_LOSS_ABS = 1e-4
+P22_POLICIES = (None, "full", "dots", "dots_flash")
 REPORTED_ENV = ("HOROVOD_GLOO_RENDEZVOUS_ADDR", "HOROVOD_TPU_COORDINATOR",
                 "HOROVOD_HOSTNAME", "HOROVOD_GPU_OPERATIONS",
                 "HOROVOD_SECRET_KEY", "CUDA_VISIBLE_DEVICES", "PYTHONPATH",
@@ -1375,6 +1453,9 @@ def phase_lm(dev, profile=False):
     n_params = sum(p.numel() for p in state["model"].parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what the process held before the steps (the model, and whatever
+    # earlier phases left): the steps' own peak is the peak above it
+    held = torch.cuda.memory_allocated()
     losses, times, per_step, grads = [], [], [], None
     prev = [0, 0, 0]
     FA.reset_launches()
@@ -1425,7 +1506,9 @@ def phase_lm(dev, profile=False):
     log(f"phase 7: step times (s) {[round(t, 4) for t in times]}; steady "
         f"{steady * 1e3:.2f} ms/step = {tok_s:.1f} tok/s = {tflops:.1f} "
         f"model TFLOP/s ({lm_flops_per_token(cfg) / 1e9:.3f} GFLOP/token); "
-        f"peak memory {peak / 2**30:.2f} GiB")
+        f"peak memory {peak / 2**30:.2f} GiB, "
+        f"{(peak - held) / 2**30:.2f} GiB above what the process held "
+        f"before the steps")
 
     # the dense model, one step from the same weights and tokens
     del state, loss
@@ -1489,8 +1572,8 @@ def phase_lm(dev, profile=False):
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches, "steady_s": steady, "tok_s": tok_s,
-            "tflops": tflops, "peak": peak, "weights": weights,
-            "losses": losses, "tokens": tokens}
+            "tflops": tflops, "peak": peak, "step_peak": peak - held,
+            "weights": weights, "losses": losses, "tokens": tokens}
 
 
 def phase_lm_hvd(dev):
@@ -5971,6 +6054,714 @@ def phase_chaos(dev, card, state, batches, replay_a):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 22
+
+def swap_batch_norm(model, make):
+    """Every ``models.resnet.BatchNorm`` of ``model`` replaced by
+    ``make(channels)`` carrying its ``weight``, ``bias`` and running
+    statistics (the port's momentum 0.9 on the old value is torch's 0.1;
+    eps 1e-5 both)."""
+    import torch
+    from horovod_tpu_torch.models.resnet import BatchNorm
+
+    for mod in list(model.modules()):
+        for name, child in list(mod.named_children()):
+            if isinstance(child, BatchNorm):
+                bn = make(child.weight.numel()).to(child.weight.device,
+                                                   child.weight.dtype)
+                with torch.no_grad():
+                    bn.weight.copy_(child.weight)
+                    bn.bias.copy_(child.bias)
+                    bn.running_mean.copy_(child.running_mean)
+                    bn.running_var.copy_(child.running_var)
+                setattr(mod, name, bn)
+    return model
+
+
+def _rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def _rel_all(got, want):
+    """Relative L2 of two lists of tensors taken as one vector, in f64."""
+    num = sum(float((a.double() - b.double()).norm()) ** 2
+              for a, b in zip(got, want))
+    den = sum(float(b.double().norm()) ** 2 for b in want)
+    return math.sqrt(num / den)
+
+
+def as_f64(model):
+    """``model`` (a ``models.resnet.ResNet``) computing in f64: its
+    parameters and buffers in f64, its convolutions in f64, and its head
+    fed f64 (the model's own forward feeds it f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    model.double()
+    for mod in model.modules():
+        if hasattr(mod, "dtype"):
+            mod.dtype = torch.float64
+    head = model.head
+    head.forward = lambda x: F.linear(x.double(), head.weight, head.bias)
+    return model
+
+
+def p22_resnet_ranks(dev, state, batches, steps, op=None, sync_bn=False,
+                     f64=False, keep=(0,)):
+    """``steps`` steps of the f32 (``f64``: f64) ResNet-50 at 2 rank
+    threads through ``DistributedOptimizer(SGD, momentum 0.9)`` with
+    ``op`` (and, with ``sync_bn``, every BatchNorm swapped for
+    ``SyncBatchNorm``, each rank's backward on its own thread).  Returns
+    per rank the losses, step times, step 1's local gradients, the
+    reduced gradients of each step in ``keep`` (0-based), and the final
+    parameters and buffers, with B1's launches."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    xs, ys = batches
+    out = {}
+
+    def train():
+        r = hvd.rank()
+        model = ResNet50(num_classes=1000, dtype=torch.float32).to(dev)
+        model.load_state_dict(state)
+        if f64:
+            as_f64(model)
+        if sync_bn:
+            swap_batch_norm(model, hvd_torch.SyncBatchNorm)
+        params = list(model.parameters())
+        local = {}
+        capture = [p.register_post_accumulate_grad_hook(
+            lambda p, i=i: local.__setitem__(i, p.grad.clone()))
+            for i, p in enumerate(params)]
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(params, lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters(),
+            op=op if op is not None else hvd.Average)
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
+        losses, times, reduced = [], [], {}
+        with torch.autograd.set_multithreading_enabled(not sync_bn):
+            for step in range(steps):
+                x, y = step_batch(x0, y0, step)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt.zero_grad()
+                loss = F.cross_entropy(model(x), y)
+                loss.backward()
+                for h in capture:
+                    h.remove()
+                capture = []
+                if step in keep:
+                    opt.synchronize()
+                    reduced[step] = [p.grad.clone() for p in params]
+                    with opt.skip_synchronize():
+                        opt.step()
+                else:
+                    opt.step()
+                losses.append(float(loss.detach()))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        out[r] = {"losses": losses, "times": times,
+                  "local": [local[i] for i in range(len(params))],
+                  "reduced": reduced,
+                  "state": {k: v.detach().clone()
+                            for k, v in model.state_dict().items()}}
+
+    b1 = _b1_launches()
+    hvd.run(train, np=NP, device=dev)
+    out["b1"] = _b1_launches() - b1
+    return out
+
+
+def p22_adasum_reference(local):
+    """Per tensor, ``adasum_reduce`` of the two ranks' local gradients."""
+    import torch
+    from horovod_tpu_torch.ops.adasum import adasum_reduce
+    return [adasum_reduce(torch.stack([a.reshape(-1), b.reshape(-1)]))
+            .view(a.shape) for a, b in zip(local[0], local[1])]
+
+
+def p22_adasum_compiled(dev, state, batches):
+    """``make_compiled_train_step(op=Adasum)`` on the f32 ResNet-50 at 2
+    rank threads, ``P22_STEPS`` steps (step 1 warms up, step 2 captures,
+    the rest replay).  Returns the parameters after step 1 and at the end
+    per rank, the losses, the program."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.parallel.train import sgd
+
+    xs, ys = batches
+    with torch.device("meta"):
+        names = {k for k, _ in ResNet50(num_classes=1000).named_parameters()}
+    params = {k: v for k, v in state.items() if k in names}
+    aux = {k: v for k, v in state.items() if k not in names}
+    out = {"progs": []}
+
+    def train():
+        r = hvd.rank()
+        with torch.device("meta"):
+            model = ResNet50(num_classes=1000, dtype=torch.float32)
+
+        def loss_fn(p, a, batch):
+            x, y = batch
+            logits = torch.func.functional_call(model, {**p, **a}, (x,))
+            return F.cross_entropy(logits, y), a
+
+        step = hvd.make_compiled_train_step(
+            loss_fn, sgd(0.1, momentum=0.9), has_aux=True, op=hvd.Adasum)
+        st = step.init_state(params, aux=aux)
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
+        losses, times, first = [], [], None
+        for i in range(P22_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, loss = step(st, step_batch(x0, y0, i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            if i == 0:
+                first = {k: v.detach().clone()
+                         for k, v in st["params"].items()}
+        out["progs"].append(step._prog)
+        out[r] = {"first": first, "losses": [float(v) for v in losses],
+                  "times": times,
+                  "final": {k: v.detach().clone()
+                            for k, v in st["params"].items()}}
+
+    b1 = _b1_launches()
+    hvd.run(train, np=NP, device=dev)
+    out["b1"] = _b1_launches() - b1
+    out["prog"] = next(p for p in out.pop("progs") if p is not None)
+    return out
+
+
+def p22_plain_bn_steps(dev, state, batches, steps, f64=False):
+    """``steps`` plain single-process steps (SGD, momentum 0.9, as
+    ``p22_resnet_ranks``) of the f32 (``f64``: f64) ResNet-50 with every
+    BatchNorm swapped for ``torch.nn.BatchNorm2d``, each on the 128 images
+    of both ranks' batches of that step: the losses and each step's
+    gradients."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models.resnet import ResNet50
+
+    xs, ys = batches
+    model = ResNet50(num_classes=1000, dtype=torch.float32).to(dev)
+    model.load_state_dict(state)
+    if f64:
+        as_f64(model)
+    swap_batch_norm(model, torch.nn.BatchNorm2d)
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=0.1, momentum=0.9)
+    losses, grads = [], []
+    for step in range(steps):
+        pairs = [step_batch(torch.from_numpy(a).to(dev),
+                            torch.from_numpy(b).to(dev), step)
+                 for a, b in zip(xs, ys)]
+        x = torch.cat([p[0] for p in pairs])
+        y = torch.cat([p[1] for p in pairs])
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append([p.grad.clone() for p in params])
+        opt.step()
+    return losses, grads
+
+
+def p22_sparse(dev, sparse_as_dense):
+    """``P22_STEPS - 1`` SGD steps of an ``nn.Embedding(32000, 1024,
+    sparse=True)``, a mean over positions and a linear head, at 2 rank
+    threads on 5 x 2048 seeded tokens each.  Returns per rank the losses,
+    the final weights and the step times, with B1's launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+
+    cfg = P22_SPARSE
+    rng = np.random.default_rng(SEED + 22)
+    emb0 = rng.standard_normal((cfg["vocab"], cfg["width"]),
+                               dtype=np.float32) * np.float32(0.02)
+    head0 = rng.standard_normal((cfg["classes"], cfg["width"]),
+                                dtype=np.float32) * np.float32(0.02)
+    tokens = [rng.integers(0, cfg["vocab"], size=(LM_BATCH, LM["max_seq_len"]))
+              for _ in range(NP)]
+    labels = [rng.integers(0, cfg["classes"], size=LM_BATCH)
+              for _ in range(NP)]
+    out = {}
+
+    def train():
+        r = hvd.rank()
+        emb = torch.nn.Embedding(cfg["vocab"], cfg["width"],
+                                 sparse=True).to(dev)
+        head = torch.nn.Linear(cfg["width"], cfg["classes"],
+                               bias=False).to(dev)
+        with torch.no_grad():
+            emb.weight.copy_(torch.from_numpy(emb0))
+            head.weight.copy_(torch.from_numpy(head0))
+        named = [("emb.weight", emb.weight), ("head.weight", head.weight)]
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD([emb.weight, head.weight], lr=cfg["lr"]),
+            named_parameters=named, sparse_as_dense=sparse_as_dense)
+        tok = torch.from_numpy(tokens[r]).to(dev)
+        lab = torch.from_numpy(labels[r]).to(dev)
+        losses, times, kinds = [], [], set()
+        for step in range(P22_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(head(emb(tok).mean(dim=1)), lab)
+            loss.backward()
+            kinds.add(emb.weight.grad.is_sparse)
+            opt.step()
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[r] = {"losses": losses, "times": times, "sparse": kinds,
+                  "emb": emb.weight.detach().clone(),
+                  "head": head.weight.detach().clone()}
+
+    b1 = _b1_launches()
+    hvd.run(train, np=NP, device=dev)
+    out["b1"] = _b1_launches() - b1
+    out["emb0"] = torch.from_numpy(emb0)
+    out["head0"] = torch.from_numpy(head0)
+    return out
+
+
+def p22_lm_leg(dev, weights, tokens, policy, profile=False):
+    """``P22_LM_STEPS`` steps of phase 7's LM through
+    ``make_lm_train_step(fused_ce=True)``, remat ``policy`` (None: off).
+    Returns the losses, step 1's gradients (copied to the host, so that
+    they hold no device memory in the steps after), the step times, the
+    caching allocator's ``cudaMalloc`` calls a step, flash launches per
+    step, the peak memory above what the process held before the steps
+    (the model, and whatever earlier phases left), and the allocator's
+    retries over the steps.  With ``profile`` the last step runs under
+    torch.profiler (its tables printed) and is left out of the times."""
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.parallel import make_lm_train_step
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, remat=policy is not None,
+                            remat_policy=policy or "full", **LM)
+    init, step = make_lm_train_step(cfg, attention_impl="flash", device=dev,
+                                    fused_ce=True)
+    state = init(weights)
+    tok = torch.from_numpy(tokens).to(dev)
+    names = [n for n, _ in FLASH]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    free_before = torch.cuda.mem_get_info()[0]
+    held = torch.cuda.memory_allocated()
+    stats0 = torch.cuda.memory_stats()
+    losses, times, mallocs, per_step, grads = [], [], [], [], None
+    for i in range(P22_LM_STEPS):
+        prof = None
+        if profile and i == P22_LM_STEPS - 1:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        before = [FA.launches[n] for n in names]
+        m0 = torch.cuda.memory_stats().get("num_device_alloc", 0)
+        t0 = time.perf_counter()
+        state, loss = step(state, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0)
+                       - m0)
+        if prof is None:
+            times.append(wall)
+        else:
+            prof.__exit__(None, None, None)
+            log(f"phase 22 (d) {policy or 'no remat'}: profiled step "
+                f"{wall * 1e3:.2f} ms")
+            profile_summary(prof, wall)
+        per_step.append([FA.launches[n] - b for n, b in zip(names, before)])
+        losses.append(float(loss))
+        if i == 0:
+            grads = [p.grad.detach().cpu()
+                     for p in state["model"].parameters()]
+    peak = torch.cuda.max_memory_allocated() - held
+    stats = torch.cuda.memory_stats()
+    retries = stats.get("num_alloc_retries", 0) - stats0.get(
+        "num_alloc_retries", 0)
+    del state
+    return {"cfg": cfg, "losses": losses, "grads": grads, "times": times,
+            "mallocs": mallocs, "per_step": per_step, "peak": peak,
+            "retries": retries, "free_before": free_before}
+
+
+def phase_frontend(dev, card, state, batches, lm, profile=False):
+    """Phase 22 (see the module docstring).  Returns B1's launches per
+    leg of (a)-(c), the flash kernels' per step of each (d) leg, and
+    under ``"others"`` the launches of B2-B5 and B9-B10 over the whole
+    phase (0: none of them is on its path)."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    t_phase = time.perf_counter()
+    launches, failed = {}, []
+    others = [n for n, *_ in CODEC] + [n for n, _ in CONV_BN]
+    counts0 = wrapper_counts()
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    saved_env = {k: os.environ.get(k) for k in (
+        "HOROVOD_FUSION_THRESHOLD", "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS")}
+    os.environ["HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"] = str(P22_STALL_S)
+    try:
+        # (a) Adasum, eager at the default fusion, then one tensor a bucket
+        fused = p22_resnet_ranks(dev, state, batches, P22_STEPS,
+                                 op=hvd.Adasum)
+        os.environ["HOROVOD_FUSION_THRESHOLD"] = "0"
+        try:
+            single = p22_resnet_ranks(dev, state, batches, P22_STEPS,
+                                      op=hvd.Adasum)
+        finally:
+            os.environ.pop("HOROVOD_FUSION_THRESHOLD")
+        ref = p22_adasum_reference([single[0]["local"],
+                                    single[1]["local"]])
+        names = [k for k, _ in _resnet_named_params()]
+        for label, run in (("default fusion", fused),
+                           ("fusion threshold 0", single)):
+            for r in range(NP):
+                if not all(math.isfinite(v) for v in run[r]["losses"]):
+                    raise AssertionError(f"phase 22 (a) {label}: rank {r} "
+                                         f"non-finite loss")
+                if not run[r]["losses"][-1] < run[r]["losses"][0]:
+                    raise AssertionError(
+                        f"phase 22 (a) {label}: rank {r}'s loss did not "
+                        f"fall: {run[r]['losses']}")
+            # the parameters (each rank's BatchNorm statistics are its own)
+            diff = [k for k in names
+                    if not torch.equal(run[0]["state"][k],
+                                       run[1]["state"][k])]
+            if diff:
+                raise AssertionError(f"phase 22 (a) {label}: replicas "
+                                     f"differ: {diff[:5]}")
+        bad = [i for i, (g, want) in enumerate(zip(single[0]["reduced"][0],
+                                                   ref))
+               if not torch.equal(g, want)
+               or not torch.equal(single[1]["reduced"][0][i], want)]
+        if bad:
+            raise AssertionError(
+                f"phase 22 (a): with fusion off, {len(bad)} reduced "
+                f"gradients differ from the per-tensor adasum_reduce "
+                f"(first: parameter {bad[0]})")
+        if not all(torch.equal(a, b) for a, b in
+                   zip(fused[0]["local"], single[0]["local"])):
+            raise AssertionError("phase 22 (a): step 1's local gradients "
+                                 "differ between the two eager runs")
+        bucket_gap = max(_rel(g, w)
+                         for g, w in zip(fused[0]["reduced"][0], ref))
+        comp = p22_adasum_compiled(dev, state, batches)
+        prog = comp["prog"]
+        if prog.captures != 1:
+            raise AssertionError(f"phase 22 (a) compiled: {prog.captures} "
+                                 f"captures, want 1")
+        first = comp[0]["first"]
+        gaps = []
+        for k, g in zip(names, ref):
+            p0 = state[k].to(dev)
+            want = p0.add(g, alpha=-0.1)
+            moved = float((first[k].double() - p0.double()).norm())
+            gaps.append(float((first[k].double() - want.double()).norm())
+                        / max(moved, 1e-300))
+        exact = all(torch.equal(first[k], state[k].to(dev).add(
+            g, alpha=-0.1)) for k, g in zip(names, ref))
+        if max(gaps) > P22_COMPILED_REL_L2:
+            raise AssertionError(
+                f"phase 22 (a) compiled: step 1's update {max(gaps):.3g} "
+                f"from the per-leaf reference (bound "
+                f"{P22_COMPILED_REL_L2})")
+        if not all(torch.equal(comp[0]["final"][k], comp[1]["final"][k])
+                   for k in names):
+            raise AssertionError("phase 22 (a) compiled: replicas differ")
+        if not comp[0]["losses"][-1] < comp[0]["losses"][0]:
+            raise AssertionError(f"phase 22 (a) compiled: the loss did not "
+                                 f"fall: {comp[0]['losses']}")
+        launches["a"] = {"default": fused["b1"], "fusion0": single["b1"],
+                         "compiled": comp["b1"]}
+        for label, run in (("default fusion", fused),
+                           ("fusion threshold 0", single)):
+            t = [max(run[r]["times"][i] for r in range(NP))
+                 for i in range(P22_STEPS)]
+            log(f"phase 22 (a) Adasum eager, {label}: losses rank0 "
+                f"{run[0]['losses']} rank1 {run[1]['losses']}; step times "
+                f"(s) {[round(v, 4) for v in t]}; B1 launches {run['b1']}; "
+                f"replicas bit for bit")
+        log(f"phase 22 (a): fusion off, step 1's reduced gradients bit for "
+            f"bit the per-tensor adasum_reduce of the ranks' local "
+            f"gradients ({len(ref)} tensors); at the default fusion the "
+            f"per-bucket combine lies up to {bucket_gap:.4g} (relative L2, "
+            f"a tensor) from it")
+        log(f"phase 22 (a) Adasum compiled, one CUDA graph (captures "
+            f"{prog.captures}, replays {prog.replays}): losses "
+            f"{comp[0]['losses']}; step times (s) "
+            f"{[round(v, 4) for v in comp[0]['times']]}; step 1's update "
+            f"{max(gaps):.3g} from the per-leaf reference (bound "
+            f"{P22_COMPILED_REL_L2}; bit for bit: {exact}); replicas bit "
+            f"for bit; B1 launches {comp['b1']}; {card}")
+        del fused, single, comp, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) SyncBatchNorm against plain steps on the 128 images, in f32
+        # and in f64 (the f64 plain steps are the truth both f32 runs are
+        # read against)
+        runs = {}
+        for f64 in (False, True):
+            steps = P22_STEPS - 1 if not f64 else 2
+            sbn = p22_resnet_ranks(dev, state, batches, steps, sync_bn=True,
+                                   f64=f64, keep=(0, 1))
+            diff = [k for k in sbn[0]["state"]
+                    if not torch.equal(sbn[0]["state"][k],
+                                       sbn[1]["state"][k])]
+            if diff:
+                raise AssertionError(
+                    f"phase 22 (b) {'f64' if f64 else 'f32'}: replicas "
+                    f"(parameters or running statistics) differ: "
+                    f"{diff[:5]}")
+            plain_losses, plain_grads = p22_plain_bn_steps(
+                dev, state, batches, 2, f64=f64)
+            runs[f64] = {"sbn": sbn, "losses": plain_losses,
+                         "grads": plain_grads}
+        # every reading is printed before a failed bound fails the phase
+        # (at its end, after (c) and (d)).  f64: the loss and the
+        # gradients, over all parameters and each nonzero tensor, within
+        # P22_SYNC_BN_F64 of the plain steps.  f32: the loss within
+        # P22_SYNC_BN_REL_L2 at both steps; step 1's gradients within
+        # P22_SYNC_BN_REL_L2 over all parameters and each nonzero tensor
+        # within P22_SYNC_BN_TENSOR; at both steps SyncBatchNorm's
+        # gradients no further from the f64 plain step's, over all
+        # parameters, than P22_SYNC_BN_VS_PLAIN times the f32 plain
+        # step's own distance from it.  A tensor 0 in a plain step is 0.
+        truth = runs[True]["grads"]
+        for f64, run in runs.items():
+            label = "f64" if f64 else "f32"
+            sbn = run["sbn"]
+            for step in (0, 1):
+                got, want = sbn[0]["reduced"][step], run["grads"][step]
+                loss = sum(sbn[r]["losses"][step] for r in range(NP)) / NP
+                loss_gap = abs(loss - run["losses"][step]) / abs(
+                    run["losses"][step])
+                glob = _rel_all(got, want)
+                nonzero = [i for i, w in enumerate(want) if bool(w.any())]
+                zero_bad = [names[i] for i, g in enumerate(got)
+                            if i not in nonzero and bool(g.any())]
+                gaps = {i: _rel(got[i], want[i]) for i in nonzero}
+                worst = max(gaps, key=gaps.get)
+                med = sorted(gaps.values())[len(gaps) // 2]
+                line = (f"phase 22 (b) {label} step {step + 1}: loss "
+                        f"{loss:.9g} vs the plain BatchNorm2d step "
+                        f"{run['losses'][step]:.9g} (relative "
+                        f"{loss_gap:.3g}); gradients relative L2 over all "
+                        f"parameters {glob:.3g}; {len(nonzero)} nonzero "
+                        f"tensors: worst {gaps[worst]:.3g} "
+                        f"({names[worst]}), median {med:.3g}; "
+                        f"{len(want) - len(nonzero)} tensors 0 in both")
+                if f64:
+                    bad = max(loss_gap, glob, gaps[worst]) > P22_SYNC_BN_F64
+                    line += f" (bound {P22_SYNC_BN_F64} on each)"
+                else:
+                    # each f32 run against the f64 truth
+                    e_sbn = {i: _rel(got[i], truth[step][i])
+                             for i in nonzero}
+                    e_cud = {i: _rel(want[i], truth[step][i])
+                             for i in nonzero}
+                    ws = max(e_sbn, key=e_sbn.get)
+                    wc = max(e_cud, key=e_cud.get)
+                    mid = len(nonzero) // 2
+                    far_s = _rel_all(got, truth[step])
+                    far_c = _rel_all(want, truth[step])
+                    bad = loss_gap > P22_SYNC_BN_REL_L2 \
+                        or far_s > P22_SYNC_BN_VS_PLAIN * far_c
+                    if step == 0:
+                        bad = bad or glob > P22_SYNC_BN_REL_L2 \
+                            or gaps[worst] > P22_SYNC_BN_TENSOR
+                        line += (f" (bounds {P22_SYNC_BN_REL_L2} on the "
+                                 f"loss and over all parameters, "
+                                 f"{P22_SYNC_BN_TENSOR} a tensor)")
+                    else:
+                        line += f" (bound {P22_SYNC_BN_REL_L2} on the loss)"
+                    line += (f"; against the f64 plain step, over all "
+                             f"parameters: SyncBatchNorm {far_s:.3g}, "
+                             f"BatchNorm2d {far_c:.3g} (x "
+                             f"{far_s / far_c:.3g}; bound x "
+                             f"{P22_SYNC_BN_VS_PLAIN}); a tensor at the "
+                             f"median SyncBatchNorm "
+                             f"{sorted(e_sbn.values())[mid]:.3g}, "
+                             f"BatchNorm2d "
+                             f"{sorted(e_cud.values())[mid]:.3g}; worst "
+                             f"SyncBatchNorm {e_sbn[ws]:.3g} "
+                             f"({names[ws]}), BatchNorm2d {e_cud[wc]:.3g} "
+                             f"({names[wc]}); at the f32 gap's worst "
+                             f"tensor SyncBatchNorm {e_sbn[worst]:.3g}, "
+                             f"BatchNorm2d {e_cud[worst]:.3g}")
+                if bad or zero_bad:
+                    failed.append(f"{line}; nonzero where the plain step "
+                                  f"is 0: {zero_bad[:5]}")
+                log(line + f"; {card}")
+            t = [max(sbn[r]["times"][i] for r in range(NP))
+                 for i in range(len(sbn[0]["times"]))]
+            log(f"phase 22 (b) SyncBatchNorm {label}: losses rank0 "
+                f"{sbn[0]['losses']} rank1 {sbn[1]['losses']}; parameters "
+                f"and running statistics bit for bit across ranks; step "
+                f"times (s) {[round(v, 4) for v in t]}; B1 launches "
+                f"{sbn['b1']}; {card}")
+        launches["b"] = runs[False]["sbn"]["b1"]
+        launches["b f64"] = runs[True]["sbn"]["b1"]
+        del runs, truth, sbn, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old_det
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (c) sparse gradients, on the sparse path and densified
+    sp = {mode: p22_sparse(dev, mode) for mode in (False, True)}
+    for mode, run in sp.items():
+        label = "sparse_as_dense" if mode else "sparse"
+        if run[0]["sparse"] != {True}:
+            raise AssertionError(f"phase 22 (c) {label}: the embedding's "
+                                 f"gradient was not sparse")
+        if not (torch.equal(run[0]["emb"], run[1]["emb"])
+                and torch.equal(run[0]["head"], run[1]["head"])):
+            raise AssertionError(f"phase 22 (c) {label}: replicas differ")
+        if not all(math.isfinite(v) for v in run[0]["losses"]):
+            raise AssertionError(f"phase 22 (c) {label}: non-finite loss")
+    gaps = {}
+    for key in ("emb", "head"):
+        w0 = sp[True][key + "0"].to(dev)
+        moved = float((sp[True][0][key].double() - w0.double()).norm())
+        gaps[key] = float((sp[False][0][key].double()
+                           - sp[True][0][key].double()).norm()) / moved
+    if max(gaps.values()) > P22_SPARSE_REL:
+        raise AssertionError(f"phase 22 (c): the sparse and the dense "
+                             f"path's weights differ by {gaps} of the "
+                             f"change (bound {P22_SPARSE_REL})")
+    launches["c"] = {"sparse": sp[False]["b1"],
+                     "sparse_as_dense": sp[True]["b1"]}
+    for mode, run in sp.items():
+        t = [max(run[r]["times"][i] for r in range(NP))
+             for i in range(P22_STEPS - 1)]
+        log(f"phase 22 (c) {'sparse_as_dense' if mode else 'sparse path'}: "
+            f"losses {run[0]['losses']}; step times (s) "
+            f"{[round(v, 4) for v in t]}; B1 launches {run['b1']}; "
+            f"replicas bit for bit")
+    log(f"phase 22 (c): sparse against sparse_as_dense, difference over "
+        f"the change: embedding {gaps['emb']:.3g}, head {gaps['head']:.3g} "
+        f"(bound {P22_SPARSE_REL}); {card}")
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the 436M LM through the fused loss, without and with remat
+    legs, base = {}, None
+    for policy in P22_POLICIES:
+        leg = p22_lm_leg(dev, lm["weights"], lm["tokens"], policy,
+                         profile=profile and policy in (None, "dots_flash"))
+        label = policy or "no remat"
+        n = leg["cfg"].n_layers
+        # "full" and "dots" replay every block's flash forward in the
+        # backward; "dots_flash" saves its outputs
+        want = [2 * n if policy in ("full", "dots") else n, n, n]
+        if any(c != want for c in leg["per_step"]):
+            raise AssertionError(
+                f"phase 22 (d) {label}: flash launches per step "
+                f"{leg['per_step']}, want {want}")
+        if leg["peak"] >= lm["step_peak"]:
+            raise AssertionError(
+                f"phase 22 (d) {label}: the steps' peak memory "
+                f"{leg['peak']} B is not below phase 7's "
+                f"{lm['step_peak']} B")
+        if policy is None:
+            base = leg
+            if abs(leg["losses"][0] - lm["losses"][0]) > P22_LOSS_ABS:
+                raise AssertionError(
+                    f"phase 22 (d): the fused step-1 loss {leg['losses'][0]}"
+                    f" is not within {P22_LOSS_ABS} of phase 7's "
+                    f"{lm['losses'][0]}")
+        else:
+            same_g = all(torch.equal(a, b)
+                         for a, b in zip(leg["grads"], base["grads"]))
+            if leg["losses"] != base["losses"] or not same_g:
+                raise AssertionError(
+                    f"phase 22 (d) {label}: losses {leg['losses']} against "
+                    f"{base['losses']} without remat; step 1's gradients "
+                    f"bit for bit: {same_g}")
+            leg["grads"] = None
+        # the median of steps 2 on: a step that grows the allocator's
+        # pool (cudaMalloc calls, printed) can take several times the rest
+        steady = sorted(leg["times"][1:])[(len(leg["times"]) - 2) // 2]
+        tok_s = LM_BATCH * LM["max_seq_len"] / steady
+        tflops = lm_flops_per_token(leg["cfg"]) * tok_s / 1e12
+        launches["d " + label] = leg["per_step"]
+        legs[label] = (steady, tok_s, tflops, leg["peak"])
+        log(f"phase 22 (d) {label}: losses {leg['losses']}; flash launches "
+            f"per step {leg['per_step'][0]} (all steps equal); step times "
+            f"(s) {[round(v, 4) for v in leg['times']]}; cudaMalloc calls "
+            f"a step {leg['mallocs']}; median of steps 2 on "
+            f"{steady * 1e3:.2f} ms/step = {tok_s:.1f} tok/s = "
+            f"{tflops:.1f} model TFLOP/s (recompute not counted); peak "
+            f"memory above what the process held before the steps "
+            f"{leg['peak'] / 2**30:.2f} GiB against phase 7's "
+            f"{lm['step_peak'] / 2**30:.2f} GiB; {leg['free_before'] / 2**30:.2f}"
+            f" GiB free on the card before the steps; allocator retries "
+            f"{leg['retries']}; {card}")
+        del leg
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 22 (d): fused step-1 loss {base['losses'][0]} against "
+        f"phase 7's {lm['losses'][0]} (|diff| "
+        f"{abs(base['losses'][0] - lm['losses'][0]):.3g}, bound "
+        f"{P22_LOSS_ABS}); every remat leg's losses and step-1 gradients "
+        f"bit for bit the no-remat leg's; peak memory saved against phase "
+        f"7: " + ", ".join(f"{k} {(lm['step_peak'] - v[3]) / 2**30:.2f} "
+                           f"GiB" for k, v in legs.items()))
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts1 = wrapper_counts()
+    launches["others"] = {n: counts1[n] - counts0[n] for n in others}
+    if any(launches["others"].values()):
+        raise AssertionError(f"phase 22: kernels off its path launched: "
+                             f"{launches['others']}")
+    log(f"phase 22: launches of B2-B5 and B9-B10 over the phase (read "
+        f"before and after it) {launches['others']}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
+
+
+def _resnet_named_params():
+    import torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    with torch.device("meta"):
+        return list(ResNet50(num_classes=1000).named_parameters())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6034,13 +6825,21 @@ def main():
             f"{plan['dx_bk']}), dw {plan['dw_smem']} B (128 x "
             f"{plan['dw_bn']}); one CTA per SM")
 
-    kern = phase_kernel(dev)
-
     from horovod_tpu_torch.models.resnet import ResNet50, numpy_init
     with torch.device("meta"):
         shell = ResNet50(num_classes=1000)
     state = numpy_init(shell, SEED)
     batches = make_batches(NP)
+    if "--phase22" in sys.argv[1:]:
+        # phase 22 and the phase 7 it reads, alone; not the contract's run
+        lm = phase_lm(dev, profile="--profile" in sys.argv[1:])
+        launches = phase_frontend(dev, card, state, batches, lm,
+                                  profile="--profile" in sys.argv[1:])
+        log(f"phases 7 and 22 passed in {time.perf_counter() - t_all:.1f} "
+            f"s; launches {launches}")
+        return 0
+
+    kern = phase_kernel(dev)
     main_path = phase_main_path(dev, state, batches,
                                 profile="--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
@@ -6090,7 +6889,7 @@ def main():
     torch.cuda.empty_cache()
     compiled["13"] = shard_f32
     cs = phase_compiled_sharded(dev, card, state, batches, compiled,
-                                lm.pop("weights"),
+                                lm["weights"],
                                 profile="--profile" in sys.argv[1:])
     # what phase 17 is held to
     p17_refs = {
@@ -6140,7 +6939,11 @@ def main():
     torch.cuda.empty_cache()
     faults = phase_chaos(dev, card, state, batches,
                          elastic.pop("replay_a"))
-    del state, batches, phase4_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend = phase_frontend(dev, card, state, batches, lm,
+                              profile="--profile" in sys.argv[1:])
+    del state, batches, phase4_params, lm["weights"]
     p17 = multi["phase17"]["launches"]
 
     def phase17_launches(*names):
@@ -6185,6 +6988,8 @@ def main():
         "phase19_launches": remote["launches"],
         "phase20_launches": elastic["launches"],
         "phase21_launches": faults["launches"],
+        "phase22_launches": {leg: frontend[leg]
+                             for leg in ("a", "b", "b f64", "c")},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -6197,6 +7002,9 @@ def main():
             "compiled_sharded": at_capture(name),
             "phase15_launches": moe_launches[name],
             "phase17_launches": phase17_launches(name),
+            "phase22_launches": {
+                leg[2:]: [c[[n for n, _ in FLASH].index(name)] for c in per]
+                for leg, per in frontend.items() if leg.startswith("d ")},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -6217,6 +7025,7 @@ def main():
                 for leg, per in multi["launches"].items()},
                 "phase18_launches": phase18_launches(name)}
                if name in PHASE16_CODEC else {}),
+            "phase22_launches": frontend["others"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -6230,6 +7039,7 @@ def main():
             "compiled_sharded": at_capture(name),
             "phase15_launches": 0,
             "phase17_launches": phase17_launches(name),
+            "phase22_launches": frontend["others"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

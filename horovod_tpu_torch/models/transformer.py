@@ -13,13 +13,19 @@ its parameters load as they are (:func:`from_flax_params`):
 * ``DenseGeneral`` kernels ``(M, H, D)`` and ``(H, D, M)`` become
   ``(out, in)`` weights used through ``F.linear`` on ``(M, H*D)`` views;
 * the logits and the attention scores come out in f32, as the flax
-  model's ``preferred_element_type=float32`` einsums give them.
+  model's ``preferred_element_type=float32`` einsums give them;
+* flax's ``nn.remat`` over each block becomes a non-reentrant
+  ``torch.utils.checkpoint`` of each :class:`DecoderBlock`, its policies
+  selective checkpoints (:func:`remat_context`);
+* ``pre_logits=True`` hands back the final hidden states and the tied
+  embedding for :func:`chunked_lm_loss`, which never builds the
+  (B, S, V) logits.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: KV-cache decoding and ``make_generate_fn`` (A16), remat,
-``pre_logits`` and the fused chunked loss (A11).
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+item: KV-cache decoding and ``make_generate_fn`` (A16).
 """
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -28,6 +34,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
+
+#: the remat policies of the JAX package (``transformer.py:362-381``)
+REMAT_POLICIES = ("full", "dots", "dots_flash")
 
 
 @dataclass(frozen=True)
@@ -233,15 +245,49 @@ class DecoderBlock(nn.Module):
         return x + getattr(self, self.ff_name)(self.ln_mlp(x))
 
 
+def _saved_ops(policy):
+    """The operators whose outputs a selective checkpoint of ``policy``
+    saves: the 2-D matrix products (``aten.mm``/``addmm``, not the batched
+    ``bmm``), the counterpart of JAX's ``dots_with_no_batch_dims_saveable``;
+    with ``"dots_flash"`` also the flash forward's ``(out, lse)``."""
+    ops = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    if policy == "dots_flash":
+        from ..ops.flash_attention import flash_fwd_op
+        ops.add(flash_fwd_op._opoverload)
+    return frozenset(ops)
+
+
+def remat_context(policy):
+    """The ``context_fn`` of a block's checkpoint under ``policy``: None
+    for ``"full"`` (every activation recomputed), else a selective
+    checkpoint that saves :func:`_saved_ops`' outputs and recomputes the
+    rest."""
+    if policy == "full":
+        return None
+    saved = _saved_ops(policy)
+
+    def keep(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return functools.partial(create_selective_checkpoint_contexts, keep)
+
+
 class TransformerLM(nn.Module):
-    """Token ids (B, S) -> logits (B, S, V) in f32."""
+    """Token ids (B, S) -> logits (B, S, V) in f32.
+
+    ``cfg.remat`` checkpoints each block (non-reentrant) under
+    ``cfg.remat_policy``: ``"full"`` recomputes the whole block in the
+    backward, ``"dots"`` saves the outputs of the 2-D matrix products,
+    ``"dots_flash"`` those and the flash forward's outputs, so that the
+    backward replays no flash forward."""
 
     def __init__(self, cfg: TransformerConfig,
                  attention_fn: Callable = dense_causal_attention):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP.md A11)")
+        if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be 'full', 'dots', or 'dots_flash', "
+                f"got {cfg.remat_policy!r}")
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
         self.layers = nn.ModuleList(
@@ -262,16 +308,23 @@ class TransformerLM(nn.Module):
         if decode:
             raise NotImplementedError(
                 "KV-cache decoding is not ported yet (ROADMAP.md A16)")
-        if pre_logits:
-            raise NotImplementedError(
-                "pre_logits (for the fused chunked loss) is not ported "
-                "yet (ROADMAP.md A11)")
         cfg = self.cfg
         x = self.embed[tokens].to(cfg.dtype)
         angles = self.angles(tokens.device)[:tokens.shape[1]]
+        context_fn = remat_context(cfg.remat_policy) if cfg.remat else None
         for block in self.layers:
-            x = block(x, angles)
+            if not cfg.remat:
+                x = block(x, angles)
+            elif context_fn is None:
+                x = checkpoint(block, x, angles, use_reentrant=False)
+            else:
+                x = checkpoint(block, x, angles, use_reentrant=False,
+                               context_fn=context_fn)
         x = self.ln_final(x)
+        if pre_logits:
+            # the final hidden states and the tied embedding, for a loss
+            # that fuses the logits projection (chunked_lm_loss)
+            return x, self.embed
         # logits in f32 from cfg.dtype operands: the bf16-rounded operands
         # are upcast (exact products, f32 sums), as the flax einsum with
         # preferred_element_type=float32 computes them
@@ -285,14 +338,72 @@ def lm_loss(logits, targets):
     return -ll.mean()
 
 
-def chunked_lm_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "the fused chunked loss is not ported yet (ROADMAP.md A11)")
+def _chunk_nll(xc, tc, wc, embf):
+    """One chunk's weighted sum of ``logsumexp - target logit``: the
+    logits product of ``cfg.dtype`` operands with f32 results (the
+    operands upcast, exact products and f32 sums, as the unfused forward
+    computes them); ``embf`` is the embedding already rounded to
+    ``cfg.dtype`` and upcast, once for all chunks."""
+    logits = torch.matmul(xc.float(), embf.t())
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return torch.sum((lse - tgt) * wc)
 
 
-def make_fused_lm_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "the fused chunked loss is not ported yet (ROADMAP.md A11)")
+def chunked_lm_loss(x, emb, targets, n_chunks=8, weights=None):
+    """Cross entropy fused with the logits projection, chunked over the
+    sequence so that the (B, S, V) logits are never built (JAX
+    ``transformer.py:476-533``).
+
+    ``lm_loss(model(tokens), targets)`` keeps the f32 logits and their
+    f32 log-softmax, 2 * B*S*V*4 bytes (2.6 GB at B=5, S=2048, V=32k).
+    Here each chunk of the sequence projects, reduces to per-token
+    ``logsumexp - target logit`` and drops its logits; the chunk is
+    checkpointed, so its logits are recomputed in the backward, never
+    saved.
+
+    ``x``: final hidden states (B, S, M) in ``cfg.dtype``
+    (``model(tokens, pre_logits=True)``); ``emb``: the tied embedding
+    (V, M) f32; ``targets``: (B, S) ids, already shifted; ``n_chunks``
+    must divide S; ``weights``: optional (B, S) f32 per-token weights (0
+    for padding or the last position of rolled targets).  The mean is
+    over the weight sum, and a weight sum of 0 gives a loss of 0."""
+    b, s, _ = x.shape
+    if s % n_chunks:
+        raise ValueError(f"seq len {s} not divisible by n_chunks "
+                         f"{n_chunks}")
+    c = s // n_chunks
+    # rounded to the activation dtype, then upcast once: the chunks share
+    # one f32 copy (and one f32 gradient) instead of building their own
+    embf = emb.to(x.dtype).float()
+    if weights is None:
+        weights = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_nll, x[:, sl], targets[:, sl],
+                                   weights[:, sl], embf,
+                                   use_reentrant=False)
+    denom = torch.sum(weights)
+    return total / torch.where(denom > 0, denom, torch.ones_like(denom))
+
+
+def make_fused_lm_loss(model, n_chunks=16):
+    """``loss_fn(tokens)``: the next-token objective of
+    ``lm_loss(model(tokens)[:, :-1], tokens[:, 1:])`` through
+    :func:`chunked_lm_loss`, with the targets rolled (not sliced, so that
+    S stays divisible) and the last position weighted 0 (JAX
+    ``transformer.py:536-563``).  ``model`` is a :class:`TransformerLM`
+    or any callable ``model(tokens, pre_logits=True) -> (x, emb)``."""
+    def loss_fn(tokens):
+        x, emb = model(tokens, pre_logits=True)
+        targets = torch.roll(tokens, -1, dims=1)
+        w = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+        w[:, -1] = 0.0
+        return chunked_lm_loss(x, emb, targets, n_chunks=n_chunks,
+                               weights=w)
+    return loss_fn
 
 
 def make_generate_fn(*args, **kwargs):

@@ -63,10 +63,7 @@ def _resolve_op(op, average):
                          "please provide only one of them")
     if op is None:
         op = Average if average is None or average else Sum
-    op = ReduceOp(op)
-    if op == ReduceOp.ADASUM:
-        raise ValueError("Adasum is not supported by horovod_tpu_torch yet")
-    return op
+    return ReduceOp(op)
 
 
 def dtype_name(dtype) -> str:

@@ -65,8 +65,8 @@ card) per destination slot and per-rank error feedback.
 
 Not ported yet, each raising ``NotImplementedError`` naming its
 ROADMAP.md item: an ``algorithm``/``topology_hint``/``wire_inner`` other
-than flat and :class:`TopologyHint` (A8), ``op=Adasum`` in the dense
-train step (A7) and wire integrity digests (A14).
+than flat and :class:`TopologyHint` (A8) and wire integrity digests
+(A14).
 """
 
 import contextlib
@@ -88,6 +88,7 @@ from ..core.sharded import (
     overlap_bucket_splits, overlap_segment_bounds, torch_dtype,
 )
 from . import cuda_kernels as K
+from .adasum import adasum_reduce
 from . import quantize as qz
 from . import quantize_kernels
 from .api import dtype_name
@@ -1592,6 +1593,31 @@ def _fusion_groups(tensors, threshold):
     return groups
 
 
+@torch.no_grad()
+def _adasum_leaves(ex, per_rank):
+    """Each leaf's Adasum over the set's ranks: ``per_rank[i]`` is local
+    rank i's list of gradient leaves.  Per dtype the leaves of each local
+    rank are laid end to end and every rank's row gathered in rank order
+    (``MeshExecutor.gather_tiles``: the stacked rows, or one group
+    allgather), then :func:`~.adasum.adasum_reduce` runs on each leaf's
+    columns."""
+    out = [None] * len(per_rank[0])
+    by_dtype = {}
+    for j, g in enumerate(per_rank[0]):
+        by_dtype.setdefault(g.dtype, []).append(j)
+    for idx in by_dtype.values():
+        stack = ex.gather_tiles([torch.cat([grads[j].reshape(-1)
+                                            for j in idx])
+                                 for grads in per_rank])
+        off = 0
+        for j in idx:
+            ref = per_rank[0][j]
+            n = ref.numel()
+            out[j] = adasum_reduce(stack[:, off:off + n]).view(ref.shape)
+            off += n
+    return out
+
+
 def _allreduce_flat(ex, tensors, threshold):
     """The sums of ``tensors`` over executor ``ex``'s process group, as
     new tensors of their shapes: one flat buffer per
@@ -1789,10 +1815,6 @@ class _CompiledTrainStep:
             raise ValueError(
                 "sharded=True supports op=Average or Sum (the "
                 "reducescatter has no adasum combine)")
-        if op == Adasum:
-            raise NotImplementedError(
-                "op=Adasum in the compiled step is not ported yet "
-                "(ROADMAP.md A7)")
         # the gradient wire of the sharded reducescatter; the dense step
         # takes it and ignores it, as the JAX package's does
         self.wire_dtype = qz.normalize_wire_dtype(wire_dtype)
@@ -1915,6 +1937,8 @@ class _CompiledTrainStep:
         optimizer state and aux are updated in place and the state
         returned with the mean loss."""
         op, R = self.op, ex.num_ranks
+        if op == Adasum:
+            return self._build_adasum(ex)
 
         def prog(state, batch_rows):
             acc = []
@@ -1935,6 +1959,27 @@ class _CompiledTrainStep:
                 for a in acc:
                     a.div_(R)
             self._apply(state, train, acc)
+            return state, loss
+
+        return prog
+
+    def _build_adasum(self, ex):
+        """The dense step with ``op=Adasum``: JAX's bodies combine each
+        gradient leaf on its own (``compiled.py:2205-2257``:
+        ``adasum_reduce`` of the leaf's stacked or all-gathered rows),
+        where the eager engine combines a whole fused bucket.  Each local
+        rank's gradients are kept apart; :func:`_adasum_leaves` gathers
+        every rank's rows and combines per leaf.  The loss and the aux
+        are averaged as in the Average step."""
+        def prog(state, batch_rows):
+            per_rank = []
+            train, losses, aux_pairs = self._grads(
+                ex, state, batch_rows, lambda i, g: per_rank.append(g))
+            if ex.stacked:
+                loss = self._finish_stacked(losses, aux_pairs)
+            else:
+                loss = self._finish_group(ex, losses, aux_pairs, [])
+            self._apply(state, train, _adasum_leaves(ex, per_rank))
             return state, loss
 
         return prog
@@ -2521,8 +2566,10 @@ def make_compiled_train_step(loss_fn, optimizer, *, op=Average,
     gather into segments, bit for bit the unsegmented step.  The dense
     step ignores ``wire_dtype``, as the JAX package's does.
 
-    ``topology_hint``/``wire_inner`` and ``op=Adasum`` on the dense step
-    raise ``NotImplementedError`` (ROADMAP.md A8, A7); ``op=Adasum`` with
+    ``op=Adasum`` on the dense step combines each gradient leaf over the
+    ranks with Adasum (as JAX's does; the eager engine combines per fused
+    bucket).  ``topology_hint``/``wire_inner`` raise
+    ``NotImplementedError`` (ROADMAP.md A8); ``op=Adasum`` with
     ``sharded=True`` raises ``ValueError``, as in the JAX package.
     """
     return _CompiledTrainStep(loss_fn, optimizer, op, process_set,

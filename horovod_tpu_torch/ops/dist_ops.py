@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from ..core.message import ReduceOp
 from . import quantize as qz
+from .adasum import adasum_reduce
 from . import quantize_kernels as qk
 from .cuda_kernels import FLOAT_DTYPES, fused_scale_cast
 
@@ -180,7 +181,13 @@ class MeshExecutor:
         every local rank (callers copy out of it): stacked mode reduces
         the stacked rows; over a process group the local rows are reduced
         in the process first (a single row is reduced in place), then
-        across the processes."""
+        across the processes.  Adasum gathers every rank's row and reduces
+        the stack (xla_ops.py:248-250, 272-273): its pairwise tree is not a
+        sum the processes could pre-reduce.  The gathered rows are in rank
+        order because each process hosts a contiguous run of positions in
+        group rank order (checked at construction)."""
+        if op == ReduceOp.ADASUM:
+            return [adasum_reduce(self.gather_tiles(rows))] * len(rows)
         if op not in _DIST_OPS:
             raise ValueError(f"unsupported reduce op {op!r}")
         if self.stacked:

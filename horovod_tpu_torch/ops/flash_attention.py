@@ -22,11 +22,19 @@ yardstick of values, not of speed.  Dispatch is by the device of the
 tensors: CPU tensors take the plain version; CUDA tensors launch the
 kernel, and a failure to build or launch raises.  Each kernel counts its
 launches in :data:`launches`.
+
+The differentiable forward is the operator ``hvd_torch::flash_fwd``
+(:data:`flash_fwd_op`), so that torch's dispatcher sees it: the kernels
+are called through ``ctypes``, invisible to a ``TorchDispatchMode``, and
+a selective activation checkpoint names the operator to save its
+``(out, lse)``, as the JAX package's remat policy names ``flash_out``
+and ``flash_lse`` (``pallas_kernels.py:479-481``).
 """
 
 import ctypes
 import math
 import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -295,24 +303,39 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, window=None):
 # ---------------------------------------------------------------------------
 # the differentiable function
 
-class _Flash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, window):
-        out, lse = flash_fwd(q, k, v, window)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window = window
-        return out
+@torch.library.custom_op("hvd_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_fwd` as a torch operator: the kernel on CUDA tensors,
+    the plain version on CPU ones."""
+    return flash_fwd(q, k, v, window)
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        # rowsum(dO * O) in plain torch, as the JAX package computes it
-        # outside its kernels (pallas_kernels.py:496)
-        delta = (dout.float() * out.float()).sum(dim=-1)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.window)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.window)
-        return dq, dk, dv, None
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, window):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, window = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.window = window
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dout = dout.contiguous()
+    # rowsum(dO * O) in plain torch, as the JAX package computes it
+    # outside its kernels (pallas_kernels.py:496)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.window)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.window)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, *, block_q=512, block_k=512,
@@ -363,5 +386,5 @@ def flash_attention(q, k, v, *, block_q=512, block_k=512,
     def fold(t):
         return t.transpose(1, 2).reshape(B * H, S, D).contiguous()
 
-    out = _Flash.apply(fold(q), fold(k), fold(v), window)
+    out, _ = flash_fwd_op(fold(q), fold(k), fold(v), window)
     return out.reshape(B, H, S, D).transpose(1, 2)

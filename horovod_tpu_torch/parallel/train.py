@@ -7,15 +7,18 @@ into one program over a mesh, the port runs them eagerly on one device:
 the mesh.  ``attention_impl="flash"`` runs attention through the flash
 kernels (``ops/flash_attention.py``); ``"ring"`` without sequence
 parallelism is the dense model, as in the JAX package.  Sequence
-parallelism, the pipeline runtime and the fused loss are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP.md item.
+``fused_ce=True`` trains on :func:`~..models.transformer.make_fused_lm_loss`
+(the logits projection fused into a sequence-chunked loss).  Sequence
+parallelism and the pipeline runtime are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP.md item (A15).
 """
 
 import torch
 
 from ..common.basics import resolve_device
 from ..models.transformer import (
-    TransformerConfig, TransformerLM, lm_loss, numpy_init,
+    TransformerConfig, TransformerLM, lm_loss, make_fused_lm_loss,
+    numpy_init,
 )
 from ..ops.flash_attention import flash_attention
 
@@ -46,7 +49,7 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
                        device=None, sequence_parallel: bool = False,
                        attention_impl: str = "ring",
                        learning_rate: float = 1e-3,
-                       fused_ce: bool = False,
+                       fused_ce: bool = False, ce_chunks: int = 16,
                        pipeline=None, sharded=None):
     """Build ``(init, step)`` for the transformer on ``device`` (the card
     unless ``device="cpu"``).
@@ -60,6 +63,10 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
     (state, loss)`` trains one step on the (B, S) token ids, updating
     the state in place, and returns the loss as a device scalar without
     waiting for it; the gradients of the step stay in ``p.grad``.
+
+    ``fused_ce`` trains on the fused chunked loss (``ce_chunks`` chunks of
+    the sequence), which never builds the (B, S, V) logits; remat follows
+    ``cfg.remat`` and ``cfg.remat_policy``.
 
     ``sharded`` (in the JAX package None reads
     ``HOROVOD_SHARDED_OPTIMIZER``) shards the optimizer state over the
@@ -87,9 +94,6 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
                 "kernel; with sequence_parallel use 'ring' or 'ulysses'")
         raise NotImplementedError(
             "sequence parallelism is not ported yet (ROADMAP.md A15)")
-    if fused_ce:
-        raise NotImplementedError(
-            "the fused chunked loss is not ported yet (ROADMAP.md A11)")
     device = resolve_device(device)
     optimizer = optimizer or adamw(learning_rate)
     kwargs = {"attention_fn": flash_attention} \
@@ -110,9 +114,12 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer=None, *,
         model, opt = state["model"], state["optimizer"]
         tokens = torch.as_tensor(tokens, device=device)
         opt.zero_grad(set_to_none=True)
-        logits = model(tokens)
-        # next-token prediction: shift targets left
-        loss = lm_loss(logits[:, :-1], tokens[:, 1:])
+        if fused_ce:
+            loss = make_fused_lm_loss(model, n_chunks=ce_chunks)(tokens)
+        else:
+            logits = model(tokens)
+            # next-token prediction: shift targets left
+            loss = lm_loss(logits[:, :-1], tokens[:, 1:])
         loss.backward()
         opt.step()
         state["step"] += 1

@@ -1,8 +1,9 @@
 """Torch frontend -- ``import horovod_tpu_torch.torch as hvd``.
 
 API parity with ``horovod_tpu/torch`` for the ported slices: collectives
-over device tensors, ``DistributedOptimizer`` (with autograd hooks, or
-weight-update sharded), compression, parameter and optimizer-state
+over device tensors (sparse ones too), ``DistributedOptimizer`` (with
+autograd hooks, Adasum and sparse gradients, or weight-update sharded),
+``SyncBatchNorm``, compression, parameter and optimizer-state
 broadcast, and the elastic frontend (``elastic.run``, ``TorchState``,
 ``ElasticSampler``).
 """
@@ -33,11 +34,12 @@ from .mpi_ops import (  # noqa: F401
     alltoall, alltoall_async,
     reducescatter, reducescatter_async,
     grouped_reducescatter, grouped_reducescatter_async,
-    barrier, join, synchronize, poll,
+    barrier, join, synchronize, poll, sparse_allreduce_async,
     Average, Sum, Adasum, Min, Max, Product,
     HorovodAllreduce, HorovodGroupedAllreduce, HorovodAllgather,
     HorovodGroupedAllgather, HorovodBroadcast, HorovodAlltoall,
     HorovodReducescatter, HorovodGroupedReducescatter,
 )
 from .optimizer import DistributedOptimizer  # noqa: F401
+from .sync_batch_norm import SyncBatchNorm  # noqa: F401
 from . import elastic  # noqa: F401

@@ -84,3 +84,5 @@ class Compression:
     bf16 = BF16Compressor
     int8 = Int8Compressor
     int4 = Int4Compressor
+    #: former name of the IEEE-f16 compressor, now the default fp16
+    fp16_ieee = FP16Compressor

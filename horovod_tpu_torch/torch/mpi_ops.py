@@ -347,3 +347,40 @@ def grouped_reducescatter(tensors, name=None, compression=Compression.none,
             compressed, op, name, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor, process_set=process_set)
     return [compression.decompress(o, cc) for o, (_, cc) in zip(outs, pairs)]
+
+
+def sparse_allreduce_async(tensor, name, op,
+                           process_set=global_process_set):
+    """Average or sum a ``torch.sparse_coo_tensor`` by allgathering its
+    indices and values (JAX torch/mpi_ops.py:388; reference
+    torch/mpi_ops.py:567: allgather concatenates along dim 0, so the
+    indices travel transposed).  Returns a zero-argument callable that
+    completes the op and rebuilds the sparse tensor on the input's
+    device."""
+    t = tensor.coalesce() if not tensor.is_coalesced() else tensor
+    indices_h = _api.allgather_async(
+        t._indices().transpose(0, 1).contiguous(),
+        name=f"{name}.indices", process_set=process_set)
+    values_h = _api.allgather_async(t._values().contiguous(),
+                                    name=f"{name}.values",
+                                    process_set=process_set)
+
+    def handle():
+        values = _api.synchronize(values_h)
+        indices = _api.synchronize(indices_h)
+        if op == Average:
+            values = values / _ps_size(process_set)
+        if indices.numel() == 0 or values.numel() == 0:
+            return torch.sparse_coo_tensor(
+                torch.zeros((t.sparse_dim(), 0), dtype=torch.long,
+                            device=t.device),
+                torch.zeros((0, *t.shape[t.sparse_dim():]), dtype=t.dtype,
+                            device=t.device), t.size(),
+                check_invariants=False)
+        # coalesce sums the entries several ranks contributed for one
+        # index: the sparse counterpart of the dense reduction
+        return torch.sparse_coo_tensor(
+            indices.transpose(0, 1), values, t.size(),
+            check_invariants=False).coalesce()
+
+    return handle

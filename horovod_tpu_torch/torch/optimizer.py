@@ -15,9 +15,14 @@ gradient, and the new residual ``x - fake_quantize(x)`` is kept, both
 computed on the gradient's device by the codec kernels (the JAX package
 does this on the host in numpy).
 
+``op=Adasum`` runs the same hooks: the engine combines the fused
+buckets with Adasum (``ops/adasum.py``).  A sparse gradient (an
+``nn.Embedding(sparse=True)``) goes through ``sparse_allreduce_async``
+(its indices and values allgathered), or densified first with
+``sparse_as_dense=True``.
+
 ``sharded=True`` is ZeRO-grade weight-update sharding
-(:class:`_ShardedDistributedOptimizer`).  Adasum is a later slice's
-work.
+(:class:`_ShardedDistributedOptimizer`).
 """
 
 import inspect
@@ -47,7 +52,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                    compression=Compression.none,
                    backward_passes_per_step=1, op=Average,
                    gradient_predivide_factor=1.0, groups=None,
-                   process_set=global_process_set):
+                   sparse_as_dense=False, process_set=global_process_set):
         self._compression = compression
         # the int8/int4 compressors are markers: the collective quantizes
         # the fused buffer, and this optimizer owns the error-feedback
@@ -56,7 +61,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._residuals = {}
         self.op = op
         self.gradient_predivide_factor = gradient_predivide_factor
+        self.sparse_as_dense = sparse_as_dense
         self.process_set = process_set
+        self._sparse_scale_warned = False
         # autograd runs a CUDA backward's hooks on its own device
         # thread: the hooks submit under the rank that built the
         # optimizer
@@ -150,13 +157,23 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     "accumulate gradients locally.")
         if p.grad.requires_grad:
             raise AssertionError("gradient of a parameter requires grad")
-        if p.grad.is_sparse:
-            raise ValueError("sparse gradients are not supported by "
-                             "horovod_tpu_torch yet")
         self._allreduce_delay[p] -= 1
         if self._allreduce_delay[p] == 0:
             gi = self._group_of.get(id(p))
             try:
+                if gi is not None and p.grad.is_sparse and \
+                        not self.sparse_as_dense:
+                    # a sparse gradient cannot join a dense fused group:
+                    # the parameter leaves its group for good, so the
+                    # dense members keep fusing, and goes through the
+                    # sparse path on its own
+                    group = self._groups[gi]
+                    group[:] = [q for q in group if id(q) != id(p)]
+                    del self._group_of[id(p)]
+                    if group and \
+                            len(self._group_pending[gi]) == len(group):
+                        self._grouped_allreduce_async(gi)
+                    gi = None
                 if gi is None:
                     self._handles[p] = self._allreduce_grad_async(p)
                 else:
@@ -208,23 +225,52 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         optimizer state), so that stale errors are never injected."""
         self._residuals.clear()
 
+    def _prepare_grad(self, p):
+        """The gradient the collective takes: ``p.grad``, or its dense
+        copy under ``sparse_as_dense``."""
+        grad = p.grad
+        if grad.is_sparse and self.sparse_as_dense:
+            grad = grad.to_dense()
+        return grad
+
+    def _sparse_allreduce_async(self, p, grad):
+        """A sparse gradient's allgather of indices and values (JAX
+        optimizer.py:194-210), uncompressed and unscaled."""
+        if not self._sparse_scale_warned and (
+                self._compression is not Compression.none
+                or self.gradient_predivide_factor != 1.0):
+            warnings.warn(
+                "sparse gradients bypass compression and "
+                "gradient_predivide_factor: the sparse allreduce moves "
+                "exact index/value pairs uncompressed and averages "
+                "without the pre/postscale split", stacklevel=3)
+            self._sparse_scale_warned = True
+        from .mpi_ops import sparse_allreduce_async
+        handle = sparse_allreduce_async(
+            grad, name=self._parameter_names.get(p), op=self.op,
+            process_set=self.process_set)
+        return handle, ("sparse",)
+
     def _allreduce_grad_async(self, p):
+        grad = self._prepare_grad(p)
+        if grad.is_sparse:
+            return self._sparse_allreduce_async(p, grad)
         prescale, postscale = self._scale_factors()
         name = self._parameter_names.get(p)
-        wire = self._wire_for(p.grad)
+        wire = self._wire_for(grad)
         if wire is not None:
-            x = self._ef_inject(p, p.grad, wire)
-            if x is not p.grad:
+            x = self._ef_inject(p, grad, wire)
+            if x is not grad:
                 with torch.no_grad():
-                    p.grad.copy_(x)
+                    grad.copy_(x)
         if wire is not None or self._compression is Compression.none:
-            # in place: the unpack writes the result into p.grad
+            # in place: the unpack writes the result into the gradient
             handle = api.allreduce_async_(
-                p.grad, name=name, op=self.op, prescale_factor=prescale,
+                grad, name=name, op=self.op, prescale_factor=prescale,
                 postscale_factor=postscale, process_set=self.process_set,
                 wire_dtype=wire)
             return handle, None
-        compressed, ctx = self._compression.compress(p.grad)
+        compressed, ctx = self._compression.compress(grad)
         handle = api.allreduce_async(
             compressed, name=name, op=self.op, prescale_factor=prescale,
             postscale_factor=postscale, process_set=self.process_set)
@@ -235,7 +281,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         tensors, ctxs = [], []
         wire = None
         for p in group:
-            t, c = self._compression.compress(p.grad)
+            t, c = self._compression.compress(self._prepare_grad(p))
             w = self._wire_for(t)
             if w is not None:
                 t = self._ef_inject(p, t, w)
@@ -289,6 +335,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 pending.clear()
             group_results = {}
             for p, (handle, ctx) in list(self._handles.items()):
+                if ctx == ("sparse",):
+                    with torch.no_grad():
+                        p.grad = handle()   # the callable completes it
+                    self._allreduce_delay[p] = self.backward_passes_per_step
+                    continue
                 if isinstance(ctx, tuple) and ctx and ctx[0] == "group":
                     _, gi, comp_ctx = ctx
                     if gi not in group_results:
@@ -299,7 +350,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 else:
                     out = self._compression.decompress(
                         api.synchronize(handle), ctx)
-                if out is not p.grad:
+                if p.grad.is_sparse:
+                    # sparse_as_dense: the dense result replaces it
+                    p.grad = out.view_as(p)
+                elif out is not p.grad:
                     with torch.no_grad():
                         p.grad.copy_(out.view_as(p.grad))
                 self._allreduce_delay[p] = self.backward_passes_per_step
@@ -766,10 +820,6 @@ def DistributedOptimizer(optimizer, named_parameters=None,
             process_set)
         inst.backward_passes_per_step = backward_passes_per_step
         return inst
-    if sparse_as_dense:
-        raise NotImplementedError(
-            "sparse_as_dense: sparse gradients are not ported to "
-            "horovod_tpu_torch yet (ROADMAP.md A7)")
     if num_groups != 0:
         warnings.warn(
             "Parameter `num_groups` has been replaced by `groups` and "
@@ -778,5 +828,6 @@ def DistributedOptimizer(optimizer, named_parameters=None,
             groups = num_groups
     inst = _graft(optimizer, _DistributedOptimizer)
     inst._dist_init(named_parameters, compression, backward_passes_per_step,
-                    op, gradient_predivide_factor, groups, process_set)
+                    op, gradient_predivide_factor, groups, sparse_as_dense,
+                    process_set)
     return inst

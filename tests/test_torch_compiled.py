@@ -691,7 +691,7 @@ def small_resnet_case(fused, loss_bound, param_bound, stat_bound,
     "topology_hint", "alltoall", "alltoall_fn", "integrity"])
 def test_not_ported_raises_naming_its_item(case, monkeypatch):
     items = {"sharded": "A8", "step_wire": "A8", "step_hint": "A8",
-             "adasum": "A7", "algorithm": "A8", "topology_hint": "A8",
+             "adasum": "A8", "algorithm": "A8", "topology_hint": "A8",
              "alltoall": "A8", "alltoall_fn": "A8", "integrity": "A14"}
     loss = (lambda p, b: p["w"].sum())
     calls = {
@@ -702,8 +702,9 @@ def test_not_ported_raises_naming_its_item(case, monkeypatch):
             wire_inner="bf16"),
         "step_hint": lambda: thvd.make_compiled_train_step(
             loss, sgd(0.1), wire_inner="bf16"),
+        # op=Adasum is ported (A7); with a topology hint it is not
         "adasum": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), op=2),
+            loss, sgd(0.1), op=2, topology_hint=("dp", "tp")),
         "algorithm": lambda: thvd.CompiledGroupedAllreduce(
             algorithm="torus"),
         "topology_hint": lambda: thvd.TopologyHint(

@@ -123,9 +123,16 @@ def test_seed_init_and_dense_default():
      "flash"),
     (dict(sequence_parallel=True), NotImplementedError, "A15"),
     (dict(pipeline=2), NotImplementedError, "A15"),
-    (dict(sharded=True, fused_ce=True), NotImplementedError, "A11"),
-    (dict(fused_ce=True), NotImplementedError, "A11"),
-])
+    # the fused loss is ported (A11): with it the pipeline and sequence
+    # parallelism stay refused (A15)
+    (dict(sharded=True, fused_ce=True, pipeline=2), NotImplementedError,
+     "A15"),
+    (dict(fused_ce=True, sequence_parallel=True), NotImplementedError,
+     "A15"),
+], ids=["kw0-ValueError-attention_impl", "kw1-ValueError-sequence_parallel",
+        "kw2-ValueError-flash", "kw3-NotImplementedError-A15",
+        "kw4-NotImplementedError-A15", "kw5-NotImplementedError-A11",
+        "kw6-NotImplementedError-A11"])
 def test_refusals(kw, exc, match):
     cfg = pt.TransformerConfig(dtype=torch.float32, **KW)
     with pytest.raises(exc, match=match):

@@ -335,9 +335,10 @@ def test_multiproc_engine_uses_the_process_group(world_of_one):
 
 def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
                                                          monkeypatch):
-    """What stays refused on a multi-process engine: several rank threads
-    per process (A24), a 2-D decomposition (A8), Adasum (A7), integrity
-    digests (A14)."""
+    """What stays refused on a multi-process engine: a 2-D decomposition
+    (A8), Adasum with the sharded step (a ValueError, as in the JAX
+    package; the dense Adasum step is ported), integrity digests
+    (A14)."""
     def step():
         return hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(),
@@ -350,10 +351,10 @@ def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
         hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(), sgd(0.1),
             topology_hint=("a", "b"))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="adasum"):
         hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(), sgd(0.1),
-            op=hvd.Adasum)
+            op=hvd.Adasum, sharded=True)
     monkeypatch.setattr(world_of_one.config, "integrity", True)
     with pytest.raises(NotImplementedError, match="A14"):
         hvd.CompiledGroupedAllreduce(force_program=True)([torch.ones(4)])

@@ -274,9 +274,13 @@ def test_distributed_optimizer_positional_signature_matches_jax():
                 port_torch.Compression.none, 1, port_torch.Average, 1.0, 2)
         deprecated = [w for w in caught
                       if issubclass(w.category, DeprecationWarning)]
-        with pytest.raises(NotImplementedError, match="A7"):
+        # sparse gradients are ported (A7): only the sharded wrapper
+        # refuses sparse_as_dense
+        assert DistributedOptimizer(torch.optim.SGD(params, lr=0.1),
+                                    sparse_as_dense=True).sparse_as_dense
+        with pytest.raises(ValueError, match="sparse_as_dense"):
             DistributedOptimizer(torch.optim.SGD(params, lr=0.1),
-                                 sparse_as_dense=True)
+                                 sparse_as_dense=True, sharded=True)
         sharded = DistributedOptimizer(
             torch.optim.SGD(params, lr=0.1), None,
             port_torch.Compression.none, 1, port_torch.Average, 1.0, 0, None,

@@ -162,16 +162,22 @@ def test_unported_features_raise():
                                 capacity_factor=1.0, axis_name="ep")
     with pytest.raises(NotImplementedError, match="A15"):
         pmoe.quantized_all_to_all(x, "ep", "int8")
-    with pytest.raises(NotImplementedError, match="A11"):
-        pt.TransformerLM(_cfgs(remat=True)[1])
+    # remat, pre_logits and the fused chunked loss are ported (A11,
+    # tests/test_torch_lm_remat.py); what stays refused is an unknown
+    # remat policy, a sequence the chunks do not divide, and decoding
+    with pytest.raises(ValueError, match="remat_policy"):
+        pt.TransformerLM(_cfgs(remat=True, remat_policy="bogus")[1])
+    pt.TransformerLM(_cfgs(remat=True)[1])
     model = pt.TransformerLM(pcfg)
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.02)
     t = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="A16"):
         model(t, decode=True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        model(t, pre_logits=True)
+    x, emb = model(t, pre_logits=True)
+    assert tuple(x.shape) == (1, 4, pcfg.d_model) and emb is model.embed
     with pytest.raises(NotImplementedError, match="A16"):
         pt.make_generate_fn(model, max_new_tokens=2)
-    for fn in (pt.chunked_lm_loss, pt.make_fused_lm_loss):
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(model)
+    with pytest.raises(ValueError, match="not divisible"):
+        pt.chunked_lm_loss(x, emb, t, n_chunks=3)
+    assert torch.isfinite(pt.make_fused_lm_loss(model, n_chunks=2)(t))
