@@ -395,7 +395,35 @@ Phases (a failure in any one exits non-zero):
     prints every comparison, B1 launches per leg and, per LM leg, each
     step's ms and ``cudaMalloc`` calls, the median step from step 2 on as
     ms, tok/s and model TFLOP/s, the peak memory and the caching
-    allocator's retries.
+    allocator's retries;
+23. the topology-aware allreduce (hierarchical and torus, a per-hop
+    wire pair), on phase 4's weights and batches cut to 4 ranks x 32
+    images (bench.py's global 128): full-width ResNet-50, bf16, SGD
+    momentum 0.9 through ``DistributedOptimizer(groups=1)``, 6 steps
+    (``p18_train``).  (a) 4 rank threads with
+    ``HOROVOD_TORUS_ALLREDUCE=1`` on one host (a 2 x 2 torus) beside the
+    same run flat: replicas bit for bit, parameters within
+    ``COMPILED_REL_L2`` of the flat run's, ``algo_runs["torus"]`` > 0, no
+    cross-host byte, B1 launched.  (b) The same with the host map
+    ``[0, 0, 1, 1]`` patched onto the engine, ``HOROVOD_HIERARCHICAL_
+    ALLREDUCE=1`` and the wire pair (inner bf16, outer int8): the cross
+    hop's bytes of the 161 gradients at most half the logical bytes at
+    full width and a further >= 1.9x fewer under int8 (the JAX test's
+    budget), each step's loss within ``P23_LOSS_REL`` (relative) of the
+    flat run's.  (c) (b)'s run as a launcher job at ``-H
+    P23_HOSTS``: 2 processes x 2 rank threads over gloo on cuda:0, the
+    second host through ``STUB_SSH`` (``chip_smoke.py --worker23``):
+    exit codes [0, 0] and the parameters bit for bit (b)'s.  (d)
+    ``CompiledGroupedAllreduce(algorithm="torus")`` and the hint
+    ``TopologyHint(("dp", "tp"), (2, 2))`` over the 161 gradient shapes
+    at 4 rank threads: bit for bit the engine's torus, the hint's cross
+    bytes half its logical bytes, the int4 outer wire's residual carried
+    across 3 calls.  (e) ``make_compiled_train_step(sharded=True,
+    topology_hint=TopologyHint(("dp", "tp"), (2, 2)))`` at 4 rank
+    threads, captured as phase 14's step is, within ``COMPILED_REL_L2``
+    of the flat sharded step on the same batches.  Each leg prints its
+    steady ms a step (median of steps 2 on) and B1 launches beside the
+    card line.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
@@ -408,13 +436,15 @@ B1-B3's per phase-18 leg and process under ``phase18_launches``, B1's
 per phase-19 (a) process under ``phase19_launches``, B1's per
 phase-20 leg and process, localhost's then 127.0.0.1's, under
 ``phase20_launches``, and B1's per phase-21 (a) job and process and
-per (b) process under ``phase21_launches``, and every kernel's per
-phase-22 leg under ``phase22_launches``); the last
+per (b) process under ``phase21_launches``, every kernel's per
+phase-22 leg under ``phase22_launches``, and every kernel's per phase-23
+leg under ``phase23_launches``, a line of its own too); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15, and phase 22 (d)'s no-remat and
 ``"dots_flash"`` legs, also print the profile tables of one steady step
-each.  ``--phase22`` builds the kernels and runs phases 7 and 22 alone
-(no kernels line, no last line: not the contract's run).
+each.  ``--phase22`` builds the kernels and runs phases 7 and 22 alone,
+``--phase23`` phase 23 alone (no kernels line, no last line: not the
+contract's run).
 """
 
 import gc
@@ -581,6 +611,18 @@ P19_HOSTS_A = f"localhost:1,{P19_REMOTE}:1"
 P19_HOSTS_B = f"localhost:2,{P19_REMOTE}:2"
 P19_TIMEOUT = 240
 P19_LAUNCHER_ONLY = "HVD19_LAUNCHER_ONLY"
+# phase 23: (b)'s and (c)'s engine configuration (hierarchical, inner hop
+# bf16, outer hop int8), (c)'s hosts (the second through the stub ssh),
+# the host map (b) patches onto its engine, and the bound on the relative
+# distance of (b)'s losses from the flat run's at every step: the
+# bf16/int8 wire moves each update by its rounding, which 6 steps of a
+# random ResNet-50 amplify
+P23_HIER_ENV = {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                "HOROVOD_WIRE_INNER": "bf16", "HOROVOD_WIRE_OUTER": "int8"}
+P23_HOSTS = f"localhost:2,{P19_REMOTE}:2"
+P23_HOST_MAP = [0, 0, 1, 1]
+P23_LOSS_REL = 5e-2
+P23_HINT = (("dp", "tp"), (2, 2))
 # phase 20: elastic jobs through the port's horovodrun (``P20_LAUNCHER``
 # runs its CLI with the elastic driver's INFO log on stderr, where the
 # rounds and the blacklisting are read).  One worker a slot, both slots on
@@ -6755,6 +6797,502 @@ def phase_frontend(dev, card, state, batches, lm, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the topology-aware allreduce
+
+
+def _p23_counters(eng):
+    return {"algo_runs": dict(eng.algo_runs),
+            "logical": eng.logical_wire_bytes,
+            "actual": eng.actual_wire_bytes,
+            "cross": eng.cross_wire_bytes,
+            "hops": {f"{h}/{w}": v for (h, w), v in
+                     eng.hop_wire_bytes.items()}}
+
+
+def _p23_delta(after, before):
+    out = {k: after[k] - before[k] for k in ("logical", "actual", "cross")}
+    out["algo_runs"] = {a: n - before["algo_runs"].get(a, 0)
+                        for a, n in after["algo_runs"].items()
+                        if n != before["algo_runs"].get(a, 0)}
+    out["hops"] = {h: n - before["hops"].get(h, 0)
+                   for h, n in after["hops"].items()
+                   if n != before["hops"].get(h, 0)}
+    return out
+
+
+def _p23_replicas(label, ranks):
+    """The rank threads' parameters, checked bit for bit each other."""
+    import torch
+    first = ranks[0]["params"]
+    for rec in ranks[1:]:
+        diff = [k for k in first
+                if not torch.equal(first[k], rec["params"][k])]
+        if diff:
+            raise AssertionError(f"phase 23 {label}: replicas differ: "
+                                 f"{diff[:5]}")
+    return first
+
+
+def _p23_steady_ms(times_by_rank):
+    step_s = [max(t[i] for t in times_by_rank) for i in range(STEPS)]
+    return _median(step_s[1:]) * 1e3, step_s
+
+
+def p23_budget(dev):
+    """(b)'s byte budget on its engine (the host map patched): one
+    grouped hierarchical allreduce of the 161 ResNet-50 gradient shapes
+    at full width on both hops, then with the int8 outer hop; returns the
+    (logical, cross) byte deltas of each."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    shapes = resnet50_grad_shapes()
+    eng = hvd.engine()
+    out = {}
+    for label, outer in (("f32", "f32"), ("int8", "int8")):
+        before = _p23_counters(eng)
+
+        def fn():
+            rng = np.random.default_rng(SEED + 23 + hvd.rank())
+            g = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                                  * 1e-2).to(dev) for s in shapes]
+            hvd.grouped_allreduce(g, name=f"p23.budget.{label}",
+                                  algorithm="hierarchical",
+                                  wire_dtype=outer, wire_inner="f32")
+            torch.cuda.synchronize()
+            return True
+        hvd.run(fn, np=P18_NP, device=dev)
+        out[label] = _p23_delta(_p23_counters(eng), before)
+    return out
+
+
+def p23_engine_run(dev, state, xs, ys, env, host_map=None, budget=False):
+    """``p18_train`` at 4 rank threads in this process on an engine
+    started under ``env`` (its ``Config`` reads the algorithm and the
+    wires at init), with ``host_map`` patched onto the engine's topology;
+    returns the run, the engine's byte and algorithm counter deltas, the
+    kernels' launches and (``budget``) :func:`p23_budget`'s counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.topology import Topology
+
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        hvd.run(lambda: None, np=P18_NP, device=dev, keep_alive=True)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        eng = hvd.engine()
+        if host_map is not None:
+            eng.topology = Topology(size=P18_NP, host_of_rank=host_map)
+        c0, w0 = _p23_counters(eng), wrapper_counts()
+        got = p18_train(dev, state, xs, ys, P18_NP)
+        w1 = wrapper_counts()
+        got["counters"] = _p23_delta(_p23_counters(eng), c0)
+        got["launches"] = {k: w1[k] - w0.get(k, 0) for k in w1}
+        if budget:
+            got["budget"] = p23_budget(dev)
+    finally:
+        hvd.shutdown()
+    got["params"] = _p23_replicas("run", got["ranks"])
+    got["steady_ms"], got["step_s"] = _p23_steady_ms(
+        [rec["times"] for rec in got["ranks"]])
+    got["losses"] = [sum(rec["losses"][i] for rec in got["ranks"])
+                     / P18_NP for i in range(STEPS)]
+    return got
+
+
+def phase23_worker(tmp):
+    """One process of phase 23 (c)'s job (``chip_smoke.py --worker23
+    <dir>``): (b)'s run on this process's 2 rank threads, on the engine
+    the launcher's environment configured (hierarchical, the wire pair)
+    and host map (``-H``) laid out.  Reports through files in ``dir``;
+    any failure exits non-zero."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    global LOG_PREFIX
+    dev = torch.device("cuda:0")
+    hvd.init(device=dev)
+    proc = env_proc()
+    LOG_PREFIX = f"[phase 23 worker, process {proc}]"
+    eng = hvd.engine()
+    state = torch.load(os.path.join(tmp, "state.pt"))
+    base = torch.load(os.path.join(tmp, "phase4_batches.pt"))
+    xs = [x.numpy() for x in base[0]]
+    ys = [y.numpy() for y in base[1]]
+    c0, w0 = _p23_counters(eng), wrapper_counts()
+    got = p18_train(dev, state, xs, ys, eng.num_local)
+    w1 = wrapper_counts()
+    first = _p23_replicas(f"(c) process {proc}", got["ranks"])
+    torch.save(first, os.path.join(tmp, f"params{proc}.pt"))
+    out = {"proc": proc, "hosts": list(eng.topology.host_of_rank),
+           "algorithm": eng.config.algorithm,
+           "wires": [eng.config.wire_inner, eng.config.wire_dtype],
+           "layout": [list(p) for p in
+                      eng.get_process_set(0).executor.proc_positions],
+           "counters": _p23_delta(_p23_counters(eng), c0),
+           "launches": {k: w1[k] - w0.get(k, 0) for k in w1},
+           "times": [rec["times"] for rec in got["ranks"]],
+           "losses": [rec["losses"] for rec in got["ranks"]]}
+    with open(os.path.join(tmp, f"w23_{proc}.json"), "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def p23_job(dev, state, batches):
+    """Phase 23 (c): the launcher job through the stub ssh."""
+    import torch
+    from horovod_tpu_torch.runner.proc_run import launch_procs
+
+    xs, ys = batches
+    old_path = os.environ.get("PATH", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        stub_dir, log_dir = os.path.join(tmp, "stub"), os.path.join(tmp,
+                                                                   "log")
+        os.makedirs(stub_dir)
+        os.makedirs(log_dir)
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        torch.save(([torch.from_numpy(x) for x in xs],
+                    [torch.from_numpy(y) for y in ys]),
+                   os.path.join(tmp, "phase4_batches.pt"))
+        with open(os.path.join(stub_dir, "ssh"), "w") as f:
+            f.write(STUB_SSH.format(log=log_dir))
+        os.chmod(os.path.join(stub_dir, "ssh"), 0o755)
+        cvd = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
+        os.environ["PATH"] = stub_dir + os.pathsep + old_path
+        t0 = time.perf_counter()
+        try:
+            codes = launch_procs(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--worker23", tmp], np=P18_NP, ranks_per_proc="host",
+                hosts=P23_HOSTS,
+                env={**_GLOO, **P23_HIER_ENV, "CUDA_VISIBLE_DEVICES": cvd,
+                     "PYTHONPATH": ROOT},
+                start_timeout=P19_TIMEOUT)
+        finally:
+            os.environ["PATH"] = old_path
+        wall = time.perf_counter() - t0
+        if codes != [0, 0]:
+            raise AssertionError(f"phase 23 (c): workers exited {codes}")
+        reps = [json.load(open(os.path.join(tmp, f"w23_{p}.json")))
+                for p in range(2)]
+        params = [torch.load(os.path.join(tmp, f"params{p}.pt"))
+                  for p in range(2)]
+        calls = stub_ssh_calls(log_dir)
+    return {"reps": reps, "params": params, "calls": calls, "wall": wall}
+
+
+def p23_reducer(dev):
+    """Phase 23 (d): the compiled reducer over the 161 ResNet-50 gradient
+    shapes at 4 rank threads on one host (a 2 x 2 torus)."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    shapes = resnet50_grad_shapes()
+    rng = np.random.default_rng(SEED + 230)
+    grads = [[torch.from_numpy(rng.standard_normal(s, dtype=np.float32)
+                               * 1e-2).to(dev) for s in shapes]
+             for _ in range(P18_NP)]
+    hint = hvd.TopologyHint(*P23_HINT)
+    out = {}
+
+    def fn():
+        r = hvd.rank()
+        g = grads[r]
+        ref = hvd.grouped_allreduce(g, name="p23.engine", algorithm="torus")
+        torus = hvd.CompiledGroupedAllreduce(algorithm="torus",
+                                             name="p23.torus")
+        flat = hvd.CompiledGroupedAllreduce(name="p23.flat")
+        hinted = hvd.CompiledGroupedAllreduce(topology_hint=hint,
+                                              name="p23.hint")
+        t_ms = {"flat": [], "torus": []}
+        for _ in range(3):
+            for label, red in (("flat", flat), ("torus", torus)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a = red(g)
+                torch.cuda.synchronize()
+                t_ms[label].append((time.perf_counter() - t0) * 1e3)
+        b = hinted(g)
+        bad = [i for i, (x, y, z) in enumerate(zip(ref, a, b))
+               if not (torch.equal(x, y) and torch.equal(x, z))]
+        if bad:
+            raise AssertionError(f"phase 23 (d) rank {r}: the compiled "
+                                 f"torus differs from the engine's at "
+                                 f"{bad[:5]}")
+        if torus.last_algorithm != "torus" \
+                or hinted.last_cross_bytes * 2 != hinted.last_logical_bytes:
+            raise AssertionError(
+                f"phase 23 (d): algorithm {torus.last_algorithm}, hint "
+                f"cross {hinted.last_cross_bytes} logical "
+                f"{hinted.last_logical_bytes}")
+        ef = hvd.CompiledGroupedAllreduce(
+            algorithm="torus", wire_dtype="int4", error_feedback=True,
+            name="p23.ef")
+        res, outs = [], []
+        for _ in range(3):
+            outs.append(ef(g))
+            res.append({k: v.clone() for k, v in ef._residuals.items()})
+        if not res[0] or any(set(x) != set(res[0]) for x in res) \
+                or any(torch.equal(res[0][k], res[1][k]) for k in res[0]):
+            raise AssertionError(f"phase 23 (d) rank {r}: the int4 "
+                                 f"residuals were not carried")
+        shard = [tuple(v.shape) for v in res[0].values()]
+        if r == 0:
+            out.update(ms=t_ms, shard=shard,
+                       cross=hinted.last_cross_bytes,
+                       logical=hinted.last_logical_bytes,
+                       ef_moved=not all(torch.equal(x, y) for x, y in
+                                        zip(outs[0], outs[1])))
+        return True
+
+    w0 = wrapper_counts()
+    hvd.run(fn, np=P18_NP, device=dev)
+    w1 = wrapper_counts()
+    out["launches"] = {k: w1[k] - w0.get(k, 0) for k in w1}
+    return out
+
+
+def p23_sharded(dev, state, xs, ys, hint):
+    """Phase 23 (e): ResNet-50 (bf16 compute, SGD momentum 0.9) through
+    ``make_compiled_train_step(sharded=True)`` at 4 rank threads, rank r
+    on ``p18_images``, 6 steps, captured; ``hint`` decomposes it."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.parallel.train import sgd
+
+    with torch.device("meta"):
+        names = {k for k, _ in ResNet50(num_classes=1000).named_parameters()}
+    params = {k: v for k, v in state.items() if k in names}
+    aux = {k: v for k, v in state.items() if k not in names}
+    barrier = threading.Barrier(P18_NP)
+    out = {}
+
+    def train():
+        r = hvd.rank()
+        with torch.device("meta"):
+            model = ResNet50(num_classes=1000, dtype=torch.bfloat16)
+
+        def loss_fn(p, a, batch):
+            x, y = batch
+            logits = torch.func.functional_call(model, {**p, **a}, (x,))
+            return F.cross_entropy(logits, y), a
+
+        step = hvd.make_compiled_train_step(
+            loss_fn, sgd(0.1, momentum=0.9), has_aux=True, sharded=True,
+            topology_hint=hint)
+        st = step.init_state(params, aux=aux)
+        x, y = p18_images(xs, ys, r)
+        x0, y0 = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        times, losses = [], []
+        for i in range(STEPS):
+            batch = step_batch(x0, y0, i)
+            barrier.wait()
+            t0 = time.perf_counter()
+            st, loss = step(st, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        barrier.wait()
+        if r == 0:
+            out.update(times=times, losses=losses,
+                       params={k: v.detach().cpu()
+                               for k, v in st["params"].items()})
+        # the program sits on the step object of the rank thread whose
+        # call led the rendezvous, whichever that was
+        return times, step._prog
+
+    w0 = wrapper_counts()
+    got = hvd.run(train, np=P18_NP, device=dev)
+    w1 = wrapper_counts()
+    out["launches"] = {k: w1[k] - w0.get(k, 0) for k in w1}
+    out["steady_ms"], _ = _p23_steady_ms([t for t, _ in got])
+    out["captures"] = getattr(next(p for _, p in got if p is not None),
+                              "captures", 0)
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p23_b1(launches):
+    return sum(launches.get(k, 0) for k in ("fused_scale_cast",
+                                            "pack_scale_cast",
+                                            "unpack_scale_cast"))
+
+
+def phase_topology(dev, card, state, batches):
+    """Phase 23 (see the module docstring): legs (a)-(e) in turn, their
+    checks, and per leg the steady ms a step and every kernel's
+    launches."""
+    import torch
+    import horovod_tpu_torch as hvd
+
+    xs, ys = batches
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    launches, steady = {}, {}
+    # (a)
+    flat = p23_engine_run(dev, state, xs, ys, {})
+    torus = p23_engine_run(dev, state, xs, ys,
+                           {"HOROVOD_TORUS_ALLREDUCE": "1"})
+    rel_a = _rel_l2(torus["params"], flat["params"])
+    ct = torus["counters"]
+    if not rel_a <= COMPILED_REL_L2:
+        raise AssertionError(f"phase 23 (a): torus parameters {rel_a:.3g} "
+                             f"(relative L2) from the flat run's, bound "
+                             f"{COMPILED_REL_L2}")
+    if ct["algo_runs"].get("torus", 0) <= 0 or ct["cross"] != 0 \
+            or flat["counters"]["algo_runs"].get("torus", 0) != 0:
+        raise AssertionError(f"phase 23 (a): torus counters {ct}, flat "
+                             f"{flat['counters']}")
+    for label, run in (("flat", flat), ("torus", torus)):
+        if _p23_b1(run["launches"]) <= 0:
+            raise AssertionError(f"phase 23 (a) {label}: B1 launches "
+                                 f"{run['launches']}")
+        launches[f"a {label}"] = run["launches"]
+        steady[f"a {label}"] = run["steady_ms"]
+    log(f"phase 23 (a) ({card}): 4 rank threads x {P18_BATCH} images, "
+        f"one host; flat steady {flat['steady_ms']:.2f} ms/step (step "
+        f"times {[round(t, 4) for t in flat['step_s']]}), torus "
+        f"{torus['steady_ms']:.2f} ms/step ({[round(t, 4) for t in torus['step_s']]}); "
+        f"torus counters {ct}; parameters {rel_a:.3g} (relative L2) from "
+        f"the flat run's (bound {COMPILED_REL_L2}); B1 launches flat "
+        f"{_p23_b1(flat['launches'])}, torus {_p23_b1(torus['launches'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)
+    hier = p23_engine_run(dev, state, xs, ys, P23_HIER_ENV,
+                          host_map=P23_HOST_MAP, budget=True)
+    ch, bud = hier["counters"], hier["budget"]
+    dl, dc = bud["f32"]["logical"], bud["f32"]["cross"]
+    dc8 = bud["int8"]["cross"]
+    if not (dl > 0 and dc <= dl / 2 * 1.01 + 64 and dc8 <= dc / 1.9):
+        raise AssertionError(f"phase 23 (b): byte budget {bud}")
+    if ch["algo_runs"].get("hierarchical", 0) <= 0 \
+            or not 0 < ch["cross"] <= ch["logical"] / 2:
+        raise AssertionError(f"phase 23 (b): counters {ch}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(hier["losses"],
+                                                 flat["losses"])]
+    if not all(math.isfinite(v) for v in hier["losses"]) \
+            or max(gaps) > P23_LOSS_REL:
+        raise AssertionError(f"phase 23 (b): losses {hier['losses']} vs "
+                             f"flat {flat['losses']} (bound "
+                             f"{P23_LOSS_REL} relative)")
+    if _p23_b1(hier["launches"]) <= 0:
+        raise AssertionError(f"phase 23 (b): B1 launches "
+                             f"{hier['launches']}")
+    launches["b"], steady["b"] = hier["launches"], hier["steady_ms"]
+    log(f"phase 23 (b) ({card}): host map {P23_HOST_MAP}, "
+        f"{P23_HIER_ENV}: steady {hier['steady_ms']:.2f} ms/step (step "
+        f"times {[round(t, 4) for t in hier['step_s']]}); training "
+        f"counters {ch}; budget of one grouped allreduce of the 161 "
+        f"gradients: full width logical {dl} B, cross {dc} B (x "
+        f"{dc / dl:.4f}), int8 outer cross {dc8} B (x {dc / dc8:.3f} "
+        f"fewer); mean losses {hier['losses']} vs flat {flat['losses']} "
+        f"(largest relative gap {max(gaps):.3g}, bound {P23_LOSS_REL}); "
+        f"B1 launches {_p23_b1(hier['launches'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c)
+    job = p23_job(dev, state, batches)
+    p0, p1 = job["params"]
+    for label, p in (("process 0", p0), ("process 1", p1)):
+        diff = [k for k in hier["params"]
+                if not torch.equal(hier["params"][k], p[k])]
+        if diff:
+            raise AssertionError(
+                f"phase 23 (c) {label}: {len(diff)} parameters differ from "
+                f"(b)'s: {diff[:5]}; relative L2 "
+                f"{_rel_l2(p, hier['params']):.3g}")
+    for rep in job["reps"]:
+        if rep["hosts"] != P23_HOST_MAP or rep["algorithm"] != \
+                "hierarchical" or rep["wires"] != ["bf16", "int8"] \
+                or rep["counters"]["algo_runs"].get("hierarchical", 0) <= 0 \
+                or _p23_b1(rep["launches"]) <= 0:
+            raise AssertionError(f"phase 23 (c) process {rep['proc']}: "
+                                 f"{ {k: rep[k] for k in rep if k not in ('times', 'losses')} }")
+    if len(job["calls"]) != 1 or P19_REMOTE not in job["calls"][0]:
+        raise AssertionError(f"phase 23 (c): ssh calls {job['calls']}")
+    c_ms, c_steps = _p23_steady_ms([t for rep in job["reps"]
+                                    for t in rep["times"]])
+    launches["c"] = [rep["launches"] for rep in job["reps"]]
+    steady["c"] = c_ms
+    log(f"phase 23 (c) ({card}): -H {P23_HOSTS}, 2 processes x 2 rank "
+        f"threads over gloo on cuda:0, process 1 through the stub ssh; "
+        f"layout {job['reps'][0]['layout']}; exit codes [0, 0]; steady "
+        f"{c_ms:.2f} ms/step (step times {[round(t, 4) for t in c_steps]}); "
+        f"parameters bit for bit (b)'s in both processes; counters per "
+        f"process {[rep['counters'] for rep in job['reps']]}; B1 launches "
+        f"per process {[_p23_b1(rep['launches']) for rep in job['reps']]}; "
+        f"job wall {job['wall']:.1f} s")
+    del job, p0, p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d)
+    red = p23_reducer(dev)
+    launches["d"], steady["d"] = red["launches"], \
+        _median(red["ms"]["torus"][1:])
+    if _p23_b1(red["launches"]) <= 0 or not red["ef_moved"]:
+        raise AssertionError(f"phase 23 (d): {red}")
+    log(f"phase 23 (d) ({card}): the compiled torus over the 161 "
+        f"ResNet-50 gradients x 4 rank threads bit for bit the engine's "
+        f"and the hint's; hint cross {red['cross']} B of {red['logical']} "
+        f"B logical; int4 residual shards {red['shard'][:1]} carried over "
+        f"3 calls; ms a call (rank 0's clock, the 4 threads meeting) "
+        f"{ {k: [round(t, 3) for t in v] for k, v in red['ms'].items()} }; "
+        f"B1 launches {_p23_b1(red['launches'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e)
+    torch.backends.cudnn.deterministic = True
+    try:
+        s_flat = p23_sharded(dev, state, xs, ys, None)
+        s_hint = p23_sharded(dev, state, xs, ys,
+                             hvd.TopologyHint(*P23_HINT))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel_e = _rel_l2(s_hint["params"], s_flat["params"])
+    # the sharded step reduces with torch ops inside its graph (B1 0, as
+    # in phase 14)
+    if not rel_e <= COMPILED_REL_L2 or s_hint["captures"] != 1:
+        raise AssertionError(f"phase 23 (e): {rel_e:.3g} (relative L2) "
+                             f"from the flat sharded step, bound "
+                             f"{COMPILED_REL_L2}; captures "
+                             f"{s_hint['captures']}")
+    launches["e flat"], steady["e flat"] = s_flat["launches"], \
+        s_flat["steady_ms"]
+    launches["e hint"], steady["e hint"] = s_hint["launches"], \
+        s_hint["steady_ms"]
+    log(f"phase 23 (e) ({card}): the sharded compiled step at 4 rank "
+        f"threads, captured: flat {s_flat['steady_ms']:.2f} ms/step, "
+        f"hint {P23_HINT} {s_hint['steady_ms']:.2f} ms/step; losses "
+        f"{s_hint['losses']} vs {s_flat['losses']}; parameters "
+        f"{rel_e:.3g} (relative L2) from the flat step's (bound "
+        f"{COMPILED_REL_L2}); B1 launches flat "
+        f"{_p23_b1(s_flat['launches'])}, hint "
+        f"{_p23_b1(s_hint['launches'])}")
+    log(f"phase 23 ({card}): steady ms a step per leg "
+        f"{ {k: round(v, 2) for k, v in steady.items()} }; "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+    return {"launches": launches, "steady_ms": steady}
+
+
 def _resnet_named_params():
     import torch
     from horovod_tpu_torch.models.resnet import ResNet50
@@ -6780,6 +7318,8 @@ def main():
         return phase20_worker(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--worker21"]:
         return phase21_worker(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--worker23"]:
+        return phase23_worker(sys.argv[2])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -6837,6 +7377,12 @@ def main():
                                   profile="--profile" in sys.argv[1:])
         log(f"phases 7 and 22 passed in {time.perf_counter() - t_all:.1f} "
             f"s; launches {launches}")
+        return 0
+    if "--phase23" in sys.argv[1:]:
+        # phase 23 alone; not the contract's run
+        topo = phase_topology(dev, card, state, batches)
+        log(json.dumps({"phase23_launches": topo["launches"]}))
+        log(f"phase 23 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
 
     kern = phase_kernel(dev)
@@ -6943,7 +7489,12 @@ def main():
     torch.cuda.empty_cache()
     frontend = phase_frontend(dev, card, state, batches, lm,
                               profile="--profile" in sys.argv[1:])
-    del state, batches, phase4_params, lm["weights"]
+    del lm["weights"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    topo = phase_topology(dev, card, state, batches)
+    log(json.dumps({"phase23_launches": topo["launches"]}))
+    del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
     def phase17_launches(*names):
@@ -6957,6 +7508,14 @@ def main():
         process."""
         return {leg: [sum(x.get(n, 0) for n in names) for x in per]
                 for leg, per in hybrid["launches"].items()}
+
+    def phase23_launches(*names):
+        """Launches of the named kernels in each phase-23 leg ((c): per
+        process)."""
+        def total(x):
+            return sum(x.get(n, 0) for n in names)
+        return {leg: [total(x) for x in v] if isinstance(v, list)
+                else total(v) for leg, v in topo["launches"].items()}
 
     def at_capture(*names):
         """Launches of the named kernels each phase-14 leg's capture
@@ -6990,6 +7549,8 @@ def main():
         "phase21_launches": faults["launches"],
         "phase22_launches": {leg: frontend[leg]
                              for leg in ("a", "b", "b f64", "c")},
+        "phase23_launches": phase23_launches(
+            "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -7005,6 +7566,7 @@ def main():
             "phase22_launches": {
                 leg[2:]: [c[[n for n, _ in FLASH].index(name)] for c in per]
                 for leg, per in frontend.items() if leg.startswith("d ")},
+            "phase23_launches": phase23_launches(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -7026,6 +7588,7 @@ def main():
                 "phase18_launches": phase18_launches(name)}
                if name in PHASE16_CODEC else {}),
             "phase22_launches": frontend["others"][name],
+            "phase23_launches": phase23_launches(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -7040,6 +7603,7 @@ def main():
             "phase15_launches": 0,
             "phase17_launches": phase17_launches(name),
             "phase22_launches": frontend["others"][name],
+            "phase23_launches": phase23_launches(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

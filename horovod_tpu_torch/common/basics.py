@@ -44,6 +44,7 @@ import torch.distributed as dist
 
 from . import env as env_mod
 from .exceptions import HorovodInitError
+from .topology import Topology
 
 _state_lock = threading.RLock()
 _engine = None
@@ -316,7 +317,8 @@ def _init_multiproc(device, num_ranks, config):
                   world_group=dist.group.WORLD,
                   compiled_group=compiled_group,
                   ranks_of_proc=ranks_of_proc, vote_group=vote_group,
-                  chaos=chaos)
+                  chaos=chaos, topology=Topology(size=sum(counts),
+                                                 host_of_rank=_host_of_rank))
 
 
 def _install_chaos(config, proc, rank_offset, num_local, client=None):
@@ -526,8 +528,9 @@ def shutdown():
                 dist.destroy_process_group()
 
 
-# -- topology queries (common/topology.py's Topology of the JAX package):
-#    ranks sharing a host index are local to each other -----------------------
+# -- topology queries (reference operations.cc:996-1075), answered by the
+#    Topology of the job's host map (the engine's ``topology``): ranks
+#    sharing a host index are local to each other -------------------------
 
 def rank():
     return context().rank
@@ -537,39 +540,31 @@ def size():
     return engine().num_ranks
 
 
-def _local_ranks(r):
-    host = _host_of_rank[r]
-    return [x for x, h in enumerate(_host_of_rank) if h == host]
+def _topology():
+    return Topology(size=len(_host_of_rank), host_of_rank=list(_host_of_rank))
 
 
 def local_rank():
-    r = rank()
-    return _local_ranks(r).index(r)
+    return _topology().local_rank(rank())
 
 
 def local_size():
-    return len(_local_ranks(rank()))
+    return _topology().local_size(rank())
 
 
 def cross_rank():
     """Rank among same-local-rank peers across hosts (reference
     cross_comm semantics): the hosts before this one that have a rank
     at this local index."""
-    r = rank()
-    lr = local_rank()
-    return sum(1 for h in range(_host_of_rank[r])
-               if len(_local_ranks(_host_of_rank.index(h))) > lr)
+    return _topology().cross_rank(rank())
 
 
 def cross_size():
-    lr = local_rank()
-    return sum(1 for h in sorted(set(_host_of_rank))
-               if len(_local_ranks(_host_of_rank.index(h))) > lr)
+    return _topology().cross_size(rank())
 
 
 def is_homogeneous():
-    return len({len(_local_ranks(r)) for r in range(len(_host_of_rank))}) \
-        <= 1
+    return _topology().is_homogeneous()
 
 
 def device() -> torch.device:

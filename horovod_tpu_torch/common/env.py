@@ -5,7 +5,7 @@
 import logging
 import os
 
-from ..ops.quantize import normalize_wire_dtype
+from ..ops.quantize import normalize_inner_wire, normalize_wire_dtype
 
 HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
 HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
@@ -18,6 +18,13 @@ HOROVOD_LOCAL_RANK = "HOROVOD_LOCAL_RANK"
 # over the uniform WIRE_DTYPE shorthand
 HOROVOD_WIRE_DTYPE = "HOROVOD_WIRE_DTYPE"
 HOROVOD_WIRE_OUTER = "HOROVOD_WIRE_OUTER"
+# the inner (intra-host) hop's wire under a hierarchical/torus allreduce
+HOROVOD_WIRE_INNER = "HOROVOD_WIRE_INNER"
+# default reduction algorithm: flat|hierarchical|torus; the reference's
+# boolean toggles alias it (TORUS wins over HIERARCHICAL)
+HOROVOD_ALLREDUCE_ALGORITHM = "HOROVOD_ALLREDUCE_ALGORITHM"
+HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
+HOROVOD_TORUS_ALLREDUCE = "HOROVOD_TORUS_ALLREDUCE"
 # max payload bytes per compiled bucket program (0 = one grouped program)
 HOROVOD_OVERLAP_BUCKET_BYTES = "HOROVOD_OVERLAP_BUCKET_BYTES"
 # wire integrity digests: on by default in the JAX package; the port has
@@ -173,6 +180,22 @@ class Config:
         self.wire_dtype = normalize_wire_dtype(
             os.environ.get(HOROVOD_WIRE_OUTER)
             or os.environ.get(HOROVOD_WIRE_DTYPE))
+        # the inner (intra-host) hop's default wire under a 2-D
+        # decomposition: full width or 16-bit only
+        self.wire_inner = normalize_inner_wire(
+            os.environ.get(HOROVOD_WIRE_INNER))
+        # default reduction algorithm of float Sum/Average allreduces
+        # (per-request algorithm= overrides); the reference's boolean
+        # toggles alias the generic knob, TORUS winning over
+        # HIERARCHICAL (env.py:440-451 of the JAX package)
+        from .topology import normalize_algorithm
+        if get_bool(HOROVOD_TORUS_ALLREDUCE):
+            self.algorithm = "torus"
+        elif get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE):
+            self.algorithm = "hierarchical"
+        else:
+            self.algorithm = normalize_algorithm(
+                os.environ.get(HOROVOD_ALLREDUCE_ALGORITHM))
         # latched once per compiled reducer call or stream
         self.overlap_bucket_bytes = get_int(HOROVOD_OVERLAP_BUCKET_BYTES, 0)
         self.integrity = get_bool(HOROVOD_INTEGRITY, False)

@@ -12,6 +12,10 @@
   on the way in), reduced, and unpacked by the same kernel straight
   into the output tensors (postscale on the way out) -- the reference's
   batched-D2D memcpy and ScaleBuffer kernels in one launch per pass.
+* A float Sum/Average bucket whose request asks for the hierarchical or
+  torus algorithm runs as a 2-D decomposition (``_run_allreduce_2d``,
+  ``engine.py:2400-2456``) over an inner and an outer wire, where the
+  job's host map (``common/topology.py``) factors its set; else flat.
 * An allreduce bucket may ride a narrower wire (``_dispatch_allreduce``,
   the flat branch of ``engine.py:2338-2398``): a 16-bit cast, or the
   block-scaled int8/int4 codec, whose encode (kernels B2/B4) runs on the
@@ -55,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import env as env_mod
+from ..common.topology import Topology, plan_decomposition
 from ..common.exceptions import (
     DuplicateNameError,
     HorovodInitError,
@@ -95,9 +100,11 @@ class Submission:
 class NegotiationEntry:
     """Readiness table row (reference controller.cc:1115-1140)."""
 
-    __slots__ = ("key", "subs", "first_time", "wire_default", "meta_fp")
+    __slots__ = ("key", "subs", "first_time", "wire_default",
+                 "wire_inner_default", "algo_default", "meta_fp")
 
-    def __init__(self, key, wire_default=None):
+    def __init__(self, key, wire_default=None, wire_inner_default=None,
+                 algo_default=None):
         self.key = key
         # the negotiation meta's fingerprint, computed once an armed
         # bypass cycle first looks at the entry
@@ -105,8 +112,11 @@ class NegotiationEntry:
         self.subs: Dict[int, Submission] = {}
         self.first_time = time.monotonic()
         # the process-wide wire default, latched when the first local
-        # rank arrives, so every rank of one negotiation sees one default
+        # rank arrives, so every rank of one negotiation sees one default;
+        # the inner-hop wire and the reduction algorithm likewise
         self.wire_default = wire_default
+        self.wire_inner_default = wire_inner_default
+        self.algo_default = algo_default
 
 
 class ProcessSetState:
@@ -144,6 +154,9 @@ class ProcessSetState:
         # entries the engine thread collected and has not finished yet
         # (a removal drains them too)
         self.running = 0
+        #: the 2-D grids' process groups this process is a member of
+        #: (removal destroys them)
+        self.groups_2d = []
 
     @property
     def size(self):
@@ -176,12 +189,13 @@ class Engine:
     same processes for the bypass's vote); ``ranks_of_proc`` gives each
     process's rank count when they differ (the launcher's
     ``ranks_per_proc="host"``), else every process hosts ``num_ranks``
-    (engine.py:143-150 of the JAX package)."""
+    (engine.py:143-150 of the JAX package); ``topology`` is the job's
+    host map (``common/topology.Topology``, one host by default)."""
 
     def __init__(self, num_ranks, device, config=None, controller=None,
                  rank_offset=0, global_size=None, world_group=None,
                  compiled_group=None, ranks_of_proc=None, vote_group=None,
-                 chaos=None):
+                 chaos=None, topology=None):
         self.config = config or env_mod.Config()
         #: chaos fault injector (chaos/inject.py FaultInjector): the
         #: engine calls its ``on_collectives`` hook right before each
@@ -205,6 +219,10 @@ class Engine:
                     f"the global size is {self.global_size}")
         self._world_group = world_group
         self._compiled_world_group = compiled_group
+        #: the job's host map (common/topology.py): the 2-D algorithms
+        #: plan their inner axis by it, and a collective whose set spans
+        #: hosts counts its bytes on the cross-host hop
+        self.topology = topology or Topology(size=self.global_size)
         self._lock = threading.Condition()
         self._shutdown = False
         self._aborted: Optional[BaseException] = None
@@ -244,6 +262,14 @@ class Engine:
         self.logical_wire_bytes = 0
         self.actual_wire_bytes = 0
         self.quantized_bucket_runs = 0
+        #: the bytes of those that cross the slow (inter-host) hop
+        #: (engine.py:629 of the JAX package), the bytes each hop of a
+        #: reduction moves, keyed (hop, wire) with hop 'inner' or 'cross'
+        #: (its WIRE_HOP_BYTES family), and the allreduce buckets run per
+        #: reduction algorithm ('flat', 'hierarchical', 'torus')
+        self.cross_wire_bytes = 0
+        self.hop_wire_bytes = {}
+        self.algo_runs = {}
         #: sharded weight-update rounds (core/sharded.ShardedUpdater's
         #: gradient reducescatters, one per rank and step; engine.py:645)
         self.sharded_update_runs = 0
@@ -379,6 +405,7 @@ class Engine:
         elif len(procs) > 1:
             group = created = dist.new_group(ranks=procs)
             cgroup = ccreated = dist.new_group(ranks=procs)
+        grids = self._build_grids_2d(ranks, procs)
         executor = compiled = None
         if local:
             spans = len(procs) > 1 or ps_id == 0
@@ -394,15 +421,57 @@ class Engine:
             elif not spans:
                 # a set inside this process reduces stacked on both paths
                 compiled = executor
+            for inner, (eng_g, comp_g) in grids.items():
+                executor.set_groups_2d(inner, *eng_g)
+                if compiled is not None:
+                    compiled.set_groups_2d(inner, *comp_g)
         state = ProcessSetState(ps_id, ranks, executor, local_ranks=local,
                                 group=created if local else None,
                                 compiled_executor=compiled,
                                 compiled_group=ccreated if local else None)
+        state.groups_2d = [g for pair in grids.values() for gs in pair
+                           for g in gs if g is not None] if local else []
         state.members_by_proc = {}
         for r in ranks:
             state.members_by_proc.setdefault(
                 str(self._proc_of(r)), []).append(r)
         return state
+
+    def _build_grids_2d(self, ranks, procs):
+        """The process groups of the set's 2-D grids, one rank a process:
+        for each inner-axis size the topology plans for the set
+        (``plan_decomposition`` of 'hierarchical' and of 'torus'), a group
+        per grid row and a group per grid column, for the engine's
+        executor and again for the compiled path's.  ``dist.new_group`` is
+        collective over the whole job, so every process builds every
+        group, in one order, members or not.  Returns ``{inner:
+        ((row group, column group), (compiled row, compiled column))}``
+        with this process's own groups (None where it is no member)."""
+        if not self.multiproc or len(procs) != len(ranks) \
+                or len(ranks) < 4:
+            return {}
+        inners = sorted({i for i in (
+            plan_decomposition(a, self.topology, ranks)
+            for a in ("hierarchical", "torus")) if i is not None})
+        me = self._proc_of(self.rank_offset)
+        grids = {}
+        for inner in inners:
+            outer = len(ranks) // inner
+            rows = [[procs[y * inner + x] for x in range(inner)]
+                    for y in range(outer)]
+            cols = [[procs[y * inner + x] for y in range(outer)]
+                    for x in range(inner)]
+            pair = []
+            for _ in ("engine", "compiled"):
+                mine = [None, None]
+                for k, members in enumerate((rows, cols)):
+                    for m in members:
+                        g = dist.new_group(ranks=m)
+                        if me in m:
+                            mine[k] = g
+                pair.append(tuple(mine))
+            grids[inner] = tuple(pair)
+        return grids
 
     def add_process_set(self, ranks) -> int:
         """Register the set of ``ranks`` and return its id; registering
@@ -511,7 +580,7 @@ class Engine:
                 break
             self._lock.wait(timeout=0.05)   # let the engine thread drain
         self.process_sets.pop(ps_id, None)
-        for group in (ps.group, ps.compiled_group):
+        for group in [ps.group, ps.compiled_group] + ps.groups_2d:
             if group is not None:
                 dist.destroy_process_group(group)
         for key in [k for k in list(self._a2a_ef) if k[0] == ps_id]:
@@ -556,7 +625,9 @@ class Engine:
             key = self._negotiation_key(ps, sub)
             entry = ps.pending.get(key)
             if entry is None:
-                entry = NegotiationEntry(key, self.config.wire_dtype)
+                entry = NegotiationEntry(
+                    key, self.config.wire_dtype, self.config.wire_inner,
+                    self.config.algorithm)
                 ps.pending[key] = entry
             req = sub.request
             if (req.wire_dtype is None and entry.wire_default
@@ -573,6 +644,20 @@ class Engine:
                 # commute with, so any float payload may ride the
                 # process-wide default wire (engine.py:928-936)
                 req.wire_dtype = entry.wire_default
+            if (req.wire_inner is None and entry.wire_inner_default
+                    and req.request_type in (RequestType.ALLREDUCE,
+                                             RequestType.ALLTOALL)
+                    and (req.request_type == RequestType.ALLTOALL
+                         or req.reduce_op in (ReduceOp.SUM,
+                                              ReduceOp.AVERAGE))):
+                # the inner-hop wire and the reduction algorithm latch the
+                # same way (engine.py:936-952): one negotiation, one pair
+                # and one algorithm
+                req.wire_inner = entry.wire_inner_default
+            if (req.algorithm is None and entry.algo_default
+                    and req.request_type == RequestType.ALLREDUCE
+                    and req.reduce_op in (ReduceOp.SUM, ReduceOp.AVERAGE)):
+                req.algorithm = entry.algo_default
             if sub.rank in entry.subs:
                 sub.handle.set_error(DuplicateNameError(
                     f"tensor {sub.names} submitted twice by rank "
@@ -794,6 +879,7 @@ class Engine:
             "post": req.postscale_factor,
             "wire": req.wire_dtype,
             "wi": req.wire_inner,
+            "algo": req.algorithm,
             "sfp": req.shard_fp,
             "ps": ps.id,
             "nbytes": sum(p.numel() * p.element_size()
@@ -1154,7 +1240,8 @@ class Engine:
             dtype=meta["dtype"], shape=tuple(meta["shape"]),
             reduce_op=ReduceOp(meta["op"]),
             prescale_factor=meta["pre"], postscale_factor=meta["post"],
-            process_set_id=meta["ps"], wire_dtype=meta.get("wire"))
+            process_set_id=meta["ps"], wire_dtype=meta.get("wire"),
+            wire_inner=meta.get("wi"), algorithm=meta.get("algo"))
         zeros = torch.zeros(tuple(meta["shape"]),
                             dtype=getattr(torch, meta["dtype"]),
                             device=self.device)
@@ -1244,6 +1331,19 @@ class Engine:
                     f"Mismatched wire dtypes for {first.tensor_name}: "
                     f"rank {sub.rank} sent {r.wire_dtype}, rank "
                     f"{subs[0].rank} sent {first.wire_dtype}")
+            if r.wire_inner != first.wire_inner:
+                return TensorShapeMismatchError(
+                    f"Mismatched inner-hop wire dtypes for "
+                    f"{first.tensor_name}: rank {sub.rank} sent "
+                    f"{r.wire_inner}, rank {subs[0].rank} sent "
+                    f"{first.wire_inner}")
+            if r.algorithm != first.algorithm:
+                # ranks that disagree would run different collectives
+                # against each other (engine.py:1776-1780)
+                return TensorShapeMismatchError(
+                    f"Mismatched algorithms for {first.tensor_name}: "
+                    f"rank {sub.rank} sent {r.algorithm}, rank "
+                    f"{subs[0].rank} sent {first.algorithm}")
             if r.shard_fp != first.shard_fp:
                 # a sharded weight update (core/sharded.py): ranks whose
                 # shard layouts disagree would scatter and gather
@@ -1325,7 +1425,8 @@ class Engine:
                          for p in first.payloads)
             if rt == RequestType.ALLREDUCE:
                 sig = (rt, req.dtype, req.reduce_op, req.prescale_factor,
-                       req.postscale_factor, req.wire_dtype, req.shard_fp)
+                       req.postscale_factor, req.wire_dtype, req.wire_inner,
+                       req.algorithm, req.shard_fp)
             elif rt == RequestType.ALLGATHER:
                 sig = (rt, req.dtype, req.shard_fp)
                 nbytes *= ps.size
@@ -1434,11 +1535,57 @@ class Engine:
             return None
         return wire
 
-    def account_wire(self, logical, actual):
+    def _spans_hosts(self, ps=None):
+        """Whether the job (or one process set) crosses hosts
+        (engine.py:2242-2251)."""
+        hosts = self.topology.host_of_rank
+        if ps is None:
+            return self.topology.num_hosts > 1
+        return len({hosts[r] for r in ps.ranks if r < len(hosts)}) > 1
+
+    def account_wire(self, logical, actual, cross=None):
         """Add one collective's full-width bytes and the bytes its wire
-        encoding moves (per rank) to the counters."""
+        encoding moves (per rank) to the counters.  ``cross``: the bytes
+        over the slow hop; None (a flat collective) counts all of
+        ``actual`` there when the job spans hosts, else none."""
+        if cross is None:
+            cross = actual if self._spans_hosts() else 0
         self.logical_wire_bytes += int(logical)
         self.actual_wire_bytes += int(actual)
+        self.cross_wire_bytes += int(cross)
+
+    def _account_hop(self, hop, wire, nbytes):
+        """Per-hop bytes (engine.py:2267-2273): ``hop`` 'inner' (the
+        intra-host stage) or 'cross', ``wire`` that hop's encoding."""
+        key = (hop, wire or "f32")
+        self.hop_wire_bytes[key] = self.hop_wire_bytes.get(key, 0) \
+            + int(nbytes)
+
+    def _algo_plan(self, ps, req, op):
+        """The bucket's effective (algorithm, inner-axis size)
+        (engine.py:2298-2328): a hierarchical or torus request on a float
+        Sum/Average payload whose set the topology factors, else flat,
+        the reference's ``is_homogeneous`` fallback.  The JAX engine also
+        requires one device per rank; the port's stacked rank threads
+        stand for that layout, so every layout decomposes."""
+        algo = req.algorithm
+        if algo in (None, "flat") \
+                or op not in (ReduceOp.SUM, ReduceOp.AVERAGE) \
+                or not dist_ops.is_float(getattr(torch, req.dtype)):
+            return "flat", None
+        inner = plan_decomposition(algo, self.topology, ps.ranks)
+        if inner is None:
+            logger.debug("%s allreduce requested but process set %d (%d "
+                         "ranks) does not decompose; running flat",
+                         algo, ps.id, ps.size)
+            return "flat", None
+        return algo, inner
+
+    @staticmethod
+    def _inner_wire_for(req, outer, dtype):
+        """The inner hop's effective wire (engine.py:2330-2336)."""
+        return qz.effective_inner_wire(req.wire_inner, outer,
+                                       dtype.itemsize)
 
     def _pack_rows(self, ps, bucket, layout, total, buf_dtype, factor,
                    scaled=False):
@@ -1529,7 +1676,9 @@ class Engine:
         * int8/int4: the pack keeps the dtype (factor 1), each row is
           encoded on the device, the executor decodes, sums and scales in
           f32, and the unpack casts back: the pre/post scale applies to
-          the decoded sum, never before the encode.
+          the decoded sum, never before the encode;
+        * a hierarchical or torus request that the topology factors runs
+          :meth:`_run_allreduce_2d` instead, over the wire pair.
 
         Joined/missing local ranks contribute zeros."""
         first = next(iter(bucket[0].subs.values()))
@@ -1540,8 +1689,18 @@ class Engine:
         layout, total = bucket_layout(bucket)
         nbytes = total * dtype.itemsize
         wire = self._wire_for(req, dtype, op)
+        algo, inner = self._algo_plan(ps, req, op)
+        self.algo_runs[algo] = self.algo_runs.get(algo, 0) + 1
+        if algo != "flat":
+            results = self._run_allreduce_2d(ps, bucket, layout, total,
+                                             dtype, wire, inner)
+            self._finish_allreduce_bucket(ps, bucket, results)
+            return
+        spans = self._spans_hosts(ps)
+        hop = "cross" if spans else "inner"
         if wire is None:
-            self.account_wire(nbytes, nbytes)
+            self.account_wire(nbytes, nbytes, nbytes if spans else 0)
+            self._account_hop(hop, None, nbytes)
             red_op, post_f, scaled = dist_ops.allreduce_plan(
                 op, dtype, pre, post, ps.size)
             rows = self._pack_rows(ps, bucket, layout, total, dtype, pre,
@@ -1552,7 +1711,8 @@ class Engine:
                 (op, ps.size, post) if scaled else None)
         elif wire in qz.WIRE_TORCH_DTYPES:
             wdt = qz.WIRE_TORCH_DTYPES[wire]
-            self.account_wire(nbytes, total * 2)
+            self.account_wire(nbytes, total * 2, total * 2 if spans else 0)
+            self._account_hop(hop, wire, total * 2)
             if dtype == torch.float64:
                 rows = [row.to(wdt) for row in self._pack_rows(
                     ps, bucket, layout, total, dtype, 1.0)]
@@ -1563,10 +1723,55 @@ class Engine:
         else:
             rows = self._pack_rows(ps, bucket, layout, total, dtype, 1.0)
             q_rows, s_rows = self._encode_quantized_rows(rows, nbytes, wire)
+            self._account_hop(hop, wire, q_rows[0].numel()
+                              + s_rows[0].numel() * qz.SCALE_BYTES)
             ys = ps.executor.allreduce_quantized(
                 q_rows, s_rows, op, pre, post,
                 nbits=4 if wire == "int4" else 8, n_elems=total)
             results = self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
+        self._finish_allreduce_bucket(ps, bucket, results)
+
+    def _run_allreduce_2d(self, ps, bucket, layout, total, dtype, wire,
+                          inner):
+        """A hierarchical or torus bucket over the wire pair
+        (``_dispatch_allreduce_2d``, engine.py:2400-2456): B1 packs each
+        rank's members with the pre-scale, the executor's
+        :meth:`~..ops.dist_ops.MeshExecutor.allreduce_2d` reducescatters
+        over the inner hop, sums the 1/inner shard over the outer hop
+        (full width, 16-bit, or the shared-scale int8/int4 sum) and
+        post-scales the shard before it gathers back; B1 unpacks.  Only
+        the shard crosses the outer hop, at the outer wire's width; its
+        bytes count as cross bytes where the set spans hosts, and both
+        hops' bytes count in ``hop_wire_bytes``."""
+        req = next(iter(bucket[0].subs.values())).request
+        itemsize = dtype.itemsize
+        m = -(-total // inner)
+        inner_wire = self._inner_wire_for(req, wire, dtype)
+        iw_width = 2 if inner_wire else itemsize
+        # the inner stage moves the payload twice: scatter and gather
+        self._account_hop("inner", inner_wire, 2 * total * iw_width)
+        if wire in ("int8", "int4"):
+            cross = qz.quantized_psum_wire_nbytes(
+                m, ps.size // inner, bits=4 if wire == "int4" else 8)
+            actual = total * iw_width
+            self.quantized_bucket_runs += 1
+        else:
+            cross = m * (2 if wire in qz.WIRE_TORCH_DTYPES else itemsize)
+            actual = total * iw_width if (inner_wire or wire) \
+                else total * itemsize
+        self.account_wire(total * itemsize, actual,
+                          cross if self._spans_hosts(ps) else 0)
+        self._account_hop("cross", wire, cross)
+        rows = self._pack_rows(ps, bucket, layout, total, dtype,
+                               req.prescale_factor)
+        ys = ps.executor.allreduce_2d(
+            rows, req.reduce_op, 1.0, req.postscale_factor, inner,
+            inner_wire=inner_wire, outer_wire=wire)
+        return self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
+
+    def _finish_allreduce_bucket(self, ps, bucket, results):
+        """Hand each local submission its outputs, after the engine
+        stream's work."""
         self.allreduce_buckets += 1
         done = self._done_event()
         for entry in bucket:

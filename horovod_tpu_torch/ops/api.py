@@ -6,7 +6,10 @@ reducescatter and grouped reducescatter, plus ``barrier``, ``join``,
 
 Allreduces, reducescatters and alltoalls take ``wire_dtype=`` (None,
 'f32', 'fp16', 'bf16', 'int8', 'int4' and their aliases), normalized at
-the call: the wire the payload rides (``ops/quantize.py``).  The grouped
+the call: the wire the payload rides (``ops/quantize.py``).  Allreduces
+also take ``algorithm=`` ('flat', 'hierarchical', 'torus'; None = the
+process-wide default) and ``wire_inner=`` (the inner hop's wire under a
+2-D decomposition, where ``wire_dtype`` is the outer hop's).  The grouped
 reducescatter and allgather take ``shard_fp=``, the shard-layout
 fingerprint of a sharded weight update (``core/sharded.py``), which the
 engine validates across ranks.
@@ -29,6 +32,7 @@ from ..core.handles import Handle
 from ..core.message import (
     Adasum, Average, Sum, Min, Max, Product, ReduceOp, Request, RequestType,
 )
+from ..common.topology import normalize_algorithm
 from .quantize import normalize_inner_wire, normalize_wire_dtype
 
 __all__ = [
@@ -121,8 +125,10 @@ def _wire_name(ctx, op_type, name):
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
                     process_set=global_process_set, wire_dtype=None,
-                    _target=None):
+                    algorithm=None, wire_inner=None, _target=None):
     wire_dtype = normalize_wire_dtype(wire_dtype)
+    wire_inner = normalize_inner_wire(wire_inner)
+    algorithm = normalize_algorithm(algorithm)
     t = _stage(tensor)
     ctx = basics.context()
     op = _resolve_op(op, average)
@@ -131,37 +137,43 @@ def allreduce_async(tensor, average=None, name=None, op=None,
         request_type=RequestType.ALLREDUCE, tensor_name=name, rank=ctx.rank,
         dtype=dtype_name(t.dtype), shape=tuple(t.shape), reduce_op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        process_set_id=_ps_id(process_set), wire_dtype=wire_dtype)
+        process_set_id=_ps_id(process_set), wire_dtype=wire_dtype,
+        wire_inner=wire_inner, algorithm=algorithm)
     outputs = [_inplace_output(_target, t)] if _target is not None else None
     return _submit(req, [t], [name], outputs)
 
 
 def allreduce(tensor, average=None, name=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0,
-              process_set=global_process_set, wire_dtype=None):
+              process_set=global_process_set, wire_dtype=None,
+              algorithm=None, wire_inner=None):
     return synchronize(allreduce_async(tensor, average, name, op,
                                        prescale_factor, postscale_factor,
-                                       process_set, wire_dtype))
+                                       process_set, wire_dtype, algorithm,
+                                       wire_inner))
 
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
-                     process_set=global_process_set, wire_dtype=None):
+                     process_set=global_process_set, wire_dtype=None,
+                     algorithm=None, wire_inner=None):
     """In-place variant: the result is written into ``tensor`` (by the
     unpack itself when ``tensor`` is contiguous)."""
     h = allreduce_async(tensor, average, name, op, prescale_factor,
                         postscale_factor, process_set, wire_dtype,
-                        _target=tensor)
+                        algorithm, wire_inner, _target=tensor)
     h.inplace_target = tensor
     return h
 
 
 def allreduce_(tensor, average=None, name=None, op=None,
                prescale_factor=1.0, postscale_factor=1.0,
-               process_set=global_process_set, wire_dtype=None):
+               process_set=global_process_set, wire_dtype=None,
+               algorithm=None, wire_inner=None):
     return synchronize(allreduce_async_(tensor, average, name, op,
                                         prescale_factor, postscale_factor,
-                                        process_set, wire_dtype))
+                                        process_set, wire_dtype, algorithm,
+                                        wire_inner))
 
 
 class _MultiHandle:
@@ -198,13 +210,15 @@ class _MultiHandle:
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             prescale_factor=1.0, postscale_factor=1.0,
                             process_set=global_process_set, wire_dtype=None,
-                            _targets=None):
+                            algorithm=None, wire_inner=None, _targets=None):
     """Grouped ops negotiate and execute as one unit (reference
     EnqueueTensorAllreduces).  Mixed-dtype groups partition into one
     fused submission per dtype, in sorted dtype order."""
     if not tensors:
         raise ValueError("grouped_allreduce requires at least one tensor")
     wire_dtype = normalize_wire_dtype(wire_dtype)
+    wire_inner = normalize_inner_wire(wire_inner)
+    algorithm = normalize_algorithm(algorithm)
     ts = [_stage(t) for t in tensors]
     ctx = basics.context()
     op = _resolve_op(op, average)
@@ -222,7 +236,8 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
             postscale_factor=postscale_factor,
             process_set_id=_ps_id(process_set), group_id=0,
             group_shapes=tuple(tuple(ts[i].shape) for i in idxs),
-            wire_dtype=wire_dtype)
+            wire_dtype=wire_dtype, wire_inner=wire_inner,
+            algorithm=algorithm)
         outputs = None
         if _targets is not None:
             outputs = [_inplace_output(_targets[i], ts[i]) for i in idxs]
@@ -242,18 +257,21 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
 
 def grouped_allreduce(tensors, average=None, name=None, op=None,
                       prescale_factor=1.0, postscale_factor=1.0,
-                      process_set=global_process_set, wire_dtype=None):
+                      process_set=global_process_set, wire_dtype=None,
+                      algorithm=None, wire_inner=None):
     return synchronize(grouped_allreduce_async(
         tensors, average, name, op, prescale_factor, postscale_factor,
-        process_set, wire_dtype))
+        process_set, wire_dtype, algorithm, wire_inner))
 
 
 def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
                              process_set=global_process_set,
-                             wire_dtype=None):
+                             wire_dtype=None, algorithm=None,
+                             wire_inner=None):
     h = grouped_allreduce_async(tensors, average, name, op, prescale_factor,
                                 postscale_factor, process_set, wire_dtype,
+                                algorithm, wire_inner,
                                 _targets=list(tensors))
     h.inplace_targets = list(tensors)
     return h
@@ -261,10 +279,11 @@ def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
 
 def grouped_allreduce_(tensors, average=None, name=None, op=None,
                        prescale_factor=1.0, postscale_factor=1.0,
-                       process_set=global_process_set, wire_dtype=None):
+                       process_set=global_process_set, wire_dtype=None,
+                       algorithm=None, wire_inner=None):
     return synchronize(grouped_allreduce_async_(
         tensors, average, name, op, prescale_factor, postscale_factor,
-        process_set, wire_dtype))
+        process_set, wire_dtype, algorithm, wire_inner))
 
 
 # ----------------------------------------------------------------------------

@@ -63,10 +63,13 @@ A third deliverable is :class:`CompiledAlltoall`: the equal-split
 exchange of the MoE dispatch wire with the int8/int4 codec (B2-B5 on the
 card) per destination slot and per-rank error feedback.
 
-Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP.md item: an ``algorithm``/``topology_hint``/``wire_inner`` other
-than flat and :class:`TopologyHint` (A8) and wire integrity digests
-(A14).
+The reducer and the sharded step decompose per hop under
+``algorithm='hierarchical'``/``'torus'`` or a :class:`TopologyHint`: an
+inner (intra-host) and an outer (inter-host) hop, each with its own
+wire, over the executor's 2-D grid (``MeshExecutor.allreduce_2d``).
+
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md
+item: wire integrity digests (A14).
 """
 
 import contextlib
@@ -74,6 +77,8 @@ import math
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -83,6 +88,7 @@ from torch.utils import _pytree as pytree
 from ..common import basics
 from ..common import env as env_mod
 from ..common.process_sets import ProcessSet, global_process_set
+from ..common.topology import normalize_algorithm, plan_decomposition
 from ..core.message import Adasum, Average, ReduceOp, Sum
 from ..core.sharded import (
     overlap_bucket_splits, overlap_segment_bounds, torch_dtype,
@@ -102,32 +108,84 @@ __all__ = [
     "sharded_state_from_jax",
 ]
 
-_FLAT = {None: None, "": None, "flat": "flat", "none": "flat",
-         "ring": "flat"}
-_NON_FLAT = ("hier", "hierarchical", "torus", "2d")
-
-
-def _flat_only(algorithm, topology_hint):
-    """The flat algorithm or None (unset); a decomposition raises."""
-    key = algorithm.strip().lower() if isinstance(algorithm, str) \
-        else algorithm
-    if topology_hint is not None or key in _NON_FLAT:
-        raise NotImplementedError(
-            "topology-aware (hierarchical/torus) compiled reductions are "
-            "not ported yet (ROADMAP.md A8)")
-    if key not in _FLAT:
-        raise ValueError(f"unknown allreduce algorithm {algorithm!r}")
-    return _FLAT[key]
-
-
+@dataclass(frozen=True)
 class TopologyHint:
-    """The explicit 2-D decomposition of a compiled reduction: not ported
-    yet (ROADMAP.md A8)."""
+    """Explicit decomposition of a compiled reduction (``compiled.py:
+    70-135`` of the JAX package): named axes and their sizes, the outer
+    (slow) axis first.  The hint is part of the program cache key, so the
+    same tensors reduced under different hints run distinct programs:
+    ``TopologyHint(axes=("dp", "tp"), sizes=(2, 4))`` reduces within each
+    tp group first, crosses dp once per shard, then gathers back.  A
+    3-axis ``("pp", outer, inner)`` hint names a pipeline stage
+    (``pp_stage``) of a job whose stages are separate process sets: the
+    pp axis never enters the reduction (``reduce_axes``/``reduce_sizes``
+    are the trailing two), it keeps per-stage programs distinct.  Without
+    a hint the ``algorithm`` policy derives one from the job topology."""
+    axes: Tuple[str, ...] = ("cross", "local")
+    sizes: Tuple[int, ...] = (1, 1)
+    #: pipeline stage this hint's process set belongs to (only meaningful
+    #: with a leading "pp" axis)
+    pp_stage: int = 0
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TopologyHint (2-D compiled reductions) is not ported yet "
-            "(ROADMAP.md A8)")
+    def __post_init__(self):
+        if len(self.axes) != len(self.sizes) or \
+                len(self.axes) not in (2, 3):
+            raise ValueError(
+                f"TopologyHint needs matching 2-axis (outer, inner) or "
+                f"3-axis (pp, outer, inner) axes/sizes, got "
+                f"axes={self.axes} sizes={self.sizes}")
+        if len(self.axes) == 3 and self.axes[0] != "pp":
+            raise ValueError(
+                f"a 3-axis TopologyHint's leading axis must be 'pp', got "
+                f"{self.axes[0]!r}")
+
+    @property
+    def reduce_axes(self):
+        """The (outer, inner) axes the reduction decomposes over."""
+        return self.axes[-2:]
+
+    @property
+    def reduce_sizes(self):
+        return self.sizes[-2:]
+
+    @property
+    def inner(self):
+        return self.sizes[-1]
+
+    @property
+    def outer(self):
+        return self.sizes[-2]
+
+    @property
+    def pp(self):
+        """Pipeline-stage count, 1 when the hint has no pp axis."""
+        return self.sizes[0] if len(self.sizes) == 3 else 1
+
+    def key(self):
+        return (self.axes, self.sizes, self.pp_stage)
+
+
+def _check_hint(topology_hint):
+    """``topology_hint`` itself, or a ValueError for anything but a
+    :class:`TopologyHint` (``compiled.py:470-472``)."""
+    if topology_hint is not None and \
+            not isinstance(topology_hint, TopologyHint):
+        raise ValueError("topology_hint must be a TopologyHint")
+    return topology_hint
+
+
+def _hint_key(topology_hint):
+    return topology_hint.key() if topology_hint is not None else None
+
+
+def _checked_hint_inner(hint, num_ranks):
+    """An explicit hint's inner size, checked against the set's size."""
+    if hint.outer * hint.inner != num_ranks or hint.inner <= 1 \
+            or hint.outer <= 1:
+        raise ValueError(
+            f"TopologyHint sizes {hint.sizes} do not factor the process "
+            f"set's {num_ranks} ranks into a 2-D mesh")
+    return hint
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +636,15 @@ class CompiledGroupedAllreduce:
     quantization error into its next payload.  ``bucket_bytes`` (or
     ``HOROVOD_OVERLAP_BUCKET_BYTES``, latched once per call or stream)
     splits the plan into buckets, each its own program, bit for bit the
-    grouped result."""
+    grouped result.
+
+    ``algorithm`` 'hierarchical'/'torus' (or a :class:`TopologyHint`,
+    which implies torus) makes each buffer's program the executor's 2-D
+    decomposition (``MeshExecutor.allreduce_2d``): ``wire_dtype`` is then
+    the outer hop's wire and ``wire_inner`` the inner hop's, and error
+    feedback keeps each rank's residual of its 1/inner shard of the outer
+    hop.  The policy derives the grid from the job's host map and runs
+    flat where it does not factor (``last_algorithm`` says which ran)."""
 
     def __init__(self, op=Average, prescale_factor=1.0,
                  postscale_factor=1.0, process_set=global_process_set,
@@ -598,22 +664,29 @@ class CompiledGroupedAllreduce:
         self.name = name
         # run the program even at world size 1 (no host-copy shortcut)
         self.force_program = bool(force_program)
-        self.algorithm = _flat_only(algorithm, topology_hint)
+        self.algorithm = normalize_algorithm(algorithm)
+        self.topology_hint = _check_hint(topology_hint)
+        if topology_hint is not None and self.algorithm in (None, "flat"):
+            self.algorithm = "torus"
         self.wire_dtype = qz.normalize_wire_dtype(wire_dtype)
         if self.wire_dtype == "f32":
             self.wire_dtype = None
-        # the inner-hop wire only acts under a decomposition (A8); it
-        # stays part of the identity, as in the JAX package
+        # the inner hop's wire, acting under a decomposition only
         self.wire_inner = qz.normalize_inner_wire(wire_inner)
         self.error_feedback = bool(error_feedback) \
             and self.wire_dtype in ("int8", "int4")
         self.bucket_bytes = None if bucket_bytes is None \
             else int(bucket_bytes)
-        self._residuals = {}     # (skey, pos, buf_idx) -> f32 residual
-        #: wire accounting of the most recent call
+        # (skey, pos, buf_idx) -> the rank's f32 residual: of its whole
+        # buffer (flat), of its 1/inner shard (decomposed)
+        self._residuals = {}
+        #: wire accounting of the most recent call; the cross bytes are
+        #: those over the slow (outer) hop
         self.last_logical_bytes = 0
         self.last_wire_bytes = 0
         self.last_cross_bytes = 0
+        #: the algorithm the most recent call ran ('flat' where the policy
+        #: degraded)
         self.last_algorithm = "flat"
         self._programs = {}
         self._validated = set()  # sigs fingerprint-checked across procs
@@ -641,18 +714,18 @@ class CompiledGroupedAllreduce:
                 (i, size, tuple(shape)))
         return [(d, groups[d]) for d in sorted(groups)]
 
-    def _bucketize(self, plan, bucket_bytes):
+    def _bucketize(self, plan, bucket_bytes, hint=None):
         """Split the plan into bucket miniplans, each a contiguous
         single-dtype slice of members dispatched as its own program;
-        block-aligned under a quantized wire, so every bucket's shared
-        scales are the grouped buffer's.  ``bucket_bytes`` <= 0 keeps one
-        bucket."""
+        block-aligned under a flat quantized wire, so every bucket's
+        shared scales are the grouped buffer's.  ``bucket_bytes`` <= 0
+        keeps one bucket."""
         if bucket_bytes is None or bucket_bytes <= 0:
             return [plan]
         minis = []
         for dtype, members in plan:
-            align = qz.BLOCK if self._wire_use(dtype) in ("int8", "int4") \
-                else 1
+            align = qz.BLOCK if hint is None and self._wire_use(dtype) in (
+                "int8", "int4") else 1
             for s, e in overlap_bucket_splits(
                     [m[1] for m in members], torch_dtype(dtype).itemsize,
                     bucket_bytes, align=align):
@@ -671,67 +744,107 @@ class CompiledGroupedAllreduce:
             return None
         return use
 
-    def _build(self, ex, plan):
-        """The program of one plan: ``prog(bufs) -> [(y, factor, scales)]``
-        where ``bufs[j]`` holds the local ranks' packed rows of plan
-        buffer j, ``y`` their reduction before the post-scale, ``factor``
-        the scale the unpack applies (the post-scale, /R for Average), and
-        ``scales`` the shared block scales of a quantized buffer (for
-        error feedback), else None.  The sums are the executor's."""
+    def _inner_wire_use(self, dtype):
+        """The inner hop's effective wire of one plan buffer under a
+        decomposition (``quantize.effective_inner_wire``)."""
+        dt = torch_dtype(dtype)
+        if not is_float(dt):
+            return None
+        return qz.effective_inner_wire(self.wire_inner, self.wire_dtype,
+                                       dt.itemsize)
+
+    def _resolve_hint(self, eng, ps, ex):
+        """The call's :class:`TopologyHint`, or None (flat): an explicit
+        hint checked against the set's size, else the algorithm policy's
+        grid over the job topology (``compiled.py:617-643``)."""
+        if self.algorithm in (None, "flat"):
+            return None
+        if self.topology_hint is not None:
+            return _checked_hint_inner(self.topology_hint, ex.num_ranks)
+        inner = plan_decomposition(self.algorithm, eng.topology, ps.ranks)
+        if inner is None:
+            return None
+        axes = ("cross", "local") if self.algorithm == "hierarchical" \
+            else ("hvd_y", "hvd_x")
+        return TopologyHint(axes=axes, sizes=(ex.num_ranks // inner, inner))
+
+    def _build_2d(self, ex, plan, hint):
+        """The decomposed program of one plan (``compiled.py:645-753``):
+        per buffer the executor's :meth:`~.dist_ops.MeshExecutor.
+        allreduce_2d` over the hint's grid, with the buffer's inner and
+        outer wires; the post-scale (/R for Average) applies to the
+        reduced shard, so the unpack's factor is 1.  ``res[j]``, the local
+        ranks' stacked ``(L, m)`` residuals of a quantized buffer under
+        error feedback, is updated in place and handed back."""
+        R = ex.num_ranks
+        op, post = self.op, self.postscale
+        post_scale = post / R if op == Average else post
+
+        def prog(bufs, res):
+            outs = []
+            for rows, (dtype, _), r in zip(bufs, plan, res):
+                dt = torch_dtype(dtype)
+                if not is_float(dt) and op == Average:
+                    raise ValueError("Average needs floating-point tensors")
+                y = ex.allreduce_2d(
+                    rows, ReduceOp.SUM, 1.0,
+                    post_scale if is_float(dt) else 1.0, hint.inner,
+                    inner_wire=self._inner_wire_use(dtype),
+                    outer_wire=self._wire_use(dtype), residual=r)[0]
+                outs.append((y, 1.0, r))
+            return outs
+
+        return prog
+
+    def _build(self, ex, plan, hint=None):
+        """The program of one plan: ``prog(bufs, res) -> [(y, factor,
+        resid)]`` where ``bufs[j]`` holds the local ranks' packed rows of
+        plan buffer j, ``y`` their reduction before the post-scale,
+        ``factor`` the scale the unpack applies (the post-scale, /R for
+        Average), and ``resid`` the local ranks' ``(L, n)`` quantization
+        errors of a quantized buffer (for error feedback), else None.  The
+        sums are the executor's.  A hint builds :meth:`_build_2d`."""
+        if hint is not None:
+            return self._build_2d(ex, plan, hint)
         R = ex.num_ranks
         op, pre, post = self.op, self.prescale, self.postscale
         post_scale = post / R if op == Average else post
         out_scale = pre * post / R if op == Average else pre * post
 
         def reduce_quantized(rows, bits):
-            qmax = qz.quantized_qmax(bits)
-            n = rows[0].numel()
-            nb = qz.num_blocks(n)
-            xb = []
-            for r in rows:
-                x = r.float()
-                if nb * qz.BLOCK != n:
-                    x = torch.cat([x, x.new_zeros(nb * qz.BLOCK - n)])
-                xb.append(x.view(nb, qz.BLOCK))
             # the scale is SHARED: the max over ranks of the bf16-rounded
             # local absmax, so every rank's codes are on one grid
-            absmax = [x.abs().amax(dim=1).to(torch.bfloat16) for x in xb]
-            shared = ex.reduce(absmax, ReduceOp.MAX)[0].float()
-            # divide by a tensor: CUDA divides by a Python number as a
-            # multiplication by its reciprocal
-            scale = (shared / shared.new_full((), float(qmax))) \
-                .to(torch.bfloat16).float()
-            safe = torch.where(scale > 0, scale, scale.new_ones(()))
-            qs = [torch.round(x / safe[:, None]).clamp_(-qmax, qmax)
-                  .to(torch.int32) for x in xb]
-            y = ex.reduce(qs, ReduceOp.SUM)[0].float() * scale[:, None]
-            return y.reshape(-1)[:n], out_scale, scale
+            y, resid = qz.quantized_psum_ef(
+                torch.stack([r.float() for r in rows]), bits, R,
+                lambda t: ex.reduce(list(t.unbind(0)), ReduceOp.MAX)[0],
+                lambda q: ex.reduce(list(q.unbind(0)), ReduceOp.SUM)[0])
+            return y, out_scale, resid
 
         def reduce_buf(rows, dtype):
             dt = torch_dtype(dtype)
             use = self._wire_use(dtype)
             if use in ("int8", "int4"):
-                y, factor, scales = reduce_quantized(
+                y, factor, resid = reduce_quantized(
                     rows, 8 if use == "int8" else 4)
             elif use in ("bf16", "fp16"):
                 wdt = qz.WIRE_TORCH_DTYPES[use]
                 y = ex.reduce([r.to(wdt) for r in rows], ReduceOp.SUM)[0]
-                factor, scales = post_scale, None
+                factor, resid = post_scale, None
             else:
                 if not is_float(dt) and op == Average:
                     raise ValueError("Average needs floating-point tensors")
                 y = ex.reduce(rows, ReduceOp.SUM)[0]
-                factor, scales = post_scale, None
+                factor, resid = post_scale, None
             if torch.float64 in (y.dtype, dt) and y.dtype != dt:
                 y = y.to(dt)     # B1 scales an f64 tensor only in f64
-            return y, factor, scales
+            return y, factor, resid
 
-        def prog(bufs):
+        def prog(bufs, res):
             return [reduce_buf(rows, d) for rows, (d, _) in zip(bufs, plan)]
 
         return prog
 
-    def _program(self, ex, sig, plan):
+    def _program(self, ex, sig, plan, hint=None):
         with self._lock:
             if self._ex is not ex:
                 # the engine re-initialized: programs for the old world
@@ -745,9 +858,9 @@ class CompiledGroupedAllreduce:
             if entry is None:
                 key = ("reduce", _ex_uid(ex), int(self.op), self.prescale,
                        self.postscale, self.wire_dtype, self.wire_inner,
-                       self.error_feedback, None, sig)
+                       self.error_feedback, _hint_key(hint), sig)
                 entry = _shared_program(key, lambda: _TimedFirstCall(
-                    self._build(ex, plan)))
+                    self._build(ex, plan, hint)))
                 self._programs[sig] = entry
             else:
                 _count("hits")
@@ -755,12 +868,14 @@ class CompiledGroupedAllreduce:
 
     # -- packing -------------------------------------------------------------
 
-    def _pack_factor(self, dtype):
-        # a quantized buffer's pre-scale rides the decode (it is linear)
-        return 1.0 if self._wire_use(dtype) in ("int8", "int4") \
-            else self.prescale
+    def _pack_factor(self, dtype, hint):
+        # a flat quantized buffer's pre-scale rides the decode (it is
+        # linear); a decomposition pre-scales before anything, as the JAX
+        # program does
+        return 1.0 if hint is None and self._wire_use(dtype) in (
+            "int8", "int4") else self.prescale
 
-    def _pack(self, vals, plan):
+    def _pack(self, vals, plan, hint=None):
         """One fusion buffer per dtype; float members packed by B1 with
         the pre-scale."""
         bufs = []
@@ -775,7 +890,8 @@ class CompiledGroupedAllreduce:
                 offsets.append(n)
                 n += size
             buf = torch.empty(n, dtype=dt, device=srcs[0].device)
-            K.pack_scale_cast(srcs, buf, offsets, self._pack_factor(dtype))
+            K.pack_scale_cast(srcs, buf, offsets,
+                              self._pack_factor(dtype, hint))
             bufs.append(buf)
         return bufs
 
@@ -816,32 +932,50 @@ class CompiledGroupedAllreduce:
                     raise ValueError("prescale/postscale require "
                                      "floating-point tensors")
 
-    def _account_wire(self, plan, num_ranks):
-        """Per-rank interconnect bytes of the flat programs.  A quantized
-        program's transport is its integer partial sums (the narrowest
-        exact accumulator) plus the bf16 absmax, as the JAX package
-        counts it."""
-        logical = wire = 0
+    def _account_wire(self, plan, num_ranks, hint=None, multihost=False):
+        """Per-rank interconnect bytes of the programs
+        (``compiled.py:982-1031``).  A flat quantized program's transport
+        is its integer partial sums (the narrowest exact accumulator) plus
+        the bf16 absmax.  Under a decomposition only the 1/inner shard
+        crosses the outer hop, at the outer wire's width, and the inner
+        hops ship the inner wire.  Cross bytes: a flat program's whole
+        wire when the job spans hosts; a policy's decomposition its
+        shard's bytes when the job spans hosts; an explicit hint's outer
+        axis is declared slow, so always its shard's."""
+        logical = wire = cross = 0
         for dtype, members in plan:
             n = sum(size for _, size, _ in members)
             itemsize = torch_dtype(dtype).itemsize
             logical += n * itemsize
             use = self._wire_use(dtype)
-            if use in ("int8", "int4"):
-                per = qz.quantized_acc_dtype(
-                    8 if use == "int8" else 4, num_ranks).itemsize
-                wire += n * per + qz.num_blocks(n) * qz.SCALE_BYTES
+            if hint is not None:
+                m = -(-n // hint.inner)
+                wire += n * (2 if self._inner_wire_use(dtype) else itemsize)
+                if use in ("int8", "int4"):
+                    cross += qz.quantized_psum_wire_nbytes(
+                        m, hint.outer, bits=8 if use == "int8" else 4)
+                else:
+                    cross += m * (2 if use in ("bf16", "fp16")
+                                  else itemsize)
+            elif use in ("int8", "int4"):
+                wire += qz.quantized_psum_wire_nbytes(
+                    n, num_ranks, bits=8 if use == "int8" else 4)
             else:
                 wire += qz.wire_nbytes(n, use, itemsize)
         self.last_logical_bytes = logical
         self.last_wire_bytes = wire
-        # one process, one host: no slow hop to attribute
-        self.last_cross_bytes = 0
-        self.last_algorithm = "flat"
+        if hint is None:
+            self.last_cross_bytes = wire if multihost else 0
+        elif self.topology_hint is not None:
+            self.last_cross_bytes = cross
+        else:
+            self.last_cross_bytes = cross if multihost else 0
+        self.last_algorithm = "flat" if hint is None else self.algorithm
 
     def _apply_residuals(self, sig, pos, bufs, plan):
-        """Error feedback, inject side: add the previous call's local
-        quantization error into this call's payload (EF21)."""
+        """Error feedback of a flat program, inject side: add the
+        previous call's local quantization error into this call's payload
+        (EF21)."""
         out = []
         for k, (buf, (dtype, _)) in enumerate(zip(bufs, plan)):
             r = self._residuals.get((sig, pos, k))
@@ -851,25 +985,31 @@ class CompiledGroupedAllreduce:
                 out.append((buf.float() + r).to(buf.dtype))
         return out
 
-    def _update_residuals(self, sig, pos, bufs, outs, plan):
-        """Error feedback, measure side: re-encode this rank's payload
-        against the SHARED scales the program returned and keep
-        ``x - decode(encode(x))``."""
-        for k, (buf, (y, _, scales), (dtype, _)) in enumerate(
-                zip(bufs, outs, plan)):
-            use = self._wire_use(dtype)
-            if scales is None or use not in ("int8", "int4"):
+    def _hop_residuals(self, sig, pos, plan, hint):
+        """Error feedback of a decomposed program: this rank's residual of
+        its 1/inner shard per quantized buffer (zeros at first), which the
+        program adds after the inner scatter and replaces."""
+        out = []
+        for k, (dtype, members) in enumerate(plan):
+            if self._wire_use(dtype) not in ("int8", "int4"):
+                out.append(None)
                 continue
-            qmax = qz.quantized_qmax(8 if use == "int8" else 4)
-            x = buf.float().reshape(-1)
-            n, nb = x.numel(), scales.numel()
-            xp = torch.cat([x, x.new_zeros(nb * qz.BLOCK - n)]) \
-                if nb * qz.BLOCK != n else x
-            safe = torch.where(scales > 0, scales, scales.new_ones(()))
-            q = torch.round(xp.view(nb, qz.BLOCK) / safe[:, None]) \
-                .clamp_(-qmax, qmax)
-            deq = (q * scales[:, None]).reshape(-1)[:n]
-            self._residuals[(sig, pos, k)] = x - deq
+            r = self._residuals.get((sig, pos, k))
+            if r is None:
+                n = sum(size for _, size, _ in members)
+                r = torch.zeros(-(-n // hint.inner), dtype=torch.float32,
+                                device=basics.engine().device)
+            out.append(r)
+        return out
+
+    def _update_residuals(self, sig, pos, outs, ex):
+        """Error feedback, measure side: keep this rank's row of each
+        quantized buffer's new residuals, measured against the SHARED
+        scales inside the program."""
+        row = ex.local_positions.index(pos)
+        for k, (_y, _f, resid) in enumerate(outs):
+            if resid is not None:
+                self._residuals[(sig, pos, k)] = resid[row]
 
     def reset_wire_state(self):
         """Drop every error-feedback residual this reducer holds (elastic
@@ -954,14 +1094,17 @@ class _BucketStream:
             bb = eng.config.overlap_bucket_bytes
         self.bucket_bytes = bb
         self.plan = red._plan_from_sig(self.sig)
-        red._account_wire(self.plan, ex.num_ranks)
-        self.buckets = red._bucketize(self.plan, bb)
+        self.hint = red._resolve_hint(eng, ps, ex)
+        red._account_wire(self.plan, ex.num_ranks, self.hint,
+                          eng._spans_hosts(ps))
+        self.buckets = red._bucketize(self.plan, bb, self.hint)
         # the grouped bucket keeps the caller-order signature (the legacy
         # cache key); buckets key on their own members
         self._progs = []
         for mp in self.buckets:
             bsig = self.sig if bb <= 0 else _mini_sig(mp)
-            self._progs.append((red._program(ex, bsig, mp), bsig))
+            self._progs.append((red._program(ex, bsig, mp, self.hint),
+                                bsig))
         n_local = len(ex.local_positions)
         if n_local == 1:
             self.pos = ex.local_positions[0]
@@ -979,7 +1122,7 @@ class _BucketStream:
         red = self.red
         return ("reduce", int(red.op), red.prescale, red.postscale,
                 red.name, red.wire_dtype, red.wire_inner,
-                red.error_feedback, None)
+                red.error_feedback, _hint_key(getattr(self, "hint", None)))
 
     # -- delivery ------------------------------------------------------------
 
@@ -1040,9 +1183,12 @@ class _BucketStream:
         vkey = (self.sig, bb)
         members = [self._vals[i] for _d, ms in mp for i, _s, _sh in ms]
 
+        hint = self.hint
+
         def launch(slot_values):
-            # slot_values: {pos: ((bsig, k), [buf per dtype])}; every
-            # local rank must bring the SAME bucket of the SAME signature
+            # slot_values: {pos: ((bsig, k), [buf per dtype], [residual
+            # per dtype] or None)}; every local rank must bring the SAME
+            # bucket of the SAME signature
             sigs = {p: v[0] for p, v in slot_values.items()}
             if len(set(sigs.values())) > 1:
                 raise ValueError(
@@ -1054,21 +1200,33 @@ class _BucketStream:
                     eng, ps, self._tag(), (self.sig, bb))
                 with red._lock:
                     red._validated.add(vkey)
-            rows = [[slot_values[p][1][j] for p in ex.local_positions]
+            order = ex.local_positions
+            rows = [[slot_values[p][1][j] for p in order]
                     for j in range(len(mp))]
-            return prog(rows)
+            res = [None] * len(mp)
+            if hint is not None and red.error_feedback:
+                res = [None if slot_values[order[0]][2][j] is None
+                       else torch.stack([slot_values[p][2][j]
+                                         for p in order])
+                       for j in range(len(mp))]
+            return prog(rows, res)
 
         with self._on_side(members) as cur:
-            bufs = red._pack(self._vals, mp)
+            bufs = red._pack(self._vals, mp, hint)
+            res = None
             if red.error_feedback:
-                bufs = red._apply_residuals(skey, self.pos, bufs, mp)
+                if hint is None:
+                    bufs = red._apply_residuals(skey, self.pos, bufs, mp)
+                else:
+                    res = red._hop_residuals(skey, self.pos, mp, hint)
+            value = ((bsig, k), bufs, res)
             if self.rdv is None:
-                outs = launch({self.pos: ((bsig, k), bufs)})
+                outs = launch({self.pos: value})
             else:
-                outs = self.rdv.run(self.pos, ((bsig, k), bufs), launch)
+                outs = self.rdv.run(self.pos, value, launch)
             results = red._unpack(outs, mp)
             if red.error_feedback:
-                red._update_residuals(skey, self.pos, bufs, outs, mp)
+                red._update_residuals(skey, self.pos, outs, ex)
             done = None
             if cur is not None:
                 done = torch.cuda.Event()
@@ -1133,16 +1291,15 @@ class CompiledAlltoall:
     fresh tensors at every call, so a graph would only add a copy.  All
     member ranks must call with one signature in one order; instances
     with the same (process set, name, wire) meet at one rendezvous.
-    ``topology_hint`` is refused (ROADMAP.md A8); ``wire_inner`` is part
-    of the identity and has no effect on this single-hop exchange."""
+    The exchange is single-hop: ``wire_inner`` and ``topology_hint`` are
+    part of its identity, and a hint splits the byte accounting by hop
+    (``last_hop_bytes``): the peers of this rank's inner-axis group are
+    the fast hop (``compiled.py:1773-1800``)."""
 
     def __init__(self, process_set=global_process_set, name=None,
                  wire_dtype=None, wire_inner=None, topology_hint=None,
                  error_feedback=False, force_program=False):
-        if topology_hint is not None:
-            raise NotImplementedError(
-                "topology-aware (hierarchical/torus) compiled exchanges "
-                "are not ported yet (ROADMAP.md A8)")
+        self.topology_hint = _check_hint(topology_hint)
         self.process_set = process_set
         self.name = name
         self.force_program = bool(force_program)
@@ -1152,9 +1309,11 @@ class CompiledAlltoall:
         self.wire_inner = qz.normalize_inner_wire(wire_inner)
         self.error_feedback = bool(error_feedback) \
             and self.wire_dtype in ("int8", "int4")
-        #: wire accounting of the most recent call
+        #: wire accounting of the most recent call, and its split by hop:
+        #: {'inner' or 'cross': (logical bytes, wire bytes)}
         self.last_logical_bytes = 0
         self.last_wire_bytes = 0
+        self.last_hop_bytes = {}
         self._programs = {}
         self._validated = set()
         self._ef_keys = set()
@@ -1163,7 +1322,7 @@ class CompiledAlltoall:
 
     def _tag(self):
         return ("a2a", self.name, self.wire_dtype, self.wire_inner,
-                self.error_feedback)
+                self.error_feedback, _hint_key(self.topology_hint))
 
     def reset_wire_state(self):
         """Drop the error-feedback residuals this object's callers hold
@@ -1229,7 +1388,8 @@ class CompiledAlltoall:
                 n, dtype = sig
                 prog = _shared_program(
                     ("alltoall", _ex_uid(ex), self.wire_dtype,
-                     self.wire_inner, self.error_feedback, sig),
+                     self.wire_inner, self.error_feedback,
+                     _hint_key(self.topology_hint), sig),
                     lambda: _TimedFirstCall(
                         self._build(ex, n, torch_dtype(dtype))))
                 self._programs[sig] = prog
@@ -1237,15 +1397,31 @@ class CompiledAlltoall:
                 _count("hits")
             return prog
 
-    def _account(self, n_exact, n_padded, itemsize):
+    def _account(self, eng, ps, R, n_exact, n_padded, itemsize):
+        """The call's bytes, split by destination hop: under a hint that
+        factors the set, (inner - 1) / R of them go to this rank's
+        inner-axis peers and (R - inner) / R cross the outer axis; without
+        one the whole exchange is on one hop, the cross one when the set
+        spans hosts."""
         wire = self.wire_dtype
-        self.last_logical_bytes = n_exact * itemsize
+        logical = n_exact * itemsize
         if wire in ("int8", "int4"):
-            self.last_wire_bytes = qz.wire_nbytes(n_padded, wire, itemsize)
+            actual = qz.wire_nbytes(n_padded, wire, itemsize)
         elif wire in ("fp16", "bf16"):
-            self.last_wire_bytes = n_exact * 2
+            actual = n_exact * 2
         else:
-            self.last_wire_bytes = n_exact * itemsize
+            actual = logical
+        self.last_logical_bytes = logical
+        self.last_wire_bytes = actual
+        hint = self.topology_hint
+        if hint is not None and hint.outer > 1 \
+                and hint.outer * hint.inner == R:
+            by_hop = (("inner", (hint.inner - 1) / R),
+                      ("cross", (R - hint.inner) / R))
+        else:
+            by_hop = (("cross" if eng._spans_hosts(ps) else "inner", 1.0),)
+        self.last_hop_bytes = {hop: (int(logical * f), int(actual * f))
+                               for hop, f in by_hop}
 
     def start(self, array):
         """Run the exchange; returns an object whose ``result()`` is this
@@ -1345,7 +1521,7 @@ class CompiledAlltoall:
         else:
             outs, done = _rendezvous_for(ps, tag, n_local).run(
                 pos, (sig, buf, ready), launch)
-        self._account(R * m_exact, n, a.element_size())
+        self._account(eng, ps, R, R * m_exact, n, a.element_size())
         out = outs[pos]
         if done is not None:
             # the leader's stream made the rows: this rank's stream reads
@@ -1388,17 +1564,16 @@ def compiled_alltoall(array, process_set=global_process_set,
         if isinstance(process_set, ProcessSet) else int(process_set or 0)
     wire_dtype = qz.normalize_wire_dtype(wire_dtype)
     wire_inner = qz.normalize_inner_wire(wire_inner)
-    if topology_hint is not None:
-        raise NotImplementedError(
-            "topology-aware (hierarchical/torus) compiled exchanges are "
-            "not ported yet (ROADMAP.md A8)")
-    key = (ps_id, name, wire_dtype, wire_inner, bool(error_feedback))
+    topology_hint = _check_hint(topology_hint)
+    key = (ps_id, name, wire_dtype, wire_inner, bool(error_feedback),
+           _hint_key(topology_hint))
     with _A2A_LOCK:
         a2a = _A2A_CACHE.get(key)
         if a2a is None:
             a2a = CompiledAlltoall(
                 process_set=process_set, name=name, wire_dtype=wire_dtype,
-                wire_inner=wire_inner, error_feedback=error_feedback)
+                wire_inner=wire_inner, topology_hint=topology_hint,
+                error_feedback=error_feedback)
             _A2A_CACHE[key] = a2a
     return a2a(array)
 
@@ -1488,10 +1663,11 @@ def _reducer(op, prescale_factor, postscale_factor, process_set,
         if isinstance(process_set, ProcessSet) else int(process_set or 0)
     wire_dtype = qz.normalize_wire_dtype(wire_dtype)
     wire_inner = qz.normalize_inner_wire(wire_inner)
-    algorithm = _flat_only(algorithm, topology_hint)
+    algorithm = normalize_algorithm(algorithm)
+    topology_hint = _check_hint(topology_hint)
     key = (int(ReduceOp(op)), float(prescale_factor),
            float(postscale_factor), ps_id, wire_dtype, wire_inner,
-           algorithm, None)
+           algorithm, _hint_key(topology_hint))
     with _REDUCERS_LOCK:
         red = _REDUCERS.get(key)
         if red is None:
@@ -1499,7 +1675,7 @@ def _reducer(op, prescale_factor, postscale_factor, process_set,
                 op=op, prescale_factor=prescale_factor,
                 postscale_factor=postscale_factor, process_set=process_set,
                 wire_dtype=wire_dtype, algorithm=algorithm,
-                wire_inner=wire_inner)
+                topology_hint=topology_hint, wire_inner=wire_inner)
             _REDUCERS[key] = red
         return red
 
@@ -1687,13 +1863,23 @@ class _ShardLayout:
     every segment (``segs``, :meth:`_CompiledTrainStep._seg_bounds`),
     concatenated in segment order, the JAX package's segment-major
     layout.  ``perm`` (None for one segment) maps shard order to the
-    natural flat order (``shards.view(-1) = flat[perm]``), ``inv`` back."""
+    natural flat order (``shards.view(-1) = flat[perm]``), ``inv`` back.
+    Under a 2-D decomposition (``inner`` > 1, one segment) the scatter
+    over the inner axis and then the outer one leaves position ``p = y *
+    inner + x`` of an ``(R // inner, inner)`` grid with natural slice ``x
+    * (R // inner) + y``: ``owner`` maps positions to those slices."""
 
-    __slots__ = ("n", "pad", "m", "segs", "perm", "inv")
+    __slots__ = ("n", "pad", "m", "segs", "perm", "inv", "owner",
+                 "owner_inv")
 
-    def __init__(self, n, pad, R, segs, device):
+    def __init__(self, n, pad, R, segs, device, inner=1):
         self.n, self.pad, self.m, self.segs = n, pad, pad // R, segs
-        self.perm = self.inv = None
+        self.perm = self.inv = self.owner = self.owner_inv = None
+        if inner > 1:
+            outer = R // inner
+            own = [(p % inner) * outer + p // inner for p in range(R)]
+            self.owner = torch.tensor(own, device=device)
+            self.owner_inv = torch.tensor(np.argsort(own), device=device)
         if len(segs) > 1:
             idx = np.empty(pad, np.int64)
             o = 0
@@ -1709,10 +1895,14 @@ class _ShardLayout:
         """A natural-order padded flat (pad,) as the (R, m) rank shards."""
         if self.perm is not None:
             flat = flat.index_select(0, self.perm)
-        return flat.view(-1, self.m)
+        shards = flat.view(-1, self.m)
+        return shards if self.owner is None \
+            else shards.index_select(0, self.owner)
 
     def natural(self, shards):
         """(R, m) rank shards as the natural-order padded flat (pad,)."""
+        if self.owner is not None:
+            shards = shards.index_select(0, self.owner_inv)
         flat = shards.reshape(-1)
         return flat if self.inv is None else flat.index_select(0, self.inv)
 
@@ -1791,8 +1981,10 @@ class ShardedOptState:
     def flat(self, key):
         """``{name: (len(positions) * m,)}``: the hosted ranks' shards of
         optimizer state ``key`` ('momentum_buffer', 'exp_avg', ...)
-        concatenated in rank order; with every rank hosted, the layout
-        of the JAX package's global flat leaves."""
+        concatenated in rank order; with every rank hosted and no
+        TopologyHint, the layout of the JAX package's global flat leaves
+        (under a hint position ``p = y * inner + x`` holds that layout's
+        row ``x * outer + y``)."""
         out = {}
         for i, name in enumerate(self.names):
             rows = [opt.state[self.rank_params(r)[i]][key]
@@ -1820,11 +2012,12 @@ class _CompiledTrainStep:
         self.wire_dtype = qz.normalize_wire_dtype(wire_dtype)
         if self.wire_dtype == "f32":
             self.wire_dtype = None
-        if topology_hint is not None or \
-                qz.normalize_inner_wire(wire_inner) is not None:
-            raise NotImplementedError(
-                "topology-aware compiled steps are not ported yet "
-                "(ROADMAP.md A8)")
+        # the sharded step's scatter and gather decompose per hop under a
+        # hint (the dense step takes it and ignores it, as the JAX
+        # package's does), the inner hop on ``wire_inner`` under a
+        # quantized wire
+        self.topology_hint = _check_hint(topology_hint)
+        self.wire_inner = qz.normalize_inner_wire(wire_inner)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.op = op
@@ -1883,14 +2076,20 @@ class _CompiledTrainStep:
 
     @staticmethod
     @torch.no_grad()
-    def _finish_stacked(losses, aux_pairs):
+    def _finish_stacked(losses, aux_pairs, inner=1):
         """The stacked step's aux write-back (float leaves averaged over
         the ranks, the sync-BN convention; others rank 0's) and mean
-        loss."""
+        loss.  Over a 2-D grid (``inner`` > 1) each mean is the mean over
+        the grid rows of the means over each row, as the JAX body's
+        nested ``pmean`` is."""
+        def mean(vals):
+            t = torch.stack(vals)
+            if inner > 1:
+                t = t.view((-1, inner) + t.shape[1:]).mean(dim=1)
+            return t.mean(dim=0)
         for t, vals in aux_pairs:
-            t.copy_(torch.stack(vals).mean(dim=0)
-                    if vals[0].is_floating_point() else vals[0])
-        return torch.stack(losses).mean()
+            t.copy_(mean(vals) if vals[0].is_floating_point() else vals[0])
+        return mean(losses)
 
     @torch.no_grad()
     def _finish_group(self, ex, losses, aux_pairs, grads):
@@ -2021,7 +2220,10 @@ class _CompiledTrainStep:
         """Scatter/gather segments of one padded flat leaf
         (``core.sharded.overlap_segment_bounds``), each a whole number of
         shard units, so the segmented reduction is bit for bit the
-        unsegmented one."""
+        unsegmented one.  Under a hint one segment: the per-hop split is
+        the finer granularity already."""
+        if self.topology_hint is not None:
+            return [(0, pad)]
         unit = qz.BLOCK * R if self._quantized() else R
         return overlap_segment_bounds(pad, 4, self._overlap_bucket_bytes(),
                                       unit=unit)
@@ -2031,9 +2233,18 @@ class _CompiledTrainStep:
         lay = self._layouts.get(key)
         if lay is None:
             pad = self._shard_pad(n, R)
+            hint = self._shard_hint(R)
             lay = self._layouts[key] = _ShardLayout(
-                n, pad, R, self._seg_bounds(pad, R), device)
+                n, pad, R, self._seg_bounds(pad, R), device,
+                inner=hint.inner if hint is not None else 1)
         return lay
+
+    def _shard_hint(self, R):
+        """The hint of the sharded step, checked against the set's size
+        (``compiled.py:2316-2325``), or None."""
+        if self.topology_hint is None:
+            return None
+        return _checked_hint_inner(self.topology_hint, R)
 
     def _reduce_leaf(self, rows, res, lay, R):
         """The reducescatter of one leaf, before the shard split: the
@@ -2046,24 +2257,19 @@ class _CompiledTrainStep:
         multiplies by the f32 1/R."""
         n = lay.n
         wire = self.wire_dtype
-        if self._quantized():
-            qmax = qz.quantized_qmax(8 if wire == "int8" else 4)
+        hint = self._shard_hint(R)
+        if hint is not None:
+            y = self._reduce_leaf_2d(rows, res, lay, hint)
+        elif self._quantized():
             # x = g + res, the padding's gradient 0
             x = res.clone()
             for r, g in enumerate(rows):
                 x[r, :n].add_(g.reshape(-1))
-            x = x.view(R, -1, qz.BLOCK)
-            absmax = x.abs().amax(dim=2).to(torch.bfloat16)
-            shared = absmax.amax(dim=0).float()
-            # divide by a tensor: CUDA divides by a Python number as a
-            # multiplication by its reciprocal
-            scale = (shared / shared.new_full((), float(qmax))) \
-                .to(torch.bfloat16).float()
-            safe = torch.where(scale > 0, scale, scale.new_ones(()))
-            q = torch.round(x / safe[None, :, None]).clamp_(-qmax, qmax)
-            res.copy_((x - q * safe[None, :, None]).view(R, -1))
-            acc = qz.quantized_acc_dtype(8 if wire == "int8" else 4, R)
-            y = q.to(acc).sum(dim=0, dtype=acc).float() * safe[:, None]
+            y, new_res = qz.quantized_psum_ef(
+                x, 8 if wire == "int8" else 4, R,
+                lambda t: t.amax(0, keepdim=True),
+                lambda q: q.sum(0, keepdim=True, dtype=q.dtype))
+            res.copy_(new_res)
             y = y.view(-1)
         elif wire in ("bf16", "fp16"):
             wdt = qz.WIRE_TORCH_DTYPES[wire]
@@ -2078,6 +2284,40 @@ class _CompiledTrainStep:
         if self.op == Average:
             y = y * (1.0 / R)
         return y
+
+    def _reduce_leaf_2d(self, rows, res, lay, hint):
+        """:meth:`_reduce_leaf` per hop over the hint's ``(outer, inner)``
+        grid of positions (``compiled.py:2405-2490``): the ranks' padded
+        f32 gradients summed over each grid row's members (the inner
+        scatter), then each 1/inner shard over the grid's rows (the outer
+        scatter), both in the 16-bit wire if there is one.  int8/int4: the
+        inner sum rides ``wire_inner`` (the effective inner wire of an f32
+        payload), its shard gets the rank's residual ``res`` (``(R, pad //
+        inner)``, replaced in place) and crosses the outer hop as the
+        shared-scale integer sum.  Returns the reduced padded flat f32 in
+        natural order."""
+        inner, outer = hint.inner, hint.outer
+        R, c = inner * outer, lay.pad // inner
+        g = torch.zeros((R, lay.pad), dtype=torch.float32,
+                        device=rows[0].device)
+        for r, t in enumerate(rows):
+            g[r, :lay.n] = t.reshape(-1)
+        wire = self.wire_dtype
+        if self._quantized():
+            iw = qz.WIRE_TORCH_DTYPES.get(
+                qz.effective_inner_wire(self.wire_inner, wire, 4))
+            x = g if iw is None else g.to(iw)
+            s = x.view(outer, inner, inner, c).sum(1, dtype=x.dtype)
+            y, new_res = qz.quantized_psum_ef(
+                s.float() + res.view(outer, inner, c),
+                8 if wire == "int8" else 4, outer,
+                lambda t: t.amax(0, keepdim=True),
+                lambda q: q.sum(0, keepdim=True, dtype=q.dtype))
+            res.copy_(new_res.view(R, c))
+            return y.reshape(-1)
+        wdt = qz.WIRE_TORCH_DTYPES.get(wire, torch.float32)
+        x = g.to(wdt).view(outer, inner, inner, c)
+        return x.sum(1, dtype=wdt).sum(0, dtype=wdt).float().reshape(-1)
 
     def _scatter_group(self, ex, grads, efs, layouts):
         """:meth:`_reduce_leaf` over a process group for a group of
@@ -2168,9 +2408,16 @@ class _CompiledTrainStep:
         The rank threads of the stacked executor stand for the JAX
         package's one device per rank; over a process group a process is
         that device (:meth:`_build_sharded_group`)."""
+        hint = self._shard_hint(ex.num_ranks)
         if not ex.stacked:
+            if hint is not None:
+                raise ValueError(
+                    "a TopologyHint on the sharded compiled step runs on "
+                    "the stacked layout (rank threads of one process); "
+                    "across processes use the flat sharded step")
             return self._build_sharded_group(ex)
         R = ex.num_ranks
+        inner = hint.inner if hint is not None else 1
 
         def prog(state, batch_rows):
             # every rank's gradients: the shared scales of a quantized
@@ -2178,7 +2425,7 @@ class _CompiledTrainStep:
             grads = []
             train, losses, aux_pairs = self._grads(
                 ex, state, batch_rows, lambda i, g: grads.append(g))
-            loss = self._finish_stacked(losses, aux_pairs)
+            loss = self._finish_stacked(losses, aux_pairs, inner)
             so = state["opt_state"]
             efs = list(state.get("grad_ef", {}).values()) \
                 or [None] * len(train)
@@ -2290,8 +2537,9 @@ class _CompiledTrainStep:
                     # the sharded decomposition is part of the key: the
                     # same model under another wire or segment size is
                     # another program
-                    mode = ("sharded", self.wire_dtype, None,
-                            self._overlap_bucket_bytes(), None) \
+                    mode = ("sharded", self.wire_dtype, self.wire_inner,
+                            self._overlap_bucket_bytes(),
+                            _hint_key(self.topology_hint)) \
                         if self.sharded else None
                     run = None if self.capture else "uncaptured"
                     self._prog = _shared_program(
@@ -2381,8 +2629,12 @@ class _CompiledTrainStep:
                  "opt_state": ShardedOptState(names, shards, opts,
                                               positions)}
         if self._quantized():
+            # under a hint the residual lives where the outer hop
+            # quantizes: on the inner-scattered (pad // inner) shard
+            hint = self._shard_hint(R)
+            inner = hint.inner if hint is not None else 1
             state["grad_ef"] = {
-                n: torch.zeros((k, lay.pad), dtype=torch.float32,
+                n: torch.zeros((k, lay.pad // inner), dtype=torch.float32,
                                device=dev)
                 for n, lay in zip(names, layouts)}
         return state
@@ -2568,9 +2820,19 @@ def make_compiled_train_step(loss_fn, optimizer, *, op=Average,
 
     ``op=Adasum`` on the dense step combines each gradient leaf over the
     ranks with Adasum (as JAX's does; the eager engine combines per fused
-    bucket).  ``topology_hint``/``wire_inner`` raise
-    ``NotImplementedError`` (ROADMAP.md A8); ``op=Adasum`` with
-    ``sharded=True`` raises ``ValueError``, as in the JAX package.
+    bucket).  ``op=Adasum`` with ``sharded=True`` raises ``ValueError``,
+    as in the JAX package.
+
+    ``topology_hint`` (a :class:`TopologyHint`) decomposes the sharded
+    step's scatter and gather per hop: the gradients sum over the inner
+    axis, then their 1/inner shards over the outer axis, each rank owns
+    the slice the two scatters leave it, and the updated shards gather
+    back over the outer axis, then the inner one.  Under a quantized
+    ``wire_dtype`` the inner hop rides ``wire_inner`` and the outer hop
+    the shared-scale codec, the residual (``grad_ef``) living on the
+    1/inner shard.  The decomposed sharded step runs on the stacked
+    layout (rank threads of one process); the dense step ignores the
+    hint and ``wire_inner``, as the JAX package's does.
     """
     return _CompiledTrainStep(loss_fn, optimizer, op, process_set,
                               donate, has_aux=has_aux,
@@ -2603,6 +2865,12 @@ def sharded_state_from_jax(step, params, opt_leaves, aux=None,
     here) or the flax LM's stacked layers would land on other elements."""
     state = step.init_state(params, aux=aux)
     so = state["opt_state"]
+    # the JAX row each position owns: its own, or under a hint the
+    # natural slice the two scatters leave it (``_ShardLayout.owner``)
+    hint = step._shard_hint(len(so.positions)) \
+        if len(so.positions) > 1 else None
+    row = [(p % hint.inner) * hint.outer + p // hint.inner
+           if hint is not None else p for p in range(max(so.positions) + 1)]
     with torch.no_grad():
         for slot, arrays in opt_leaves.items():
             if slot == "count":
@@ -2623,8 +2891,9 @@ def sharded_state_from_jax(step, params, opt_leaves, aux=None,
                         raise ValueError(
                             f"the optimizer has no {key!r} for the optax "
                             f"slot {slot!r}")
-                    st[key].copy_(rows[r])
+                    st[key].copy_(rows[row[r]])
         for name, arr in (grad_ef or {}).items():
             state["grad_ef"][name].copy_(
-                torch.as_tensor(np.asarray(arr))[so.positions])
+                torch.as_tensor(np.asarray(arr))[[row[r] for r in
+                                                  so.positions]])
     return state

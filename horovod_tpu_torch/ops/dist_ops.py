@@ -29,6 +29,12 @@ Three layouts, as the reference has (``xla_ops.py:94-107``):
 Row convention: every method takes ``rows``, one flat tensor per rank
 this process hosts (ordered by global rank), and returns one result
 per such rank.
+
+:meth:`MeshExecutor.allreduce_2d` is the hierarchical/torus
+decomposition over an ``(R // inner, inner)`` grid of the set's
+positions, in each layout: stacked tensor sums; one rank a process over
+the grid rows' and columns' groups (:meth:`~MeshExecutor.set_groups_2d`);
+hybrid with one grid row a process, its inner hops inside the process.
 """
 
 import math
@@ -41,7 +47,7 @@ from ..core.message import ReduceOp
 from . import quantize as qz
 from .adasum import adasum_reduce
 from . import quantize_kernels as qk
-from .cuda_kernels import FLOAT_DTYPES, fused_scale_cast
+from .cuda_kernels import FLOAT_DTYPES, cast, fused_scale_cast
 
 #: the collectives the executor calls, all of which torch's gloo backend
 #: runs on CUDA tensors (torch 2.11 on the H100); chip_smoke.py phase 16
@@ -123,6 +129,10 @@ class MeshExecutor:
         #: the collectives issued (a captured graph's replays issue none)
         self.collective_seconds = 0.0
         self.collectives = 0
+        #: inner-axis size -> (this process's inner-axis group, its
+        #: outer-axis group) of the 2-D decompositions, one rank a process
+        #: (:meth:`set_groups_2d`)
+        self._groups_2d = {}
         if group is None:
             self.proc_positions = [list(range(num_ranks))]
             self.local_positions = list(range(num_ranks))
@@ -229,6 +239,152 @@ class MeshExecutor:
         if scaled:
             return [int_postscale(y, op, R, postscale) for y in ys]
         return [ys[0]] + [y.clone() for y in ys[1:]]
+
+    # -- 2-D decomposed allreduce (hierarchical / torus) --------------------
+
+    def set_groups_2d(self, inner, inner_group, outer_group):
+        """The process groups of an ``(R // inner, inner)`` grid this
+        process is a member of, one rank a process: the group of its grid
+        row (the inner axis) and of its grid column (the outer axis).
+        ``dist.new_group`` is collective over the whole job, so the engine
+        builds every row's and column's group on every process when it
+        creates the set."""
+        self._groups_2d[int(inner)] = (inner_group, outer_group)
+
+    def _layout_2d(self, inner):
+        """How the three stages run on an ``(R // inner, inner)`` grid of
+        positions ``p = y * inner + x`` (row-major, as the JAX package's
+        ``mesh2d``): 'stacked' (every row in this process), 'process' (one
+        position a process, the stages over the row's and the column's
+        groups) or 'hybrid' (each process hosts exactly one grid row: the
+        inner stages stay in the process, the outer one crosses the set's
+        group).  Any other layout raises: a decomposition never falls
+        back silently."""
+        R = self.num_ranks
+        if inner <= 1 or R % inner or inner == R:
+            raise ValueError(f"inner axis {inner} does not factor "
+                             f"{R} ranks into a 2-D grid")
+        if self.stacked:
+            return "stacked"
+        if all(len(p) == 1 for p in self.proc_positions):
+            if inner not in self._groups_2d:
+                raise ValueError(
+                    f"no process groups for an inner axis of {inner} ranks "
+                    f"(the set's grids: {sorted(self._groups_2d)}); they "
+                    f"are built with the set, for the inner axes its "
+                    f"topology plans")
+            return "process"
+        if all(len(p) == inner and p[0] % inner == 0
+               for p in self.proc_positions):
+            return "hybrid"
+        raise ValueError(
+            f"a 2-D decomposition with an inner axis of {inner} ranks needs "
+            f"one rank a process or one grid row a process; the processes "
+            f"host positions {self.proc_positions}")
+
+    def _group_allreduce(self, group, t, op):
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = _DIST_OPS[op]
+        self._collective(lambda: group.allreduce([t], opts))
+        return t
+
+    def allreduce_2d(self, rows, op: ReduceOp, prescale=1.0, postscale=1.0,
+                     inner=1, inner_wire=None, outer_wire=None,
+                     residual=None):
+        """Two-stage decomposed allreduce with a per-hop wire pair
+        (``xla_ops.py:342-445``): a reducescatter over the inner (fast)
+        axis, an allreduce of the 1/inner shard over the outer (slow)
+        axis, an allgather back over the inner axis.  ``rows``: flat
+        float tensors of one length, one per local rank.  ``inner_wire``
+        (None, 'fp16', 'bf16', resolved by the caller) narrows both inner
+        hops; ``outer_wire`` is the outer hop's: None (full width),
+        'fp16'/'bf16', or 'int8'/'int4' (the shared-scale integer sum,
+        :func:`quantize.quantized_psum_ef`).  The pre-scale applies
+        before the inner cast, the post-scale (/R for Average) to the
+        reduced shard before the gather-back cast, both through the
+        scale/cast kernel B1.  The row is padded to a multiple of
+        ``inner`` and cut back.  ``residual`` (quantized outer only): the
+        local ranks' ``(L, m)`` f32 error-feedback residuals of their
+        shards (``m = ceil(n / inner)``), added before the encode and
+        replaced in place by the new ones.  Returns ONE result tensor
+        shared by every local rank (callers copy out of it)."""
+        n = rows[0].numel()
+        dtype = rows[0].dtype
+        if n == 0:
+            return [r.clone() for r in rows]
+        R = self.num_ranks
+        if op == ReduceOp.AVERAGE:
+            postscale = postscale / R
+            op = ReduceOp.SUM
+        if op != ReduceOp.SUM:
+            raise ValueError(
+                f"2-D decompositions support Sum/Average, got {op!r}")
+        mode = self._layout_2d(inner)
+        outer = R // inner
+        npad = -(-n // inner) * inner
+        m = npad // inner
+        x = torch.stack(rows)
+        if npad != n:
+            x = torch.nn.functional.pad(x, (0, npad - n))
+        if prescale != 1.0:
+            x = fused_scale_cast(x, prescale)
+        iw = qz.WIRE_TORCH_DTYPES.get(inner_wire)
+        if iw is not None:
+            x = cast(cast(x, torch.float32), iw)
+        # stage 1 (inner): reducescatter into the 1/inner shards, held as
+        # (grid rows here, shards a row here, m)
+        if mode == "process":
+            inner_g, outer_g = self._groups_2d[inner]
+            s = torch.empty((1, 1, m), dtype=x.dtype, device=x.device)
+            opts = dist.ReduceScatterOptions()
+            opts.reduceOp = dist.ReduceOp.SUM
+            self._collective(lambda: inner_g.reduce_scatter(
+                [s.view(m)], [list(x.view(inner, m).unbind(0))], opts))
+        else:
+            rows_here = outer if mode == "stacked" else 1
+            s = x.view(rows_here, inner, inner, m).sum(1, dtype=x.dtype)
+            outer_g = self.group
+
+        # stage 2 (outer): the shard's sum over the grid rows
+        def osum(t):
+            if mode == "stacked":
+                return t.sum(0, keepdim=True, dtype=t.dtype)
+            return self._group_allreduce(outer_g, t, ReduceOp.SUM)
+
+        def omax(t):
+            if mode == "stacked":
+                return t.amax(0, keepdim=True)
+            return self._group_allreduce(outer_g, t, ReduceOp.MAX)
+
+        if outer_wire in ("int8", "int4"):
+            sf = s.float()
+            if residual is not None:
+                sf = sf + residual.view(sf.shape)
+            y, res = qz.quantized_psum_ef(
+                sf, 8 if outer_wire == "int8" else 4, outer, omax, osum)
+            if residual is not None:
+                residual.copy_(res.view(residual.shape))
+        elif outer_wire in qz.WIRE_TORCH_DTYPES:
+            y = osum(cast(s.float(), qz.WIRE_TORCH_DTYPES[outer_wire]))
+        else:
+            # a 16-bit inner hop narrows that hop only: the outer sum
+            # runs at the tensor's width
+            y = osum(cast(s, dtype) if iw is not None else s)
+        if dtype == torch.float64:
+            y = y.to(dtype)
+        y = fused_scale_cast(y, postscale, dtype) \
+            if postscale != 1.0 else cast(y, dtype)
+        if iw is not None:
+            y = cast(cast(y, torch.float32), iw)
+        # stage 3 (inner): the reduced shards gathered back
+        if mode == "process":
+            full = torch.empty((inner, m), dtype=y.dtype, device=y.device)
+            self._collective(lambda: inner_g.allgather(
+                [list(full.unbind(0))], [y.reshape(m)]))
+        else:
+            full = y
+        full = cast(full.reshape(npad)[:n], dtype)
+        return [full] * len(rows)
 
     # -- quantized allreduce (int8 / int4 wire) ----------------------------
 

@@ -142,6 +142,54 @@ def num_blocks(n):
     return -(-int(n) // BLOCK)
 
 
+def quantized_psum_ef(x, bits, num_ranks, pmax, psum):
+    """Shared-scale int8/int4 sum of ``x`` across one hop, and this
+    side's error-feedback residual (``quantized_psum_ef_xla``,
+    ``quantize.py:408-438`` of the JAX package).
+
+    ``x`` is ``(..., n)`` float: the hop's participants' rows (leading
+    dimensions) or one participant's.  Per 256-element block the bf16
+    absmax is taken, its MAX across the hop (``pmax``) is the shared grid,
+    ``scale = bf16(shared / qmax)``; the codes ``clip(round(x / scale))``
+    sum across the hop as integers (``psum``) and decode with one multiply.
+    ``pmax(t)`` and ``psum(t)`` reduce ``t`` across the hop and return a
+    tensor that broadcasts against ``t`` (a stacked ``(R, ...)`` reduces
+    over dim 0 with keepdim; a process reduces over its group in place).
+    The codes reach ``psum`` as int32: the sum is exact in the narrowest
+    accumulator :func:`quantized_acc_dtype` allows, so a wider one changes
+    no value, and NCCL has no int16 and gloo refuses it.  Returns ``(y,
+    resid)``: the f32 sum, shaped as the broadcast of the leading
+    dimensions with ``(n,)``, and ``x - decode(codes)`` of ``x``'s shape
+    and dtype.  ``num_ranks`` is the hop's size (the accumulator bound)."""
+    qmax = quantized_qmax(bits)
+    n = x.shape[-1]
+    nb = num_blocks(n)
+    xf = x.float()
+    if nb * BLOCK != n:
+        xf = torch.nn.functional.pad(xf, (0, nb * BLOCK - n))
+    xb = xf.reshape(xf.shape[:-1] + (nb, BLOCK))
+    shared = pmax(xb.abs().amax(dim=-1).to(torch.bfloat16)).float()
+    # divide by a tensor: CUDA divides by a Python number as a
+    # multiplication by its reciprocal
+    scale = (shared / shared.new_full((), float(qmax))) \
+        .to(torch.bfloat16).float()
+    safe = torch.where(scale > 0, scale, scale.new_ones(()))
+    q = torch.round(xb / safe[..., None]).clamp_(-qmax, qmax)
+    resid = (xb - q * scale[..., None]).reshape(xf.shape)[..., :n] \
+        .to(x.dtype)
+    s = psum(q.to(torch.int32))
+    y = s.float() * scale[..., None]
+    return y.reshape(y.shape[:-2] + (nb * BLOCK,))[..., :n], resid
+
+
+def quantized_psum_wire_nbytes(n_elems, num_ranks, bits=8):
+    """Per-rank bytes of one :func:`quantized_psum_ef` hop as the JAX
+    package counts them (``quantize.py:441``): the integer partials at
+    the narrowest exact accumulator's width plus the bf16 absmax."""
+    per = torch.iinfo(quantized_acc_dtype(bits, num_ranks)).bits // 8
+    return n_elems * per + num_blocks(n_elems) * SCALE_BYTES
+
+
 def code_elems(nb, bits):
     """Length of the code array of ``nb`` blocks."""
     return nb * BLOCK if bits == 8 else nb * (BLOCK // 2)

@@ -35,8 +35,8 @@ HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = \
 
 # reference names the port does not act on (accepted for config-file
 # compatibility).  HOROVOD_HIERARCHICAL_ALLREDUCE /
-# HOROVOD_TORUS_ALLREDUCE are re-exported above; the launcher refuses
-# their flags until the 2-D algorithms are ported (ROADMAP.md A8).
+# HOROVOD_TORUS_ALLREDUCE are re-exported above: the launcher hands their
+# flags to the workers, whose Config reads them (common/env.py).
 HOROVOD_GLOO_TIMEOUT_SECONDS = "HOROVOD_GLOO_TIMEOUT_SECONDS"
 HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
 HOROVOD_MPI_THREADS_DISABLE = "HOROVOD_MPI_THREADS_DISABLE"

@@ -369,9 +369,19 @@ class ElasticDriver:
                     "only %d slots available (< min_np %d); waiting",
                     len(slots), self._min_np)
                 return
-            self._round += 1
-            self._assignments = {
+            assignments = {
                 f"{s.hostname}:{s.local_rank}": s.rank for s in slots}
+            if not failed_hosts and assignments == self._assignments \
+                    and all(key in self._procs
+                            and self._procs[key].poll() is None
+                            for key in assignments):
+                # the discovery thread catching up with a change the
+                # current round already took in (a blacklist the
+                # monitor's round applied): the same live workers at the
+                # same ranks form no new round
+                return
+            self._round += 1
+            self._assignments = assignments
             self._slots_by_key = {
                 f"{s.hostname}:{s.local_rank}": s for s in slots}
             size = len(slots)

@@ -14,8 +14,7 @@ re-forms the job when a worker dies or discovery changes.  ``--mpi`` and
 ``--gloo`` are accepted and change nothing, as in the JAX package.  The
 parser is the JAX package's, flag for flag; the flags of features the
 port has not ported yet are refused with the ROADMAP.md item that ports
-them (the fleet, tracing and telemetry: A17;
-autotune: A14; the 2-D algorithms and per-hop wires: A8; pipelining:
+them (the fleet, tracing and telemetry: A17; autotune: A14; pipelining:
 A15; serving: A16).
 """
 
@@ -38,8 +37,6 @@ _UNPORTED_FLAGS = (
     ("autotune_warmup_samples", "A14"), ("autotune_steps_per_sample", "A14"),
     ("autotune_bayes_opt_max_samples", "A14"),
     ("autotune_cache_file", "A14"),
-    ("torus_allreduce", "A8"), ("hierarchical_allreduce", "A8"),
-    ("allreduce_algorithm", "A8"), ("wire_inner", "A8"),
     ("pipeline_stages", "A15"), ("num_microbatches", "A15"),
     ("pipeline_schedule", "A15"), ("pipeline_chunks", "A15"),
     ("serve", "A16"), ("serve_port", "A16"), ("serve_max_batch_size", "A16"),
@@ -362,13 +359,10 @@ def parse_args(argv=None):
 def unported_flags(args):
     """``[(flag, ROADMAP.md item)]`` of the parsed flags whose features
     the port has not ported (a flag counts when it is set: not None,
-    False or an empty list).  ``--allreduce-algorithm flat`` asks for
-    what the port does anyway."""
+    False or an empty list)."""
     out = []
     for attr, item in _UNPORTED_FLAGS:
         value = getattr(args, attr, None)
-        if attr == "allreduce_algorithm" and value == "flat":
-            continue
         if value not in (None, False, []):
             out.append(("--" + attr.replace("_", "-"), item))
     return out

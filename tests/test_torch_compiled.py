@@ -683,48 +683,76 @@ def small_resnet_case(fused, loss_bound, param_bound, stat_bound,
 
 
 # ---------------------------------------------------------------------------
-# what is not ported
+# what is not ported, and the 2-D surface that is
+
+
+def _outcome(call):
+    """``("ok", None)`` or ``(exception type name, message)``."""
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 — the outcome is compared
+        return type(e).__name__, str(e)
+    return "ok", None
 
 
 @pytest.mark.parametrize("case", [
     "sharded", "step_wire", "step_hint", "adasum", "algorithm",
     "topology_hint", "alltoall", "alltoall_fn", "integrity"])
 def test_not_ported_raises_naming_its_item(case, monkeypatch):
-    items = {"sharded": "A8", "step_wire": "A8", "step_hint": "A8",
-             "adasum": "A8", "algorithm": "A8", "topology_hint": "A8",
-             "alltoall": "A8", "alltoall_fn": "A8", "integrity": "A14"}
-    loss = (lambda p, b: p["w"].sum())
-    calls = {
-        "sharded": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), sharded=True, topology_hint=("dp", "tp")),
-        "step_wire": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), sharded=True, wire_dtype="int8",
-            wire_inner="bf16"),
-        "step_hint": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), wire_inner="bf16"),
-        # op=Adasum is ported (A7); with a topology hint it is not
-        "adasum": lambda: thvd.make_compiled_train_step(
-            loss, sgd(0.1), op=2, topology_hint=("dp", "tp")),
-        "algorithm": lambda: thvd.CompiledGroupedAllreduce(
-            algorithm="torus"),
-        "topology_hint": lambda: thvd.TopologyHint(
-            axes=("dp", "tp"), sizes=(2, 2)),
-        "alltoall": lambda: thvd.CompiledAlltoall(
-            topology_hint=("dp", "tp")),
-        "alltoall_fn": lambda: thvd.compiled_alltoall(
-            torch.ones(4), topology_hint=("dp", "tp")),
-        "integrity": lambda: trun(
-            lambda: thvd.compiled_allreduce(torch.ones(2)), 2),
-    }
+    """Wire integrity digests stay refused, naming ROADMAP.md A14.  The
+    2-D surface (ROADMAP.md A8) is ported: each call has the JAX
+    package's outcome, constructed or refused with its ValueError (a hint
+    that is no TopologyHint).  ``compiled_alltoall`` with a tuple hint is
+    refused by the port's check; the JAX function fails on the tuple's
+    missing ``key()`` before its constructor checks (AttributeError)."""
+    def calls(mod, opt):
+        loss = (lambda p, b: p["w"].sum())
+        hint = mod.TopologyHint(axes=("dp", "tp"), sizes=(2, 2))
+        return {
+            "sharded": lambda: mod.make_compiled_train_step(
+                loss, opt, sharded=True, topology_hint=("dp", "tp")),
+            "step_wire": lambda: mod.make_compiled_train_step(
+                loss, opt, sharded=True, wire_dtype="int8",
+                wire_inner="bf16", topology_hint=hint),
+            "step_hint": lambda: mod.make_compiled_train_step(
+                loss, opt, wire_inner="bf16", topology_hint=hint),
+            "adasum": lambda: mod.make_compiled_train_step(
+                loss, opt, op=2, topology_hint=("dp", "tp")),
+            "algorithm": lambda: mod.CompiledGroupedAllreduce(
+                algorithm="torus"),
+            "topology_hint": lambda: mod.CompiledGroupedAllreduce(
+                topology_hint=hint),
+            "alltoall": lambda: mod.CompiledAlltoall(
+                topology_hint=("dp", "tp")),
+            "alltoall_fn": lambda: mod.compiled_alltoall(
+                np.ones(4, np.float32) if mod is jhvd else torch.ones(4),
+                topology_hint=("dp", "tp")),
+        }
     if case == "integrity":
         monkeypatch.setenv("HOROVOD_INTEGRITY", "1")
-    with pytest.raises((NotImplementedError, RuntimeError)) as ei:
-        calls[case]()
-    err = ei.value
-    while not isinstance(err, NotImplementedError) and err.__cause__:
-        err = err.__cause__
-    assert isinstance(err, NotImplementedError)
-    assert f"ROADMAP.md {items[case]}" in str(err)
+        with pytest.raises((NotImplementedError, RuntimeError)) as ei:
+            trun(lambda: thvd.compiled_allreduce(torch.ones(2)), 2)
+        err = ei.value
+        while not isinstance(err, NotImplementedError) and err.__cause__:
+            err = err.__cause__
+        assert isinstance(err, NotImplementedError)
+        assert "ROADMAP.md A14" in str(err)
+        return
+    got = _outcome(calls(thvd, sgd(0.1))[case])
+    want = _outcome(calls(jhvd, optax.sgd(0.1))[case])
+    if case == "alltoall_fn":
+        assert want[0] == "AttributeError"
+        want = ("ValueError", "topology_hint must be a TopologyHint")
+    assert got == want, (case, got, want)
+    if got[0] == "ok":
+        obj = calls(thvd, sgd(0.1))[case]()
+        ref = calls(jhvd, optax.sgd(0.1))[case]()
+        for attr in ("algorithm", "wire_inner", "wire_dtype", "sharded"):
+            if hasattr(ref, attr):
+                assert getattr(obj, attr) == getattr(ref, attr), attr
+        hint = getattr(ref, "topology_hint", None)
+        assert (obj.topology_hint.key() if hint is not None else None) == \
+            (hint.key() if hint is not None else None)
 
 
 def test_unknown_algorithm_is_a_value_error():

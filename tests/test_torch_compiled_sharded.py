@@ -484,15 +484,26 @@ def test_sharded_f32_is_bit_for_bit_dense():
 
 
 def test_adasum_and_decompositions_refused():
+    """The sharded step refuses Adasum, and a hint that is no
+    TopologyHint, as the JAX package's does; an inner wire and a
+    TopologyHint are taken (tests/test_torch_allreduce_2d.py runs
+    them)."""
     loss = (lambda p, b: p["w"].sum())
     with pytest.raises(ValueError, match="Average or Sum"):
         thvd.make_compiled_train_step(loss, sgd(0.1), sharded=True,
                                       op=Adasum)
-    for kw in (dict(topology_hint=("dp", "tp")), dict(wire_inner="bf16"),
-               dict(wire_dtype="int8", wire_inner="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-            thvd.make_compiled_train_step(loss, sgd(0.1), sharded=True,
-                                          **kw)
+    for mod, opt in ((thvd, sgd(0.1)), (jhvd, optax.sgd(0.1))):
+        with pytest.raises(ValueError, match="must be a TopologyHint"):
+            mod.make_compiled_train_step(loss, opt, sharded=True,
+                                         topology_hint=("dp", "tp"))
+    for kw in (dict(wire_inner="bf16"),
+               dict(wire_dtype="int8", wire_inner="bf16"),
+               dict(wire_dtype="int4", topology_hint=thvd.TopologyHint(
+                   ("dp", "tp"), (2, 2)))):
+        step = thvd.make_compiled_train_step(loss, sgd(0.1), sharded=True,
+                                             **kw)
+        assert step.wire_inner == kw.get("wire_inner")
+        assert step.topology_hint == kw.get("topology_hint")
 
 
 def test_program_cache_key_names_the_decomposition():

@@ -128,14 +128,22 @@ def test_elastic_worker_failure_recovery(tmp_path):
     assert proc.returncode == 0, (proc.stderr[-3000:], content)
     assert "injecting failure" in content, content
     lines = content.splitlines()
-    after = lines[lines.index(next(x for x in lines
-                                   if x.startswith("injecting"))) + 1:]
-    batches = [x for x in after if x.startswith("batch")]
-    assert [b.split(" pid")[0] for b in batches] == [
+    # the two workers append to the log independently: the survivor's
+    # "batch 2" line may land after the injection line, so the rounds are
+    # told apart by their size, not by their place in the log
+    batches = [x for x in lines if x.startswith("batch")]
+    at_two = [x.split(" pid")[0] for x in batches if "size 2" in x]
+    assert sorted(at_two) == sorted(f"batch {b} rank {r} size 2"
+                                    for b in range(3) for r in range(2)), \
+        content
+    at_one = [x for x in batches if "size 1" in x]
+    assert [b.split(" pid")[0] for b in at_one] == [
         f"batch {b} rank 0 size 1" for b in (3, 4, 5)], content
+    assert lines.index(next(x for x in lines if x.startswith("injecting"))) \
+        < lines.index(at_one[0]), content
     survivor = {x.split("pid ")[1] for x in lines
                 if x.startswith("batch") and "rank 1 size 2" in x}
-    assert {b.split("pid ")[1] for b in batches} == survivor, content
+    assert {b.split("pid ")[1] for b in at_one} == survivor, content
     assert "done rank 0 size 1" in content, content
 
 

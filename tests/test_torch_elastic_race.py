@@ -216,3 +216,35 @@ def test_an_abort_after_a_peer_finished_is_not_respawned():
 
     assert script("torch") == {"spawned": [], "error": True}
     assert script("jax") == {"spawned": ["127.0.0.1:0"], "error": False}
+
+
+def test_a_late_discovery_change_forms_no_new_round():
+    """Round 1 at size 2; the 127.0.0.1 worker fails, is reaped and its
+    host blacklisted, and round 2 runs the survivor alone.  Then the
+    discovery thread, which saw the blacklist change the available hosts
+    before round 2 took it in, starts a round too (the race of chip_smoke
+    phase 21 (b): rounds 2 and 3 a millisecond apart).  The port forms
+    no round 3: the same live worker at the same rank.  The JAX driver
+    publishes round 3."""
+    def script(pkg):
+        drv, server, spawned = _driver(pkg)
+        drv._start_round()
+        failed = drv._procs["127.0.0.1:0"]
+        failed.returncode = 17
+        with drv._lock:
+            del drv._procs["127.0.0.1:0"]
+        drv._registry.record_failure("127.0.0.1", 0)
+        drv._host_manager.blacklist("127.0.0.1")
+        drv._registry.note_reset()
+        drv._host_manager.update_available_hosts()
+        drv._start_round()
+        n = len(spawned)
+        drv._start_round()                       # the discovery thread
+        info = _round(server)
+        return {"spawned": spawned[n:], "round": info["round"],
+                "assignments": info["assignments"]}
+
+    assert script("torch") == {"spawned": [], "round": 2,
+                               "assignments": {"localhost:0": 0}}
+    assert script("jax") == {"spawned": [], "round": 3,
+                             "assignments": {"localhost:0": 0}}

@@ -12,6 +12,8 @@ compiled path over a one-process gloo group against the stacked program
 
 import argparse
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -36,6 +38,8 @@ from horovod_tpu_torch.runner import gloo_run as torch_gloo_run
 from horovod_tpu_torch.runner import hosts as torch_hosts
 from horovod_tpu_torch.runner import launch as torch_launch
 from horovod_tpu_torch.runner import proc_run as torch_proc_run
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HOSTS = ["a:2,b:4,c", "localhost:4", "h1:1,h2:1,h3:2", "x:3,y:3"]
 
@@ -172,7 +176,7 @@ def test_gloo_run_env_helpers():
      "A17"),
     (["-np", "2", "--fleet-spec", "fleet.json"], "A17"),
     (["-np", "2", "--autotune"], "A14"),
-    (["-np", "2", "--hierarchical-allreduce"], "A8"),
+    (["-np", "2", "--autotune-log-file", "a.csv"], "A14"),
     (["-np", "2", "--timeline-filename", "t.json"], "A17"),
     (["-np", "2", "--serve"], "A16"),
 ])
@@ -185,6 +189,41 @@ def test_cli_refuses_unported_flags(argv, item):
     ported."""
     with pytest.raises(NotImplementedError, match=item):
         torch_launch.run_commandline(argv + ["--", "python", "t.py"])
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--hierarchical-allreduce"], ["hierarchical", None, None]),
+    (["--torus-allreduce"], ["torus", None, None]),
+    (["--allreduce-algorithm", "torus"], ["torus", None, None]),
+    (["--hierarchical-allreduce", "--wire-inner", "bf16", "--wire-outer",
+      "int8"], ["hierarchical", "bf16", "int8"]),
+], ids=["hierarchical", "torus", "generic", "wire-pair"])
+def test_cli_hands_the_2d_flags_to_the_workers(tmp_path, monkeypatch, flags,
+                                               want):
+    """The 2-D algorithm flags and the inner wire reach a launched
+    worker's environment, mapped as the JAX CLI maps them, and its
+    ``Config`` reads them."""
+    full = ["-np", "1", "--cpu"] + flags
+    keys = ("HOROVOD_HIERARCHICAL_ALLREDUCE", "HOROVOD_TORUS_ALLREDUCE",
+            "HOROVOD_ALLREDUCE_ALGORITHM", "HOROVOD_WIRE_INNER",
+            "HOROVOD_WIRE_OUTER")
+    env, ref_env = {}, {}
+    torch_config.set_env_from_args(env, torch_launch.parse_args(full))
+    jax_config.set_env_from_args(ref_env, jax_launch.parse_args(full))
+    assert {k: env.get(k) for k in keys} == \
+        {k: ref_env.get(k) for k in keys}
+    out = tmp_path / "cfg.json"
+    code = ("import json, os; from horovod_tpu_torch.common.env import "
+            "Config; c = Config(); json.dump([[c.algorithm, c.wire_inner, "
+            "c.wire_dtype], {k: os.environ.get(k) for k in %r}], "
+            "open(os.environ['CFG_OUT'], 'w'))" % (keys,))
+    monkeypatch.setenv("CFG_OUT", str(out))
+    monkeypatch.setenv("PYTHONPATH", REPO)
+    assert torch_launch.run_commandline(
+        full + ["--", sys.executable, "-c", code]) == 0
+    cfg, worker_env = json.loads(out.read_text())
+    assert cfg == want
+    assert worker_env == {k: env.get(k) for k in keys}
 
 
 def test_cli_takes_the_hybrid_and_bypass_flags():
@@ -335,19 +374,21 @@ def test_multiproc_engine_uses_the_process_group(world_of_one):
 
 def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
                                                          monkeypatch):
-    """What stays refused on a multi-process engine: a 2-D decomposition
-    (A8), Adasum with the sharded step (a ValueError, as in the JAX
-    package; the dense Adasum step is ported), integrity digests
-    (A14)."""
+    """What stays refused on a multi-process engine: a hint that is no
+    TopologyHint (a ValueError, as in the JAX package), Adasum with the
+    sharded step (a ValueError, as in the JAX package; the dense Adasum
+    step is ported), integrity digests (A14).  The 2-D decompositions
+    run (at one rank the policy degrades to flat; a hint that does not
+    factor the set is a ValueError)."""
     def step():
         return hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(),
             lambda params: torch.optim.SGD(params, lr=0.1))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="must be a TopologyHint"):
         hvd.CompiledGroupedAllreduce(topology_hint=("a", "b"))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="must be a TopologyHint"):
         hvd.CompiledAlltoall(topology_hint=("a", "b"))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="must be a TopologyHint"):
         hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(), sgd(0.1),
             topology_hint=("a", "b"))
@@ -362,12 +403,17 @@ def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
         hvd.CompiledAlltoall(force_program=True)(torch.ones(4))
     monkeypatch.setattr(world_of_one.config, "integrity", False)
     # several rank threads per process are ported (tests/
-    # test_torch_hybrid.py); the 2-D decompositions stay refused
-    with pytest.raises(NotImplementedError, match="A8"):
-        hvd.CompiledGroupedAllreduce(algorithm="torus")
-    with pytest.raises(NotImplementedError, match="A8"):
-        C.TopologyHint()
-    with pytest.raises(NotImplementedError, match="A8"):
+    # test_torch_hybrid.py), and so are the 2-D decompositions (tests/
+    # test_torch_allreduce_2d_multiprocess.py)
+    red = hvd.CompiledGroupedAllreduce(algorithm="torus", force_program=True)
+    assert torch.equal(red([torch.arange(4.0)])[0], torch.arange(4.0))
+    assert red.last_algorithm == "flat"
+    assert C.TopologyHint().key() == (("cross", "local"), (1, 1), 0)
+    with pytest.raises(ValueError, match="do not factor"):
+        hvd.CompiledGroupedAllreduce(
+            force_program=True, topology_hint=C.TopologyHint())(
+                [torch.ones(4)])
+    with pytest.raises(ValueError, match="must be a TopologyHint"):
         hvd.compiled_alltoall(torch.ones(4), topology_hint=("a", "b"))
     state = step().init_state({"w": torch.ones(2)})
     assert set(state) == {"params", "opt_state"}
