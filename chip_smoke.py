@@ -165,7 +165,8 @@ Phases (a failure in any one exits non-zero):
     ``ResNet50(fused=True)`` on the f32 wire; (d) the full-width 436M LM
     (bf16, flash attention, AdamW 1e-3, 2 rank threads x 5 x 2048
     tokens) through a dense compiled leg, then sharded on the f32 and
-    int8 wires.  Checks: finite losses; one program miss, one capture and
+    int8 wires, ``P14_LM_LAYERS`` of its 24 layers deep.  Checks: finite
+    losses; one program miss, one capture and
     5 replays a leg; the losses, parameters, every rank's optimizer
     shards and the residuals bit for bit the same program run
     uncaptured; (a) f32's parameters within ``SHARDED_PARAM_BOUND`` of
@@ -175,18 +176,20 @@ Phases (a failure in any one exits non-zero):
     the exact f32 average and step 2's residual non-zero; each rank's
     optimizer state the dense state / 2 to within the padding; in (c)
     and (d) the capture records the step's B9/B10 (phase 11's counts, all
-    sm90) or 24 x 2 launches of each of B6-B8, the replays launch nothing
+    sm90) or ``P14_LM_LAYERS`` x 2 launches of each of B6-B8, the replays
+    launch nothing
     through the wrappers, and a profiled replay runs their kernels.  It
     prints each leg's steady step time, img/s or tok/s, the ratio to the
     matching dense step, the busy share of one profiled replay, warm-up
     plus capture seconds, the state bytes per rank and the peak device
     memory (per step, and what the leg found held);
 15. the rest of the collective contract and the MoE LM: (a) an 8-expert
-    top-2 MoE at the 436M's width (``MOE``: capacity factor 1.25,
-    expert hidden 2048, 1.34 B parameters, bf16, AdamW 1e-3) trains 6
-    steps on phase 7's tokens through ``make_lm_train_step(
-    attention_impl="flash")``.  Checks: finite losses; 24 launches of
-    each of B6-B8 a step; step 1's loss within 2e-3 of the same weights'
+    top-2 MoE at the 436M's width, ``P15_LAYERS`` of its 24 layers deep
+    (``MOE``: capacity factor 1.25, expert hidden 2048, bf16, AdamW 1e-3)
+    trains 6 steps on phase 7's tokens through ``make_lm_train_step(
+    attention_impl="flash")``.  Checks: finite losses; ``P15_LAYERS``
+    launches of each of B6-B8 a step; step 1's loss within 2e-3 of the
+    same weights'
     dense-attention loss; phase 7's flash-against-dense rule on the same
     model ``MOE_GATE_LAYERS`` deep; B6-B8 against their plain versions on
     layer 0's attention inputs.  It prints the step time, tok/s, model
@@ -276,9 +279,9 @@ Phases (a failure in any one exits non-zero):
     4's run bit for bit phase 4's parameters.  (d) phase 12 (b)'s compiled
     step at 2 x 2, uncaptured over gloo, within ``COMPILED_REL_L2`` of the
     stacked run.  (e) runs in phase 16: its np=2 job (the bypass on by
-    default) and one more job of leg (b) with the bypass off, each
-    process's coordinator requests counted per step, and the seconds
-    the un-armed bypass tracker took in the job with it on.  Per leg it
+    default), each process's coordinator requests counted per step, and
+    the seconds the un-armed bypass tracker took (the bypass off runs in
+    (a)).  Per leg it
     prints
     the step times, img/s, busy share, coordinator requests a step,
     bypass hits and fallbacks, and each process's peak memory and B1
@@ -337,8 +340,8 @@ Phases (a failure in any one exits non-zero):
     ``hvd.barrier()``.  The first job runs ``P21_PLAN`` with a
     coordinator journal: ``agg_restart`` on the aggregator's 10th
     request (1.5 s down), ``coord_restart`` (3 s down, rebuilt from the
-    journal on the same port) on the coordinator's first ``clock``
-    request, which rank 0 sends once the bypass armed; the second runs
+    journal on the same port) on the first ``clock`` request naming proc
+    0, which rank 0 sends once the bypass armed; the second runs
     undisturbed.  Gates: both jobs exit 0; every replica (parameters and
     momentum) bit for bit the others, across the jobs too; the workers
     read coordinator epoch 2 after the faults, and aggregator epoch 2
@@ -423,7 +426,47 @@ Phases (a failure in any one exits non-zero):
     threads, captured as phase 14's step is, within ``COMPILED_REL_L2``
     of the flat sharded step on the same batches.  Each leg prints its
     steady ms a step (median of steps 2 on) and B1 launches beside the
-    card line.
+    card line;
+24. tracing and telemetry (``timeline``, ``profiler``, ``telemetry``):
+    phase 4's configuration (full-width ResNet-50, 2 rank threads,
+    ``DistributedOptimizer(SGD)``) for ``P24_STEPS`` steps in three
+    settings, the flight recorder off (``HOROVOD_TRACE_RING_EVENTS=0``),
+    the default ring, and a file timeline with cycles marked, in
+    ``P24_ROUNDS`` interleaved rounds.  (a) The last round's
+    timeline parses with ``utils.trace_merge.load_trace`` and holds
+    ``process_name``, ``clock_sync``, ``NEGOTIATE_ALLREDUCE``,
+    ``ALLREDUCE`` and ``CYCLE_START`` events and flow pairs whose ids
+    match; its ``ALLREDUCE`` op spans are as many as the buckets the
+    engine ran; each step launched B1 twice a bucket and rank (phase 4's
+    rule).  (b) ``P24_PROFILED`` more steps of that run under
+    ``utils.profiler.profile``: every ``scale_cast_batched`` kernel in
+    the trace was launched inside an ``hvd_fusion_pack`` or
+    ``hvd_fusion_unpack`` range (the launch call with the kernel's
+    correlation id lies in the range on the engine's thread; a launch
+    thread id that CUPTI gives stale, one of a thread that ended, is
+    taken for the live thread whose CPU ops hold its launches, and
+    printed), as many as B1's wrapper counted; the trace's top kernels
+    and the host gaps between device work are printed.  (c) Phase 9's int8 wire, ``P24_WIRE_PROFILED``
+    steps profiled: every ``quantize_blockwise`` kernel inside
+    ``hvd_quantize_encode``, every ``dequantize_blockwise`` inside
+    ``hvd_quantize_decode``, as many as their wrappers counted.  (d)
+    Phase 16 (b)'s job through the launcher CLI (``-np 2``, gloo on
+    cuda:0, ``--timeline-filename``, ``--timeline-mark-cycles``,
+    ``--metrics-port``, ``--trace-clock-sync-seconds P24_CLOCK_SYNC_S``;
+    ``chip_smoke.py --worker24``), the eager run then phase 17's compiled
+    step: both per-process files (``tl.json``, ``tl.proc1.json``) with a
+    coordinator ``clock_sync``, their offline merge
+    (``python -m horovod_tpu_torch.utils.trace_merge``) and ``GET
+    /timeline`` on two pids, ``POST /trace/dump`` answered by both
+    rings, ``/metrics`` (the coordinator's and a worker's) parsed as
+    Prometheus text, ``/metrics.json``'s ALLREDUCE executions equal to
+    the buckets the processes ran, and its program-cache hits and misses
+    equal to each process's ``program_cache_stats`` and registry.  (e)
+    The median step (steps 1 on) in the three settings and their ratios
+    beside the card line; no gate on speed.
+
+Every phase's wall time is printed on a line of its own (``wall: ...``)
+and all of them on one line before the summary.
 
 The two lines before the last are the card line and a JSON summary of
 the kernels (with B1-B5's launches per phase-13 leg under
@@ -438,19 +481,22 @@ phase-20 leg and process, localhost's then 127.0.0.1's, under
 ``phase20_launches``, and B1's per phase-21 (a) job and process and
 per (b) process under ``phase21_launches``, every kernel's per
 phase-22 leg under ``phase22_launches``, and every kernel's per phase-23
-leg under ``phase23_launches``, a line of its own too); the last
+leg under ``phase23_launches``, and B1's per phase-24 (a) and (b) run
+and (d) process and B2/B3's in (c) under ``phase24_launches``, a line
+of its own too); the last
 line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15, and phase 22 (d)'s no-remat and
 ``"dots_flash"`` legs, also print the profile tables of one steady step
 each.  ``--phase22`` builds the kernels and runs phases 7 and 22 alone,
-``--phase23`` phase 23 alone (no kernels line, no last line: not the
-contract's run).
+``--phase23`` phase 23 alone, ``--phase24`` phase 24 alone (no kernels
+line, no last line: not the contract's run).
 """
 
 import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -564,8 +610,17 @@ SHARDED_PARAM_BOUND = 2e-6
 # phase 15: the MoE LM at the 436M's width, docs/parallelism.md:219-221
 # (8 experts, top 2, capacity factor 1.25) with lm_bench.py:237's
 # per-expert hidden width 4 * d_model / K
-MOE = dict(LM, d_ff=2048, num_experts=8, expert_top_k=2,
-           moe_capacity_factor=1.25)
+# phase 15 (a): the MoE LM at the 436M's width, cut to P15_LAYERS of its
+# 24 layers for the script's time (the numpy init of all 24 took 51.6 s
+# of the phase's 68.8 on an NVIDIA H100); layer 0, which (b) and phase
+# 17 (j) read, keeps its weights
+P15_LAYERS = 8
+# phase 14 (d): the LM legs' depth, of the 24 layers, cut for the
+# script's time (phase 17 (f) and phase 22 (d) keep all 24 against
+# phase 7)
+P14_LM_LAYERS = 8
+MOE = dict(LM, n_layers=P15_LAYERS, d_ff=2048, num_experts=8,
+           expert_top_k=2, moe_capacity_factor=1.25)
 # phase 15 (a): depth of the flash-against-dense gradient gate (phase 7's
 # rule: its f32 yardstick of the 24-layer MoE would not fit beside it)
 MOE_GATE_LAYERS = 4
@@ -577,9 +632,7 @@ PHASE16_CODEC = {"quantize_blockwise": "quantize",
 # phases 16 and 17: the legs of the two launcher jobs (np=1 over NCCL,
 # np=2 over gloo on cuda:0), and the legs that run cuDNN deterministic
 PHASE16_JOBS = (("aefg", 1, {}),
-                ("bcdhijk", 2, {"HOROVOD_GPU_OPERATIONS": "gloo"}),
-                ("B", 2, {"HOROVOD_GPU_OPERATIONS": "gloo",
-                          "HOROVOD_BYPASS_AFTER_CYCLES": "0"}))
+                ("bcdhijk", 2, {"HOROVOD_GPU_OPERATIONS": "gloo"}))
 DETERMINISTIC_LEGS = "aefghi"
 # phase 17 (f): bound on |loss - phase 7's loss| at each of the 6 steps,
 # phase 7's bar for two bf16 LM steps of the same weights and tokens
@@ -656,8 +709,12 @@ P20_LEGS = {"a": ["-np", "2", "--min-np", "1", "--max-np", "2"],
             "b": ["-np", "1", "--min-np", "1", "--max-np", "2"]}
 # phase 21: (a)'s steps, the bypass's stable cycles, the bound on each
 # job, and its fault plan: the aggregator restarts on its 10th request
-# (1.5 s down), the coordinator from its journal on its first ``clock``
-# request (3 s down), which rank 0 sends once the bypass armed.  (b):
+# (1.5 s down), the coordinator from its journal on the first ``clock``
+# request that names proc 0 (3 s down), which rank 0 sends straight to
+# the coordinator once the bypass armed.  No other request names a proc
+# in a ``clock`` body: the aggregator route's re-attach probe and the
+# workers' clock sync send none, so neither can fire the restart before
+# the bypass armed.  (b):
 # phase 20 (a)'s job with the kill from a plan, on the 127.0.0.1
 # worker's (proc 0 of round 1) ``P21_KILL_AT``-th collective: the
 # elastic state's sync reports 271 (161 parameters and 110 buffers and
@@ -668,7 +725,8 @@ P21_K = 2
 P21_TIMEOUT = 240
 P21_PLAN = {"seed": 21, "events": [
     {"kind": "agg_restart", "proc": 0, "after": 10, "ms": 1500},
-    {"kind": "coord_restart", "verb": "clock", "after": 1, "ms": 3000}]}
+    {"kind": "coord_restart", "verb": "clock", "proc": 0, "after": 1,
+     "ms": 3000}]}
 P21_KILL_AT = 271 + 3 * 161 + 1
 P21_KILL_PLAN = {"seed": 21, "events": [
     {"kind": "kill", "proc": 0, "after_collectives": P21_KILL_AT}]}
@@ -733,6 +791,16 @@ EP_REL_L2 = 1e-2
 
 #: a launcher worker's tag on its lines (phase 18's workers run phase
 #: 4's code, whose lines would otherwise read as phase 4's own)
+# phase 24: the steps of each eager run ((a) and the (e) legs; step 0
+# warms up), (e)'s interleaved rounds of its three settings, the steps
+# profiled after (a)'s and (c)'s, the bound on (d)'s launcher job (s) and
+# its clock-sync cadence (s)
+P24_STEPS = 6
+P24_ROUNDS = 1
+P24_PROFILED = 2
+P24_WIRE_PROFILED = 2
+P24_TIMEOUT = 300
+P24_CLOCK_SYNC_S = 1
 LOG_PREFIX = ""
 
 
@@ -740,6 +808,20 @@ def log(*a):
     if LOG_PREFIX:
         a = (LOG_PREFIX,) + a
     print(*a, flush=True)
+
+
+#: (phase, wall seconds) of every phase run so far
+WALLS = []
+
+
+def walled(label, fn, *args, **kwargs):
+    """Run one phase and print its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        WALLS.append((label, time.perf_counter() - t0))
+        log(f"wall: {label} {WALLS[-1][1]:.1f} s")
 
 
 def card_line():
@@ -3010,10 +3092,11 @@ def resnet_leg(dev, state, bases, fused, sharded, wire):
 
 
 def lm_leg(dev, weights, tokens, sharded, wire):
-    """(build, feed) of the full-width 436M LM (bf16, flash attention)
-    through ``make_compiled_train_step``, AdamW 1e-3 (the JAX package's
-    ``lm_mfu_bench.py:68-98`` without fused CE or remat), rank r on its
-    own ``tokens[r]``."""
+    """(build, feed) of the 436M LM at full width and ``P14_LM_LAYERS`` of
+    its layers (phase 7's weights of those layers; bf16, flash
+    attention) through ``make_compiled_train_step``, AdamW 1e-3 (the JAX
+    package's ``lm_mfu_bench.py:68-98`` without fused CE or remat), rank
+    r on its own ``tokens[r]``."""
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import (
@@ -3021,7 +3104,11 @@ def lm_leg(dev, weights, tokens, sharded, wire):
     from horovod_tpu_torch.ops.flash_attention import flash_attention
     from horovod_tpu_torch.parallel.train import adamw
 
-    cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
+    cfg = TransformerConfig(dtype=torch.bfloat16,
+                            **{**LM, "n_layers": P14_LM_LAYERS})
+    weights = {k: v for k, v in weights.items()
+               if not k.startswith("layers.")
+               or int(k.split(".")[1]) < P14_LM_LAYERS}
 
     def build():
         with torch.device("meta"):
@@ -3222,7 +3309,7 @@ def phase_compiled_sharded(dev, card, state, batches, refs, lm_weights,
             cap = got["counts"][1]
             if fused or kind == "lm":
                 if kind == "lm":
-                    want_c = {k: LM["n_layers"] * NP for k, _ in FLASH}
+                    want_c = {k: P14_LM_LAYERS * NP for k, _ in FLASH}
                     kern = {FLASH_KERNEL[k] for k, _ in FLASH}
                 else:
                     want_c = {"conv1x1_bn_fwd": FUSED_CONVS * NP,
@@ -3463,7 +3550,8 @@ def phase_moe_lm(dev, lm, profile=False):
         f"experts also multiply the {cfg.moe_capacity_factor}x capacity "
         f"padding); busy share {busy:.3f}; peak memory {peak / 1e9:.2f} GB")
     log(f"phase 15 (a): x {steady / lm['steady_s']:.3f} phase 7's dense "
-        f"step ({lm['steady_s'] * 1e3:.2f} ms); loss after {STEPS} steps "
+        f"step ({lm['steady_s'] * 1e3:.2f} ms, {LM['n_layers']} layers "
+        f"against the MoE's {cfg.n_layers}); loss after {STEPS} steps "
         f"{losses[-1]} vs phase 7's {lm['losses'][-1]} on the same "
         f"tokens: gap {gap:.4f} (the repo's bar for a trained pair, "
         f"docs/parallelism.md: <= 0.01; a finding, not a gate)")
@@ -3860,7 +3948,7 @@ def phase16_worker(legs, tmp):
         before = wrapper_counts()
         if leg == "d":
             out.update(phase16_matrix(dev))
-        elif leg in "abcB":
+        elif leg in "abc":
             out.update(phase16_train(leg, tmp, dev, t_start))
         else:
             out.update(PHASE17_LEGS[leg](tmp, dev))
@@ -3882,10 +3970,9 @@ def phase16_worker(legs, tmp):
 def phase16_train(leg, tmp, dev, t_start):
     """Legs (a)-(c): phase 4's run in this process (rank 0 alone in
     (a)); the final parameters and, in (c), step 1's local and averaged
-    gradients go to files.  Leg B is (b) in a job whose negotiation
-    bypass is off (phase 18 (e)); per step each leg counts this
-    process's coordinator requests (ready POSTs and polls) and its
-    bypass hits and fallbacks."""
+    gradients go to files.  Per step each leg counts this process's
+    coordinator requests (ready POSTs and polls) and its bypass hits and
+    fallbacks."""
     import torch
     import torch.nn.functional as F
     import horovod_tpu_torch as hvd
@@ -4218,7 +4305,7 @@ def p17_f(tmp, dev):
     import torch
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import (
-        TransformerConfig, TransformerLM, lm_loss, numpy_init)
+        TransformerConfig, TransformerLM, lm_loss)
     from horovod_tpu_torch.ops import flash_attention as FA
     from horovod_tpu_torch.ops.flash_attention import flash_attention
     from horovod_tpu_torch.parallel.train import adamw
@@ -4226,7 +4313,9 @@ def p17_f(tmp, dev):
     cfg = TransformerConfig(dtype=torch.bfloat16, **LM)
     with torch.device("meta"):
         model = TransformerLM(cfg, attention_fn=flash_attention)
-    weights = numpy_init(model, SEED)
+    # phase 7's numpy-initialized weights, saved by the parent (the numpy
+    # init itself takes 13-15 s)
+    weights = torch.load(os.path.join(tmp, "lm_weights.pt"))
     tok = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
         0, cfg.vocab_size, size=(LM_BATCH, cfg.max_seq_len))).to(dev)
 
@@ -4483,6 +4572,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
                        os.path.join(tmp, f"batch{r}.pt"))
             torch.save(refs["a2a_sends"][r],
                        os.path.join(tmp, f"a2a_send{r}.pt"))
+        torch.save(refs["lm_weights"], os.path.join(tmp, "lm_weights.pt"))
         with open(os.path.join(tmp, "p17_refs.json"), "w") as f:
             json.dump({"lm_losses": refs["lm_losses"],
                        "a2a": refs["a2a_digests"]}, f)
@@ -4506,7 +4596,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
                     with open(os.path.join(tmp, f"{leg}_{r}.json")) as f:
                         reports.append(json.load(f))
                 res[leg] = {"reports": reports}
-                if leg in "abcB":
+                if leg in "abc":
                     res[leg]["params"] = [torch.load(os.path.join(
                         tmp, f"{leg}_params{r}.pt")) for r in range(np_)]
         c_grads = [torch.load(os.path.join(tmp, f"c_grads{r}.pt"))
@@ -4540,7 +4630,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
     if diff:
         raise AssertionError(f"phase 16 (a): {len(diff)} parameters differ "
                              f"from plain torch SGD: {diff[:5]}")
-    for leg in "bcB":
+    for leg in "bc":
         p0, p1 = res[leg]["params"]
         diff = [k for k in p0 if not torch.equal(p0[k], p1[k])]
         if diff:
@@ -4567,7 +4657,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
         raise AssertionError(f"phase 16 (c): step 1's averaged gradient is "
                              f"{rel_c} (relative L2) from the exact average")
     launches = {}
-    for leg in "abcB":
+    for leg in "abc":
         launches[leg] = [rep["launches"] for rep in res[leg]["reports"]]
         for rep in res[leg]["reports"]:
             b1 = rep["launches"]["pack"] + rep["launches"]["unpack"]
@@ -4588,7 +4678,7 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
     log(f"phase 16 (d): gloo on CUDA tensors, per collective (True = "
         f"taken): {d[0]['gloo_cuda']}")
     out = {"launches": launches}
-    for leg in "abcB":
+    for leg in "abc":
         reps = res[leg]["reports"]
         np_ = len(reps)
         step_s = [max(rep["times"][i] for rep in reps)
@@ -4605,34 +4695,24 @@ def phase_multiprocess(dev, card, state, batches, phase4_params, refs):
             f"per step, per rank "
             f"{[[round(v, 2) for v in rep['collective_ms']] for rep in reps]}; "
             f"s to the first step from "
-            f"{'the launch' if leg in 'abB' else 'the leg start'} "
+            f"{'the launch' if leg in 'ab' else 'the leg start'} "
             f"{[round(rep['to_first_step_s'], 2) for rep in reps]}; "
             f"B1/B2/B3 launches per rank {launches[leg]}")
         out[leg] = {"steady_ms": med * 1e3, "img_s": np_ * BATCH / med}
     # phase 18 (e): the coordinator's requests a step in (b) (the bypass
-    # armed by default, K = 5) and in B, the same run with it off
-    for leg, label in (("b", "on (default, K = 5)"), ("B", "off")):
-        reps = res[leg]["reports"]
-        per = [[q["ready"] + q["poll"] for q in rep["requests"]]
-               for rep in reps]
-        log(f"phase 18 (e) ({card}): phase 16 (b)'s np=2 job with the "
-            f"bypass {label}: coordinator requests (ready + poll) a step, "
-            f"per process {per}; bypass hits "
-            f"{[sum(q['hits'] for q in rep['requests']) for rep in reps]}, "
-            f"fallbacks "
-            f"{[sum(q['fallbacks'] for q in rep['requests']) for rep in reps]}"
-            f"; host ms a step in the un-armed bypass tracker per process "
-            f"{[[round(q['track_s'] * 1e3, 3) for q in rep['requests']] for rep in reps]}")
-    same = all(torch.equal(res["b"]["params"][0][k],
-                           res["B"]["params"][0][k])
-               for k in res["b"]["params"][0])
-    log(f"phase 18 (e): (b)'s parameters {'equal' if same else 'differ from'}"
-        f" the bypass-off job's bit for bit (cuDNN not deterministic in "
-        f"either)")
-    out["e_requests"] = {leg: [[q["ready"] + q["poll"]
-                                for q in rep["requests"]]
-                               for rep in res[leg]["reports"]]
-                         for leg in "bB"}
+    # on by default, K = 5; it never arms under per-parameter hooks) and
+    # the seconds its un-armed tracker takes
+    reps = res["b"]["reports"]
+    per = [[q["ready"] + q["poll"] for q in rep["requests"]]
+           for rep in reps]
+    log(f"phase 18 (e) ({card}): phase 16 (b)'s np=2 job with the bypass "
+        f"on (default, K = 5): coordinator requests (ready + poll) a step, "
+        f"per process {per}; bypass hits "
+        f"{[sum(q['hits'] for q in rep['requests']) for rep in reps]}, "
+        f"fallbacks "
+        f"{[sum(q['fallbacks'] for q in rep['requests']) for rep in reps]}"
+        f"; host ms a step in the un-armed bypass tracker per process "
+        f"{[[round(q['track_s'] * 1e3, 3) for q in rep['requests']] for rep in reps]}")
     out["phase17"] = phase17_report(card, res, p17_params, refs,
                                     walls, out["b"]["steady_ms"])
     return out
@@ -5298,7 +5378,8 @@ def phase17_report(card, res, params, refs, walls, b16_ms):
         f"{n_tok / f_ms * 1e3:.1f} tok/s = {f['tflops']:.1f} model "
         f"TFLOP/s; x {f_ms / (refs['lm7_steady_s'] * 1e3):.3f} phase 7's "
         f"eager step, x {f_ms / (refs['lm14_steady_s'] * 1e3):.3f} phase "
-        f"14 (d)'s dense step at 2 rank threads; busy share "
+        f"14 (d)'s dense step at 2 rank threads ({P14_LM_LAYERS} of the "
+        f"{LM['n_layers']} layers); busy share "
         f"{f['busy']:.3f}; warm-up + capture {f['compile_s']:.2f} s; peak "
         f"{f['peak']} B")
     g = rep["g"][0]
@@ -5835,8 +5916,9 @@ def phase21_worker(label, tmp):
     ``DistributedOptimizer(SGD, momentum 0.9, groups=1)``, rank r on
     batch r, ``P21_STEPS`` steps, then ``hvd.barrier()``.  In the
     faulted job (label ``f``) rank 0 sends the coordinator one ``clock``
-    request once the bypass armed (from a thread of its own, so that its
-    steps go on), the plan's ``coord_restart`` trigger.  Reports to
+    request naming proc 0 once the bypass armed (straight to the
+    coordinator, from a thread of its own, so that its steps go on), the
+    plan's ``coord_restart`` trigger.  Reports to
     ``<label>_<rank>.json`` and ``<label>_final<rank>.pt``."""
     import threading
     import torch
@@ -5882,8 +5964,12 @@ def phase21_worker(label, tmp):
         if label == "f" and r == 0 and t_clock is None \
                 and eng.bypass_hits >= 1:
             t_clock = time.time()
-            threading.Thread(target=ctl.client.coord,
-                             args=("clock", {}), daemon=True).start()
+            # the aggregator passes a clock request on without its body:
+            # the marked one goes to the coordinator directly
+            direct = getattr(ctl.client, "direct", ctl.client)
+            threading.Thread(target=direct.coord,
+                             args=("clock", {"proc": 0}),
+                             daemon=True).start()
     t_barrier = time.time()
     hvd.barrier()
     t_reply = time.time()
@@ -7293,6 +7379,560 @@ def phase_topology(dev, card, state, batches):
     return {"launches": launches, "steady_ms": steady}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: tracing and telemetry
+
+def p24_run(dev, state, batches, env, steps, wire=None, profiled=0,
+            logdir=None):
+    """Phase 4's training (full-width bf16 ResNet-50, np=2 rank threads,
+    ``DistributedOptimizer(SGD)``, ``Compression.int8`` when ``wire``)
+    for ``steps`` steps with the ``HOROVOD_*`` variables of ``env`` set
+    for its init, then ``profiled`` more steps under
+    ``utils.profiler.profile(logdir)`` (started and stopped by rank 0
+    between barriers, the device synchronized).  Returns the step times
+    (the slower rank's), rank 0's per-step (buckets, B1, B2, B3) counts,
+    the counts' deltas over the profiled steps and the stopped profile."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+    from horovod_tpu_torch.utils import profiler
+
+    xs, ys = batches
+    barrier = threading.Barrier(NP)
+    out = {"counts": [], "prof": None}
+
+    def counts():
+        return (hvd.engine().allreduce_buckets,
+                K.launches["pack_scale_cast"]
+                + K.launches["unpack_scale_cast"],
+                QK.launches["quantize_blockwise"],
+                QK.launches["dequantize_blockwise"])
+
+    def train():
+        r = hvd.rank()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict({k: v if r == 0 else v + 1.0
+                               for k, v in state.items()})
+        hvd_torch.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters(),
+            compression=getattr(hvd_torch.Compression, wire or "none"))
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
+        times, losses = [], []
+        for step in range(steps + profiled):
+            x, y = step_batch(x0, y0, step)
+            barrier.wait()
+            if r == 0:
+                torch.cuda.synchronize()
+                out["counts"].append(counts())
+                if profiled and step == steps:
+                    profiler.start_profile(logdir)
+            barrier.wait()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+        barrier.wait()
+        if r == 0:
+            torch.cuda.synchronize()
+            out["counts"].append(counts())
+            if profiled:
+                out["prof"] = profiler.stop_profile()
+        barrier.wait()
+        return times, losses
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        K.reset_launches()
+        QK.reset_launches()
+        results = hvd.run(train, np=NP, device=dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for r, (_, losses) in enumerate(results):
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase 24: rank {r} non-finite loss "
+                                 f"{losses}")
+    c = out["counts"]
+    out["per_step"] = [tuple(b - a for a, b in zip(c[i], c[i + 1]))
+                       for i in range(len(c) - 1)]
+    out["window"] = tuple(b - a for a, b in zip(c[steps], c[-1]))
+    out["times"] = [max(results[r][0][i] for r in range(NP))
+                    for i in range(steps + profiled)]
+    return out
+
+
+def p24_ranges(trace_path, kernel_of, ranges):
+    """From an exported ``torch.profiler`` Chrome trace: the device
+    kernels ``kernel_of(name)`` names (a key, or None), and for each the
+    range it was launched in: the launch is the runtime or driver call
+    with the kernel's correlation id, and its range the innermost of
+    ``ranges`` (``user_annotation`` events) on the launching thread
+    holding the call.  CUPTI names a launching thread by its
+    ``pthread_t``, which a process that starts and ends many threads
+    reuses, and the profiler maps it to the thread id it first saw for
+    it: a launch can carry the id of a thread that ended.  So a launch
+    thread id with no CPU op in the trace is taken for the live thread
+    whose ranges hold most of its launches (each remap is returned); its
+    launches outside those ranges stay outside.
+    Returns ``({key: count}, {(key, range or "outside"): count}, remap,
+    kernels)`` where kernels are the trace's device kernels (name, ts,
+    dur)."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    launches, anns, cpu, kernels, found = {}, {}, {}, [], {}
+    for ev in events:
+        cat = ev.get("cat", "")
+        if cat in ("cuda_runtime", "cuda_driver"):
+            corr = (ev.get("args") or {}).get("correlation")
+            if corr is not None:
+                launches[corr] = ev
+        elif cat in ("user_annotation", "cpu_op"):
+            key = (ev.get("pid"), ev.get("tid"))
+            cpu[key] = True
+            if cat == "user_annotation" and ev.get("name") in ranges:
+                anns.setdefault(key, []).append(ev)
+        elif cat == "kernel":
+            kernels.append(ev)
+    mine = []
+    for ev in kernels:
+        key = kernel_of(ev.get("name", ""))
+        if key is not None:
+            found[key] = found.get(key, 0) + 1
+            mine.append((key, launches.get(
+                (ev.get("args") or {}).get("correlation"))))
+    votes = {}
+    for _key, launch in mine:
+        thread = None if launch is None \
+            else (launch.get("pid"), launch.get("tid"))
+        if thread is None or thread in cpu:
+            continue
+        ts = float(launch["ts"])
+        for other, evs in anns.items():
+            if any(float(a["ts"]) <= ts <= float(a["ts"])
+                   + float(a.get("dur", 0)) for a in evs):
+                tally = votes.setdefault(thread, {})
+                tally[other] = tally.get(other, 0) + 1
+    remap = {t: max(tally, key=tally.get) for t, tally in votes.items()}
+    placed = {}
+    for key, launch in mine:
+        where = "no launch call"
+        if launch is not None:
+            thread = (launch.get("pid"), launch.get("tid"))
+            thread = remap.get(thread, thread)
+            ts = float(launch["ts"])
+            inner = None
+            for a in anns.get(thread, ()):
+                a0 = float(a["ts"])
+                if a0 <= ts <= a0 + float(a.get("dur", 0)) \
+                        and (inner is None or a0 >= float(inner["ts"])):
+                    inner = a
+            where = inner["name"] if inner is not None else "outside"
+        placed[(key, where)] = placed.get((key, where), 0) + 1
+    return found, placed, remap, [
+        (ev.get("name", ""), float(ev["ts"]), float(ev.get("dur", 0)))
+        for ev in kernels]
+
+
+def p24_device_summary(kernels, label):
+    """Log a profile's top device kernels by time and the host gaps
+    between device work (the union of kernel intervals)."""
+    by_name = {}
+    for name, _ts, dur in kernels:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + dur)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    spans = sorted((ts, ts + dur) for _n, ts, dur in kernels)
+    gaps, end, busy = [], None, 0.0
+    for a, b in spans:
+        if end is not None and a > end:
+            gaps.append(a - end)
+        if end is None or b > end:
+            busy += b - (a if end is None else max(a, end))
+            end = b
+    window = (end - spans[0][0]) if spans else 0.0
+    gaps.sort(reverse=True)
+    log(f"phase 24 {label}: top device kernels (calls, ms) "
+        + "; ".join(f"{n[:60]} {c} {t / 1e3:.2f}" for n, (c, t) in top))
+    log(f"phase 24 {label}: {len(kernels)} device kernels over "
+        f"{window / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms; host gaps "
+        f"between device work: {len(gaps)}, total "
+        f"{sum(gaps) / 1e3:.2f} ms, largest (ms) "
+        f"{[round(g / 1e3, 3) for g in gaps[:6]]}")
+
+
+def _b1_kernel(name):
+    return "scale_cast_batched" if "scale_cast_batched" in name else None
+
+
+def _codec_kernel(name):
+    if "dequantize_blockwise" in name:
+        return "dequantize_blockwise"
+    if "quantize_blockwise" in name:
+        return "quantize_blockwise"
+    return None
+
+
+def _prom_parse(text):
+    """Samples of a Prometheus text exposition (v0.0.4): every line a
+    ``# HELP``/``# TYPE`` comment or ``name{labels} value``; raises on
+    anything else."""
+    import re
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'(-?[0-9.eE+-]+|[+-]Inf|NaN)$')
+    n = 0
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        if not sample.match(ln):
+            raise AssertionError(f"phase 24 (d): /metrics line {ln!r} is "
+                                 f"not Prometheus text")
+        n += 1
+    return n
+
+
+def _family_value(snap, name, **labels):
+    """Sum of a merged snapshot family's samples whose labels hold
+    ``labels`` (a histogram's observation count)."""
+    fam = snap.get(name) or {}
+    total = 0.0
+    for s in fam.get("samples", []):
+        if all(s["labels"].get(k) == v for k, v in labels.items()):
+            total += s["count"] if "count" in s else s["value"]
+    return total
+
+
+def phase24_worker(tmp):
+    """One process of phase 24 (d)'s job (``chip_smoke.py --worker24
+    <dir>``, spawned by the port's launcher CLI with
+    ``--timeline-filename``, ``--metrics-port`` and
+    ``--trace-clock-sync-seconds``): phase 16 (b)'s eager run
+    (``STEPS`` steps of ``DistributedOptimizer``) and phase 17's
+    compiled ResNet-50 step (``p17_resnet``), then, between barriers,
+    rank 0 reads the coordinator's ``/metrics``, ``/metrics.json``,
+    ``POST /trace/dump`` and ``GET /timeline`` and its own per-worker
+    endpoint.  Reports to ``d_<rank>.json``."""
+    import urllib.request
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.ops import compiled as C
+    from horovod_tpu_torch.ops import cuda_kernels as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    hvd.init(device=dev)
+    r = hvd.rank()
+    eng = hvd.engine()
+    ctl = eng.controller
+    out = {"rank": r, "env": {k: os.environ.get(k) for k in (
+        "HOROVOD_TIMELINE", "HOROVOD_METRICS_PORT",
+        "HOROVOD_TRACE_CLOCK_SYNC_SECONDS")}}
+    t0 = time.perf_counter()
+    train = phase16_train("b", tmp, dev, time.time())
+    out["eager_s"] = time.perf_counter() - t0
+    out["b1"] = train["launches"]["pack"] + train["launches"]["unpack"]
+    before = C.program_cache_stats()
+    comp = p17_resnet(tmp, dev)
+    after = C.program_cache_stats()
+    out["cache_delta"] = [a - b for a, b in zip(after, before)]
+    out["cache_registry"] = [
+        int(telemetry.counter_total(telemetry.PROGRAM_CACHE_HITS_FAMILY)),
+        int(telemetry.counter_total(telemetry.PROGRAM_CACHE_MISSES_FAMILY))]
+    out["compiled_losses"] = comp["losses"]
+    hvd.barrier()
+    out["buckets"] = eng.allreduce_buckets
+    eng.push_metrics()
+    hvd.barrier()
+    if r == 0:
+        base = (f"http://{os.environ['HOROVOD_GLOO_RENDEZVOUS_ADDR']}:"
+                f"{os.environ['HOROVOD_GLOO_RENDEZVOUS_PORT']}")
+
+        def fetch(url, data=None):
+            req = urllib.request.Request(url, data=data,
+                                         method="POST" if data else "GET")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.read()
+        text = fetch(base + "/metrics").decode()
+        out["prom_samples"] = _prom_parse(text)
+        merged = json.loads(fetch(base + "/metrics.json"))["families"]
+        out["exec_allreduce"] = _family_value(
+            merged, "horovod_execution_seconds", op="ALLREDUCE")
+        out["cache_merged"] = [
+            _family_value(merged, telemetry.PROGRAM_CACHE_HITS_FAMILY),
+            _family_value(merged, telemetry.PROGRAM_CACHE_MISSES_FAMILY)]
+        out["alive"] = _family_value(merged, telemetry.WORKER_ALIVE_FAMILY,
+                                     agg="max")
+        did = json.loads(fetch(base + "/trace/dump", data=b"{}"))["dump_id"]
+        rings, deadline = {}, time.monotonic() + 30
+        while len(rings) < NP and time.monotonic() < deadline:
+            for p in range(NP):
+                raw = ctl.client.get(f"/trace/buf/{p}", wait=0.0)
+                if raw is not None:
+                    buf = json.loads(raw)
+                    if (buf.get("dump_id") or 0) >= did:
+                        rings[p] = len(buf["events"])
+            time.sleep(0.1)
+        out["rings"] = rings
+        merged_tl = json.loads(fetch(base + "/timeline?wait=30"))
+        out["timeline_pids"] = sorted({ev.get("pid") for ev in merged_tl})
+        out["timeline_events"] = len(merged_tl)
+        out["timeline_sync"] = sorted(
+            {(ev["pid"], ev["args"].get("source")) for ev in merged_tl
+             if ev.get("name") == "clock_sync"})
+        port = int(os.environ["HOROVOD_METRICS_PORT"])
+        own = fetch(f"http://127.0.0.1:{port}/metrics").decode()
+        out["own_prom_samples"] = _prom_parse(own)
+    hvd.barrier()
+    out["b1_total"] = K.launches["pack_scale_cast"] \
+        + K.launches["unpack_scale_cast"]
+    with open(os.path.join(tmp, f"d_{r}.json"), "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+    return 0
+
+
+def p24_job(tmp, state, batches):
+    """Phase 24 (d): phase 16's job through the launcher CLI (np=2 over
+    gloo on cuda:0) with the tracing and metrics flags; checks both
+    timeline files, their offline merge and the workers' reports."""
+    import socket
+    import torch
+    from horovod_tpu_torch.utils.trace_merge import load_trace
+    xs, ys = batches
+    torch.save(state, os.path.join(tmp, "state.pt"))
+    for r in range(NP):
+        torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
+                   os.path.join(tmp, f"batch{r}.pt"))
+    with socket.socket() as s1, socket.socket() as s2:
+        s1.bind(("127.0.0.1", 0))
+        s2.bind(("127.0.0.1", s1.getsockname()[1] + 1))
+        port = s1.getsockname()[1]
+    tl = os.path.join(tmp, "tl.json")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           str(NP), "--timeline-filename", tl, "--timeline-mark-cycles",
+           "--metrics-port", str(port), "--trace-clock-sync-seconds",
+           str(P24_CLOCK_SYNC_S), "--", sys.executable,
+           os.path.join(ROOT, "chip_smoke.py"), "--worker24", tmp]
+    env = {**os.environ, **_GLOO, "PYTHONPATH": ROOT}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, timeout=P24_TIMEOUT,
+                          capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 24 (d): the launcher exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    reps = []
+    for r in range(NP):
+        with open(os.path.join(tmp, f"d_{r}.json")) as f:
+            reps.append(json.load(f))
+    files = [tl, os.path.join(tmp, "tl.proc1.json")]
+    traces = [load_trace(p) for p in files]
+    merged = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.utils.trace_merge", "-o",
+         os.path.join(tmp, "merged.json")] + files, env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    if merged.returncode != 0:
+        raise AssertionError(f"phase 24 (d): trace_merge exited "
+                             f"{merged.returncode}: {merged.stderr}")
+    with open(os.path.join(tmp, "merged.json")) as f:
+        offline = json.load(f)
+    return {"reports": reps, "traces": traces, "offline": offline,
+            "wall": wall, "port": port}
+
+
+def phase_tracing(dev, card, state, batches, phase4=None):
+    """Phase 24: tracing and telemetry on the main path (see the module
+    docstring).  ``phase4``: phase 4's result, whose buckets and B1
+    launches (a) is compared with."""
+    import torch
+    from horovod_tpu_torch.utils.trace_merge import load_trace
+    from horovod_tpu_torch.utils.timeline import FLOW_NAME
+
+    t_phase = time.perf_counter()
+    bad = []
+    res = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e)'s three settings in P24_ROUNDS interleaved rounds (a
+        # call's eager steps drift by more than the effect); the last
+        # round's file-timeline run is (a), and its profiled steps (b)
+        legs = {"ring off": [], "default ring": [], "file timeline": []}
+        logdir = os.path.join(tmp, "prof")
+        for rnd in range(P24_ROUNDS):
+            tl_path = os.path.join(tmp, f"tl{rnd}.json")
+            last = rnd == P24_ROUNDS - 1
+            for leg, env in (
+                    ("ring off", {"HOROVOD_TRACE_RING_EVENTS": "0"}),
+                    ("default ring", {}),
+                    ("file timeline", {
+                        "HOROVOD_TIMELINE": tl_path,
+                        "HOROVOD_TIMELINE_MARK_CYCLES": "1"})):
+                prof = last and leg == "file timeline"
+                legs[leg].append(p24_run(
+                    dev, state, batches, env, P24_STEPS,
+                    profiled=P24_PROFILED if prof else 0,
+                    logdir=logdir if prof else None))
+                gc.collect()
+                torch.cuda.empty_cache()
+        a = legs["file timeline"][-1]
+        events = load_trace(tl_path)
+        names = {(ev.get("name"), ev.get("ph")) for ev in events}
+        want = {("process_name", "M"), ("clock_sync", "M"),
+                ("NEGOTIATE_ALLREDUCE", "B"), ("NEGOTIATE_ALLREDUCE", "E"),
+                ("ALLREDUCE", "B"), ("ALLREDUCE", "E"),
+                ("CYCLE_START", "i")}
+        if not want <= names:
+            bad.append(f"(a) timeline lacks {sorted(want - names)}")
+        s_ids = sorted(ev["id"] for ev in events
+                       if ev.get("ph") == "s" and ev["name"] == FLOW_NAME)
+        f_ids = sorted(ev["id"] for ev in events
+                       if ev.get("ph") == "f" and ev["name"] == FLOW_NAME)
+        if not s_ids or s_ids != f_ids:
+            bad.append(f"(a) flow ids: {len(s_ids)} s, {len(f_ids)} f, "
+                       f"equal {s_ids == f_ids}")
+        spans = len({ev["ts"] for ev in events
+                     if ev.get("name") == "ALLREDUCE"
+                     and ev.get("ph") == "B"})
+        total = [sum(c) for c in zip(*a["per_step"])]
+        if spans != total[0]:
+            bad.append(f"(a) {spans} ALLREDUCE op spans, the engine ran "
+                       f"{total[0]} buckets")
+        for step, (nb, b1, _q, _d) in enumerate(a["per_step"]):
+            if nb < 1 or b1 != 2 * NP * nb:
+                bad.append(f"(a) step {step}: {nb} buckets, {b1} B1 "
+                           f"launches (phase 4's rule: 2 x {NP} a bucket)")
+        ref = legs["ring off"][-1]["per_step"]
+        log(f"phase 24 (a): {len(events)} timeline events, {spans} "
+            f"ALLREDUCE spans = buckets; {len(s_ids)} flow pairs; per step "
+            f"(buckets, B1) with the file timeline "
+            f"{[p[:2] for p in a['per_step']]}, ring off "
+            f"{[p[:2] for p in ref]}"
+            + (f", phase 4 buckets {phase4['buckets']}" if phase4 else ""))
+        res["launches"]["a"] = sum(p[1] for p in a["per_step"][:P24_STEPS])
+        # (b): every B1 kernel inside a pack or unpack range, as many as
+        # its wrapper launched
+        found, placed, remap, kernels = p24_ranges(
+            os.path.join(logdir, "trace.json"), _b1_kernel,
+            ("hvd_fusion_pack", "hvd_fusion_unpack"))
+        wrapper_b1 = a["window"][1]
+        inside = sum(n for (k, w), n in placed.items()
+                     if w in ("hvd_fusion_pack", "hvd_fusion_unpack"))
+        log(f"phase 24 (b): {P24_PROFILED} profiled steps: "
+            f"scale_cast_batched kernels {found.get('scale_cast_batched', 0)}"
+            f", by range {placed}; wrapper launches {wrapper_b1}; launch "
+            f"thread ids taken for live threads {remap}")
+        if found.get("scale_cast_batched", 0) != wrapper_b1 \
+                or inside != wrapper_b1:
+            bad.append(f"(b) B1 kernels {found}, in ranges {inside}, "
+                       f"wrapper {wrapper_b1}")
+        res["launches"]["b"] = wrapper_b1
+        p24_device_summary(kernels, "(b)")
+        del kernels
+        # (c): phase 9's int8 wire, the codec kernels inside their ranges
+        logdir_c = os.path.join(tmp, "prof_c")
+        c = p24_run(dev, state, batches, {}, 1, wire="int8",
+                    profiled=P24_WIRE_PROFILED, logdir=logdir_c)
+        gc.collect()
+        torch.cuda.empty_cache()
+        found_c, placed_c, remap_c, kernels_c = p24_ranges(
+            os.path.join(logdir_c, "trace.json"), _codec_kernel,
+            ("hvd_quantize_encode", "hvd_quantize_decode"))
+        _nb, _b1, n_q, n_d = c["window"]
+        log(f"phase 24 (c): int8 wire, {P24_WIRE_PROFILED} profiled steps: "
+            f"kernels {found_c}, by range {placed_c}; wrapper launches "
+            f"quantize {n_q}, dequantize {n_d}; launch thread ids taken for "
+            f"live threads {remap_c}")
+        want_c = {("quantize_blockwise", "hvd_quantize_encode"): n_q,
+                  ("dequantize_blockwise", "hvd_quantize_decode"): n_d}
+        if placed_c != want_c or n_q < 1 or n_d < 1:
+            bad.append(f"(c) codec kernels by range {placed_c}, want "
+                       f"{want_c}")
+        res["launches"]["c"] = {"quantize_blockwise": n_q,
+                                "dequantize_blockwise": n_d}
+        p24_device_summary(kernels_c, "(c)")
+        del kernels_c
+        # (d): the launcher job
+        job = p24_job(tmp, state, batches)
+    reps = job["reports"]
+    r0 = reps[0]
+    pids = [sorted({ev.get("pid") for ev in t}) for t in job["traces"]]
+    syncs = [[ev["args"].get("source") for ev in t
+              if ev.get("name") == "clock_sync"] for t in job["traces"]]
+    if pids != [[0], [1]] or not all("coordinator" in s for s in syncs):
+        bad.append(f"(d) files' pids {pids}, clock_sync sources {syncs}")
+    off_pids = sorted({ev.get("pid") for ev in job["offline"]})
+    if off_pids != [0, 1]:
+        bad.append(f"(d) offline merge pids {off_pids}")
+    if r0["timeline_pids"] != [0, 1]:
+        bad.append(f"(d) GET /timeline pids {r0['timeline_pids']}")
+    if sorted(int(p) for p in r0["rings"]) != list(range(NP)):
+        bad.append(f"(d) POST /trace/dump rings {r0['rings']}")
+    if r0["prom_samples"] < 1 or r0["own_prom_samples"] < 1:
+        bad.append(f"(d) /metrics samples {r0['prom_samples']}, own "
+                   f"{r0['own_prom_samples']}")
+    buckets = sum(rep["buckets"] for rep in reps)
+    if r0["exec_allreduce"] != buckets:
+        bad.append(f"(d) /metrics.json ALLREDUCE executions "
+                   f"{r0['exec_allreduce']}, buckets {buckets}")
+    cache = [sum(rep["cache_delta"][i] for rep in reps) for i in (0, 1)]
+    if any(rep["cache_delta"] != rep["cache_registry"] for rep in reps) \
+            or r0["cache_merged"] != cache:
+        bad.append(f"(d) program cache (hits, misses): per process "
+                   f"{[rep['cache_delta'] for rep in reps]}, registries "
+                   f"{[rep['cache_registry'] for rep in reps]}, merged "
+                   f"{r0['cache_merged']}")
+    if dev.type == "cuda" and not all(rep["b1"] > 0 for rep in reps):
+        bad.append(f"(d) B1 launches {[rep['b1'] for rep in reps]}")
+    res["launches"]["d"] = [rep["b1_total"] for rep in reps]
+    log(f"phase 24 (d): launcher job {job['wall']:.1f} s; files' pids "
+        f"{pids}, clock_sync sources {[sorted(set(s)) for s in syncs]}; "
+        f"offline merge {len(job['offline'])} events, pids {off_pids}; "
+        f"GET /timeline {r0['timeline_events']} events, pids "
+        f"{r0['timeline_pids']}, clock_sync {r0['timeline_sync']}; POST "
+        f"/trace/dump ring events {r0['rings']}; /metrics "
+        f"{r0['prom_samples']} samples (own endpoint "
+        f"{r0['own_prom_samples']}); ALLREDUCE executions "
+        f"{r0['exec_allreduce']} = buckets {buckets}; program cache "
+        f"(hits, misses) {cache} in /metrics.json, per process "
+        f"{[rep['cache_delta'] for rep in reps]}; B1 launches "
+        f"{res['launches']['d']}")
+    # (e): the eager step with the ring off, the default ring, the file
+    # timeline: the median of every run's steps 1 on (step 0 warms up)
+    med = {leg: statistics.median(t for run in runs
+                                  for t in run["times"][1:P24_STEPS])
+           for leg, runs in legs.items()}
+    off = med["ring off"]
+    log(f"phase 24 (e): median eager step (ms) over {P24_ROUNDS} rounds "
+        + "; ".join(f"{leg} {m * 1e3:.2f} (x {m / off:.3f})"
+                    for leg, m in med.items())
+        + "; steps (ms) "
+        + "; ".join(f"{leg} {[[round(t * 1e3, 2) for t in run['times']] for run in runs]}"
+                    for leg, runs in legs.items())
+        + f"; {card}")
+    res["median_ms"] = {leg: m * 1e3 for leg, m in med.items()}
+    if bad:
+        raise AssertionError("phase 24: " + "; ".join(bad))
+    log(f"phase 24 ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def _resnet_named_params():
     import torch
     from horovod_tpu_torch.models.resnet import ResNet50
@@ -7320,6 +7960,8 @@ def main():
         return phase21_worker(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--worker23"]:
         return phase23_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--worker24"]:
+        return phase24_worker(sys.argv[2])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -7384,12 +8026,22 @@ def main():
         log(json.dumps({"phase23_launches": topo["launches"]}))
         log(f"phase 23 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
+    if "--phase24" in sys.argv[1:]:
+        # phase 24 alone; not the contract's run
+        tracing = walled("phase 24", phase_tracing, dev, card, state,
+                         batches)
+        log(json.dumps({"phase24_launches": tracing["launches"]}))
+        log(f"phase 24 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
 
-    kern = phase_kernel(dev)
-    main_path = phase_main_path(dev, state, batches,
-                                profile="--profile" in sys.argv[1:])
+    WALLS.append(("phases 1-2", time.perf_counter() - t_all))
+    log(f"wall: phases 1-2 {WALLS[-1][1]:.1f} s")
+    kern = walled("phase 3", phase_kernel, dev)
+    main_path = walled("phase 4", phase_main_path, dev, state, batches,
+                       profile="--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
-    plain_s = phase_plain_step(dev, state, batches)
+    plain_s = walled("phase 4 plain step", phase_plain_step, dev, state,
+                     batches)
     log(f"phase 4: framework step / plain step = "
         f"{main_path['steady_s'] / plain_s:.3f}")
     if "--profile" in sys.argv[1:]:
@@ -7403,22 +8055,24 @@ def main():
             phase_main_path(dev, state, batches)
         finally:
             sys.setswitchinterval(old)
-    phase_nccl(dev)
+    walled("phase 5", phase_nccl, dev)
     torch.cuda.empty_cache()
-    flash = phase_flash_kernels(dev)
-    lm = phase_lm(dev, profile="--profile" in sys.argv[1:])
-    phase_lm_hvd(dev)
-    codec = phase_codec(dev)
-    wired = {wire: phase_wire_path(dev, state, batches, wire,
-                                   profile="--profile" in sys.argv[1:])
+    flash = walled("phase 6", phase_flash_kernels, dev)
+    lm = walled("phase 7", phase_lm, dev,
+                profile="--profile" in sys.argv[1:])
+    walled("phase 7 np=2", phase_lm_hvd, dev)
+    codec = walled("phase 8", phase_codec, dev)
+    wired = {wire: walled(f"phase 9 {wire}", phase_wire_path, dev, state,
+                          batches, wire,
+                          profile="--profile" in sys.argv[1:])
              for wire in ("int8", "int4")}
     for wire, w in wired.items():
         log(f"phase 9: steady step {wire} {w['steady_s'] * 1e3:.2f} ms vs "
             f"phase 4's f32 wire {main_path['steady_s'] * 1e3:.2f} ms "
             f"(x {w['steady_s'] / main_path['steady_s']:.3f})")
-    conv = phase_conv_bn_kernels(dev)
-    fused = phase_main_path(dev, state, batches,
-                            profile="--profile" in sys.argv[1:], fused=True)
+    conv = walled("phase 10", phase_conv_bn_kernels, dev)
+    fused = walled("phase 11", phase_main_path, dev, state, batches,
+                   profile="--profile" in sys.argv[1:], fused=True)
     log(f"phase 11: steady step fused {fused['steady_s'] * 1e3:.2f} ms "
         f"(device busy share {fused['busy_share']:.3f}) vs phase 4's "
         f"unfused {main_path['steady_s'] * 1e3:.2f} ms (busy share "
@@ -7426,17 +8080,19 @@ def main():
         f"{fused['steady_s'] / main_path['steady_s']:.3f}; fused launches "
         f"{fused['conv_launches']} (all on the sm90 route)")
     torch.cuda.empty_cache()
-    phase_fused_yardstick(dev, state, batches)
+    walled("phase 11 yardstick", phase_fused_yardstick, dev, state, batches)
     torch.cuda.empty_cache()
-    compiled = phase_compiled(dev, card, state, batches, main_path, fused,
-                              plain_s, profile="--profile" in sys.argv[1:])
+    compiled = walled("phase 12", phase_compiled, dev, card, state, batches,
+                      main_path, fused, plain_s,
+                      profile="--profile" in sys.argv[1:])
     torch.cuda.empty_cache()
-    shard, shard_f32 = phase_sharded(dev, card, state, batches)
+    shard, shard_f32 = walled("phase 13", phase_sharded, dev, card, state,
+                              batches)
     torch.cuda.empty_cache()
     compiled["13"] = shard_f32
-    cs = phase_compiled_sharded(dev, card, state, batches, compiled,
-                                lm["weights"],
-                                profile="--profile" in sys.argv[1:])
+    cs = walled("phase 14", phase_compiled_sharded, dev, card, state,
+                batches, compiled, lm["weights"],
+                profile="--profile" in sys.argv[1:])
     # what phase 17 is held to
     p17_refs = {
         "a_params": compiled["a"]["params"],
@@ -7446,14 +8102,16 @@ def main():
         "state_bytes": {"f32": cs["a f32"]["state_bytes"],
                         "int8": cs["a int8"]["state_bytes"]},
         "lm14_steady_s": cs["d dense"]["steady_s"],
-        "lm7_steady_s": lm["steady_s"], "lm_losses": lm["losses"]}
+        "lm7_steady_s": lm["steady_s"], "lm_losses": lm["losses"],
+        "lm_weights": lm["weights"]}
     del compiled
-    moe = phase_moe_lm(dev, lm, profile="--profile" in sys.argv[1:])
-    moe_wire = phase_moe_wire(dev, moe)
+    moe = walled("phase 15 LM", phase_moe_lm, dev, lm,
+                 profile="--profile" in sys.argv[1:])
+    moe_wire = walled("phase 15 wire", phase_moe_wire, dev, moe)
     moe_launches = moe["launches"]
     p17_refs["a2a_sends"] = moe_wire.pop("sends")
     p17_refs["a2a_digests"] = moe_wire.pop("digests")
-    join = phase_join(dev, state, batches)
+    join = walled("phase 15 join", phase_join, dev, state, batches)
     # the jobs share the card with this process: hand back what it holds
     del moe
     gc.collect()
@@ -7462,38 +8120,45 @@ def main():
         f"{torch.cuda.memory_allocated(dev)} B allocated, "
         f"{torch.cuda.memory_reserved(dev)} B reserved on the card")
     phase4_params = main_path.pop("params")
-    multi = phase_multiprocess(dev, card, state, batches, phase4_params,
-                               p17_refs)
+    multi = walled("phases 16-17", phase_multiprocess, dev, card, state,
+                   batches, phase4_params, p17_refs)
     del p17_refs
     gc.collect()
     torch.cuda.empty_cache()
-    hybrid = phase_hybrid(dev, card, state, batches, phase4_params)
+    hybrid = walled("phase 18", phase_hybrid, dev, card, state, batches,
+                    phase4_params)
     log(f"phase 18 (a) against phase 16 (b): 2 x 2 steady "
         f"{hybrid['steady_ms']['o']:.2f} ms (bypass off), "
         f"{hybrid['steady_ms']['n']:.2f} ms (on) for 128 images; np=2 "
         f"{multi['b']['steady_ms']:.2f} ms for 128 images")
     gc.collect()
     torch.cuda.empty_cache()
-    remote = phase_remote(dev, card, state, batches, phase4_params)
+    remote = walled("phase 19", phase_remote, dev, card, state, batches,
+                    phase4_params)
     log(f"phase 19 (a) against phase 16 (b): {remote['steady_ms']:.2f} ms "
         f"with rank 1 through ssh, {multi['b']['steady_ms']:.2f} ms with "
         f"both local")
     gc.collect()
     torch.cuda.empty_cache()
-    elastic = phase_elastic(dev, card, state, batches)
+    elastic = walled("phase 20", phase_elastic, dev, card, state, batches)
     gc.collect()
     torch.cuda.empty_cache()
-    faults = phase_chaos(dev, card, state, batches,
-                         elastic.pop("replay_a"))
+    faults = walled("phase 21", phase_chaos, dev, card, state, batches,
+                    elastic.pop("replay_a"))
     gc.collect()
     torch.cuda.empty_cache()
-    frontend = phase_frontend(dev, card, state, batches, lm,
-                              profile="--profile" in sys.argv[1:])
+    frontend = walled("phase 22", phase_frontend, dev, card, state, batches,
+                      lm, profile="--profile" in sys.argv[1:])
     del lm["weights"]
     gc.collect()
     torch.cuda.empty_cache()
-    topo = phase_topology(dev, card, state, batches)
+    topo = walled("phase 23", phase_topology, dev, card, state, batches)
     log(json.dumps({"phase23_launches": topo["launches"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tracing = walled("phase 24", phase_tracing, dev, card, state, batches,
+                     main_path)
+    log(json.dumps({"phase24_launches": tracing["launches"]}))
     del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
@@ -7522,6 +8187,7 @@ def main():
         recorded."""
         return {leg: sum(v["capture"].get(n, 0) for n in names)
                 for leg, v in cs.items()}
+    log("walls (s): " + "; ".join(f"{label} {w:.1f}" for label, w in WALLS))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     log(card)
@@ -7551,6 +8217,8 @@ def main():
                              for leg in ("a", "b", "b f64", "c")},
         "phase23_launches": phase23_launches(
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
+        "phase24_launches": {leg: tracing["launches"][leg]
+                             for leg in ("a", "b", "d")},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -7589,6 +8257,8 @@ def main():
                if name in PHASE16_CODEC else {}),
             "phase22_launches": frontend["others"][name],
             "phase23_launches": phase23_launches(name),
+            **({"phase24_launches": tracing["launches"]["c"][name]}
+               if name in tracing["launches"]["c"] else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

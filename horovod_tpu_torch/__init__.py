@@ -21,6 +21,8 @@ from .common.basics import (  # noqa: F401
     engine,
     mpi_threads_supported, mpi_built, gloo_built, nccl_built, ddl_built,
     ccl_built, cuda_built, rocm_built, xla_built, tpu_built,
+    metrics, start_metrics_server, start_timeline, stop_timeline,
+    dump_trace,
 )
 from .common.exceptions import (  # noqa: F401
     HorovodInitError, HorovodInternalError, TensorShapeMismatchError,

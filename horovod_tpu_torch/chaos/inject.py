@@ -40,17 +40,17 @@ import signal
 import threading
 import time
 
+from .. import telemetry
 from .plan import COORD_KINDS, FaultEvent, FaultPlan, PROCESS_KINDS
 
 logger = logging.getLogger("horovod_tpu_torch.chaos")
 
 
 def _count_injected(kind):
-    """One injection.  The JAX package counts it into its telemetry
-    registry (``horovod_faults_injected_total{kind=...}``); the port has
-    no telemetry registry yet (ROADMAP.md A17's telemetry item), so
-    there is nothing to count into.  The injector's own ``fired`` record
-    is the evidence."""
+    """One injection, into the process-current registry's
+    ``horovod_faults_injected_total{kind}`` (the injector's own ``fired``
+    record keeps each injection's trigger and wall time)."""
+    telemetry.count_fault_injected(kind)
 
 
 class _EventState:
@@ -123,8 +123,7 @@ class FaultInjector:
 
     def skew_seconds(self):
         """Active ``clock_skew`` offset (seconds) — added to the clock
-        estimator's measured offset (the JAX package's utils/clock_sync.py;
-        the port's clock sync is ROADMAP.md A17)."""
+        estimator's measured offset (utils/clock_sync.py)."""
         return self._skew_ms / 1000.0
 
     def rebind(self, proc, rank_offset, num_local):
@@ -319,8 +318,7 @@ def current():
 
 def current_skew_seconds():
     """Injected clock skew (seconds); 0.0 without an active injector.
-    Consumed by the JAX package's utils/clock_sync.py (ROADMAP.md A17
-    in the port) so skew scenarios flow through the
+    Consumed by utils/clock_sync.py, so skew scenarios flow through the
     real trace-merge alignment path."""
     inj = _INSTALLED
     return inj.skew_seconds() if inj is not None else 0.0

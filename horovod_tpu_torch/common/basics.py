@@ -32,10 +32,20 @@ each host starts that host's aggregator (runner/http/aggregator.py) and
 every process of the host routes its control traffic through it; under
 ``HOROVOD_FAULT_PLAN`` the seeded fault injector (chaos/inject.py) is
 installed before the engine starts and handed to it.
+
+Tracing and telemetry (basics.py:131-190, :676-757 of the JAX package):
+every init makes the process's timeline, a Chrome trace file under
+``HOROVOD_TIMELINE`` (a process whose first rank is not 0 writes
+``<root>.proc<N><ext>``) or the flight recorder's ring alone, hands it
+to the engine, and starts the per-worker ``/metrics`` endpoint under
+``HOROVOD_METRICS_PORT``; :func:`metrics`, :func:`start_metrics_server`,
+:func:`start_timeline`, :func:`stop_timeline` and :func:`dump_trace` are
+the user surface, and :func:`shutdown` closes the timeline.
 """
 
 import atexit
 import datetime
+import os
 import threading
 from contextlib import contextmanager
 
@@ -66,6 +76,11 @@ _proc_ctx = None
 _teardown_wedged = False
 #: True once the interpreter-exit teardown is registered
 _atexit_registered = False
+#: this process's timeline (file writer or flight-recorder ring), or None
+_timeline = None
+#: the per-worker metrics endpoint, once started (it outlives re-inits:
+#: it serves whichever registry is current at scrape time)
+_metrics_server = None
 
 
 class RankContext:
@@ -107,6 +122,61 @@ def resolve_device(device=None) -> torch.device:
     elif device.type != "cpu":
         raise HorovodInitError(f"unsupported device {device}")
     return device
+
+
+def _make_timeline(config, pid=0, num_ranks=1, proc_id=0):
+    """Per-process timeline (basics.py:131-149 of the JAX package).  With
+    ``HOROVOD_TIMELINE`` it writes a Chrome trace file; without one it
+    still runs ring-only while the flight recorder is on
+    (``HOROVOD_TRACE_RING_EVENTS``, default on), so that a stall always
+    has a last-N-events trace to dump.  ``pid`` is the process's first
+    global rank: merged traces keep one lane group per rank on it."""
+    from ..utils.timeline import Timeline
+    if not (config.timeline_filename or config.trace_ring_events > 0):
+        return None
+    if num_ranks > 1:
+        pname = f"ranks {pid}-{pid + num_ranks - 1} (proc {proc_id})"
+    else:
+        pname = f"rank {pid}"
+    return Timeline(config.timeline_filename, config.timeline_mark_cycles,
+                    pid=pid, process_name=pname,
+                    ring_events=config.trace_ring_events)
+
+
+def _proc_timeline(config, rank_offset, num_ranks, proc_id):
+    """The timeline of a launched process: the process holding rank 0
+    keeps the user's ``HOROVOD_TIMELINE`` path (the reference's
+    docs/timeline.rst names rank 0's file) and the others write suffixed
+    siblings, ``<root>.proc<N><ext>``, since one path written by every
+    process would corrupt the trace (basics.py:383-392)."""
+    if config.timeline_filename and rank_offset != 0:
+        root, ext = os.path.splitext(config.timeline_filename)
+        config.timeline_filename = f"{root}.proc{proc_id}{ext}"
+    return _make_timeline(config, pid=rank_offset, num_ranks=num_ranks,
+                          proc_id=proc_id)
+
+
+def _start_metrics_endpoint(config, proc_index):
+    """The per-worker Prometheus endpoint (``HOROVOD_METRICS_PORT``,
+    ``horovodrun --metrics-port``; basics.py:171-190): processes sharing a
+    host offset the base port by their process index so every endpoint
+    binds."""
+    global _metrics_server
+    if config.metrics_port <= 0 or _metrics_server is not None:
+        return
+    from ..telemetry import MetricsServer
+    port = config.metrics_port + (proc_index or 0)
+    server = MetricsServer(port=port)
+    try:
+        server.start()
+    except OSError as exc:
+        import logging
+        logging.getLogger("horovod_tpu_torch").warning(
+            "could not bind metrics endpoint on port %d: %s (metrics are "
+            "still available through hvd.metrics() and the coordinator's "
+            "/metrics)", port, exc)
+        return
+    _metrics_server = server
 
 
 def check_gpu_operations(device_uuids, gpu_operations):
@@ -312,7 +382,10 @@ def _init_multiproc(device, num_ranks, config):
     # processes on one host share its local-rank space
     _host_of_rank = [host_of_proc[p] for p in range(num_procs)
                      for _ in range(counts[p])]
+    global _timeline
+    _timeline = _proc_timeline(config, sum(counts[:proc]), rpp, proc)
     return Engine(rpp, dev, config=config, controller=controller,
+                  timeline=_timeline,
                   rank_offset=sum(counts[:proc]), global_size=sum(counts),
                   world_group=dist.group.WORLD,
                   compiled_group=compiled_group,
@@ -349,7 +422,7 @@ def init(device=None, num_ranks=None, process_sets=None):
     objects) are registered at once.  Under the launcher
     (``HOROVOD_CONTROLLER=http``) this process hosts its run of the job's
     ranks (see the module docstring)."""
-    global _engine, _host_of_rank
+    global _engine, _host_of_rank, _timeline
     with _state_lock:
         if _engine is not None:
             _bind_thread_if_unbound()
@@ -361,9 +434,14 @@ def init(device=None, num_ranks=None, process_sets=None):
             _engine = _init_multiproc(device, num_ranks, config)
         else:
             n = num_ranks or 1
-            _engine = Engine(n, resolve_device(device), config=config,
+            dev = resolve_device(device)
+            _timeline = _make_timeline(config, num_ranks=n)
+            _engine = Engine(n, dev, config=config, timeline=_timeline,
                              chaos=_install_chaos(config, 0, 0, n))
             _host_of_rank = [0] * _engine.num_ranks
+        # the per-worker metrics endpoint (HOROVOD_METRICS_PORT)
+        _start_metrics_endpoint(
+            config, _engine.controller.proc_id if _engine.multiproc else 0)
         _rebind_proc_ctx()
         _bind_thread_if_unbound()
         _register_exit_teardown()
@@ -500,7 +578,7 @@ def shutdown():
     engine thread that outlives the teardown's bound (blocked in a
     collective with a peer that left) keeps its group: it is flagged
     for :func:`take_teardown_wedged` instead."""
-    global _engine, _host_of_rank, _dist_up, _teardown_wedged
+    global _engine, _host_of_rank, _dist_up, _teardown_wedged, _timeline
     with _state_lock:
         if _engine is None:
             return
@@ -511,6 +589,9 @@ def shutdown():
         reset_compiled_state()
         ps_mod._reset()
         _engine.shutdown()
+        if _timeline is not None:
+            _timeline.close()
+            _timeline = None
         wedged = _engine.wedged
         _engine = None
         _host_of_rank = None
@@ -632,3 +713,84 @@ def gloo_enabled():
     store controller fills the gloo controller's role on every launch
     path."""
     return True
+
+
+# -- tracing and telemetry (basics.py:676-757 of the JAX package) -----------
+
+def metrics():
+    """Snapshot of this process's metric registry: a JSON-able dict keyed
+    by family name, the programmatic twin of ``/metrics.json``; works
+    before init() too (an empty registry)."""
+    from .. import telemetry
+    return telemetry.metrics()
+
+
+def start_metrics_server(port=None):
+    """Start (or return) this worker's Prometheus endpoint.  With no
+    argument it uses ``HOROVOD_METRICS_PORT`` (+ the process index); an
+    explicit ``port`` binds exactly there (0: an ephemeral one).  Returns
+    the server, whose ``.port`` is the bound port."""
+    global _metrics_server
+    with _state_lock:
+        if port is None:
+            if _metrics_server is not None:
+                return _metrics_server
+            port = env_mod.get_int(env_mod.HOROVOD_METRICS_PORT, 0)
+            if port:
+                port += env_mod.get_int(env_mod.HOROVOD_TPU_PROC_INDEX, 0)
+        from ..telemetry import MetricsServer
+        server = MetricsServer(port=port or 0)
+        server.start()
+        if _metrics_server is None:
+            _metrics_server = server
+        return server
+
+
+def start_timeline(filename, mark_cycles=False):
+    """Runtime timeline activation (reference operations.cc:1077).  A
+    ring-only flight-recorder timeline is upgraded in place; a timeline
+    that already writes a file must be stopped first."""
+    global _timeline
+    with _state_lock:
+        eng = engine()
+        if _timeline is not None and _timeline.filename:
+            raise ValueError("timeline already active; stop it first")
+        from ..utils.timeline import Timeline
+        old, pid, pname = _timeline, eng.rank_offset, None
+        if old is not None:
+            pid, pname = old.pid, old.process_name
+        _timeline = Timeline(filename, mark_cycles, pid=pid,
+                             process_name=pname,
+                             ring_events=eng.config.trace_ring_events)
+        eng.timeline = _timeline
+        # a job started with tracing off (no ring, no HOROVOD_TIMELINE)
+        # had no clock sync to start; a mergeable trace needs it
+        eng._start_clock_sync()
+        if old is not None:
+            old.close()
+
+
+def stop_timeline():
+    """Stop writing the timeline file.  The flight recorder stays live
+    (a fresh ring-only timeline replaces the writer), so stall dumps and
+    :func:`dump_trace` keep working."""
+    global _timeline
+    with _state_lock:
+        eng = engine()
+        old = _timeline
+        eng.config.timeline_filename = None
+        _timeline = _make_timeline(
+            eng.config, pid=eng.rank_offset, num_ranks=eng.num_local,
+            proc_id=eng.controller.proc_id if eng.multiproc else 0)
+        eng.timeline = _timeline
+        if old is not None:
+            old.close()
+
+
+def dump_trace(path=None):
+    """Dump the flight recorder's last-N-events ring now: push it to the
+    launcher over the KV fabric (multi-process: the buffers
+    ``GET /timeline`` merges) and write a stand-alone Chrome trace to
+    ``path`` (or ``HOROVOD_TRACE_DUMP_DIR``) when given.  Returns the file
+    written, or None."""
+    return engine().dump_trace(path=path, reason="manual")

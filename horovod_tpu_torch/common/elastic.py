@@ -82,10 +82,12 @@ def _spill_path():
 
 
 def _count_commit():
-    """One elastic commit.  The JAX package counts it into its telemetry
-    registry, the training goodput its fleet controller aggregates; the
-    port has no telemetry registry yet (ROADMAP.md A17's telemetry item),
-    so there is nothing to count into."""
+    """One elastic commit, into the process-current registry's
+    ``horovod_elastic_commits_total``: the training goodput unit the
+    JAX package's fleet controller aggregates."""
+    from .. import telemetry
+    telemetry.registry().counter(telemetry.ELASTIC_COMMITS_FAMILY,
+                                 telemetry.ELASTIC_COMMITS_HELP).inc()
 
 
 class State:

@@ -9,6 +9,21 @@ from ..ops.quantize import normalize_inner_wire, normalize_wire_dtype
 
 HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
 HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
+HOROVOD_TIMELINE = "HOROVOD_TIMELINE"
+HOROVOD_TIMELINE_MARK_CYCLES = "HOROVOD_TIMELINE_MARK_CYCLES"
+# telemetry: the per-worker Prometheus endpoint on METRICS_PORT (+ the
+# process index in multi-process jobs) and the worker->coordinator
+# snapshot push cadence feeding the job-wide /metrics on the launcher's
+# rendezvous service
+HOROVOD_METRICS_PORT = "HOROVOD_METRICS_PORT"
+HOROVOD_METRICS_PUSH_SECONDS = "HOROVOD_METRICS_PUSH_SECONDS"
+# job-wide tracing: the flight-recorder ring size (events; 0 disables),
+# the directory stall auto-dumps and hvd.dump_trace() default into
+# (unset = KV push only), and the clock-sync re-sample cadence mapping
+# each worker's timeline epoch onto the launcher's clock (0 disables)
+HOROVOD_TRACE_RING_EVENTS = "HOROVOD_TRACE_RING_EVENTS"
+HOROVOD_TRACE_DUMP_DIR = "HOROVOD_TRACE_DUMP_DIR"
+HOROVOD_TRACE_CLOCK_SYNC_SECONDS = "HOROVOD_TRACE_CLOCK_SYNC_SECONDS"
 HOROVOD_STALL_CHECK_DISABLE = "HOROVOD_STALL_CHECK_DISABLE"
 HOROVOD_STALL_CHECK_TIME_SECONDS = "HOROVOD_STALL_CHECK_TIME_SECONDS"
 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS = "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"
@@ -170,6 +185,28 @@ class Config:
             HOROVOD_FUSION_THRESHOLD, DEFAULT_FUSION_THRESHOLD_BYTES)
         self.cycle_time_ms = get_float(HOROVOD_CYCLE_TIME,
                                        DEFAULT_CYCLE_TIME_MS)
+        self.timeline_filename = get_str(HOROVOD_TIMELINE)
+        if self.timeline_filename == "DYNAMIC":
+            # reference sentinel (test_torch.py:54): timeline support
+            # enabled but no file until start_timeline() names one
+            self.timeline_filename = None
+        self.timeline_mark_cycles = get_bool(HOROVOD_TIMELINE_MARK_CYCLES)
+        # telemetry exposition (env.py:453-460 of the JAX package):
+        # metrics_port 0 = no per-worker HTTP endpoint; the snapshot push
+        # feeding the coordinator's job-wide /metrics defaults on
+        # whenever an endpoint is enabled, and can be forced on or off
+        self.metrics_port = get_int(HOROVOD_METRICS_PORT, 0)
+        self.metrics_push_secs = get_float(
+            HOROVOD_METRICS_PUSH_SECONDS,
+            2.0 if self.metrics_port else 0.0)
+        # the flight recorder: a bounded ring of recent timeline events,
+        # on by default (0 disables); stall warnings auto-dump it
+        self.trace_ring_events = get_int(HOROVOD_TRACE_RING_EVENTS, 4096)
+        self.trace_dump_dir = get_str(HOROVOD_TRACE_DUMP_DIR)
+        # NTP-style clock sync against the launcher's clock, re-sampled
+        # for drift; multi-process only
+        self.clock_sync_secs = get_float(
+            HOROVOD_TRACE_CLOCK_SYNC_SECONDS, 30.0)
         self.stall_check_disable = get_bool(HOROVOD_STALL_CHECK_DISABLE)
         self.stall_warning_secs = get_float(
             HOROVOD_STALL_CHECK_TIME_SECONDS, DEFAULT_STALL_WARNING_SECS)

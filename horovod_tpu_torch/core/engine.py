@@ -43,6 +43,17 @@
   cached list, with no coordinator traffic.  Without a controller the
   loop and its stacked executors are the single-process path,
   untouched.
+* Observability (``engine.py:294-620`` of the JAX package): every
+  counter lives in a metric registry, fresh per engine
+  (``telemetry/``), pushed to the coordinator's job-wide ``/metrics``
+  in a multi-process job; the timeline (``utils/timeline.py``) gets
+  each entry's NEGOTIATE span, the op span of each bucket with its flow
+  events, cycle marks and queue counters, and its flight-recorder ring
+  is dumped on a stall or on request; the fusion pack/unpack (B1) and
+  the codec (B2-B5) run inside ``utils/profiler.annotate`` ranges, so
+  a profile ties each kernel to the engine phase that launched it.
+  Op spans are host time: a bucket's kernels are enqueued on the
+  engine's stream, never waited for.
 """
 
 import bisect
@@ -58,6 +69,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..common import env as env_mod
 from ..common.topology import Topology, plan_decomposition
 from ..common.exceptions import (
@@ -70,6 +82,7 @@ from ..common.exceptions import (
 from ..ops import cuda_kernels, dist_ops
 from ..ops import quantize as qz
 from ..ops import quantize_kernels
+from ..utils import profiler
 from .handles import Handle
 from .message import ReduceOp, Request, RequestType
 
@@ -101,7 +114,8 @@ class NegotiationEntry:
     """Readiness table row (reference controller.cc:1115-1140)."""
 
     __slots__ = ("key", "subs", "first_time", "wire_default",
-                 "wire_inner_default", "algo_default", "meta_fp")
+                 "wire_inner_default", "algo_default", "meta_fp",
+                 "ready_ts", "trace_id")
 
     def __init__(self, key, wire_default=None, wire_inner_default=None,
                  algo_default=None):
@@ -111,6 +125,12 @@ class NegotiationEntry:
         self.meta_fp = None
         self.subs: Dict[int, Submission] = {}
         self.first_time = time.monotonic()
+        # the timeline instant this entry became locally ready (the flow
+        # event's anchor), and the job-unique trace id its flow events
+        # chain on (coordinator-minted, or the engine's own in one
+        # process)
+        self.ready_ts = None
+        self.trace_id = None
         # the process-wide wire default, latched when the first local
         # rank arrives, so every rank of one negotiation sees one default;
         # the inner-hop wire and the reduction algorithm likewise
@@ -190,13 +210,16 @@ class Engine:
     process's rank count when they differ (the launcher's
     ``ranks_per_proc="host"``), else every process hosts ``num_ranks``
     (engine.py:143-150 of the JAX package); ``topology`` is the job's
-    host map (``common/topology.Topology``, one host by default)."""
+    host map (``common/topology.Topology``, one host by default);
+    ``timeline`` the process's :class:`~..utils.timeline.Timeline` (a
+    file writer, or the flight recorder's ring alone), or None."""
 
     def __init__(self, num_ranks, device, config=None, controller=None,
                  rank_offset=0, global_size=None, world_group=None,
                  compiled_group=None, ranks_of_proc=None, vote_group=None,
-                 chaos=None, topology=None):
+                 chaos=None, topology=None, timeline=None):
         self.config = config or env_mod.Config()
+        self.timeline = timeline
         #: chaos fault injector (chaos/inject.py FaultInjector): the
         #: engine calls its ``on_collectives`` hook right before each
         #: ready report (where ``slow_rank`` fires), and its ``hung``
@@ -251,28 +274,21 @@ class Engine:
         #: persistent fusion buffers, keyed (local rank index, dtype)
         self._fusion = {}
         #: allreduce buckets executed (each packs and unpacks once per
-        #: local rank)
+        #: local rank); the registry's ``horovod_execution_seconds``
+        #: counts them too, as ``op="ALLREDUCE"`` observations
         self.allreduce_buckets = 0
-        #: fused allgather buckets (more than one entry in one gather)
-        self.fused_allgather_runs = 0
-        #: wire accounting under the JAX engine's names (engine.py:621-638):
-        #: per allreduce bucket, the full-width bytes, the bytes the wire
-        #: encoding puts on the interconnect per rank, and the buckets
-        #: that rode the int8/int4 codec
-        self.logical_wire_bytes = 0
-        self.actual_wire_bytes = 0
-        self.quantized_bucket_runs = 0
-        #: the bytes of those that cross the slow (inter-host) hop
-        #: (engine.py:629 of the JAX package), the bytes each hop of a
-        #: reduction moves, keyed (hop, wire) with hop 'inner' or 'cross'
-        #: (its WIRE_HOP_BYTES family), and the allreduce buckets run per
-        #: reduction algorithm ('flat', 'hierarchical', 'torus')
-        self.cross_wire_bytes = 0
-        self.hop_wire_bytes = {}
-        self.algo_runs = {}
-        #: sharded weight-update rounds (core/sharded.ShardedUpdater's
-        #: gradient reducescatters, one per rank and step; engine.py:645)
-        self.sharded_update_runs = 0
+        # local-mode trace ids (a multi-process job's come from the
+        # coordinator), offset by the rank window so that per-process
+        # traces merged offline never collide (engine.py:227-230)
+        self._next_trace_id = self.rank_offset << 24
+        # the local stall inspector's deferred flight-recorder dump
+        # reason (set under the lock, dumped outside it)
+        self._pending_trace_dump = None
+        self._tl_queues_nonzero = False
+        # one fresh registry per engine: the wire, algorithm, sharded and
+        # bypass counters the tests and chip_smoke.py read are property
+        # views over its families (engine.py:615-646)
+        self._install_metrics()
         self.stream = None
         #: the compiled reducer's side stream: its own, so that its
         #: collectives (on the compiled group) never wait in one stream
@@ -287,24 +303,23 @@ class Engine:
         #: steady-state negotiation bypass (core/bypass.py): armed by the
         #: coordinator's bypass_arm record once every process voted the
         #: same stable cycle fingerprint; while active the loop runs
-        #: _bypass_cycle instead of _store_cycle.  The JAX package counts
-        #: its cycles through telemetry (ROADMAP.md A17); the port keeps
-        #: plain counters: armed cycles run on the cached list (hits),
-        #: fallbacks to full negotiation, the seconds of the hits' votes
-        #: and executions, and the seconds the un-armed tracker takes
-        #: after each store cycle (what the bypass costs where it never
-        #: arms)
+        #: _bypass_cycle instead of _store_cycle.  Its cycles count in the
+        #: registry (hits, fallbacks, the hits' vote and execution
+        #: seconds); ``bypass_track_seconds`` is the port's own: the
+        #: seconds the un-armed tracker takes after each store cycle
+        #: (what the bypass costs where it never arms)
         self._bypass = None
         self._vote_group = vote_group
         self._vote_ex = None
-        self.bypass_hits = 0
-        self.bypass_fallbacks = 0
-        self.bypass_cycle_seconds = 0.0
         self.bypass_track_seconds = 0.0
         if self.multiproc and self.config.bypass_after_cycles > 0:
             from .bypass import BypassState
             self._bypass = BypassState(self.config.bypass_after_cycles,
                                        self.config.bypass_wait_secs)
+        self._metrics_pusher = None
+        self._start_metrics_push()
+        self._clock_sync = None
+        self._start_clock_sync()
         self._hb_stop = threading.Event()
         self._hb_thread = None
         if self.multiproc and self.config.heartbeat_secs > 0:
@@ -336,6 +351,298 @@ class Engine:
         return global_rank // self.num_local
 
     # ------------------------------------------------------------------
+    # telemetry
+
+    def _install_metrics(self):
+        """Create this engine's registry and the standard families
+        (engine.py:296-459 of the JAX package, the same names, help
+        text and labels).  Families the compiled path, the sharded
+        updater and the elastic layer update are pre-declared too, so a
+        scrape always shows the full catalogue (zero until touched)."""
+        m = self.metrics = telemetry.fresh_registry()
+        self._m_logical = m.counter(
+            "horovod_wire_logical_bytes_total",
+            "Full-width payload bytes handed to reductions",
+            labelnames=("wire",))
+        self._m_actual = m.counter(
+            "horovod_wire_actual_bytes_total",
+            "Bytes the wire encoding actually puts on the interconnect",
+            labelnames=("wire",))
+        self._m_cross = m.counter(
+            "horovod_wire_cross_bytes_total",
+            "Bytes that crossed the slow (cross-host / DCN) hop",
+            labelnames=("wire",))
+        self._m_algo = m.counter(
+            "horovod_allreduce_runs_total",
+            "Allreduce buckets executed per reduction algorithm",
+            labelnames=("algorithm",))
+        self._m_quantized = m.counter(
+            "horovod_quantized_buckets_total",
+            "Buckets executed over a block-scaled quantized "
+            "(int8/int4) wire")
+        self._m_hop = m.counter(
+            telemetry.WIRE_HOP_BYTES_FAMILY,
+            telemetry.WIRE_HOP_BYTES_HELP,
+            labelnames=telemetry.WIRE_HOP_BYTES_LABELS)
+        self._m_fused_ag = m.counter(
+            "horovod_fused_allgather_runs_total",
+            "Fused allgather buckets executed")
+        # fused quantized alltoall (the MoE dispatch/combine wire):
+        # byte families split by destination hop x wire, plus the
+        # per-path runs counter — pre-declared so a scrape always
+        # shows them; ops/compiled.py bumps the same names through
+        # the telemetry helpers
+        self._m_a2a_logical = m.counter(
+            telemetry.ALLTOALL_LOGICAL_BYTES_FAMILY,
+            telemetry.ALLTOALL_LOGICAL_BYTES_HELP,
+            labelnames=telemetry.ALLTOALL_LOGICAL_BYTES_LABELS)
+        self._m_a2a_wire = m.counter(
+            telemetry.ALLTOALL_WIRE_BYTES_FAMILY,
+            telemetry.ALLTOALL_WIRE_BYTES_HELP,
+            labelnames=telemetry.ALLTOALL_WIRE_BYTES_LABELS)
+        self._m_a2a_runs = m.counter(
+            telemetry.ALLTOALL_RUNS_FAMILY,
+            telemetry.ALLTOALL_RUNS_HELP,
+            labelnames=telemetry.ALLTOALL_RUNS_LABELS)
+        m.counter(telemetry.ALLTOALL_EXPOSED_SECONDS_FAMILY,
+                  telemetry.ALLTOALL_EXPOSED_SECONDS_HELP,
+                  labelnames=telemetry.ALLTOALL_EXPOSED_SECONDS_LABELS)
+        # weight-update sharding (core/sharded.py): the runs counter
+        # is bumped by the updaters, the state gauge by the frontends
+        # after they build their shard state — pre-declared here so a
+        # scrape always shows the families (zero until sharded mode
+        # actually runs)
+        self._m_sharded = m.counter(
+            telemetry.SHARDED_UPDATE_RUNS_FAMILY,
+            telemetry.SHARDED_UPDATE_RUNS_HELP)
+        m.gauge(telemetry.OPTIMIZER_STATE_BYTES_FAMILY,
+                telemetry.OPTIMIZER_STATE_BYTES_HELP,
+                labelnames=telemetry.OPTIMIZER_STATE_BYTES_LABELS)
+        self._m_negotiation = m.histogram(
+            "horovod_negotiation_seconds",
+            "First local submission to locally-ready, per op",
+            labelnames=("op",))
+        self._m_execution = m.histogram(
+            "horovod_execution_seconds",
+            "Bucket dispatch to completion, per op",
+            labelnames=("op",))
+        self._m_cycle = m.histogram(
+            "horovod_cycle_seconds",
+            "Active portion of engine cycles that produced work")
+        self._m_cycles = m.counter(
+            "horovod_engine_cycles_total",
+            "Engine negotiation cycles that produced work")
+        self._m_pending = m.gauge(
+            "horovod_pending_entries",
+            "Negotiation entries awaiting local submissions",
+            labelnames=("process_set",))
+        self._m_awaiting = m.gauge(
+            "horovod_awaiting_entries",
+            "Locally-ready entries awaiting the coordinator's schedule",
+            labelnames=("process_set",))
+        self._m_stalled = m.gauge(
+            "horovod_stalled_tensors",
+            "Entries currently past the stall warning time",
+            labelnames=("process_set",))
+        self._m_stall_warn = m.counter(
+            "horovod_stall_warnings_total",
+            "Stall warnings issued; 'ranks' names the global ranks "
+            "attributed (locally-missing ranks, or every rank a "
+            "non-reporting process hosts)",
+            labelnames=("ranks",))
+        self._m_ring_dumps = m.counter(
+            "horovod_trace_ring_dumps_total",
+            "Flight-recorder ring dumps (stall auto-dumps, coordinator"
+            " requests, hvd.dump_trace)",
+            labelnames=("reason",))
+        # steady-state negotiation bypass + coordinator crash survival
+        # (docs/fault_tolerance.md): hit cycles ran without touching
+        # the coordinator, fallback cycles disengaged (labeled by
+        # reason); the histogram times vote + execution of hit cycles.
+        # Resyncs are counted by the StoreController on epoch bumps.
+        self._m_bypass = m.counter(
+            telemetry.BYPASS_CYCLES_FAMILY,
+            telemetry.BYPASS_CYCLES_HELP,
+            labelnames=("outcome",))
+        self._m_bypass_cycle = m.histogram(
+            telemetry.BYPASS_CYCLE_SECONDS_FAMILY,
+            telemetry.BYPASS_CYCLE_SECONDS_HELP)
+        m.counter(telemetry.COORD_RESYNCS_FAMILY,
+                  telemetry.COORD_RESYNCS_HELP)
+        # families owned by other layers, pre-declared for the
+        # catalogue (names+helps live ONCE in telemetry/__init__.py)
+        m.counter(telemetry.PROGRAM_CACHE_HITS_FAMILY,
+                  telemetry.PROGRAM_CACHE_HITS_HELP)
+        m.counter(telemetry.PROGRAM_CACHE_MISSES_FAMILY,
+                  telemetry.PROGRAM_CACHE_MISSES_HELP)
+        m.counter(telemetry.COMPILE_SECONDS_FAMILY,
+                  telemetry.COMPILE_SECONDS_HELP)
+        m.counter(telemetry.AUTOTUNE_SAMPLES_FAMILY,
+                  telemetry.AUTOTUNE_SAMPLES_HELP)
+        m.gauge(telemetry.AUTOTUNE_BEST_SCORE_FAMILY,
+                telemetry.AUTOTUNE_BEST_SCORE_HELP)
+        m.gauge(telemetry.AUTOTUNE_BEST_CONFIG_FAMILY,
+                telemetry.AUTOTUNE_BEST_CONFIG_HELP,
+                labelnames=telemetry.AUTOTUNE_BEST_CONFIG_LABELS)
+        m.counter(telemetry.ELASTIC_RESIZE_FAMILY,
+                  telemetry.ELASTIC_RESIZE_HELP,
+                  labelnames=("direction",))
+        # fabric/chaos/liveness families (docs/fault_tolerance.md):
+        # retries are counted by the StoreClient, injections by the
+        # chaos injector, and worker_alive is set by the heartbeat
+        # thread (the coordinator's /metrics adds its authoritative
+        # per-proc view, including the 0 a dead worker can't push)
+        m.counter(telemetry.FABRIC_RETRIES_FAMILY,
+                  telemetry.FABRIC_RETRIES_HELP, labelnames=("verb",))
+        m.counter(telemetry.FAULTS_INJECTED_FAMILY,
+                  telemetry.FAULTS_INJECTED_HELP, labelnames=("kind",))
+        # step-integrity families (core/integrity.py; docs/
+        # fault_tolerance.md "Silent data corruption"): checks are
+        # counted at every verification site, rollbacks once per
+        # quarantined step, and the histogram times sentinel rounds
+        m.counter(telemetry.INTEGRITY_CHECKS_FAMILY,
+                  telemetry.INTEGRITY_CHECKS_HELP,
+                  labelnames=telemetry.INTEGRITY_CHECKS_LABELS)
+        m.counter(telemetry.INTEGRITY_ROLLBACKS_FAMILY,
+                  telemetry.INTEGRITY_ROLLBACKS_HELP,
+                  labelnames=telemetry.INTEGRITY_ROLLBACKS_LABELS)
+        m.histogram(telemetry.INTEGRITY_SENTINEL_SECONDS_FAMILY,
+                    telemetry.INTEGRITY_SENTINEL_SECONDS_HELP)
+        self._m_alive = m.gauge(
+            telemetry.WORKER_ALIVE_FAMILY, telemetry.WORKER_ALIVE_HELP,
+            labelnames=("proc",))
+        ws = m.gauge("horovod_world_size", "Global number of ranks")
+        ws.set(self.global_size)
+
+    def _start_metrics_push(self):
+        """Multi-process jobs push periodic registry snapshots to the
+        launcher's KV store; the coordinator merges them into its
+        job-wide /metrics (engine.py:460-477)."""
+        if not self.multiproc or self.config.metrics_push_secs <= 0:
+            return
+        self._metrics_pusher = telemetry.MetricsPusher(
+            self.controller.client, self.controller.proc_id,
+            interval=self.config.metrics_push_secs,
+            # round + proc let the coordinator drop stale snapshots
+            # (elastic downsizes, previous rounds) from the aggregate
+            meta={"rank_offset": self.rank_offset,
+                  "num_local": self.num_local,
+                  "round": self.controller.round_id}).start()
+
+    def push_metrics(self):
+        """Push this worker's snapshot to the coordinator NOW (the
+        periodic pusher's out-of-band hook)."""
+        if self._metrics_pusher is not None:
+            self._metrics_pusher.push_now()
+
+    def _start_clock_sync(self):
+        """Multi-process jobs map this worker's timeline epoch onto the
+        launcher's clock (the NTP midpoint over the coordinator's
+        ``clock`` verb, re-sampled for drift) so that per-worker traces
+        merge onto one time axis (engine.py:488-510).  Idempotent: also
+        called when ``hvd.start_timeline()`` makes the first timeline."""
+        if self._clock_sync is not None or not self.multiproc \
+                or self.timeline is None or self.config.clock_sync_secs <= 0:
+            return
+        from ..utils.clock_sync import ClockSync
+        # the timeline is resolved at every round: start_timeline and
+        # stop_timeline swap it at runtime
+        self._clock_sync = ClockSync(
+            lambda: self.timeline, self.controller.client,
+            interval=self.config.clock_sync_secs).start()
+
+    def dump_trace(self, path=None, reason="manual", dump_id=None):
+        """Dump the flight-recorder ring (engine.py:572-613): push it
+        over the KV fabric (multi-process: the buffers the launcher's
+        ``GET /timeline`` merges) and, when ``path`` or
+        ``HOROVOD_TRACE_DUMP_DIR`` names a destination, write it as a
+        stand-alone Chrome trace.  Returns the file written, or None.
+        Called on a stall, on the coordinator's request and by
+        ``hvd.dump_trace()``."""
+        import json
+        import os
+        tl = self.timeline
+        if tl is None:
+            return None
+        events = tl.ring_dump()
+        self._m_ring_dumps.labels(reason=reason).inc()
+        proc = self.controller.proc_id if self.multiproc else 0
+        if self.multiproc:
+            from ..utils.trace_merge import TRACE_KV_PREFIX
+            payload = {"proc": proc, "pid": tl.pid, "dump_id": dump_id,
+                       "reason": reason, "round": self.controller.round_id,
+                       "events": events}
+            try:
+                self.controller.client.put(f"{TRACE_KV_PREFIX}{proc}",
+                                           json.dumps(payload).encode())
+            except Exception:  # noqa: BLE001 — the coordinator may be
+                # gone during teardown; tracing must never kill a worker
+                pass
+        if path is None and self.config.trace_dump_dir:
+            os.makedirs(self.config.trace_dump_dir, exist_ok=True)
+            path = os.path.join(self.config.trace_dump_dir,
+                                f"hvd_flight_p{proc}.json")
+        if path:
+            try:
+                with open(path, "w") as f:
+                    json.dump(events, f)
+            except OSError as exc:
+                logger.warning("could not write flight-recorder dump "
+                               "%s: %s", path, exc)
+                return None
+        return path
+
+    # -- counter views: the engine attributes the tests, the frontends
+    #    and chip_smoke.py read, over the registry families that hold
+    #    them (engine.py:615-646)
+
+    @property
+    def logical_wire_bytes(self):
+        return int(self._m_logical.total())
+
+    @property
+    def actual_wire_bytes(self):
+        return int(self._m_actual.total())
+
+    @property
+    def cross_wire_bytes(self):
+        return int(self._m_cross.total())
+
+    @property
+    def algo_runs(self):
+        return {k: int(v) for k, v in self._m_algo.as_dict().items()}
+
+    @property
+    def hop_wire_bytes(self):
+        """Bytes each hop of a reduction moved, keyed (hop, wire)."""
+        return {k: int(v) for k, v in self._m_hop.as_dict().items()}
+
+    @property
+    def quantized_bucket_runs(self):
+        return int(self._m_quantized.total())
+
+    @property
+    def fused_allgather_runs(self):
+        return int(self._m_fused_ag.total())
+
+    @property
+    def sharded_update_runs(self):
+        return int(self._m_sharded.total())
+
+    @property
+    def bypass_hits(self):
+        return int(self._m_bypass.value(outcome="hit"))
+
+    @property
+    def bypass_fallbacks(self):
+        return int(self._m_bypass.value(outcome="fallback"))
+
+    @property
+    def bypass_cycle_seconds(self):
+        """Seconds of the hit cycles' votes and executions."""
+        return self._m_bypass_cycle.labels().sum
+
+    # ------------------------------------------------------------------
     # worker liveness
 
     def _heartbeat_loop(self, interval):
@@ -346,13 +653,17 @@ class Engine:
         ranks = list(range(self.rank_offset,
                            self.rank_offset + self.num_local))
         host = env_mod.get_str(env_mod.HOROVOD_HOSTNAME)
+        alive = self._m_alive.labels(proc=str(self.controller.proc_id))
         while not self._hb_stop.is_set():
             if self.chaos is not None and self.chaos.hung:
                 # a chaos ``hang``: stop beating, so the coordinator's
                 # liveness scan declares this process dead
                 return
             try:
-                if self.controller.heartbeat(ranks=ranks, host=host):
+                dead = self.controller.heartbeat(ranks=ranks, host=host)
+                alive.set(1)
+                if dead:
+                    alive.set(0)
                     self.abort(HorovodInternalError(
                         "coordinator declared this worker dead after "
                         "missed heartbeats"))
@@ -580,6 +891,10 @@ class Engine:
                 break
             self._lock.wait(timeout=0.05)   # let the engine thread drain
         self.process_sets.pop(ps_id, None)
+        # the set's gauge children go with it: a phantom queue depth of a
+        # dead set would trip alerting forever
+        for fam in (self._m_pending, self._m_awaiting, self._m_stalled):
+            fam.remove(process_set=ps_id)
         for group in [ps.group, ps.compiled_group] + ps.groups_2d:
             if group is not None:
                 dist.destroy_process_group(group)
@@ -599,10 +914,6 @@ class Engine:
 
     def process_set_ranks(self, ps_id):
         return list(self.get_process_set(ps_id).ranks)
-
-    def count_sharded_update(self):
-        with self._lock:
-            self.sharded_update_runs += 1
 
     # ------------------------------------------------------------------
     # submission (rank threads)
@@ -664,6 +975,9 @@ class Engine:
                     f"{sub.rank} before completion"))
                 return sub.handle
             entry.subs[sub.rank] = sub
+            if self.timeline is not None:
+                self.timeline.negotiate_start(sub.names[0],
+                                              req.request_type.name)
             self._lock.notify_all()
         return sub.handle
 
@@ -746,8 +1060,21 @@ class Engine:
                         break
                     if self._hold_depth:
                         continue
+                    cycle_t0 = time.monotonic()
                     work = self._collect_ready_locked()
                     self._check_stalls_locked()
+                    self._observe_queues_locked()
+                if self.timeline is not None and work:
+                    # reference timeline.cc MarkCycleStart: one instant
+                    # marker per cycle that produced work
+                    # (HOROVOD_TIMELINE_MARK_CYCLES)
+                    self.timeline.mark_cycle()
+                if self._pending_trace_dump is not None:
+                    # the local stall inspector asked for a flight-
+                    # recorder dump; it runs here, outside the lock
+                    reason, self._pending_trace_dump = \
+                        self._pending_trace_dump, None
+                    self.dump_trace(reason=reason)
                 if self.multiproc:
                     if self._bypass is not None and self._bypass.active:
                         # armed fast path: agree over the collective path
@@ -756,18 +1083,45 @@ class Engine:
                         self._bypass_cycle()
                     else:
                         self._store_cycle(work)
-                    continue
-                for ps, batch in work:
-                    if self.chaos is not None:
-                        # single-process twin of the store cycle's hook:
-                        # slow-rank faults delay dispatch here
-                        self.chaos.on_collectives(len(batch))
-                    try:
-                        self._execute_batch(ps, batch)
-                    finally:
-                        with self._lock:
-                            ps.running -= len(batch)
-                            self._lock.notify_all()
+                else:
+                    for ps, batch in work:
+                        if self.chaos is not None:
+                            # single-process twin of the store cycle's
+                            # hook: slow-rank faults delay dispatch here
+                            self.chaos.on_collectives(len(batch))
+                        try:
+                            self._execute_batch(ps, batch)
+                        finally:
+                            with self._lock:
+                                ps.running -= len(batch)
+                                self._lock.notify_all()
+                if work:
+                    # idle cycles are the wait's timeout; only cycles
+                    # that produced work say anything about dispatch
+                    self._m_cycles.inc()
+                    self._m_cycle.observe(time.monotonic() - cycle_t0)
+
+    def _observe_queues_locked(self):
+        """Queue-depth gauges per process set, mirrored as Chrome counter
+        events on the timeline so that traces and metrics tell one story
+        (engine.py:1086-1107)."""
+        pending = awaiting = 0
+        for ps in self.process_sets.values():
+            self._m_pending.labels(process_set=ps.id).set(len(ps.pending))
+            self._m_awaiting.labels(process_set=ps.id).set(
+                len(ps.awaiting))
+            pending += len(ps.pending)
+            awaiting += len(ps.awaiting)
+        tl = self.timeline
+        if tl is not None and (pending or awaiting
+                               or self._tl_queues_nonzero):
+            self._tl_queues_nonzero = bool(pending or awaiting)
+            tl.counter("queue_depth", {"pending": pending,
+                                       "awaiting": awaiting})
+            tl.counter("wire_bytes", {
+                "logical": self.logical_wire_bytes,
+                "actual": self.actual_wire_bytes,
+                "cross": self.cross_wire_bytes})
 
     def _collect_ready_locked(self):
         """ComputeResponseList analogue: pull entries that every
@@ -794,7 +1148,14 @@ class Engine:
                     del ps.pending[key]
                     if self.multiproc:
                         ps.awaiting[key] = entry
+                    if self.timeline is not None:
+                        # flow-event anchor: the instant this process
+                        # became ready (the straggler's lands last)
+                        entry.ready_ts = self.timeline._ts()
                     self._stall_warned.discard((ps.id, key))
+                    self._m_negotiation.labels(
+                        op=key.split("|", 1)[0]).observe(
+                            time.monotonic() - entry.first_time)
             if ready:
                 if not self.multiproc:
                     ps.running += len(ready)
@@ -808,10 +1169,13 @@ class Engine:
         if self.config.stall_check_disable:
             return
         now = time.monotonic()
+        stalled = {}
         for ps in self.process_sets.values():
             for key, entry in list(ps.pending.items()):
                 age = now - entry.first_time
                 wkey = (ps.id, key)
+                if age > self.config.stall_warning_secs:
+                    stalled[ps.id] = stalled.get(ps.id, 0) + 1
                 if age > self.config.stall_warning_secs \
                         and wkey not in self._stall_warned:
                     missing = [r for r in ps.local_ranks
@@ -820,7 +1184,11 @@ class Engine:
                         "One or more tensors were submitted to be reduced "
                         "by some ranks but not all: %s stalled for %.0fs "
                         "(missing ranks: %s)", key, age, missing)
+                    self._m_stall_warn.labels(
+                        ranks=self._stall_ranks_label(missing)).inc()
                     self._stall_warned.add(wkey)
+                    # ship the warning with the trace that explains it
+                    self._pending_trace_dump = "stall"
                 if (self.config.stall_shutdown_secs > 0
                         and age > self.config.stall_shutdown_secs):
                     del ps.pending[key]
@@ -843,6 +1211,21 @@ class Engine:
                     for sub in entry.subs.values():
                         sub.handle.set_error(StalledTensorError(
                             f"tensor {key} stalled for {age:.0f}s"))
+        for ps in self.process_sets.values():
+            self._m_stalled.labels(process_set=ps.id).set(
+                stalled.get(ps.id, 0))
+
+    def _stall_ranks_label(self, ranks):
+        """Bounded label naming the attributed ranks (engine.py:1154-
+        1167): the first eight verbatim (and a count of the rest),
+        folding into ``other`` once the family holds 64 children."""
+        label = ",".join(str(r) for r in ranks[:8])
+        if len(ranks) > 8:
+            label += f",+{len(ranks) - 8}"
+        seen = self._m_stall_warn.as_dict()
+        if label not in seen and len(seen) >= 64:
+            return "other"
+        return label
 
     def _fail_all_pending_locked(self, exc):
         self._stall_warned.clear()
@@ -1020,7 +1403,7 @@ class Engine:
             # report_ready, so the hook fires before the vote (fallback
             # cycles count through _rereport_awaiting's report instead)
             self.chaos.on_collectives(len(awaiting_fps))
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         try:
             agreed = self._bypass_vote(ps0, vote)
         except Exception as exc:  # noqa: BLE001 — a failed agreement
@@ -1032,12 +1415,12 @@ class Engine:
             # counted before the handles resolve, so a rank thread that
             # reads the counter after its result sees this cycle
             bp.cycles += 1
-            self.bypass_hits += 1
+            self._m_bypass.labels(outcome="hit").inc()
             for i, resp in enumerate(bp.responses):
                 self._apply_response(self._bypass_response(resp, i))
-            self.bypass_cycle_seconds += time.perf_counter() - t0
+            self._m_bypass_cycle.observe(time.monotonic() - t0)
         else:
-            self.bypass_fallbacks += 1
+            self._m_bypass.labels(outcome="fallback").inc()
             logger.info(
                 "negotiation bypass disengaged (%s); falling back to full "
                 "negotiation", reason or "peer mismatch")
@@ -1120,10 +1503,8 @@ class Engine:
     def _apply_response(self, resp):
         """One record of the coordinator's log (engine.py:1536-1674):
         a fused batch to run, a negotiation error, a stall attribution,
-        a dead peer (abort), the bypass's arm record or a set's join
-        barrier.  The JAX package's flight-recorder dump requests
-        (``trace_dump``) have no recorder to dump here (ROADMAP.md
-        A17)."""
+        a dead peer (abort), the bypass's arm record, a flight-recorder
+        dump request or a set's join barrier."""
         kind = resp.get("kind")
         if kind == "batch":
             self._apply_batch(resp)
@@ -1143,13 +1524,15 @@ class Engine:
                 fresh = (ps_id, key) not in self._stall_warned
                 self._stall_warned.add((ps_id, key))
             if fresh:
+                missing = resp.get("missing_ranks") or []
                 logger.warning(
                     "One or more tensors were submitted to be reduced "
                     "by some ranks but not all: %s stalled for %ss "
                     "(missing global ranks: %s, hosted by non-reporting "
                     "processes %s)", key, resp.get("age", "?"),
-                    resp.get("missing_ranks") or "unknown",
-                    resp.get("missing_procs", []))
+                    missing or "unknown", resp.get("missing_procs", []))
+                self._m_stall_warn.labels(
+                    ranks=self._stall_ranks_label(missing)).inc()
         elif kind == "dead":
             # a peer missed its heartbeats: every collective it belongs
             # to is doomed, so fail every pending and future handle now
@@ -1165,6 +1548,12 @@ class Engine:
             # the steady-state bypass
             if self._bypass is not None:
                 self._bypass.on_arm(resp.get("fp"))
+        elif kind == "trace_dump":
+            # a coordinator-requested flight-recorder dump (a stall,
+            # POST /trace/dump, GET /timeline): push the ring so that the
+            # launcher can serve the merged job trace
+            self.dump_trace(reason=resp.get("reason", "request"),
+                            dump_id=resp.get("id"))
         elif kind == "join_done":
             with self._lock:
                 ps = self.process_sets.get(resp.get("ps", 0))
@@ -1177,6 +1566,7 @@ class Engine:
 
     def _apply_batch(self, resp):
         keys, metas = resp["keys"], resp.get("metas", {})
+        trace_ids = resp.get("trace", {})
         ps = None
         with self._lock:
             m = metas.get(keys[0]) if keys else None
@@ -1196,6 +1586,10 @@ class Engine:
                 if e is None:
                     bad_key = k
                     break
+                if trace_ids.get(k) is not None:
+                    # the coordinator-minted job-unique trace id: every
+                    # process stamps it on this entry's flow events
+                    e.trace_id = trace_ids[k]
                 entries.append(e)
             ps.running += len(entries)
         try:
@@ -1291,6 +1685,10 @@ class Engine:
                 for sub in entry.subs.values():
                     sub.handle.set_error(err)
                 continue
+            if entry.trace_id is None:
+                # one process has no coordinator to mint trace ids
+                self._next_trace_id += 1
+                entry.trace_id = self._next_trace_id
             runnable.append(entry)
         for bucket in self._fuse(ps, runnable):
             try:
@@ -1451,26 +1849,52 @@ class Engine:
 
     def _run_bucket(self, ps, bucket, aux=None):
         """Run one fused bucket; ``aux`` is a multi-process batch's
-        per-process allgather dims and alltoall splits."""
-        rt = next(iter(bucket[0].subs.values())).request.request_type
-        if rt == RequestType.ALLREDUCE:
-            self._run_allreduce_bucket(ps, bucket)
-        elif rt == RequestType.ALLGATHER:
-            if len(bucket) > 1:
-                self._run_allgather_fused(ps, bucket, aux)
+        per-process allgather dims and alltoall splits.  The timeline
+        gets the bucket's op span on every member's lane, with a flow
+        event from each entry's ready instant into it (engine.py:
+        1922-1967); the span and ``horovod_execution_seconds`` are host
+        time (the kernels are enqueued, not waited for)."""
+        first = next(iter(bucket[0].subs.values()))
+        rt = first.request.request_type
+        exec_t0 = time.monotonic()
+        if self.timeline is not None:
+            names = [n for e in bucket
+                     for n in next(iter(e.subs.values())).names]
+            algo = None
+            if rt == RequestType.ALLREDUCE:
+                algo, _ = self._algo_plan(ps, first.request,
+                                          first.request.reduce_op)
+            flows = {}
+            for e in bucket:
+                if e.trace_id is not None and e.ready_ts is not None:
+                    flows[next(iter(e.subs.values())).names[0]] = (
+                        e.trace_id, e.ready_ts)
+            self.timeline.op_start(names, rt.name, algorithm=algo,
+                                   flows=flows or None)
+        try:
+            if rt == RequestType.ALLREDUCE:
+                self._run_allreduce_bucket(ps, bucket)
+            elif rt == RequestType.ALLGATHER:
+                if len(bucket) > 1:
+                    self._run_allgather_fused(ps, bucket, aux)
+                else:
+                    self._run_allgather(ps, bucket[0], aux)
+            elif rt == RequestType.BROADCAST:
+                self._run_broadcast(ps, bucket[0])
+            elif rt == RequestType.ALLTOALL:
+                self._run_alltoall(ps, bucket, aux)
+            elif rt == RequestType.REDUCESCATTER:
+                self._run_reducescatter(ps, bucket[0])
+            elif rt == RequestType.BARRIER:
+                for sub in bucket[0].subs.values():
+                    sub.handle.set_result(None)
             else:
-                self._run_allgather(ps, bucket[0], aux)
-        elif rt == RequestType.BROADCAST:
-            self._run_broadcast(ps, bucket[0])
-        elif rt == RequestType.ALLTOALL:
-            self._run_alltoall(ps, bucket, aux)
-        elif rt == RequestType.REDUCESCATTER:
-            self._run_reducescatter(ps, bucket[0])
-        elif rt == RequestType.BARRIER:
-            for sub in bucket[0].subs.values():
-                sub.handle.set_result(None)
-        else:
-            raise HorovodInternalError(f"unhandled op {rt}")
+                raise HorovodInternalError(f"unhandled op {rt}")
+        finally:
+            self._m_execution.labels(op=rt.name).observe(
+                time.monotonic() - exec_t0)
+            if self.timeline is not None:
+                self.timeline.op_end()
 
     def _local_subs(self, ps, entry):
         """Local participating submissions, ordered by global rank."""
@@ -1543,23 +1967,23 @@ class Engine:
             return self.topology.num_hosts > 1
         return len({hosts[r] for r in ps.ranks if r < len(hosts)}) > 1
 
-    def account_wire(self, logical, actual, cross=None):
+    def account_wire(self, logical, actual, cross=None, wire=None):
         """Add one collective's full-width bytes and the bytes its wire
-        encoding moves (per rank) to the counters.  ``cross``: the bytes
+        encoding moves (per rank) to the counters, labelled by ``wire``
+        (None: full width; engine.py:2253-2265).  ``cross``: the bytes
         over the slow hop; None (a flat collective) counts all of
         ``actual`` there when the job spans hosts, else none."""
         if cross is None:
             cross = actual if self._spans_hosts() else 0
-        self.logical_wire_bytes += int(logical)
-        self.actual_wire_bytes += int(actual)
-        self.cross_wire_bytes += int(cross)
+        w = wire or "f32"
+        self._m_logical.labels(wire=w).inc(int(logical))
+        self._m_actual.labels(wire=w).inc(int(actual))
+        self._m_cross.labels(wire=w).inc(int(cross))
 
     def _account_hop(self, hop, wire, nbytes):
         """Per-hop bytes (engine.py:2267-2273): ``hop`` 'inner' (the
         intra-host stage) or 'cross', ``wire`` that hop's encoding."""
-        key = (hop, wire or "f32")
-        self.hop_wire_bytes[key] = self.hop_wire_bytes.get(key, 0) \
-            + int(nbytes)
+        self._m_hop.labels(hop=hop, wire=wire or "f32").inc(int(nbytes))
 
     def _algo_plan(self, ps, req, op):
         """The bucket's effective (algorithm, inner-axis size)
@@ -1592,29 +2016,31 @@ class Engine:
         """Per local rank, the bucket's members packed into the rank's
         device fusion buffer: one kernel launch for floats
         (``out_dtype(f32(x) * factor)``), integer scaling otherwise.
-        Missing (joined) ranks' members stay zero."""
-        rows = []
-        for idx, r in enumerate(ps.local_ranks):
-            subs = [e.subs[r] for e in bucket if r in e.subs]
-            self._await_inputs(subs)
-            buf = self._fusion_buffer(idx, buf_dtype, total)
-            srcs, offs = [], []
-            for entry, i, off, _n, _shape in layout:
-                sub = entry.subs.get(r)
-                if sub is not None:
-                    srcs.append(sub.payloads[i])
-                    offs.append(off)
-            if len(srcs) < len(layout):
-                buf.zero_()
-            if dist_ops.is_float(buf_dtype):
-                cuda_kernels.pack_scale_cast(srcs, buf, offs, factor)
-            else:
-                for src, off in zip(srcs, offs):
-                    seg = buf[off:off + src.numel()]
-                    seg.copy_(dist_ops.int_prescale(src.view(-1), factor)
-                              if scaled else src.view(-1))
-            rows.append(buf)
-        return rows
+        Missing (joined) ranks' members stay zero.  Runs inside the
+        ``hvd_fusion_pack`` profiler range (engine.py:2004)."""
+        with profiler.annotate("hvd_fusion_pack", self.device):
+            rows = []
+            for idx, r in enumerate(ps.local_ranks):
+                subs = [e.subs[r] for e in bucket if r in e.subs]
+                self._await_inputs(subs)
+                buf = self._fusion_buffer(idx, buf_dtype, total)
+                srcs, offs = [], []
+                for entry, i, off, _n, _shape in layout:
+                    sub = entry.subs.get(r)
+                    if sub is not None:
+                        srcs.append(sub.payloads[i])
+                        offs.append(off)
+                if len(srcs) < len(layout):
+                    buf.zero_()
+                if dist_ops.is_float(buf_dtype):
+                    cuda_kernels.pack_scale_cast(srcs, buf, offs, factor)
+                else:
+                    for src, off in zip(srcs, offs):
+                        seg = buf[off:off + src.numel()]
+                        seg.copy_(dist_ops.int_prescale(src.view(-1), factor)
+                                  if scaled else src.view(-1))
+                rows.append(buf)
+            return rows
 
     def _unpack_rows(self, ps, bucket, layout, ys, dtype, factor,
                      int_post=None):
@@ -1622,44 +2048,48 @@ class Engine:
         kernel launch for floats (``dst_dtype(f32(y) * factor)``); an f64
         output of a narrower wire is a plain widening copy (``factor`` is
         1 there); ``int_post`` = (op, R, postscale) scales integers.
-        Returns {(id(entry), rank): [outputs]}."""
-        results = {}
-        for r, y in zip(ps.local_ranks, ys):
-            dsts, offs = [], []
-            for entry, i, off, n, shape in layout:
-                sub = entry.subs.get(r)
-                if sub is None:
-                    continue
-                out = self._output(sub, i, shape, dtype, self.device)
-                results.setdefault((id(entry), r), []).append(out)
-                dsts.append(out)
-                offs.append(off)
-            if dist_ops.is_float(dtype) and (
-                    y.dtype == dtype or dtype != torch.float64):
-                cuda_kernels.unpack_scale_cast(y, dsts, offs, factor)
-            else:
-                for dst, off in zip(dsts, offs):
-                    seg = y[off:off + dst.numel()]
-                    if int_post is not None:
-                        seg = dist_ops.int_postscale(seg, *int_post)
-                    dst.view(-1).copy_(seg)
-        return results
+        Returns {(id(entry), rank): [outputs]}.  Runs inside the
+        ``hvd_fusion_unpack`` profiler range (engine.py:2071)."""
+        with profiler.annotate("hvd_fusion_unpack", self.device):
+            results = {}
+            for r, y in zip(ps.local_ranks, ys):
+                dsts, offs = [], []
+                for entry, i, off, n, shape in layout:
+                    sub = entry.subs.get(r)
+                    if sub is None:
+                        continue
+                    out = self._output(sub, i, shape, dtype, self.device)
+                    results.setdefault((id(entry), r), []).append(out)
+                    dsts.append(out)
+                    offs.append(off)
+                if dist_ops.is_float(dtype) and (
+                        y.dtype == dtype or dtype != torch.float64):
+                    cuda_kernels.unpack_scale_cast(y, dsts, offs, factor)
+                else:
+                    for dst, off in zip(dsts, offs):
+                        seg = y[off:off + dst.numel()]
+                        if int_post is not None:
+                            seg = dist_ops.int_postscale(seg, *int_post)
+                        dst.view(-1).copy_(seg)
+            return results
 
     def _encode_quantized_rows(self, rows, logical_nbytes, wire):
         """Block-quantize each rank's packed row on the device (kernels
         B2/B4; an f64 row is narrowed to f32 first, as the numpy codec
         does) and account the wire: codes plus one bf16 scale per block
-        (engine.py:2276-2296).  Returns (q_rows, s_rows)."""
+        (engine.py:2276-2296), inside the ``hvd_quantize_encode``
+        profiler range.  Returns (q_rows, s_rows)."""
         q_rows, s_rows = [], []
-        for row in rows:
-            q, s = quantize_kernels.encode(
-                row if row.dtype in quantize_kernels.FLOAT_DTYPES
-                else row.float(), wire)
-            q_rows.append(q)
-            s_rows.append(s)
+        with profiler.annotate("hvd_quantize_encode", self.device):
+            for row in rows:
+                q, s = quantize_kernels.encode(
+                    row if row.dtype in quantize_kernels.FLOAT_DTYPES
+                    else row.float(), wire)
+                q_rows.append(q)
+                s_rows.append(s)
         self.account_wire(logical_nbytes, q_rows[0].numel()
-                           + s_rows[0].numel() * qz.SCALE_BYTES)
-        self.quantized_bucket_runs += 1
+                          + s_rows[0].numel() * qz.SCALE_BYTES, wire=wire)
+        self._m_quantized.inc()
         return q_rows, s_rows
 
     def _run_allreduce_bucket(self, ps, bucket):
@@ -1690,7 +2120,7 @@ class Engine:
         nbytes = total * dtype.itemsize
         wire = self._wire_for(req, dtype, op)
         algo, inner = self._algo_plan(ps, req, op)
-        self.algo_runs[algo] = self.algo_runs.get(algo, 0) + 1
+        self._m_algo.labels(algorithm=algo).inc()
         if algo != "flat":
             results = self._run_allreduce_2d(ps, bucket, layout, total,
                                              dtype, wire, inner)
@@ -1711,7 +2141,8 @@ class Engine:
                 (op, ps.size, post) if scaled else None)
         elif wire in qz.WIRE_TORCH_DTYPES:
             wdt = qz.WIRE_TORCH_DTYPES[wire]
-            self.account_wire(nbytes, total * 2, total * 2 if spans else 0)
+            self.account_wire(nbytes, total * 2, total * 2 if spans else 0,
+                              wire=wire)
             self._account_hop(hop, wire, total * 2)
             if dtype == torch.float64:
                 rows = [row.to(wdt) for row in self._pack_rows(
@@ -1754,13 +2185,13 @@ class Engine:
             cross = qz.quantized_psum_wire_nbytes(
                 m, ps.size // inner, bits=4 if wire == "int4" else 8)
             actual = total * iw_width
-            self.quantized_bucket_runs += 1
+            self._m_quantized.inc()
         else:
             cross = m * (2 if wire in qz.WIRE_TORCH_DTYPES else itemsize)
             actual = total * iw_width if (inner_wire or wire) \
                 else total * itemsize
         self.account_wire(total * itemsize, actual,
-                          cross if self._spans_hosts(ps) else 0)
+                          cross if self._spans_hosts(ps) else 0, wire=wire)
         self._account_hop("cross", wire, cross)
         rows = self._pack_rows(ps, bucket, layout, total, dtype,
                                req.prescale_factor)
@@ -1842,7 +2273,7 @@ class Engine:
             buf[:flat.numel()] = flat
             rows.append(buf)
         gathered = ps.executor.allgather(rows, totals, ())
-        self.fused_allgather_runs += 1
+        self._m_fused_ag.inc()
         starts = [sum(totals[:pos]) for pos in range(R)]
         slices, offs = {}, list(starts)
         for pos in range(R):
@@ -1959,20 +2390,21 @@ class Engine:
                   default=0)
         if wire in ("int8", "int4") and seg == 0:
             wire = None
-        pos0 = ps.index[local_ranks[0]]
-        logical = sum(comb[pos0]) * itemsize
         if wire in ("int8", "int4"):
             seg_pad = -(-seg // qz.BLOCK) * qz.BLOCK
             q_rows, s_rows = [], []
-            for i, r in enumerate(local_ranks):
-                q, s = self._encode_slots(
-                    ps, r, rows[i], comb[ps.index[r]], seg_pad, wire,
-                    req.error_feedback)
-                q_rows.append(q)
-                s_rows.append(s)
-            self.account_wire(logical, q_rows[0].numel()
-                              + s_rows[0].numel() * qz.SCALE_BYTES)
-            self.quantized_bucket_runs += 1
+            with profiler.annotate("hvd_a2a_quantize_encode", self.device):
+                for i, r in enumerate(local_ranks):
+                    q, s = self._encode_slots(
+                        ps, r, rows[i], comb[ps.index[r]], seg_pad, wire,
+                        req.error_feedback)
+                    q_rows.append(q)
+                    s_rows.append(s)
+            self._account_alltoall(ps, local_ranks[0], comb, itemsize,
+                                   wire, lambda n: (q_rows[0].numel()
+                                                    + s_rows[0].numel()
+                                                    * qz.SCALE_BYTES) // R)
+            self._m_quantized.inc()
             q_res, s_res = ps.executor.alltoall_codes(q_rows, s_rows)
             bits = 4 if wire == "int4" else 8
             flat_recv = []
@@ -1985,12 +2417,15 @@ class Engine:
                      for src in range(R)]))
         elif wire in qz.WIRE_TORCH_DTYPES:
             wdt = qz.WIRE_TORCH_DTYPES[wire]
-            self.account_wire(logical, sum(comb[pos0]) * 2)
+            self._account_alltoall(ps, local_ranks[0], comb, itemsize,
+                                   wire, lambda n: n * 2)
             flat_recv, _ = ps.executor.alltoall(
                 [row.to(wdt) for row in rows], comb)
         else:
-            self.account_wire(logical, logical)
+            self._account_alltoall(ps, local_ranks[0], comb, itemsize,
+                                   None, lambda n: n * itemsize)
             flat_recv, _ = ps.executor.alltoall(rows, comb)
+        self._m_a2a_runs.labels(path="engine", wire=wire or "f32").inc()
         # de-interleave: per source, the bucket's segments arrive in entry
         # order, the order the send side concatenated them
         results = []
@@ -2014,6 +2449,27 @@ class Engine:
         done = self._done_event()
         for handle, out, rsp in results:
             handle.set_result(out, event=done, extra=rsp)
+
+    def _account_alltoall(self, ps, rank0, comb, itemsize, wire, wire_bytes):
+        """One exchange's bytes, the first local rank's, split by the
+        destination's hop (engine.py:2700-2729): ``wire_bytes`` maps a
+        destination's element count to its wire bytes."""
+        hosts = self.topology.host_of_rank
+        pos0 = ps.index[rank0]
+        by_hop = {}
+        for dst, n in enumerate(comb[pos0]):
+            g = ps.ranks[dst]
+            h = "cross" if g < len(hosts) and rank0 < len(hosts) \
+                and hosts[g] != hosts[rank0] else "inner"
+            lg, ac = by_hop.get(h, (0, 0))
+            by_hop[h] = (lg + n * itemsize, ac + wire_bytes(n))
+        w = wire or "f32"
+        for h, (lg, ac) in by_hop.items():
+            self._m_a2a_logical.labels(hop=h, wire=w).inc(lg)
+            self._m_a2a_wire.labels(hop=h, wire=w).inc(ac)
+            self._account_hop(h, wire, ac)
+        self.account_wire(sum(v[0] for v in by_hop.values()),
+                          sum(v[1] for v in by_hop.values()), wire=wire)
 
     def _scatter_rows(self, subs, i, chunks, rest_n, dtype, factor):
         """Per local rank, payload ``i`` in the padded reducescatter
@@ -2177,6 +2633,14 @@ class Engine:
             # stop beating (with a goodbye) so a clean teardown never
             # reads as a missed-heartbeat death
             self._stop_heartbeat()
+        if self._clock_sync is not None:
+            self._clock_sync.stop()
+            self._clock_sync = None
+        if self._metrics_pusher is not None:
+            # the final push lands this worker's last counters in the
+            # job-wide view
+            self._metrics_pusher.stop()
+            self._metrics_pusher = None
         for stream in (self.stream, self.compiled_stream):
             if stream is not None:
                 stream.synchronize()

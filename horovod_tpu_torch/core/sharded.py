@@ -34,6 +34,7 @@ import threading
 
 import torch
 
+from .. import telemetry
 from ..common import basics
 from ..ops import api
 from ..ops import cuda_kernels
@@ -268,8 +269,9 @@ class ShardedUpdater:
 
     ``state_bytes`` holds what :meth:`record_state_bytes` last recorded:
     ``{"shard": bytes this rank holds, "full": what the dense optimizer
-    would hold}`` (the JAX package exports the pair as a telemetry gauge;
-    telemetry is not ported, ROADMAP A17).  The JAX updater also
+    would hold}``, also exported as the ``horovod_optimizer_state_bytes``
+    gauge; each gradient reducescatter round counts in
+    ``horovod_sharded_update_runs_total``.  The JAX updater also
     registers with the step-integrity quarantine, which is not ported
     either (ROADMAP A14)."""
 
@@ -346,7 +348,7 @@ class ShardedUpdater:
             process_set=self._ps(), wire_dtype=wire,
             shard_fp=self.shard_fp)) for dt, idxs in self._by_dtype(bufs)]
         out = self._collect(handles, len(bufs))
-        basics.engine().count_sharded_update()
+        telemetry.count_sharded_update()
         return out
 
     # -- updated-parameter allgather ------------------------------------------
@@ -503,4 +505,6 @@ class ShardedUpdater:
             "shard": int(shard_state_bytes),
             "full": int(round(shard_state_bytes * self.plan.total_elems
                               / local))}
+        for scope, nbytes in self.state_bytes.items():
+            telemetry.set_optimizer_state_bytes(scope, nbytes)
 

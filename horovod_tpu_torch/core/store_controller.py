@@ -192,6 +192,8 @@ class StoreController:
             self._reported.clear()
             self._suppressed.clear()
             self._cache.clear()
+        from .. import telemetry
+        telemetry.count_coord_resync()
 
     def take_rereport(self):
         """True ONCE per resync, and only after the replayed response

@@ -87,6 +87,7 @@ from torch.utils import _pytree as pytree
 
 from ..common import basics
 from ..common import env as env_mod
+from .. import telemetry
 from ..common.process_sets import ProcessSet, global_process_set
 from ..common.topology import normalize_algorithm, plan_decomposition
 from ..core.message import Adasum, Average, ReduceOp, Sum
@@ -99,6 +100,7 @@ from . import quantize as qz
 from . import quantize_kernels
 from .api import dtype_name
 from .dist_ops import is_float
+from ..utils import profiler
 
 __all__ = [
     "CompiledAlltoall", "CompiledGroupedAllreduce", "CompiledPredict",
@@ -302,17 +304,53 @@ _SIG_DONE = set()
 # any earlier leader built (one build, and one capture, per process)
 _PROGRAM_CACHE = {}
 _PROGRAM_LOCK = threading.Lock()
-#: process-wide program-cache counters (the JAX package's telemetry
-#: families horovod_program_cache_{hits,misses}_total and
-#: horovod_compile_seconds_total; the port has no telemetry package yet,
-#: ROADMAP.md A17).  Monotonic over the process's life.
-_STATS = {"hits": 0, "misses": 0, "compile_seconds": 0.0,
-          "graph": 0, "uncaptured": 0, "reference": 0, "plain": 0}
+#: step programs built per :func:`capture_rule` outcome, over the
+#: process's life (the port's own counts).  The cache's hits, misses and
+#: compile seconds are the registry's program-cache families.
+_STATS = {"graph": 0, "uncaptured": 0, "reference": 0, "plain": 0}
 _STATS_LOCK = threading.Lock()
 _EX_UID = [0]
+#: the program-cache families, in this order
+_CACHE_KEYS = ("hits", "misses", "compile_seconds")
+#: the program-cache counts of the registries before the current one
+#: (each engine installs a fresh registry), so that
+#: :func:`program_cache_stats` stays monotonic over the process's life
+_RETIRED = dict.fromkeys(_CACHE_KEYS, 0.0)
+_LAST_REGISTRY = [None]
+
+
+def _cache_metrics():
+    """The current registry's (hits, misses, compile seconds) families
+    (compiled.py:276-297 of the JAX package), cached on the registry so
+    the per-call path never re-takes its lock.  The first look at a new
+    registry retires the previous one's counts into :data:`_RETIRED`."""
+    reg = telemetry.registry()
+    cached = getattr(reg, "_compiled_cache_metrics", None)
+    if cached is not None:
+        return cached
+    with _STATS_LOCK:
+        cached = getattr(reg, "_compiled_cache_metrics", None)
+        if cached is None:
+            cached = (
+                reg.counter(telemetry.PROGRAM_CACHE_HITS_FAMILY,
+                            telemetry.PROGRAM_CACHE_HITS_HELP),
+                reg.counter(telemetry.PROGRAM_CACHE_MISSES_FAMILY,
+                            telemetry.PROGRAM_CACHE_MISSES_HELP),
+                reg.counter(telemetry.COMPILE_SECONDS_FAMILY,
+                            telemetry.COMPILE_SECONDS_HELP))
+            old = _LAST_REGISTRY[0]
+            if old is not None:
+                for k, fam in zip(_CACHE_KEYS, old._compiled_cache_metrics):
+                    _RETIRED[k] += fam.total()
+            _LAST_REGISTRY[0] = reg
+            reg._compiled_cache_metrics = cached
+    return cached
 
 
 def _count(name, value=1):
+    if name in _CACHE_KEYS:
+        _cache_metrics()[_CACHE_KEYS.index(name)].inc(value)
+        return
     with _STATS_LOCK:
         _STATS[name] += value
 
@@ -604,16 +642,20 @@ def shared_program(key, builder):
 
 def program_cache_stats(by_rule=False):
     """(hits, misses) of the process-wide program cache as integers, for
-    asserting zero steady-state rebuilds.  ``by_rule=True`` returns a
-    dict of those and of the step programs built under each
-    :func:`capture_rule` outcome: ``graph`` (CUDA graphs), ``uncaptured``
-    (on the card over gloo), ``reference`` (``capture=False``) and
-    ``plain`` (the CPU)."""
+    asserting zero steady-state rebuilds: the program-cache families of
+    every registry this process has had, so the counts never go back at
+    a re-init.  ``by_rule=True`` returns a dict of those and of the step
+    programs built under each :func:`capture_rule` outcome: ``graph``
+    (CUDA graphs), ``uncaptured`` (on the card over gloo), ``reference``
+    (``capture=False``) and ``plain`` (the CPU)."""
+    fams = _cache_metrics()
     with _STATS_LOCK:
+        hits, misses = (int(_RETIRED[k] + f.total())
+                        for k, f in zip(_CACHE_KEYS[:2], fams))
         if by_rule:
-            return {k: int(v) for k, v in _STATS.items()
-                    if k != "compile_seconds"}
-        return int(_STATS["hits"]), int(_STATS["misses"])
+            return {"hits": hits, "misses": misses,
+                    **{k: int(v) for k, v in _STATS.items()}}
+        return hits, misses
 
 
 # ---------------------------------------------------------------------------
@@ -1209,7 +1251,16 @@ class _BucketStream:
                        else torch.stack([slot_values[p][2][j]
                                          for p in order])
                        for j in range(len(mp))]
-            return prog(rows, res)
+            # a span on the reducer's own lane (no negotiation phase)
+            # and a profiler range around the program's launch
+            # (compiled.py:1376-1407 of the JAX package)
+            tl = eng.timeline
+            span = tl.span(f"compiled.{red.name or 'reduce'}",
+                           "COMPILED_ALLREDUCE") if tl is not None \
+                else contextlib.nullcontext()
+            with span, profiler.annotate("hvd_compiled_dispatch",
+                                         eng.device):
+                return prog(rows, res)
 
         with self._on_side(members) as cur:
             bufs = red._pack(self._vals, mp, hint)
@@ -1227,6 +1278,7 @@ class _BucketStream:
             results = red._unpack(outs, mp)
             if red.error_feedback:
                 red._update_residuals(skey, self.pos, outs, ex)
+            telemetry.count_overlap_buckets()
             done = None
             if cur is not None:
                 done = torch.cuda.Event()
@@ -1254,11 +1306,19 @@ class _BucketStream:
             return [K.fused_scale_cast(a, scale)
                     if scale != 1.0 and is_float(a.dtype) else a.clone()
                     for a in (self._vals[i] for i in range(self.n))]
+        # the host seconds spent here count as exposed communication
+        # (compiled.py:1456-1471): ordering the caller's stream after the
+        # buckets never blocks the host, so on the card the exposed
+        # remainder is device time, which only a profile shows
+        t0 = time.perf_counter()
         results = {}
         for res, done in self._inflight:
             if done is not None and not done.query():
                 torch.cuda.current_stream(self.device).wait_event(done)
             results.update(res)
+        telemetry.add_exposed_comm_seconds(
+            "grouped" if self.bucket_bytes <= 0 else "bucketized",
+            time.perf_counter() - t0)
         return [results[i] for i in range(self.n)]
 
 
@@ -1422,6 +1482,9 @@ class CompiledAlltoall:
             by_hop = (("cross" if eng._spans_hosts(ps) else "inner", 1.0),)
         self.last_hop_bytes = {hop: (int(logical * f), int(actual * f))
                                for hop, f in by_hop}
+        for hop, (lg, ac) in self.last_hop_bytes.items():
+            telemetry.account_alltoall_bytes(hop, wire, lg, ac)
+        telemetry.count_alltoall_run("compiled", wire)
 
     def start(self, array):
         """Run the exchange; returns an object whose ``result()`` is this
@@ -1505,7 +1568,8 @@ class CompiledAlltoall:
                 with _A2A_EF_LOCK:
                     got = [_A2A_EF.get(ef_base + (p,)) for p in order]
                 res = got if all(g is not None for g in got) else None
-            outs, new_res = prog(rows, res)
+            with profiler.annotate("hvd_compiled_alltoall", eng.device):
+                outs, new_res = prog(rows, res)
             if new_res is not None:
                 with _A2A_EF_LOCK:
                     for p, r in zip(order, new_res):

@@ -48,6 +48,7 @@ from . import quantize as qz
 from .adasum import adasum_reduce
 from . import quantize_kernels as qk
 from .cuda_kernels import FLOAT_DTYPES, cast, fused_scale_cast
+from ..utils import profiler
 
 #: the collectives the executor calls, all of which torch's gloo backend
 #: runs on CUDA tensors (torch 2.11 on the H100); chip_smoke.py phase 16
@@ -416,9 +417,10 @@ class MeshExecutor:
         n = int(n_elems) if n_elems is not None else nb * qz.BLOCK
         qs, ss = self._gathered_codes(q_rows, s_rows)
         y = None
-        for q, s in zip(qs, ss):
-            d = qk.decode(q, s, n, nbits)
-            y = d if y is None else y.add_(d)
+        with profiler.annotate("hvd_quantize_decode", self.device):
+            for q, s in zip(qs, ss):
+                d = qk.decode(q, s, n, nbits)
+                y = d if y is None else y.add_(d)
         if post != 1.0:
             y.mul_(post)
         return [y] * len(q_rows)
@@ -540,9 +542,10 @@ class MeshExecutor:
         chunks, m, rest = self._scatter_layout(d0, rest_shape)
         qs, ss = self._gathered_codes(q_rows, s_rows)
         y = None
-        for q, s in zip(qs, ss):
-            d = qk.decode(q, s, R * m, nbits).view(R, m)
-            y = d if y is None else y.add_(d)
+        with profiler.annotate("hvd_quantize_decode", self.device):
+            for q, s in zip(qs, ss):
+                d = qk.decode(q, s, R * m, nbits).view(R, m)
+                y = d if y is None else y.add_(d)
         if post != 1.0:
             y.mul_(post)
         return [y[pos][:chunks[pos] * rest].view(

@@ -27,6 +27,7 @@ import torch
 
 from . import _build
 from . import quantize as qz
+from ..utils import profiler
 
 #: dtype codes of ops/csrc/quantize.cu
 _CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -187,10 +188,14 @@ def decode(q, scales, n, bits, out_dtype=torch.float32):
 
 def fake_quantize_wire(x, wire):
     """Quant->dequant round trip of ``x`` (any shape, same dtype) through
-    the ``wire`` codec, one encode and one decode launch on the card."""
-    q, s = encode(x.reshape(-1), wire)
-    return decode(q, s, x.numel(), 4 if wire == "int4" else 8,
-                  x.dtype).view(x.shape)
+    the ``wire`` codec, one encode and one decode launch on the card,
+    inside the ``hvd_quantize_encode`` and ``hvd_quantize_decode``
+    profiler ranges (the error-feedback hooks' codec phases)."""
+    with profiler.annotate("hvd_quantize_encode", x.device):
+        q, s = encode(x.reshape(-1), wire)
+    with profiler.annotate("hvd_quantize_decode", x.device):
+        return decode(q, s, x.numel(), 4 if wire == "int4" else 8,
+                      x.dtype).view(x.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -42,9 +42,8 @@ publishes its address under ``/agg/<host>`` in the launcher's KV
 store; its co-hosted processes discover it there.  Chaos kinds
 ``agg_kill`` / ``agg_restart`` (chaos/inject.py ``AggFaultRunner``)
 drill both failure modes deterministically.  The JAX package's tier
-telemetry (the agg_epoch gauge and ``observe_control_cycle``) is
-ROADMAP.md A17's telemetry item: :func:`observe_control_cycle` here
-is a no-op.
+telemetry: the ``horovod_agg_epoch`` gauge, and each upstream flush
+observed into ``horovod_control_cycle_seconds{tier="agg"}``.
 """
 
 import json
@@ -52,6 +51,7 @@ import logging
 import threading
 import time
 
+from ... import telemetry
 from . import http_server as http_server_mod
 from .contract import EPOCH_EXEMPT_VERBS
 from .http_client import StoreClient
@@ -66,10 +66,9 @@ DEFAULT_LINGER_MS = 2.0
 
 
 def observe_control_cycle(tier, seconds):
-    """One upstream flush's latency.  The JAX package observes it into
-    its telemetry registry (``horovod_control_cycle_seconds{tier}``);
-    the port has no telemetry registry yet (ROADMAP.md A17's telemetry
-    item), so there is nothing to observe into."""
+    """One upstream flush's latency, into the process-current registry's
+    ``horovod_control_cycle_seconds{tier}``."""
+    telemetry.observe_control_cycle(tier, seconds)
 
 
 class AggregatorUpstreamError(ConnectionError):
@@ -206,6 +205,9 @@ class Aggregator:
                 # end; anything older is served by cursor pass-through
                 self._log_base = int(out.get("cursor", 0))
             self._lock.notify_all()
+        telemetry.registry().gauge(
+            telemetry.AGG_EPOCH_FAMILY, telemetry.AGG_EPOCH_HELP).set(
+            self.agg_epoch or 0)
         return True
 
     def _clear_round_locked(self, new_round):

@@ -35,6 +35,7 @@ import random
 import threading
 import time
 
+from ... import telemetry
 from ...common import env as env_mod
 
 
@@ -65,9 +66,8 @@ class StoreClient:
         #: coordinator requests sent, per verb (each logical request once,
         #: retries not counted): what a step costs the control plane
         self.coord_requests = collections.Counter()
-        #: retries, per verb label (the JAX package counts them into its
-        #: telemetry's ``horovod_fabric_retries_total{verb}``, ROADMAP.md
-        #: A17 in the port)
+        #: retries, per verb label (also counted into the registry's
+        #: ``horovod_fabric_retries_total{verb}``, :meth:`_count_retry`)
         self.retries = collections.Counter()
         #: chaos fault middleware (chaos/inject.py FaultInjector); its
         #: ``before_request(method, path)`` may drop, delay, duplicate
@@ -127,6 +127,12 @@ class StoreClient:
                   ConnectionResetError, ConnectionRefusedError,
                   ConnectionAbortedError, BrokenPipeError,
                   _DroppedRequest)
+
+    def _count_retry(self, verb):
+        """One retry attempt: the client's own count, and the registry's
+        (resolved per call: the client outlives an engine's registry)."""
+        self.retries[verb] += 1
+        telemetry.count_fabric_retry(verb)
 
     def _backoff(self, attempt):
         """Exponential backoff with jitter, capped per step."""
@@ -200,7 +206,7 @@ class StoreClient:
                     # transient server failure (restart, overload,
                     # injected burst): the response was fully read, so
                     # the keep-alive connection stays usable
-                    self.retries[verb] += 1
+                    self._count_retry(verb)
                     self._backoff(attempt)
                     attempt += 1
                     continue
@@ -224,12 +230,12 @@ class StoreClient:
                     # the pre-backoff code's unconditional single
                     # reconnect, preserved.  Waiting is for servers
                     # that answered sick, not for a dropped socket.
-                    self.retries[verb] += 1
+                    self._count_retry(verb)
                     attempt = 1
                     continue
                 if time.monotonic() > outage_deadline:
                     raise
-            self.retries[verb] += 1
+            self._count_retry(verb)
             self._backoff(attempt)
             attempt += 1
 
@@ -370,6 +376,7 @@ class TieredStoreClient:
         logger.warning(
             "aggregator route failed (%s: %s); falling back to "
             "direct coordinator mode", type(exc).__name__, exc)
+        telemetry.count_agg_fallback("direct")
         self._notify("direct")
 
     def maybe_probe(self):
@@ -390,6 +397,7 @@ class TieredStoreClient:
         logger.warning(
             "aggregator answering again; re-attaching to the "
             "batched control-plane route")
+        telemetry.count_agg_fallback("reattach")
         self._notify("reattach")
         return True
 

@@ -39,9 +39,17 @@ monotonic ``agg_epoch``.  Coordinator-side chaos rules (``http_error``,
 ``delay_ms`` and the service fault runner's ``signal``) are checked by
 the handler before a verb runs (chaos/inject.py).
 
-Not ported (ROADMAP.md): the ``/metrics``, ``/timeline`` and
-``/trace/dump`` endpoints with the coordinator's telemetry families
-(A17's telemetry and utils items); the coordinator-side autotuner (A14).
+Observability (http_server.py:150-206, :285, :1335-1420 of the JAX
+package): ``GET /metrics`` and ``/metrics.json`` merge the snapshots
+workers push to ``/telemetry/<proc>`` with the coordinator's own
+families (worker liveness, the control plane's requests and fan-in,
+coordinator-side injections, the epoch); ``GET /timeline`` asks every
+worker for its flight-recorder ring and serves the clock-aligned merge;
+``POST /trace/dump`` asks for the rings alone.  All three are
+unauthenticated, as in the JAX package: a Prometheus scraper cannot
+sign, and the payload is read-only.
+
+Not ported (ROADMAP.md): the coordinator-side autotuner (A14).
 """
 
 import hashlib
@@ -159,6 +167,18 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         path, _, query = self.path.partition("?")
+        if path in ("/metrics", "/metrics.json"):
+            # job-wide exposition: merge the snapshots workers push
+            # over the KV fabric.  Deliberately UNAUTHENTICATED —
+            # Prometheus scrapers cannot HMAC-sign, and the payload is
+            # read-only operational metadata .
+            return self._serve_job_metrics(path)
+        if path == "/timeline":
+            # job-wide merged trace: ask every worker to dump its
+            # flight-recorder ring, then clock-align + merge the
+            # buffers into one Perfetto-loadable JSON.  Unauthenticated
+            # for the same reason as /metrics .
+            return self._serve_job_timeline(query)
         if not self._verify(b""):
             return self._reply(FORBIDDEN)
         params = dict(p.split("=", 1) for p in query.split("&") if "=" in p)
@@ -167,6 +187,110 @@ class _Handler(BaseHTTPRequestHandler):
         if value is None:
             return self._reply(NOT_FOUND)
         self._reply(OK, value)
+
+    def _serve_job_metrics(self, path):
+        """One scrape covers the whole job: counters sum across
+        workers, gauges expose per-worker max/min (an ``agg`` label),
+        histograms merge bucket-wise (telemetry.merge_snapshots).
+        Only pushed worker snapshots participate — the launcher
+        process's own registry may belong to an unrelated embedding
+        application (spark/ray drivers)."""
+        from ...telemetry import (
+            CONTENT_TYPE_LATEST, TELEMETRY_KV_PREFIX, merge_snapshots,
+            render_json, render_prometheus,
+        )
+
+        coord = self.server.coordinator
+        snaps = []
+        for key, raw in sorted(
+                self.store.scope(TELEMETRY_KV_PREFIX).items()):
+            try:
+                payload = json.loads(raw)
+                # stale pushes must not haunt the aggregate: a worker
+                # that left in an elastic downsize (proc id beyond the
+                # current world) or pushed during a previous round
+                # keeps its final snapshot in the KV store forever
+                proc = payload.get("proc")
+                rnd = payload.get("round")
+                if rnd is not None and rnd != coord.round_id:
+                    continue
+                if proc is not None and 0 < coord.world_size <= proc:
+                    continue
+                snaps.append(payload.get("families", {}))
+            except (ValueError, AttributeError):
+                continue    # half-written/foreign value: skip, not 500
+        # coordinator-derived liveness + server-side chaos accounting
+        # join the aggregate (a dead worker can't push its own 0)
+        snaps.append(coord.liveness_snapshot())
+        merged = merge_snapshots(snaps)
+        if path == "/metrics.json":
+            self._reply(OK, render_json(merged).encode(),
+                        "application/json")
+        else:
+            self._reply(OK, render_prometheus(merged).encode(),
+                        CONTENT_TYPE_LATEST)
+
+    def _serve_job_timeline(self, query):
+        """Collect per-worker flight-recorder buffers, clock-align and
+        merge them (utils/trace_merge.py), serve one job trace.
+
+        A fresh dump request rides the coordinator's response log;
+        workers poll every engine cycle, so buffers land within a
+        cycle or two.  If a worker never answers (dead, or the very
+        stall being debugged has wedged its user threads — the engine
+        background thread still polls, so even stalled workers
+        normally dump), the handler serves whatever buffers exist
+        after ``?wait=`` seconds rather than nothing."""
+        from ...utils.trace_merge import TRACE_KV_PREFIX, merge_traces
+
+        coord = self.server.coordinator
+        params = dict(p.split("=", 1) for p in query.split("&")
+                      if "=" in p)
+        try:
+            wait = float(params.get("wait", 15.0))
+        except ValueError:
+            wait = 15.0
+        if not (0.0 <= wait <= 120.0):
+            # unauthenticated endpoint: an unclamped (or NaN/inf) wait
+            # would pin a launcher thread forever when a worker is dead
+            wait = 15.0 if wait != wait or wait < 0 else 120.0
+        dump_id = coord.request_trace_dump(reason="http")
+        deadline = time.monotonic() + wait
+        world = max(coord.world_size, 1)
+        bufs = {}
+        seen_raw = {}       # key -> raw bytes already parsed (rings
+        #                     are MBs; re-parsing unchanged buffers
+        #                     every poll tick would melt the launcher)
+        while True:
+            for key, raw in self.store.scope(TRACE_KV_PREFIX).items():
+                if seen_raw.get(key) == raw:
+                    continue
+                seen_raw[key] = raw
+                try:
+                    payload = json.loads(raw)
+                    proc = payload.get("proc")
+                except (ValueError, AttributeError):
+                    continue    # half-written value: skip, not 500
+                if proc is None:
+                    continue
+                rnd = payload.get("round")
+                if rnd is not None and rnd != coord.round_id:
+                    continue    # stale elastic round
+                if 0 < coord.world_size <= proc:
+                    # a worker removed in an elastic downsize keeps its
+                    # final buffer in the KV store forever (same guard
+                    # as _serve_job_metrics): don't show a pid lane for
+                    # a rank that no longer exists
+                    continue
+                bufs[proc] = payload
+            fresh = sum(1 for p in bufs.values()
+                        if (p.get("dump_id") or 0) >= dump_id)
+            if fresh >= world or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        merged = merge_traces(
+            [p.get("events") or [] for _, p in sorted(bufs.items())])
+        self._reply(OK, json.dumps(merged).encode(), "application/json")
 
     def do_DELETE(self):
         if not self._verify(b""):
@@ -178,6 +302,15 @@ class _Handler(BaseHTTPRequestHandler):
         """Coordinator RPCs: /coord/<verb>, JSON body."""
         length = int(self.headers.get("Content-Length", 0))
         body = self.rfile.read(length)
+        if self.path == "/trace/dump":
+            # on-demand flight-recorder dump trigger (curl-able like
+            # /metrics and /timeline: unauthenticated, bounded work --
+            # each worker pushes its ring once); fetch the merged result
+            # from GET /timeline
+            did = self.server.coordinator.request_trace_dump(
+                reason="request")
+            return self._reply(OK, json.dumps({"dump_id": did}).encode(),
+                               "application/json")
         if not self._verify(body):
             return self._reply(FORBIDDEN)
         if not self.path.startswith("/coord/"):
@@ -412,6 +545,7 @@ class Coordinator:
         # control-plane fan-in accounting ((verb, tier) -> requests),
         # exported through liveness_snapshot — the scale harness's
         # "coordinator load scales with hosts, not procs" evidence
+        self._verb_counts = {}
         # coordinator-side chaos rules (fault-plan events with
         # side="coord": reject or stall a chosen proc's requests) and
         # the per-rule injection accounting exported via /metrics
@@ -509,6 +643,12 @@ class Coordinator:
             # utils/clock_sync.py; the aggregator route's probe here):
             # round-agnostic and lock-free
             return {"t": time.time()}
+        with self._lock:
+            # fan-in accounting: one count per handled request, split by
+            # tier (agg_* verbs arrive once per HOST per cycle, the rest
+            # once per process)
+            key = (verb, "agg" if verb.startswith("agg_") else "worker")
+            self._verb_counts[key] = self._verb_counts.get(key, 0) + 1
         epoch = req.get("epoch")
         if epoch is not None and epoch != self.coord_epoch \
                 and verb not in EPOCH_EXEMPT_VERBS:
@@ -542,6 +682,107 @@ class Coordinator:
         raise ValueError(f"unknown coordinator verb {verb}")
 
     # -- worker liveness ----------------------------------------------------
+
+    def request_trace_dump(self, reason="request"):
+        """Append a flight-recorder dump request to the response log;
+        every worker's next poll sees it and pushes its ring to the KV
+        store (``/trace/buf/<proc>``).  Returns the dump id workers
+        echo, so ``GET /timeline`` can tell fresh buffers from stale
+        ones."""
+        with self._lock:
+            self._next_dump_id += 1
+            did = self._next_dump_id
+            self._log_append({"kind": "trace_dump", "id": did,
+                              "reason": reason})
+            self._lock.notify_all()
+        return did
+
+    def liveness_snapshot(self):
+        """Coordinator-derived families merged into the job-wide
+        ``/metrics``: ``horovod_worker_alive{proc}`` (1 = beating,
+        0 = declared dead) and the coordinator-side chaos injections
+        (``horovod_faults_injected_total{kind="coord_*"}``), plus the
+        crash-survival families: ``horovod_coord_epoch`` (bumped on
+        every journal replay) and the per-kind journal replay
+        counters."""
+        from ...telemetry import (
+            CONTROL_FANIN_FAMILY, CONTROL_FANIN_HELP,
+            CONTROL_FANIN_LABELS,
+            CONTROL_REQUESTS_FAMILY, CONTROL_REQUESTS_HELP,
+            CONTROL_REQUESTS_LABELS,
+            COORD_EPOCH_FAMILY, COORD_EPOCH_HELP,
+            FAULTS_INJECTED_FAMILY, FAULTS_INJECTED_HELP,
+            JOURNAL_REPLAYED_FAMILY, JOURNAL_REPLAYED_HELP,
+            WORKER_ALIVE_FAMILY, WORKER_ALIVE_HELP,
+        )
+
+        with self._lock:
+            alive = {p: (0.0 if p in self._dead else 1.0)
+                     for p in set(self._beats) | set(self._dead)}
+            injected = dict(self._chaos_injected)
+            epoch = self.coord_epoch
+            replayed = dict(self._journal_replayed)
+            verb_counts = dict(self._verb_counts)
+            # "currently attached" means LIVE: an aggregator silent
+            # past the liveness window (killed, or its host died) must
+            # drop out of the gauge, or an operator watching it never
+            # sees the tier shrink
+            now = time.monotonic()
+            window = self.heartbeat_window or \
+                1.5 * self.heartbeat_secs
+            fanin = {
+                "agg": float(sum(
+                    1 for t in self._agg_beats.values()
+                    if self.heartbeat_secs <= 0
+                    or now - t <= window)),
+                "direct": float(sum(
+                    1 for p in self._beats
+                    if self._proc_via_agg.get(p) is None)),
+            }
+        fams = {
+            COORD_EPOCH_FAMILY: {
+                "type": "gauge",
+                "help": COORD_EPOCH_HELP,
+                "labelnames": [],
+                "samples": [{"labels": {}, "value": float(epoch)}]},
+        }
+        if replayed:
+            fams[JOURNAL_REPLAYED_FAMILY] = {
+                "type": "counter",
+                "help": JOURNAL_REPLAYED_HELP,
+                "labelnames": ["kind"],
+                "samples": [{"labels": {"kind": k}, "value": float(v)}
+                            for k, v in sorted(replayed.items())]}
+        if alive:
+            fams[WORKER_ALIVE_FAMILY] = {
+                "type": "gauge",
+                "help": WORKER_ALIVE_HELP,
+                "labelnames": ["proc"],
+                "samples": [{"labels": {"proc": str(p)}, "value": v}
+                            for p, v in sorted(alive.items())]}
+        if injected:
+            fams[FAULTS_INJECTED_FAMILY] = {
+                "type": "counter",
+                "help": FAULTS_INJECTED_HELP,
+                "labelnames": ["kind"],
+                "samples": [{"labels": {"kind": k}, "value": float(v)}
+                            for k, v in sorted(injected.items())]}
+        if verb_counts:
+            fams[CONTROL_REQUESTS_FAMILY] = {
+                "type": "counter",
+                "help": CONTROL_REQUESTS_HELP,
+                "labelnames": list(CONTROL_REQUESTS_LABELS),
+                "samples": [{"labels": {"verb": v, "tier": t},
+                             "value": float(n)}
+                            for (v, t), n
+                            in sorted(verb_counts.items())]}
+        fams[CONTROL_FANIN_FAMILY] = {
+            "type": "gauge",
+            "help": CONTROL_FANIN_HELP,
+            "labelnames": list(CONTROL_FANIN_LABELS),
+            "samples": [{"labels": {"tier": t}, "value": v}
+                        for t, v in sorted(fanin.items())]}
+        return fams
 
     def _on_heartbeat(self, req):
         """Record a worker's liveness beat.  The first beat registers

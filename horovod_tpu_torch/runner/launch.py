@@ -14,8 +14,11 @@ re-forms the job when a worker dies or discovery changes.  ``--mpi`` and
 ``--gloo`` are accepted and change nothing, as in the JAX package.  The
 parser is the JAX package's, flag for flag; the flags of features the
 port has not ported yet are refused with the ROADMAP.md item that ports
-them (the fleet, tracing and telemetry: A17; autotune: A14; pipelining:
-A15; serving: A16).
+them (the fleet: A17; autotune: A14; pipelining: A15; serving: A16).
+The tracing and telemetry flags (``--timeline-filename``,
+``--timeline-mark-cycles``, ``--trace-ring-events``, ``--trace-dump-dir``,
+``--trace-clock-sync-seconds``, ``--metrics-port``,
+``--metrics-push-seconds``) reach the workers' env.
 """
 
 import argparse
@@ -29,10 +32,6 @@ from .hosts import parse_host_files
 #: ported; a run that sets one is refused
 _UNPORTED_FLAGS = (
     ("fleet_spec", "A17"),
-    ("timeline_filename", "A17"), ("timeline_mark_cycles", "A17"),
-    ("trace_ring_events", "A17"), ("trace_dump_dir", "A17"),
-    ("trace_clock_sync_seconds", "A17"), ("metrics_port", "A17"),
-    ("metrics_push_seconds", "A17"),
     ("autotune", "A14"), ("autotune_log_file", "A14"),
     ("autotune_warmup_samples", "A14"), ("autotune_steps_per_sample", "A14"),
     ("autotune_bayes_opt_max_samples", "A14"),

@@ -5,7 +5,9 @@ over device tensors (sparse ones too), ``DistributedOptimizer`` (with
 autograd hooks, Adasum and sparse gradients, or weight-update sharded),
 ``SyncBatchNorm``, compression, parameter and optimizer-state
 broadcast, and the elastic frontend (``elastic.run``, ``TorchState``,
-``ElasticSampler``).
+``ElasticSampler``), and tracing and telemetry (``start_timeline``,
+``stop_timeline``, ``dump_trace``, ``metrics``,
+``start_metrics_server``).
 """
 
 from ..common.basics import (  # noqa: F401
@@ -14,6 +16,8 @@ from ..common.basics import (  # noqa: F401
     mpi_threads_supported, mpi_built, gloo_built, nccl_built, ddl_built,
     ccl_built, cuda_built, rocm_built, xla_built, tpu_built,
     mpi_enabled, gloo_enabled,
+    metrics, start_metrics_server, start_timeline, stop_timeline,
+    dump_trace,
 )
 from ..common.exceptions import HorovodInternalError  # noqa: F401
 from ..common.process_sets import (  # noqa: F401

@@ -6,7 +6,10 @@
   bypass arms, and a plan that restarts the aggregator early
   (``agg_restart`` on its 10th request) and the coordinator from its
   journal once the bypass armed (``coord_restart`` on the first
-  ``clock`` request, which rank 0 sends after its first armed step).
+  ``clock`` request naming proc 0, which rank 0 sends straight to the
+  coordinator after its first armed step: the workers' clock sync and
+  the aggregator route's re-attach probe send ``clock`` too, with no
+  proc, from the first step on).
   The job exits 0; the workers step through the coordinator's outage on
   the bypass, read coordinator epoch 2 after it (and aggregator epoch 2,
   unless they fell back to the coordinator), and nothing is declared
@@ -64,8 +67,10 @@ TIER_WORKER = """
         if os.environ.get("FAULT") and hvd.rank() == 0 and not fired \\
                 and eng.bypass_hits >= 1:
             fired = True
-            # from a thread of its own: the steps go on meanwhile
-            threading.Thread(target=ctl.client.coord, args=("clock", {}),
+            # from a thread of its own: the steps go on meanwhile; the
+            # aggregator would pass the request on without its body
+            threading.Thread(target=ctl.client.direct.coord,
+                             args=("clock", {"proc": 0}),
                              daemon=True).start()
         time.sleep(0.05)
     hvd.barrier()
@@ -146,8 +151,8 @@ def _tier_job(tmp_path, name, plan=None):
 def test_tier_job_rides_an_aggregator_and_a_coordinator_restart(tmp_path):
     plan = {"seed": 7, "events": [
         {"kind": "agg_restart", "proc": 0, "after": 10, "ms": 1500},
-        {"kind": "coord_restart", "verb": "clock", "after": 1,
-         "ms": 3000}]}
+        {"kind": "coord_restart", "verb": "clock", "proc": 0,
+         "after": 1, "ms": 3000}]}
     out, events = _tier_job(tmp_path, "chaos", plan)
     _, calm = _tier_job(tmp_path, "calm")
     coord = [json.loads(line) for line in open(out / "coord.log")]

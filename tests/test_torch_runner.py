@@ -177,7 +177,7 @@ def test_gloo_run_env_helpers():
     (["-np", "2", "--fleet-spec", "fleet.json"], "A17"),
     (["-np", "2", "--autotune"], "A14"),
     (["-np", "2", "--autotune-log-file", "a.csv"], "A14"),
-    (["-np", "2", "--timeline-filename", "t.json"], "A17"),
+    (["-np", "2", "--serve-port", "8500"], "A16"),
     (["-np", "2", "--serve"], "A16"),
 ])
 def test_cli_refuses_unported_flags(argv, item):
@@ -245,6 +245,31 @@ def test_cli_takes_the_hybrid_and_bypass_flags():
                     "HOROVOD_BYPASS_WAIT_SECONDS"):
             assert env.get(key) == ref_env.get(key)
     assert env["HOROVOD_BYPASS_AFTER_CYCLES"] == "3"
+
+
+@pytest.mark.parametrize("flags,key,want", [
+    (["--timeline-filename", "/tmp/tl.json"], "HOROVOD_TIMELINE",
+     "/tmp/tl.json"),
+    (["--timeline-mark-cycles"], "HOROVOD_TIMELINE_MARK_CYCLES", "1"),
+    (["--trace-ring-events", "512"], "HOROVOD_TRACE_RING_EVENTS", "512"),
+    (["--trace-dump-dir", "/tmp/dumps"], "HOROVOD_TRACE_DUMP_DIR",
+     "/tmp/dumps"),
+    (["--trace-clock-sync-seconds", "3"],
+     "HOROVOD_TRACE_CLOCK_SYNC_SECONDS", "3.0"),
+    (["--metrics-port", "9100"], "HOROVOD_METRICS_PORT", "9100"),
+    (["--metrics-push-seconds", "0.5"], "HOROVOD_METRICS_PUSH_SECONDS",
+     "0.5"),
+])
+def test_cli_takes_the_tracing_and_metrics_flags(flags, key, want):
+    """The seven tracing and metrics flags are no longer refused and reach
+    the workers' environment as the JAX CLI maps them."""
+    full = ["-np", "2"] + flags + ["--", "python", "t.py"]
+    args = torch_launch.parse_args(full)
+    assert torch_launch.unported_flags(args) == []
+    env, ref_env = {}, {}
+    torch_config.set_env_from_args(env, args)
+    jax_config.set_env_from_args(ref_env, jax_launch.parse_args(full))
+    assert env[key] == ref_env[key] == want
 
 
 def test_refusals_outside_the_cli(monkeypatch):
