@@ -8,10 +8,11 @@ their plain PyTorch versions.
 Phases (a failure in any one exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build the four CUDA kernel libraries from
+2. build the five CUDA kernel libraries from
    ``horovod_tpu_torch/ops/csrc`` (``scale_cast.cu``,
    ``flash_attention.cu`` with ``flash_sm90.cu``, ``quantize.cu``,
-   ``conv_bn.cu`` with ``conv_bn_sm90.cu``) with nvcc for sm_90a, all at
+   ``conv_bn.cu`` with ``conv_bn_sm90.cu``, ``digest.cu``) with nvcc for
+   sm_90a, all at
    once; report ptxas's registers, spills and stack per kernel of
    ``conv_bn_sm90.cu`` and its kernels' dynamic shared memory;
 3. ``scale_cast_batched`` against its plain version, bit for bit:
@@ -281,7 +282,8 @@ Phases (a failure in any one exits non-zero):
     stacked run.  (e) runs in phase 16: its np=2 job (the bypass on by
     default), each process's coordinator requests counted per step, and
     the seconds the un-armed bypass tracker took (the bypass off runs in
-    (a)).  Per leg it
+    (a)).  The four jobs run two at a time (``PHASE18_PAIRS``).  Per leg
+    it
     prints
     the step times, img/s, busy share, coordinator requests a step,
     bypass hits and fallbacks, and each process's peak memory and B1
@@ -464,6 +466,49 @@ Phases (a failure in any one exits non-zero):
     equal to each process's ``program_cache_stats`` and registry.  (e)
     The median step (steps 1 on) in the three settings and their ratios
     beside the card line; no gate on speed.
+25. end-to-end step integrity and the autotuner (``core/integrity.py``,
+    ``ops/csrc/digest.cu``, ``core/autotune.py``): first the digest
+    kernel against its plain PyTorch fold (and numpy's) on the 161
+    ResNet-50 gradient slices of one bf16 row and on odd, unaligned cuts,
+    bit for bit, then its time, bound and the plain fold's time.  (a)
+    Phase 4's run with ``HOROVOD_INTEGRITY`` off and on in
+    ``P25_ROUNDS`` interleaved rounds (cuDNN deterministic): every run bit
+    for bit the first off run, replicas bit for bit, the digest launches
+    of each step equal to its buckets (a bucket's payloads and their
+    packed slices fold in one launch), B1's twice buckets x ranks; the step
+    ratio (medians of steps 2 on), the digest kernel's device ms in one
+    profiled step and the host ms of the per-bucket verdicts printed.
+    (b) Phase 4's run on the int8 wire (the engine's default wire, no
+    error feedback: a quarantine drops residuals, so only a stateless
+    wire replays exactly), one grouped allreduce a step, inside
+    ``elastic.run`` with a commit a step, under a seeded plan (seed
+    ``P25_SEED``) of a wire, a grad, a wire and a grad flip at steps 2-5,
+    their bucket numbers derived from an unfaulted probe run's: every
+    flip fired, quarantined once and attributed to the rank whose row it
+    flipped, counted once as ``corrupt`` and once as a rollback, every
+    batch finished, losses and parameters bit for bit the unfaulted
+    run's, a second run's ``fired`` log and counters byte-identical; one
+    int4 wire flip the same way.  (c) tools/integrity_smoke.py's plan and
+    batches through ``launch_procs`` (np=2, gloo on cuda:0,
+    ``chip_smoke.py --worker25 drill``): each process quarantined both
+    ranks across the run (its own detections and the peer's through the
+    MIN vote), replayed in place (one engine, one loop entry a rollback),
+    exited 0, with the clean job's losses and fingerprint.  (d) Phase 4's
+    run under ``P25_TUNE`` with a CSV log and a cache: the CSV's header
+    the JAX package's and one row a sample, every bucket within the
+    fusion threshold it was fused under, every flat bucket's B2-B5
+    launches those of its wire, the tuner converged, a second engine on
+    the cache warm-started, the autotune families in ``/metrics.json``.
+    (e) Phase 16 (b)'s run in an np=2 job with ``HOROVOD_AUTOTUNE=1``
+    and a coordinator journal (``--worker25 tune``): the journal's
+    ``tuned`` records show the coordinator applying new fusion
+    thresholds, and both workers ran at the cycle times it journaled.
+    The three jobs of (c) and (e) run while (b) and (d) do.  (f) The
+    ResNet-50 gradients in f32 through a grouped allreduce, and the
+    largest through a reducescatter, on the bf16 wire with the digests
+    off and on: on equals off bit for bit, each rank's full-width row
+    cast to the wire by B1 (NP more ``fused_scale_cast`` launches a bucket
+    and a reducescatter than off, the same pack and unpack launches).
 
 Every phase's wall time is printed on a line of its own (``wall: ...``)
 and all of them on one line before the summary.
@@ -488,8 +533,11 @@ line is ``{"ok": true, "device": {...}}``.  With ``--profile`` phases 4,
 7, 9, 11, 12, 14 and 15, and phase 22 (d)'s no-remat and
 ``"dots_flash"`` legs, also print the profile tables of one steady step
 each.  ``--phase22`` builds the kernels and runs phases 7 and 22 alone,
-``--phase23`` phase 23 alone, ``--phase24`` phase 24 alone (no kernels
-line, no last line: not the contract's run).
+``--phase23`` phase 23 alone, ``--phase24`` phase 24 alone,
+``--phase25`` phase 25 alone (no kernels line, no last line: not the
+contract's run).  The kernels line ends with the digest kernel's entry
+(a kernel of the port's own, no TPU counterpart), and B1-B5 carry their
+phase-25 launches per part under ``phase25_launches``.
 """
 
 import gc
@@ -653,6 +701,11 @@ PHASE18_JOBS = (
      {**_GLOO, "HOROVOD_BYPASS_AFTER_CYCLES": str(P18_K)}),
     ("host 2 + 1", "m", 3, "host", "localhost:2,127.0.0.1:1", _GLOO),
     ("--ranks-per-worker 2, NCCL", "c", 2, 2, None, {}))
+# phase 18: the jobs (indices of PHASE18_JOBS) run two at a time, a cut
+# of the script's time; the
+# bypass-off and bypass-on jobs share one pair, so the requests they are
+# compared on are counted under the same load
+PHASE18_PAIRS = ((0, 1), (2, 3))
 # phase 19: the "remote" host, an address that is not this machine's
 # (RFC 5737 TEST-NET-1: a literal resolves without a lookup, and no packet
 # goes to it: the stub ssh runs the remote command here); the two jobs'
@@ -1151,11 +1204,19 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
         records.append((r, losses, times, counts))
         return {k: p.detach().clone() for k, p in model.named_parameters()}
 
+    from horovod_tpu_torch.ops import digest_kernels as DK
     K.reset_launches()
     CB.reset_launches()
+    DK.reset_launches()
     results = hvd.run(train, np=NP, device=dev)
     launches = dict(K.launches)
     conv_launches = dict(CB.launches)
+    # the integrity digests are on by default: every bucket folds its
+    # payloads and their packed slices through the digest kernel
+    digest_launches = DK.launches["digest_fold"]
+    if digest_launches == 0:
+        raise AssertionError(f"{phase}: the main path never launched "
+                             f"digest_fold")
 
     by_rank = {r: (losses, times, counts) for r, losses, times, counts
                in records}
@@ -1216,6 +1277,7 @@ def phase_main_path(dev, state, batches, profile=False, fused=False):
         f"({NP} ranks x {BATCH} images)")
     return {"launches": launches["pack_scale_cast"]
             + launches["unpack_scale_cast"], "steady_s": steady,
+            "digest_launches": digest_launches,
             "img_s": img_s, "buckets": per_step,
             "conv_launches": conv_launches, "busy_share": busy_share[0],
             "params": {k: v.cpu() for k, v in results[0].items()}}
@@ -5017,7 +5079,8 @@ def phase_hybrid(dev, card, state, batches, phase4_params):
     2`` at np=2 (one process, NCCL over a group of one, two stacked rows)
     bit for bit phase 4's parameters; (d) the compiled step at 2 x 2,
     uncaptured over gloo, within ``COMPILED_REL_L2`` of (a)'s stacked
-    reference."""
+    reference.  The jobs run two at a time (``PHASE18_PAIRS``), so their
+    step times share the card and the host with the other job's."""
     import torch
     from horovod_tpu_torch.runner.proc_run import launch_procs
 
@@ -5044,25 +5107,46 @@ def phase_hybrid(dev, card, state, batches, phase4_params):
             x, y = p18_images(xs, ys, r)
             torch.save((torch.from_numpy(x), torch.from_numpy(y)),
                        os.path.join(tmp, f"batch{r}.pt"))
-        for label, legs, np_, rpw, hosts, env in PHASE18_JOBS:
+
+        def job(label, legs, np_, rpw, hosts, env, out):
             t0 = time.perf_counter()
-            codes = launch_procs(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-                 "--worker18", legs, tmp], np=np_, ranks_per_proc=rpw,
-                hosts=hosts, env={**env, "PYTHONPATH": ROOT},
-                start_timeout=PHASE16_TIMEOUT)
-            if any(codes):
-                raise AssertionError(f"phase 18 job {label} ({legs}): "
-                                     f"workers exited {codes}")
+            try:
+                out["codes"] = launch_procs(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     "--worker18", legs, tmp], np=np_, ranks_per_proc=rpw,
+                    hosts=hosts, env={**env, "PYTHONPATH": ROOT},
+                    start_timeout=PHASE16_TIMEOUT)
+            except Exception as exc:  # noqa: BLE001 — reported below
+                out["error"] = repr(exc)
             walls[label] = time.perf_counter() - t0
-            for leg in legs:
-                key = leg if leg != "m" else f"m{np_}"
-                res[key] = [json.load(open(os.path.join(
-                    tmp, f"{leg}_{p}.json"))) for p in range(len(codes))]
-                if leg in "ondc":
-                    params[key] = [torch.load(os.path.join(
-                        tmp, f"{leg}_params{p}.pt"))
+
+        # two jobs at a time (PHASE18_PAIRS: no two of a pair run the
+        # same leg, whose files they would share; a pair's files are read
+        # before the next pair writes its own), for the script's time
+        for pair in PHASE18_PAIRS:
+            done = {i: {} for i in pair}
+            threads = [threading.Thread(target=job, args=(
+                *PHASE18_JOBS[i], done[i]), daemon=True) for i in pair]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            for i in pair:
+                label, legs, np_ = PHASE18_JOBS[i][:3]
+                codes = done[i].get("codes")
+                if done[i].get("error") or codes is None or any(codes):
+                    raise AssertionError(f"phase 18 job {label} ({legs}): "
+                                         f"workers exited {codes} "
+                                         f"{done[i].get('error', '')}")
+                for leg in legs:
+                    key = leg if leg != "m" else f"m{np_}"
+                    res[key] = [json.load(open(os.path.join(
+                        tmp, f"{leg}_{p}.json")))
                         for p in range(len(codes))]
+                    if leg in "ondc":
+                        params[key] = [torch.load(os.path.join(
+                            tmp, f"{leg}_params{p}.pt"))
+                            for p in range(len(codes))]
 
     # (a): both runs' every rank bit for bit, near the stacked reference
     runs = ("o", "n")
@@ -7940,6 +8024,956 @@ def _resnet_named_params():
         return list(ResNet50(num_classes=1000).named_parameters())
 
 
+# ---------------------------------------------------------------------------
+# phase 25: end-to-end step integrity and the autotuner (ROADMAP.md A14)
+
+# (a): interleaved off/on rounds of phase 4's run, and the step profiled
+# for the digest kernel's device time (of the last "on" run)
+P25_ROUNDS = 2
+# (b): tools/integrity_smoke.py's seed; the steps each drill event strikes
+# (wire, grad, wire, grad; one a step from step 2), the drill's batches
+# and the int4 case's
+P25_SEED = 20260804
+P25_FLIP_STEPS = (("bitflip_wire", 2), ("bitflip_grad", 3),
+                  ("bitflip_wire", 4), ("bitflip_grad", 5))
+P25_DRILL_BATCHES = 6
+P25_INT4_BATCHES = 3
+# (c): tools/integrity_smoke.py:45-50's plan and 12 batches
+P25_SMOKE_EVENTS = [
+    {"kind": "bitflip_wire", "proc": 1, "after_buckets": 2},
+    {"kind": "bitflip_grad", "proc": 1, "after_buckets": 5},
+    {"kind": "bitflip_wire", "proc": 0, "after_buckets": 7},
+    {"kind": "bitflip_wire", "proc": 0, "after_buckets": 12}]
+P25_SMOKE_BATCHES = 12
+# (d): the engine tuner's warm-up, buckets a sample and samples; the
+# steps of the first engine (it converges inside them) and of the second
+P25_TUNE = {"HOROVOD_AUTOTUNE": "1",
+            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+            "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+            "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "6"}
+P25_TUNE_STEPS = 6
+P25_WARM_STEPS = 2
+# the JAX package's CSV header for the engine tuner's six dimensions
+# (core/autotune.py:271-275 there)
+P25_CSV_HEADER = ("sample,fusion_threshold_bytes,cycle_time_ms,"
+                  "pack_mt_threshold_bytes,cache_capacity,wire_pair,"
+                  "algorithm,score_bytes_per_sec")
+# (e): the coordinator tuner's job steps; the bound on each launcher job
+P25_COORD_STEPS = 8
+P25_TIMEOUT = 240
+# the digest kernel's source and what it folds
+DIGEST_SOURCE = "horovod_tpu_torch/ops/csrc/digest.cu"
+
+
+class _P25Probe:
+    """Script-side instrumentation of the engine for phase 25: ALLREDUCE
+    submissions, the host seconds of the per-bucket verdicts (fold
+    launch, device compare and the one read), the quarantines with their
+    attributed ranks, and (d)'s per-bucket records.  Installed by
+    wrapping the classes' methods for the phase's length."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.submits = 0
+        self.verdict_s = 0.0
+        self.verdicts = 0
+        self.quarantines = []
+        self.fuses = []
+        self.buckets = []
+        self._saved = []
+
+    def install(self):
+        from horovod_tpu_torch.core import engine as E
+        from horovod_tpu_torch.core import integrity as I
+        from horovod_tpu_torch.core.message import RequestType
+        from horovod_tpu_torch.ops import quantize_kernels as QK
+        probe = self
+        sub0, run0 = E.Engine.submit, I.FoldCheck.run
+        q0, fuse0 = E.Engine.quarantine_step, E.Engine._fuse
+        ar0 = E.Engine._run_allreduce_bucket
+
+        def submit(eng, sub):
+            if sub.request.request_type == RequestType.ALLREDUCE:
+                with probe.lock:
+                    probe.submits += 1
+            return sub0(eng, sub)
+
+        def run(check):
+            t0 = time.perf_counter()
+            try:
+                return run0(check)
+            finally:
+                with probe.lock:
+                    probe.verdict_s += time.perf_counter() - t0
+                    probe.verdicts += 1
+
+        def quarantine(eng, reason, rank=None):
+            with probe.lock:
+                probe.quarantines.append((reason, rank))
+            return q0(eng, reason, rank=rank)
+
+        def nbytes(entry):
+            return sum(p.numel() * p.element_size()
+                       for p in next(iter(entry.subs.values())).payloads)
+
+        def fuse(eng, ps, entries):
+            out = fuse0(eng, ps, entries)
+            probe.fuses.append((eng.config.fusion_threshold_bytes, [
+                (len(b), sum(nbytes(e) for e in b)) for b in out]))
+            return out
+
+        def allreduce_bucket(eng, ps, bucket):
+            req = next(iter(bucket[0].subs.values())).request
+            before = dict(QK.launches)
+            algo, _ = eng._algo_plan(ps, req, req.reduce_op)
+            dtype = next(iter(bucket[0].subs.values())).payloads[0].dtype
+            try:
+                return ar0(eng, ps, bucket)
+            finally:
+                probe.buckets.append((
+                    eng._wire_for(req, dtype, req.reduce_op), algo,
+                    {k: QK.launches[k] - before[k] for k in before}))
+        for cls, name, fn in ((E.Engine, "submit", submit),
+                              (I.FoldCheck, "run", run),
+                              (E.Engine, "quarantine_step", quarantine),
+                              (E.Engine, "_fuse", fuse),
+                              (E.Engine, "_run_allreduce_bucket",
+                               allreduce_bucket)):
+            self._saved.append((cls, name, getattr(cls, name)))
+            setattr(cls, name, fn)
+        return self
+
+    def remove(self):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        self._saved = []
+
+
+class _Env:
+    """Environment variables set for a block and restored after it."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        for k, v in self.env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def p25_resnet(dev, state, batches, steps, probe=None, profile_step=None,
+               elastic=False, groups=None, tune=False):
+    """Phase 4's configuration (full-width ResNet-50, bf16, NP rank
+    threads x 64 images, SGD momentum 0.9 at lr 0.1 through
+    ``DistributedOptimizer``) for ``steps`` batches under the engine the
+    current environment configures.  Per step (rank 0 reads it after a
+    barrier): buckets, B1's pack and unpack launches, the digest kernel's
+    launches, ALLREDUCE submissions (``probe``), the codec's launches.
+    ``elastic``: the loop runs inside ``horovod_tpu_torch.elastic.run``
+    with a ``TorchState`` (model, optimizer, batch index) committed after
+    every batch, ``groups`` as the optimizer's.  ``tune``: rank
+    0 also records the tuner's state after the run and reads the
+    engine's ``/metrics.json`` from a metrics server.  Returns per rank
+    (losses, step times, parameters) and the per-step counts."""
+    import torch
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import digest_kernels as DK
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+
+    xs, ys = batches
+    barrier = threading.Barrier(NP)
+    out = {"counts": [], "prof": None, "tuner": None}
+
+    def counts(eng):
+        return (eng.allreduce_buckets, K.launches["pack_scale_cast"],
+                K.launches["unpack_scale_cast"], DK.launches["digest_fold"],
+                probe.submits if probe is not None else 0,
+                sum(QK.launches.values()))
+
+    def train():
+        r = hvd.rank()
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict(state)
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters(), groups=groups)
+        x0 = torch.from_numpy(xs[r]).to(dev)
+        y0 = torch.from_numpy(ys[r]).to(dev)
+        eng = hvd.engine()
+        times = []
+        if tune:
+            # the tuner's cache is keyed by the first bucket's identity,
+            # and the backward's first bucket follows hook timing
+            # (ROADMAP C): one fixed first allreduce keys every engine
+            # of this configuration alike
+            hvd.allreduce(torch.zeros(8, device=dev), name="p25.first")
+
+        def one_step(i):
+            x, y = step_batch(x0, y0, i)
+            prof = None
+            if r == 0 and i == profile_step:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            lv = float(loss.detach())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                out["prof"] = (prof, times[-1])
+            return lv
+
+        if elastic:
+            import horovod_tpu_torch.torch.elastic as hel
+            st = hel.TorchState(model=model, optimizer=opt, batch=0)
+            # this rank's loss of each batch (a replay overwrites its
+            # batch's): the synced state would carry rank 0's
+            by_batch = {}
+
+            @hel.run
+            def loop(st):
+                while st.batch < steps:
+                    by_batch[st.batch] = one_step(st.batch)
+                    st.batch += 1
+                    st.commit()
+            loop(st)
+            losses = [by_batch[i] for i in range(steps)]
+        else:
+            losses = []
+            for i in range(steps):
+                barrier.wait()
+                losses.append(one_step(i))
+                barrier.wait()
+                if r == 0:
+                    out["counts"].append(counts(eng))
+        if tune and r == 0:
+            import urllib.request
+            pm = eng.autotuner
+            srv = hvd.start_metrics_server(0)
+            out["metrics"] = urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics.json",
+                timeout=30).read().decode()
+            out["tuner"] = {"active": pm.active,
+                            "warm_started": pm.warm_started,
+                            "samples": pm._samples,
+                            "config": (eng.config.fusion_threshold_bytes,
+                                       eng.config.cycle_time_ms,
+                                       eng.config.wire_inner,
+                                       eng.config.wire_dtype,
+                                       eng.config.algorithm)}
+        barrier.wait()
+        return (losses, times,
+                {k: p.detach().clone() for k, p in model.named_parameters()})
+
+    K.reset_launches()
+    QK.reset_launches()
+    DK.reset_launches()
+    base = (0, 0, 0, 0, probe.submits if probe is not None else 0, 0)
+    res = hvd.run(train, np=NP, device=dev)
+    per_step, prev = [], base
+    for cur in out["counts"]:
+        per_step.append(tuple(c - p for c, p in zip(cur, prev)))
+        prev = cur
+    diff = [k for k in res[0][2] if not torch.equal(res[0][2][k],
+                                                     res[1][2][k])]
+    if diff:
+        raise AssertionError(f"phase 25: the replicas differ: {diff[:5]}")
+    return {"ranks": res, "per_step": per_step, "prof": out["prof"],
+            "tuner": out["tuner"], "metrics": out.get("metrics"),
+            "launches": {"b1": K.launches["pack_scale_cast"]
+                         + K.launches["unpack_scale_cast"],
+                         "digest": DK.launches["digest_fold"],
+                         "codec": dict(QK.launches)}}
+
+
+def p25_digest_ms(prof):
+    """Device ms of the digest kernel's two passes in a profile."""
+    import torch
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "fold_" in e.name and "_kernel" in e.name)
+    return us / 1e3
+
+
+def p25_cost(dev, card, state, batches):
+    """(a) the default's cost: integrity off and on, interleaved."""
+    import torch
+    runs = {"off": [], "on": []}
+    probe = _P25Probe().install()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for rnd in range(P25_ROUNDS):
+            for mode in ("off", "on"):
+                probe.verdict_s, probe.verdicts = 0.0, 0
+                last = rnd == P25_ROUNDS - 1 and mode == "on"
+                with _Env(HOROVOD_INTEGRITY="1" if mode == "on" else "0"):
+                    got = p25_resnet(dev, state, batches, STEPS, probe,
+                                     profile_step=STEPS - 1 if last
+                                     else None)
+                got["verdict_s"] = probe.verdict_s
+                got["verdicts"] = probe.verdicts
+                runs[mode].append(got)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        probe.remove()
+    ref = runs["off"][0]["ranks"]
+    for mode, rs in runs.items():
+        for k, got in enumerate(rs):
+            for r in range(NP):
+                losses, _t, params = got["ranks"][r]
+                if losses != ref[r][0] or any(
+                        not torch.equal(params[n], ref[r][2][n])
+                        for n in params):
+                    raise AssertionError(
+                        f"phase 25 (a): {mode} run {k} rank {r} differs "
+                        f"from the off run: losses {losses} vs "
+                        f"{ref[r][0]}")
+            for step, (buckets, pack, unpack, digest, submits, _c) in \
+                    enumerate(got["per_step"]):
+                want = buckets if mode == "on" else 0
+                if digest != want:
+                    raise AssertionError(
+                        f"phase 25 (a) {mode} run {k} step {step}: {digest} "
+                        f"digest launches, want one a bucket ({buckets}: "
+                        f"the payloads and their packed slices in one "
+                        f"launch; no watch on the full-width wire)")
+                if pack != buckets * NP or unpack != buckets * NP:
+                    raise AssertionError(
+                        f"phase 25 (a) {mode} run {k} step {step}: B1 "
+                        f"pack {pack}, unpack {unpack} for {buckets} "
+                        f"buckets (want buckets x {NP})")
+    b1 = {mode: [g["launches"]["b1"] for g in rs]
+          for mode, rs in runs.items()}
+    buckets = {mode: [sum(s[0] for s in g["per_step"]) for g in rs]
+               for mode, rs in runs.items()}
+    if any(b1[m][k] != 2 * NP * buckets[m][k] for m in b1
+           for k in range(P25_ROUNDS)):
+        raise AssertionError(f"phase 25 (a): B1 launches {b1} for "
+                             f"buckets {buckets}")
+
+    def med(mode):
+        # steps 2 on of every run of the mode, the slower rank's time
+        return statistics.median(
+            max(g["ranks"][r][1][i] for r in range(NP))
+            for g in runs[mode] for i in range(1, STEPS)
+            if not (g["prof"] is not None and i == STEPS - 1))
+    ratio = med("on") / med("off")
+    prof, wall = runs["on"][-1]["prof"]
+    digest_ms = p25_digest_ms(prof)
+    on = runs["on"]
+    steps_on = len(on) * STEPS
+    per_step_digest = sum(g["launches"]["digest"] for g in on) / steps_on
+    per_step_buckets = sum(s[0] for g in on for s in g["per_step"]) \
+        / steps_on
+    per_step_submits = sum(s[4] for g in on for s in g["per_step"]) \
+        / steps_on
+    verdict_ms = sum(g["verdict_s"] for g in on) * 1e3 / steps_on
+    reads = sum(g["verdicts"] for g in on) / steps_on
+    log(f"phase 25 (a): integrity off and on, {P25_ROUNDS} interleaved "
+        f"rounds of {STEPS} steps of phase 4's run (cuDNN deterministic): "
+        f"losses rank0 {ref[0][0]}; every run bit for bit the first off run, "
+        f"replicas bit for bit; step (median of steps 2 on, slower rank) "
+        f"off {med('off') * 1e3:.2f} ms, on {med('on') * 1e3:.2f} ms, x "
+        f"{ratio:.4f}; digest launches a step {per_step_digest:.1f} = "
+        f"buckets ({per_step_buckets:.1f} a step; {per_step_submits:.1f} "
+        f"allreduce submissions a step); B1 "
+        f"launches off {b1['off']} on {b1['on']} (buckets x {2 * NP}); "
+        f"digest kernel device time {digest_ms:.4f} ms in the profiled "
+        f"step ({wall * 1e3:.2f} ms wall); per-bucket verdicts (fold "
+        f"launch, compare, one read, waiting for the pack included) "
+        f"{verdict_ms:.3f} host ms a step over {reads:.1f} reads a step; "
+        f"{card}")
+    return {"ratio": ratio, "digest_ms": digest_ms,
+            "launches_per_step": per_step_digest,
+            "verdict_ms": verdict_ms, "launches": on[-1]["launches"],
+            "off_ms": med("off") * 1e3, "on_ms": med("on") * 1e3}
+
+
+def p25_plan(events):
+    return json.dumps({"seed": P25_SEED, "events": events})
+
+
+def p25_drill_run(dev, state, batches, wire, events, steps):
+    """One (b) job: phase 4's configuration on ``wire`` (the engine's
+    default wire: no error feedback, so a replay is exact), one grouped
+    allreduce a step (buckets pinned), inside ``elastic.run`` with a
+    commit a step, under the plan ``events`` (a never-firing event
+    when empty, so the injector counts the buckets)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import telemetry
+    from horovod_tpu_torch.chaos import inject
+
+    if not events:
+        events = [{"kind": "bitflip_wire", "proc": 0,
+                   "after_buckets": 10 ** 9}]
+    inject._reset_for_tests()
+    probe = _P25Probe().install()
+    marks = []
+    orig = inject.FaultInjector.corrupt_bucket
+
+    def corrupt_bucket(inj, site, bufs):
+        if site == "grad":
+            marks.append((inj._buckets + 1,
+                          bool(bufs) and bufs[0].is_floating_point()))
+        return orig(inj, site, bufs)
+    inject.FaultInjector.corrupt_bucket = corrupt_bucket
+    try:
+        with _Env(HOROVOD_WIRE_DTYPE=wire, HOROVOD_INTEGRITY="1",
+                  HOROVOD_FAULT_PLAN=p25_plan(events)):
+            got = p25_resnet(dev, state, batches, steps, elastic=True,
+                             groups=1)
+            inj = inject.current()
+            got["fired"] = json.dumps(inj.fired, sort_keys=True)
+            got["buckets"] = inj._buckets
+            got["counters"] = (
+                telemetry.counter_total(telemetry.INTEGRITY_CHECKS_FAMILY,
+                                        result="corrupt", site="engine"),
+                telemetry.counter_total(
+                    telemetry.INTEGRITY_ROLLBACKS_FAMILY))
+    finally:
+        inject.FaultInjector.corrupt_bucket = orig
+        probe.remove()
+        inject._reset_for_tests()
+    got["quarantines"] = list(probe.quarantines)
+    got["marks"] = marks
+    return got
+
+
+def p25_drill(dev, card, state, batches):
+    """(b) the drill in rank threads."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    try:
+        clean = p25_drill_run(dev, state, batches, "int8", [],
+                              P25_DRILL_BATCHES)
+        # the buckets before the first step's (the state sync's byte
+        # allgathers) and a step's (one grouped allreduce of the gradient)
+        steps_total = P25_DRILL_BATCHES
+        sync = next(n for n, grad in clean["marks"] if grad) - 1
+        per_step = (clean["buckets"] - sync) // steps_total
+        if per_step * steps_total + sync != clean["buckets"]:
+            raise AssertionError(f"phase 25 (b): {clean['buckets']} buckets "
+                                 f"over {steps_total} steps after a sync "
+                                 f"of {sync}")
+        # a detection at step s restores and syncs (sync buckets) and
+        # replays the step (per_step more)
+        events, b = [], sync
+        done = 0
+        for kind, step in P25_FLIP_STEPS:
+            b += (step - 1 - done) * per_step
+            events.append({"kind": kind, "proc": 0, "after_buckets": b + 1})
+            b += per_step + sync
+            done = step - 1
+        faulted = [p25_drill_run(dev, state, batches, "int8", events,
+                                 P25_DRILL_BATCHES) for _ in range(2)]
+        clean4 = p25_drill_run(dev, state, batches, "int4", [],
+                               P25_INT4_BATCHES)
+        ev4 = [{"kind": "bitflip_wire", "proc": 0,
+                "after_buckets": sync + per_step + 1}]
+        faulted4 = p25_drill_run(dev, state, batches, "int4", ev4,
+                                 P25_INT4_BATCHES)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for label, f, c, n in (("int8", faulted[0], clean, len(events)),
+                           ("int4", faulted4, clean4, 1)):
+        fired = json.loads(f["fired"])
+        if len(fired) != n:
+            raise AssertionError(f"phase 25 (b) {label}: {len(fired)} flips "
+                                 f"fired, want {n}: {fired}")
+        # attribution: a grad flip's row is its rank; a wire flip's row
+        # runs over the codes of every rank, then their scales
+        want = [e["row"] % NP for e in fired]
+        got = [rank for _reason, rank in f["quarantines"]]
+        if got != want or f["counters"] != (n, n):
+            raise AssertionError(
+                f"phase 25 (b) {label}: quarantines {f['quarantines']} for "
+                f"flips on ranks {want}; corrupt checks and rollbacks "
+                f"{f['counters']}, want ({n}, {n})")
+        for r in range(NP):
+            fl, _t, fp = f["ranks"][r]
+            cl, _t2, cp = c["ranks"][r]
+            if fl != cl or any(not torch.equal(fp[x], cp[x]) for x in fp):
+                raise AssertionError(
+                    f"phase 25 (b) {label}: rank {r}'s losses or parameters "
+                    f"differ from the unfaulted run: {fl} vs {cl}")
+    if (faulted[0]["fired"], faulted[0]["counters"]) != \
+            (faulted[1]["fired"], faulted[1]["counters"]):
+        raise AssertionError(f"phase 25 (b): two same-seed runs differ: "
+                             f"{faulted[0]['fired']} vs "
+                             f"{faulted[1]['fired']}")
+    log(f"phase 25 (b): int8 wire, {P25_DRILL_BATCHES} batches, one grouped "
+        f"allreduce a step, a commit a step; the state sync claims {sync} "
+        f"buckets; plan (seed {P25_SEED}) {events}; fired "
+        f"{faulted[0]['fired']}; quarantines {faulted[0]['quarantines']}; "
+        f"corrupt checks and rollbacks {faulted[0]['counters']}; losses "
+        f"{faulted[0]['ranks'][0][0]} bit for bit the unfaulted run's, and "
+        f"the parameters; a second same-seed run: the same fired log and "
+        f"counters; int4: fired {faulted4['fired']}, quarantines "
+        f"{faulted4['quarantines']}, bit for bit its unfaulted run; {card}")
+    return {"launches": faulted[0]["launches"],
+            "int4_launches": faulted4["launches"]}
+
+
+def p25_job(mode, tmp, env, tag):
+    """One launcher job of phase 25 (np=2 on cuda:0 over gloo); returns
+    the Popen-like thread's result holder."""
+    from horovod_tpu_torch.runner.proc_run import launch_procs
+    out = {}
+    os.makedirs(os.path.join(tmp, tag), exist_ok=True)
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out["codes"] = launch_procs(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--worker25", mode, os.path.join(tmp, tag)], np=NP,
+                env={"HOROVOD_GPU_OPERATIONS": "gloo", "PYTHONPATH": ROOT,
+                     **env}, start_timeout=P25_TIMEOUT)
+        except Exception as exc:  # noqa: BLE001 — reported by the phase
+            out["error"] = repr(exc)
+        out["wall"] = time.perf_counter() - t0
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    out["thread"] = th
+    return out
+
+
+def p25_reports(tmp, tag, job):
+    job["thread"].join()
+    if job.get("error") or job.get("codes") != [0] * NP:
+        raise AssertionError(f"phase 25 job {tag}: {job.get('error')} "
+                             f"exit codes {job.get('codes')}")
+    reps = []
+    for r in range(NP):
+        with open(os.path.join(tmp, tag, f"ev_{r}.json")) as f:
+            reps.append(json.load(f))
+    return reps
+
+
+def phase25_worker(mode, tmp):
+    """One process of a phase-25 launcher job (``chip_smoke.py
+    --worker25 <drill|tune> <dir>``): ``drill`` is tools/
+    integrity_smoke.py's worker on the card (an int8 alltoall feeding an
+    averaged allreduce a batch, inside ``elastic.run`` with a commit a
+    batch); ``tune`` is phase 16 (b)'s run for P25_COORD_STEPS steps,
+    recording the cycle time the coordinator's tuner sends."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.elastic as elastic
+    from horovod_tpu_torch import chaos, telemetry
+    from horovod_tpu_torch.core import engine as E
+    from horovod_tpu_torch.core.integrity import fold_fingerprint
+
+    dev = torch.device("cuda:0")
+    hvd.init(device=dev)
+    r = hvd.rank()
+    ev = {"rank": r}
+    if mode == "tune":
+        import torch.nn.functional as F
+        import horovod_tpu_torch.torch as hvd_torch
+        from horovod_tpu_torch.models.resnet import ResNet50
+        state = torch.load(os.path.join(tmp, "..", "state.pt"))
+        x0, y0 = (t.to(dev) for t in torch.load(
+            os.path.join(tmp, "..", f"batch{r}.pt")))
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16).to(dev)
+        model.load_state_dict(state)
+        opt = hvd_torch.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+        eng = hvd.engine()
+        seen, losses = [], []
+        for step in range(P25_COORD_STEPS):
+            x, y = step_batch(x0, y0, step)
+            opt.zero_grad()
+            loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            seen.append(eng.config.cycle_time_ms)
+        hvd.barrier()
+        ev.update(cycle_seen=seen, tuned=eng.controller.tuned,
+                  losses=losses, autotuner=eng.autotuner is not None)
+    else:
+        quarantines = []
+        q0 = E.Engine.quarantine_step
+
+        def quarantine(eng, reason, rank=None):
+            quarantines.append(rank)
+            return q0(eng, reason, rank=rank)
+        E.Engine.quarantine_step = quarantine
+        eng0 = hvd.engine()
+
+        def grad(w, batch):
+            rng = np.random.RandomState(1000 + batch * 2 + hvd.rank())
+            target = torch.from_numpy(
+                rng.randn(w.numel()).astype(np.float32)).to(dev)
+            return w - 0.05 * target
+
+        st = elastic.ObjectState(
+            bcast_object=hvd.broadcast_object, get_rank=hvd.rank,
+            batch=0, w=np.zeros(256, np.float32), losses=[])
+        entries = [0]
+
+        @elastic.run
+        def train(st):
+            entries[0] += 1
+            while st.batch < P25_SMOKE_BATCHES:
+                w = torch.from_numpy(np.asarray(st.w, np.float32)).to(dev)
+                g = grad(w, st.batch)
+                x, _splits = hvd.alltoall(g, wire_dtype="int8",
+                                          name=f"x{st.batch}",
+                                          error_feedback=False)
+                out = hvd.allreduce(x.contiguous(), op=hvd.Average,
+                                    name=f"g{st.batch}")
+                wn = w - 0.1 * out
+                st.w = wn.cpu().numpy()
+                st.losses = st.losses + [round(float((wn * wn).sum()), 6)]
+                st.batch += 1
+                st.commit()
+        train(st)
+        inj = chaos.current()
+        ev.update(
+            final_fp=f"{fold_fingerprint({'w': st.w}):016x}",
+            losses=st.losses, fired=inj.fired if inj is not None else [],
+            rollbacks=telemetry.counter_total(
+                telemetry.INTEGRITY_ROLLBACKS_FAMILY),
+            corrupt=telemetry.counter_total(
+                telemetry.INTEGRITY_CHECKS_FAMILY, result="corrupt",
+                site="engine"),
+            quarantines=quarantines, entries=entries[0],
+            same_engine=hvd.engine() is eng0, batch=st.batch)
+    with open(os.path.join(tmp, f"ev_{r}.json"), "w") as f:
+        json.dump(ev, f, sort_keys=True)
+    hvd.shutdown()
+    return 0
+
+
+def p25_check_drill(card, clean, faulted):
+    """(c)'s gates."""
+    for r in range(NP):
+        f, c = faulted[r], clean[r]
+        if c["fired"] or c["rollbacks"]:
+            raise AssertionError(f"phase 25 (c): the clean job fired "
+                                 f"{c['fired']}")
+        if f["losses"] != c["losses"] or f["final_fp"] != c["final_fp"]:
+            raise AssertionError(
+                f"phase 25 (c) rank {r}: losses or fingerprint differ from "
+                f"the clean job's: {f['losses']} vs {c['losses']}, "
+                f"{f['final_fp']} vs {c['final_fp']}")
+        if f["batch"] != P25_SMOKE_BATCHES or not f["same_engine"]:
+            raise AssertionError(f"phase 25 (c) rank {r}: batch "
+                                 f"{f['batch']}, same engine "
+                                 f"{f['same_engine']} (in-place replay)")
+        n = len(P25_SMOKE_EVENTS)
+        if f["rollbacks"] < n or f["corrupt"] < n \
+                or f["entries"] != 1 + f["rollbacks"] \
+                or set(f["quarantines"]) != set(range(NP)):
+            raise AssertionError(
+                f"phase 25 (c) rank {r}: rollbacks {f['rollbacks']}, "
+                f"corrupt {f['corrupt']}, loop entries {f['entries']}, "
+                f"quarantined ranks {f['quarantines']} (want both ranks, "
+                f">= {n} each, one entry a rollback)")
+    fired = faulted[0]["fired"] + faulted[1]["fired"]
+    if len(fired) != len(P25_SMOKE_EVENTS):
+        raise AssertionError(f"phase 25 (c): fired {fired}")
+    log(f"phase 25 (c): tools/integrity_smoke.py's plan (seed {P25_SEED}) "
+        f"across 2 processes over gloo on the card: fired {fired}; each "
+        f"process quarantined ranks {[f['quarantines'] for f in faulted]} "
+        f"(the peer through the MIN vote), rollbacks "
+        f"{[f['rollbacks'] for f in faulted]}, replayed in place (one "
+        f"engine, {P25_SMOKE_BATCHES} batches); losses and fingerprint "
+        f"{faulted[0]['final_fp']} equal the clean job's; {card}")
+
+
+def p25_tune(dev, card, state, batches, tmp):
+    """(d) the engine-side tuner, then a second engine on its cache."""
+    log_path = os.path.join(tmp, "autotune.csv")
+    cache = os.path.join(tmp, "autotune.json")
+    probe = _P25Probe().install()
+    try:
+        with _Env(HOROVOD_AUTOTUNE_LOG=log_path, HOROVOD_AUTOTUNE_CACHE=cache,
+                  **P25_TUNE):
+            first = p25_resnet(dev, state, batches, P25_TUNE_STEPS, probe,
+                               tune=True)
+            fuses, buckets = list(probe.fuses), list(probe.buckets)
+            probe.fuses, probe.buckets = [], []
+            second = p25_resnet(dev, state, batches, P25_WARM_STEPS, probe,
+                                tune=True)
+    finally:
+        probe.remove()
+    lines = open(log_path).read().splitlines()
+    samples = int(P25_TUNE["HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"])
+    if lines[0] != P25_CSV_HEADER or len(lines) != samples + 1 or any(
+            len(ln.split(",")) != len(lines[0].split(",")) for ln in lines):
+        raise AssertionError(f"phase 25 (d): CSV {lines}")
+    if first["tuner"]["active"] or first["tuner"]["samples"] != samples:
+        raise AssertionError(f"phase 25 (d): the tuner did not converge: "
+                             f"{first['tuner']}")
+    # each bucket within the threshold it was fused under (a lone entry
+    # larger than it excepted)
+    over = [(th, b) for th, bs in fuses for b in bs
+            if b[0] > 1 and b[1] > th]
+    if over:
+        raise AssertionError(f"phase 25 (d): buckets over their applied "
+                             f"threshold: {over[:5]}")
+    # each flat bucket's codec launches follow its wire
+    codec = {"int8": {"quantize_blockwise": NP, "dequantize_blockwise": NP},
+             "int4": {"quantize_blockwise_int4": NP,
+                      "dequantize_blockwise_int4": NP}}
+    bad = [(w, d) for w, algo, d in buckets if algo == "flat" and
+           {k: v for k, v in d.items() if v} != codec.get(w, {})]
+    if bad:
+        raise AssertionError(f"phase 25 (d): codec launches against the "
+                             f"bucket's wire: {bad[:5]}")
+    entry = list(json.load(open(cache)).values())[0]
+    if not second["tuner"]["warm_started"]:
+        raise AssertionError("phase 25 (d): the second engine did not warm "
+                             "start from the cache")
+    text = first["metrics"]
+    missing = [f for f in ("horovod_autotune_samples_total",
+                           "horovod_autotune_best_score_bytes_per_sec",
+                           "horovod_autotune_best_config") if f not in text]
+    if missing:
+        raise AssertionError(f"phase 25 (d): /metrics.json lacks {missing}")
+    wires = sorted({w or "f32" for w, _a, _d in buckets})
+    log(f"phase 25 (d): the engine tuner over phase 4's run "
+        f"({P25_TUNE}), {P25_TUNE_STEPS} steps: {len(lines) - 1} CSV rows "
+        f"under the JAX package's header; applied thresholds "
+        f"{sorted({th for th, _ in fuses})}, every bucket within its own; "
+        f"wires sampled {wires}, B2-B5 launches a flat bucket as its wire "
+        f"gives; converged (samples {first['tuner']['samples']}, active "
+        f"{first['tuner']['active']}) to {first['tuner']['config']}; cache "
+        f"entry {entry}; a second engine warm-started "
+        f"({second['tuner']['config']}); the autotune families in "
+        f"/metrics.json; {card}")
+    return {"launches": first["launches"]}
+
+
+def p25_check_tune(card, reps, journal):
+    recs = []
+    with open(journal) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("k") == "tuned":
+                recs.append(rec["p"])
+    if not recs:
+        raise AssertionError("phase 25 (e): no tuned record in the journal")
+    cycles = {round(p["cycle_time_ms"], 9) for p in recs}
+    thresholds = {p["fusion_threshold_bytes"] for p in recs}
+    for rep in reps:
+        seen = {round(c, 9) for c in rep["cycle_seen"]}
+        if rep["autotuner"] or not seen <= cycles | {1.0} \
+                or seen == {1.0}:
+            raise AssertionError(
+                f"phase 25 (e) rank {rep['rank']}: cycle times seen "
+                f"{sorted(seen)}, journaled {sorted(cycles)}, engine tuner "
+                f"{rep['autotuner']}")
+    if len(thresholds) < 2:
+        raise AssertionError(f"phase 25 (e): the coordinator applied no "
+                             f"new fusion threshold: {recs}")
+    log(f"phase 25 (e): phase 16 (b)'s np=2 job with --autotune, "
+        f"{P25_COORD_STEPS} steps: {len(recs)} tuned records journaled, "
+        f"fusion thresholds {sorted(thresholds)} applied at the "
+        f"coordinator, cycle times {sorted(cycles)}; the workers ran at "
+        f"{[sorted(set(r['cycle_seen'])) for r in reps]} ms; {card}")
+
+
+def p25_kernel(dev, card):
+    """The digest kernel against its plain versions at the main path's
+    shapes: the 161 ResNet-50 gradients as slices of one bf16 fusion row
+    (25,557,032 elements; one bucket's scan), plus odd and unaligned cuts
+    of the row, every fold bit for bit the plain PyTorch fold and
+    numpy's; then its time, its bound (the row's bytes over 3.35 TB/s)
+    and the plain version's time."""
+    import torch
+    from horovod_tpu_torch.ops import digest_kernels as DK
+    sizes = [math.prod(sh) for sh in resnet50_grad_shapes()]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    row = torch.randn(sum(sizes), generator=g, device=dev).to(torch.bfloat16)
+    segs, off = [], 0
+    for n in sizes:
+        segs.append(row[off:off + n])
+        off += n
+    odd = [row[a:a + n] for a, n in ((1, 12345), (3, 999_999), (7, 0),
+                                     (5, 3), (2, 8_000_001))]
+    errs = []
+    for group in (segs, odd):
+        got = [DK.to_u64(v) for v in DK.fold_segments(group).cpu().tolist()]
+        want = [DK.plain_fold(t) for t in group]
+        errs += [abs(a - b) for a, b in zip(got, want)]
+    for t in odd[:2] + segs[:3]:
+        if DK.plain_fold(t) != DK.np_fold(DK.byte_view(t.cpu()).numpy()):
+            raise AssertionError("phase 25: the plain fold differs from "
+                                 "numpy's")
+    if any(errs):
+        raise AssertionError(f"phase 25: {sum(e != 0 for e in errs)} "
+                             f"kernel folds differ from the plain fold")
+    ms, host_ms = cuda_ms(lambda: DK.fold_segments(segs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in segs:
+        DK.plain_fold(t)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = row.numel() * row.element_size() + 8 * len(segs)
+    bound_ms = nbytes / 3.35e12 * 1e3
+    log(f"phase 25: digest_fold on the 161 ResNet-50 gradient slices of one "
+        f"bf16 row ({row.numel()} elements, {nbytes} bytes) and 5 odd, "
+        f"unaligned cuts: every fold bit for bit the plain PyTorch fold "
+        f"(and numpy's); {ms:.4f} ms on the device ({host_ms:.3f} host ms "
+        f"to enqueue), bound {bound_ms:.4f} ms (bytes over 3.35 TB/s), "
+        f"{bound_ms / ms:.2f} of it; the plain fold {plain_ms:.2f} ms; "
+        f"{card}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms}
+
+
+def p25_cast(dev, card):
+    """(f) The 16-bit wire under integrity: the 161 ResNet-50 gradients in
+    f32 through one grouped allreduce, and the largest through a
+    reducescatter, averaged over NP rank threads on the bf16 wire, 2
+    calls each, with the digests off and on.  With them on the rows are
+    packed at full width (each payload is held against its packed slice)
+    and cast to the wire by B1 (``fused_scale_cast``), never by a plain
+    PyTorch cast: on runs exactly NP more ``fused_scale_cast`` launches a
+    bucket and a reducescatter than off, the same pack and unpack
+    launches, launches the digest kernel, and returns off's results bit
+    for bit (both cast the same f32 values to bf16)."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda_kernels as K
+    from horovod_tpu_torch.ops import digest_kernels as DK
+    from horovod_tpu_torch.ops import quantize_kernels as QK
+    shapes = resnet50_grad_shapes()
+    big = max(range(len(shapes)), key=lambda i: math.prod(shapes[i]))
+    rng = np.random.default_rng(SEED + 25)
+    grads = [[rng.standard_normal(sh, dtype=np.float32) * 1e-2
+              for sh in shapes] for _ in range(NP)]
+    calls = 2
+    runs = {}
+    for mode in ("off", "on"):
+        out = {}
+
+        def fn():
+            r = hvd.rank()
+            g = [torch.from_numpy(a).to(dev) for a in grads[r]]
+            eng = hvd.engine()
+            b0 = eng.allreduce_buckets
+            got = []
+            for c in range(calls):
+                got.append(hvd.grouped_allreduce(
+                    g, op=hvd.Average, wire_dtype="bf16",
+                    name=f"p25f.ar.{c}"))
+                got.append([hvd.reducescatter(
+                    g[big], op=hvd.Average, wire_dtype="bf16",
+                    name=f"p25f.rs.{c}")])
+            torch.cuda.synchronize()
+            if r == 0:
+                out["buckets"] = eng.allreduce_buckets - b0
+            return [t.cpu() for outs in got for t in outs]
+
+        with _Env(HOROVOD_INTEGRITY="1" if mode == "on" else "0"):
+            K.reset_launches()
+            DK.reset_launches()
+            QK.reset_launches()
+            res = hvd.run(fn, np=NP, device=dev)
+            runs[mode] = {"res": res, "buckets": out["buckets"],
+                          "b1": dict(K.launches),
+                          "digest": DK.launches["digest_fold"],
+                          "codec": dict(QK.launches)}
+    off, on = runs["off"], runs["on"]
+    if off["buckets"] != calls or on["buckets"] != calls:
+        raise AssertionError(f"phase 25 (f): buckets off "
+                             f"{off['buckets']}, on {on['buckets']}, want "
+                             f"{calls} (one a grouped allreduce)")
+    extra = NP * (on["buckets"] + calls)
+    want = dict(off["b1"])
+    want["fused_scale_cast"] += extra
+    if on["b1"] != want or off["b1"]["pack_scale_cast"] != NP * 2 * calls:
+        raise AssertionError(f"phase 25 (f): B1 launches off {off['b1']}, "
+                             f"on {on['b1']}; want on = off with {extra} "
+                             f"more fused_scale_cast (each rank's row cast "
+                             f"to the bf16 wire)")
+    if on["digest"] == 0 or off["digest"] != 0:
+        raise AssertionError(f"phase 25 (f): digest launches off "
+                             f"{off['digest']}, on {on['digest']}")
+    diff = [(r, i) for r in range(NP)
+            for i, (a, b) in enumerate(zip(off["res"][r], on["res"][r]))
+            if not torch.equal(a, b)]
+    if diff:
+        raise AssertionError(f"phase 25 (f): results with the digests on "
+                             f"differ from off's at {diff[:5]}")
+    log(f"phase 25 (f): {len(shapes)} f32 ResNet-50 gradients (grouped "
+        f"allreduce) and the largest, {tuple(shapes[big])} (reducescatter) "
+        f"on the bf16 wire, {NP} ranks x {calls} calls: digests on equal "
+        f"off bit for bit; B1 launches off {off['b1']}, on {on['b1']} "
+        f"({extra} casts to the wire through B1); digest launches on "
+        f"{on['digest']}; {card}")
+    return {"b1": sum(on["b1"].values()), "digest": on["digest"],
+            "codec": on["codec"]}
+
+
+def phase_integrity(dev, card, state, batches):
+    """Phase 25 (see the module docstring).  Returns the digest kernel's
+    launches and device ms, and B1-B5's launches per part."""
+    import torch
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        xs, ys = batches
+        for r in range(NP):
+            torch.save((torch.from_numpy(xs[r]), torch.from_numpy(ys[r])),
+                       os.path.join(tmp, f"batch{r}.pt"))
+        kern = p25_kernel(dev, card)
+        cost = p25_cost(dev, card, state, batches)
+        cast = p25_cast(dev, card)
+        torch.cuda.empty_cache()
+        # (c) and (e): three launcher jobs at once, while (b) and (d) run
+        # here
+        journal = os.path.join(tmp, "coord_journal.jsonl")
+        jobs = {
+            "clean": p25_job("drill", tmp, {}, "clean"),
+            "fault": p25_job("drill", tmp, {
+                "HOROVOD_FAULT_PLAN": p25_plan(P25_SMOKE_EVENTS)}, "fault"),
+            "tune": p25_job("tune", tmp, {
+                "HOROVOD_AUTOTUNE": "1", "HOROVOD_COORD_JOURNAL": journal},
+                "tune")}
+        drill = p25_drill(dev, card, state, batches)
+        torch.cuda.empty_cache()
+        tune = p25_tune(dev, card, state, batches, tmp)
+        reps = {tag: p25_reports(tmp, tag, job) for tag, job in jobs.items()}
+        p25_check_drill(card, reps["clean"], reps["fault"])
+        p25_check_tune(card, reps["tune"], journal)
+    log(f"phase 25: jobs' walls {[round(j['wall'], 1) for j in jobs.values()]}"
+        f" s; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"cost": cost, "kernel": kern, "launches": {
+        "a": cost["launches"], "b": drill["launches"],
+        "b int4": drill["int4_launches"], "d": tune["launches"],
+        "f": cast}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7962,6 +8996,8 @@ def main():
         return phase23_worker(sys.argv[2])
     if sys.argv[1:2] == ["--worker24"]:
         return phase24_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--worker25"]:
+        return phase25_worker(sys.argv[2], sys.argv[3])
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -7975,17 +9011,18 @@ def main():
         f"{sys.version.split()[0]}; TF32 off (cudnn and matmul)")
 
     from horovod_tpu_torch.ops import (_build, conv_bn, cuda_kernels,
-                                       flash_attention, quantize_kernels)
+                                       digest_kernels, flash_attention,
+                                       quantize_kernels)
     t0 = time.perf_counter()
     libs = (cuda_kernels._lib, flash_attention._lib, quantize_kernels._lib,
-            conv_bn._lib)
+            conv_bn._lib, digest_kernels._lib)
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
     log(f"phase 2: {len(libs)} libraries built in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in ("hvd_scale_cast", "hvd_flash", "hvd_quantize",
-                 "hvd_conv_bn"):
+                 "hvd_conv_bn", "hvd_digest"):
         info = _build.build_info[name]
         lines = info["log"].splitlines()
         regs = [ln.split(":", 1)[1].strip() for ln in lines
@@ -8025,6 +9062,13 @@ def main():
         topo = phase_topology(dev, card, state, batches)
         log(json.dumps({"phase23_launches": topo["launches"]}))
         log(f"phase 23 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if "--phase25" in sys.argv[1:]:
+        # phase 25 alone; not the contract's run
+        integ = walled("phase 25", phase_integrity, dev, card, state,
+                       batches)
+        log(json.dumps({"phase25_launches": integ["launches"]}))
+        log(f"phase 25 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
     if "--phase24" in sys.argv[1:]:
         # phase 24 alone; not the contract's run
@@ -8159,6 +9203,10 @@ def main():
     tracing = walled("phase 24", phase_tracing, dev, card, state, batches,
                      main_path)
     log(json.dumps({"phase24_launches": tracing["launches"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    integ = walled("phase 25", phase_integrity, dev, card, state, batches)
+    log(json.dumps({"phase25_launches": integ["launches"]}))
     del state, batches, phase4_params
     p17 = multi["phase17"]["launches"]
 
@@ -8219,6 +9267,8 @@ def main():
             "fused_scale_cast", "pack_scale_cast", "unpack_scale_cast"),
         "phase24_launches": {leg: tracing["launches"][leg]
                              for leg in ("a", "b", "d")},
+        "phase25_launches": {leg: v["b1"]
+                             for leg, v in integ["launches"].items()},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": "bytes", "library_ms": kern["library_ms"]}]
@@ -8259,6 +9309,8 @@ def main():
             "phase23_launches": phase23_launches(name),
             **({"phase24_launches": tracing["launches"]["c"][name]}
                if name in tracing["launches"]["c"] else {}),
+            "phase25_launches": {leg: v["codec"][name]
+                                 for leg, v in integ["launches"].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -8277,6 +9329,21 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    dk = integ["kernel"]
+    kernels.append({
+        "name": "digest_fold", "route": "cuda", "source": DIGEST_SOURCE,
+        "kernel": "fold_tiles_kernel, fold_segments_kernel",
+        "replaces": "none: the port's own (the JAX package folds host "
+                    "bytes with numpy, horovod_tpu/core/integrity.py:108)",
+        "launches": main_path["digest_launches"],
+        "phase11_launches": fused["digest_launches"],
+        "phase25_launches": {leg: v["digest"]
+                             for leg, v in integ["launches"].items()},
+        "phase25_launches_a_step": integ["cost"]["launches_per_step"],
+        "phase25_device_ms_a_step": integ["cost"]["digest_ms"],
+        "max_abs_err": dk["max_abs_err"], "ms": dk["ms"],
+        "plain_ms": dk["plain_ms"], "bound_ms": dk["bound_ms"],
+        "bound_by": "bytes", "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from .common.basics import (  # noqa: F401
     metrics, start_metrics_server, start_timeline, stop_timeline,
     dump_trace,
 )
+from .core import integrity  # noqa: F401
 from .common.exceptions import (  # noqa: F401
     HorovodInitError, HorovodInternalError, TensorShapeMismatchError,
 )

@@ -27,10 +27,15 @@ decision draws from an RNG seeded by ``(plan seed, event index)``
 identical fault sequence — ``fired`` records it for comparison, and the
 same plan fires the same sequence here as in the JAX package.
 
+* **corruption** (``bitflip_grad`` / ``bitflip_wire``) rides the
+  engine's and the compiled path's encode seams (``corrupt_bucket``):
+  one seeded byte of a packed payload row, or of an encoded wire row,
+  is xor-ed on the device through a ``uint8`` view, after the digests
+  the decode-side verify holds it against.
+
 The JAX package's serving hooks (``before_predict``, ``before_decode``:
-ROADMAP.md A16) and the integrity corruption sites (``corrupt_bucket``:
-A14) have no consumer in the port; plan.py refuses the kinds and triggers
-that would need them.
+ROADMAP.md A16) have no consumer in the port; plan.py refuses the kinds
+and triggers that would need them.
 """
 
 import json
@@ -92,6 +97,10 @@ class FaultInjector:
         self._requests = 0
         self._collectives = 0
         self._commits = 0
+        self._buckets = 0
+        #: bitflip_wire events matured at the grad site, waiting for the
+        #: same bucket's wire site
+        self._pending_wire = []
         self._epoch = time.monotonic()
         self._skew_ms = 0.0
         self._hang = threading.Event()
@@ -101,7 +110,7 @@ class FaultInjector:
         events = plan.worker_events(
             proc, rank_offset, rank_offset + num_local)
         self._by_trigger = {"requests": [], "collectives": [],
-                            "wall": [], "commits": []}
+                            "wall": [], "commits": [], "buckets": []}
         for e in events:
             self._by_trigger[e.trigger].append(
                 _EventState(e, plan.rng_for(e)))
@@ -164,6 +173,60 @@ class FaultInjector:
                 due = [st.event for st in self._by_trigger["collectives"]
                        if st.due(n)]
             self._apply(due, "collectives", n)
+
+    def corrupt_bucket(self, site, bufs):
+        """Encode-site hook of the silent-data-corruption kinds
+        (inject.py:214-243 of the JAX package).  The ``"grad"`` site
+        counts one reduction bucket and applies due ``bitflip_grad``
+        events to the packed payload rows, after the submit-time
+        digests; ``bitflip_wire`` events maturing at the same bucket wait
+        for the ``"wire"`` site (the encoded codes, scales or cast),
+        which applies them after the encode digests.  Positions (row,
+        byte, bit) draw from the event's private RNG and land in
+        ``fired``, so same-seed runs corrupt identically."""
+        states = self._by_trigger["buckets"]
+        if not states:
+            return
+        if site == "grad":
+            with self._lock:
+                self._buckets += 1
+                n = self._buckets
+                due = [st for st in states if st.due(n)]
+                grads = [st for st in due
+                         if st.event.kind == "bitflip_grad"]
+                self._pending_wire.extend(
+                    (st, n) for st in due
+                    if st.event.kind == "bitflip_wire")
+            for st in grads:
+                self._flip(st, bufs, "grad", n)
+        else:
+            with self._lock:
+                pending, self._pending_wire = self._pending_wire, []
+            for st, n in pending:
+                self._flip(st, bufs, "wire", n)
+
+    def _flip(self, st, bufs, site, n):
+        """Flip one seeded bit of one seeded tensor of ``bufs`` in place:
+        a one-byte xor through a ``uint8`` view, on the tensor's own
+        device (inject.py:280-306 of the JAX package)."""
+        import torch
+
+        if not bufs:
+            self._record(st.event, "buckets", n, site=site,
+                         row=-1, byte=-1, bit=-1)
+            return
+        idx = st.rng.randrange(len(bufs))
+        t = bufs[idx]
+        view = t.reshape(-1).view(torch.uint8)
+        if view.numel() == 0:
+            self._record(st.event, "buckets", n, site=site,
+                         row=idx, byte=-1, bit=-1)
+            return
+        byte = st.rng.randrange(view.numel())
+        bit = st.rng.randrange(8)
+        view[byte:byte + 1].bitwise_xor_(1 << bit)
+        self._record(st.event, "buckets", n, site=site,
+                     row=idx, byte=byte, bit=bit)
 
     def corrupt_spill(self, blob: bytes) -> bytes:
         """Spill-write hook (common/elastic.State._spill): counts one

@@ -147,8 +147,6 @@ KINDS = PROCESS_KINDS + WIRE_KINDS + ENGINE_KINDS + COORD_KINDS \
 #: yet: a plan naming one is refused, with the ROADMAP.md item that
 #: ports it.
 REFUSED_KINDS = {
-    "bitflip_grad": "the integrity digests (ROADMAP.md A14)",
-    "bitflip_wire": "the integrity digests (ROADMAP.md A14)",
     "revoke_host": "the fleet controller (ROADMAP.md A17's fleet)",
     "restore_host": "the fleet controller (ROADMAP.md A17's fleet)",
     "kill_shard_server": "the data plane (ROADMAP.md A17's data plane)",

@@ -16,57 +16,17 @@ import logging
 import os
 import pickle
 import queue
-import struct
 import tempfile
-import zlib
 
 from . import env
 from .exceptions import HorovodInternalError, HostsUpdatedInterrupt
+# the CRC trailers live with the integrity module, their JAX home
+from ..core.integrity import (  # noqa: F401
+    TRAILER_MAGIC, TrailerCorruptionError, append_crc_trailer,
+    strip_crc_trailer,
+)
 
 logger = logging.getLogger("horovod_tpu_torch")
-
-#: the spill's trailer: magic, then (payload length, CRC-32) as <QI>
-#: (core/integrity.py:480-533 of the JAX package)
-TRAILER_MAGIC = b"HVDCRC1\n"
-_TRAILER_LEN = len(TRAILER_MAGIC) + 12
-
-
-class TrailerCorruptionError(RuntimeError):
-    """A CRC-trailed payload failed verification; ``kind`` is
-    ``"truncated"`` (length mismatch: a torn write) or ``"mismatch"``
-    (the CRC disagrees: corrupted bytes)."""
-
-    def __init__(self, message, kind):
-        super().__init__(message)
-        self.kind = kind
-
-
-def append_crc_trailer(data: bytes) -> bytes:
-    """``payload + magic + (length, crc32)``.  Pickle readers stop at the
-    end of their stream, so a loader that knows no trailer ignores it."""
-    return data + TRAILER_MAGIC + struct.pack(
-        "<QI", len(data), zlib.crc32(data) & 0xFFFFFFFF)
-
-
-def strip_crc_trailer(data: bytes) -> bytes:
-    """Verify and strip: the payload of a trailed blob after checking its
-    length and CRC (raises :class:`TrailerCorruptionError`), or the input
-    unchanged when it has no trailer."""
-    if len(data) < _TRAILER_LEN or \
-            data[-_TRAILER_LEN:-12] != TRAILER_MAGIC:
-        return data
-    n, crc = struct.unpack("<QI", data[-12:])
-    payload = data[:-_TRAILER_LEN]
-    if n != len(payload):
-        raise TrailerCorruptionError(
-            f"CRC-trailed payload is torn: trailer records {n} bytes, "
-            f"file holds {len(payload)}", kind="truncated")
-    if zlib.crc32(payload) & 0xFFFFFFFF != crc:
-        raise TrailerCorruptionError(
-            "CRC-trailed payload failed checksum verification (bit "
-            "corruption in the stored bytes)", kind="mismatch")
-    return payload
-
 
 def _spill_path():
     """Per-worker state spill file.  The elastic driver sets
@@ -173,6 +133,8 @@ class State:
                     blob = strip_crc_trailer(f.read())
                 payload = pickle.loads(blob)
             except Exception as exc:  # noqa: BLE001 — fall back, loudly
+                from .. import telemetry
+                telemetry.count_integrity_check("corrupt", "spill")
                 logger.warning(
                     "elastic spill %s failed integrity verification "
                     "(%s: %s); falling back to %s", candidate,
@@ -191,6 +153,8 @@ class State:
                 continue
             try:
                 self._load_spill(payload)
+                from .. import telemetry
+                telemetry.count_integrity_check("ok", "spill")
                 return
             except Exception:  # noqa: BLE001 — valid on disk, but does
                 # not fit this state (keep it for a binary rollback)
@@ -279,15 +243,26 @@ def run_fn(func, reset):
                     if not skip_sync:
                         state.sync()
                     return func(state, *args, **kwargs)
-                except HorovodInternalError:
+                except HorovodInternalError as e:
+                    if getattr(e, "evict", False):
+                        # eviction-grade integrity verdict
+                        # (core/integrity.HostEvictionError): repeated
+                        # detections implicated THIS host, so the worker
+                        # dies and the driver blacklists it
+                        raise
                     # a peer died or the round moved on: roll back to the
                     # last commit (this covers failures inside sync() too,
-                    # which the reference leaves uncaught).  The JAX
-                    # package's integrity verdicts (eviction, in-place
-                    # quarantine replay) come with its wire digests,
-                    # ROADMAP.md A14
+                    # which the reference leaves uncaught)
                     state.restore()
                     skip_sync = False
+                    if getattr(e, "quarantine", False):
+                        # step-integrity quarantine: the implicated-rank
+                        # vote made the verdict unanimous and every engine
+                        # survived delivering it, so the mesh is healthy:
+                        # replay in place (restore + resync), with no
+                        # teardown the driver would never re-form a round
+                        # for
+                        continue
                 except HostsUpdatedInterrupt as e:
                     skip_sync = e.skip_sync
                 reset()

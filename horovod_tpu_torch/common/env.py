@@ -42,10 +42,42 @@ HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
 HOROVOD_TORUS_ALLREDUCE = "HOROVOD_TORUS_ALLREDUCE"
 # max payload bytes per compiled bucket program (0 = one grouped program)
 HOROVOD_OVERLAP_BUCKET_BYTES = "HOROVOD_OVERLAP_BUCKET_BYTES"
-# wire integrity digests: on by default in the JAX package; the port has
-# none yet (ROADMAP.md A14), so only an explicit request reads it, and
-# the compiled reducer refuses it
+# bucket sizes the autotuner's overlap dimension sweeps (0 = one grouped
+# program; env.py:292-298 of the JAX package)
+OVERLAP_BUCKET_CHOICES = (0, 1 << 20, 4 << 20, 16 << 20, 64 << 20)
+HOROVOD_OVERLAP_AUTOTUNE = "HOROVOD_OVERLAP_AUTOTUNE"
+# end-to-end step integrity (core/integrity.py): INTEGRITY=0 disables the
+# wire digests and the implicated-rank vote (on by default, as in the JAX
+# package); SENTINEL_STEPS is the divergence sentinel's cadence (0 off);
+# EVICT_AFTER escalates the N-th detection implicating one rank into a
+# HostEvictionError (0 never); MAX_GRAD_NORM arms the update guard's norm
+# bound (0 = the nonfinite check only)
 HOROVOD_INTEGRITY = "HOROVOD_INTEGRITY"
+HOROVOD_INTEGRITY_SENTINEL_STEPS = "HOROVOD_INTEGRITY_SENTINEL_STEPS"
+HOROVOD_INTEGRITY_EVICT_AFTER = "HOROVOD_INTEGRITY_EVICT_AFTER"
+HOROVOD_INTEGRITY_MAX_GRAD_NORM = "HOROVOD_INTEGRITY_MAX_GRAD_NORM"
+# the Bayesian autotuner (core/autotune.py; env.py:18-23 of the JAX
+# package): on/off, the per-sample CSV log, warm-up samples discarded,
+# steps (fused buckets) per sample, samples before it converges, the
+# GP's noise, and the warm-start cache file
+HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
+HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
+HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
+HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE = "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"
+HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = \
+    "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = \
+    "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
+HOROVOD_AUTOTUNE_CACHE = "HOROVOD_AUTOTUNE_CACHE"
+# the tuner's pack and cache dimensions (kept so its vector matches the
+# JAX package's; the port packs on the device and applies neither)
+HOROVOD_TPU_PACK_MT_THRESHOLD = "HOROVOD_TPU_PACK_MT_THRESHOLD"
+HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
+# expert parallelism: the tuner's MoE dimension is swept only when the
+# job hosts experts (MOE_EXPERTS > 0)
+HOROVOD_MOE_EXPERTS = "HOROVOD_MOE_EXPERTS"
+HOROVOD_MOE_CAPACITY_FACTOR = "HOROVOD_MOE_CAPACITY_FACTOR"
+HOROVOD_MOE_EP = "HOROVOD_MOE_EP"
 # reducescatter backward convention: default matches the reference (Sum
 # grad x= size, Average unscaled); 1 = the true adjoint of the forward
 HOROVOD_EXACT_ADJOINT_REDUCESCATTER = \
@@ -135,6 +167,7 @@ HOROVOD_AGG_FALLBACK_DEADLINE_SECONDS = \
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_STALL_WARNING_SECS = 60.0
 
 
@@ -235,7 +268,36 @@ class Config:
                 os.environ.get(HOROVOD_ALLREDUCE_ALGORITHM))
         # latched once per compiled reducer call or stream
         self.overlap_bucket_bytes = get_int(HOROVOD_OVERLAP_BUCKET_BYTES, 0)
-        self.integrity = get_bool(HOROVOD_INTEGRITY, False)
+        self.overlap_autotune = get_bool(HOROVOD_OVERLAP_AUTOTUNE)
+        # wire digests and the implicated-rank vote default ON
+        # (env.py:558-566 of the JAX package)
+        self.integrity = get_bool(HOROVOD_INTEGRITY, True)
+        self.integrity_sentinel_steps = get_int(
+            HOROVOD_INTEGRITY_SENTINEL_STEPS, 50)
+        self.integrity_evict_after = get_int(
+            HOROVOD_INTEGRITY_EVICT_AFTER, 3)
+        self.integrity_max_grad_norm = get_float(
+            HOROVOD_INTEGRITY_MAX_GRAD_NORM, 0.0)
+        # the autotuner (env.py:178-183 and :532 of the JAX package)
+        self.autotune = get_bool(HOROVOD_AUTOTUNE)
+        self.autotune_log = get_str(HOROVOD_AUTOTUNE_LOG)
+        self.autotune_warmup_samples = get_int(
+            HOROVOD_AUTOTUNE_WARMUP_SAMPLES, 3)
+        self.autotune_steps_per_sample = get_int(
+            HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE, 10)
+        self.autotune_max_samples = get_int(
+            HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, 20)
+        self.autotune_cache = get_str(HOROVOD_AUTOTUNE_CACHE)
+        # the tuner's third and fourth dimensions (env.py:422-425)
+        self.pack_mt_threshold_bytes = get_int(
+            HOROVOD_TPU_PACK_MT_THRESHOLD, 8 << 20)
+        self.cache_capacity = get_int(HOROVOD_CACHE_CAPACITY,
+                                      DEFAULT_CACHE_CAPACITY)
+        # the MoE routing geometry (env.py:576-580)
+        self.moe_experts = get_int(HOROVOD_MOE_EXPERTS, 0)
+        self.moe_capacity_factor = get_float(
+            HOROVOD_MOE_CAPACITY_FACTOR, 1.25)
+        self.moe_ep = get_int(HOROVOD_MOE_EP, 0)
         # the default frontends resolve sharded=None against, and the
         # shard-bucket layout (a malformed one fails here, at init)
         self.sharded_optimizer = get_bool(HOROVOD_SHARDED_OPTIMIZER)

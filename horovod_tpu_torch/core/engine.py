@@ -83,6 +83,7 @@ from ..ops import cuda_kernels, dist_ops
 from ..ops import quantize as qz
 from ..ops import quantize_kernels
 from ..utils import profiler
+from . import integrity as integrity_mod
 from .handles import Handle
 from .message import ReduceOp, Request, RequestType
 
@@ -308,6 +309,44 @@ class Engine:
         #: seconds); ``bypass_track_seconds`` is the port's own: the
         #: seconds the un-armed tracker takes after each store cycle
         #: (what the bypass costs where it never arms)
+        #: end-to-end step integrity (core/integrity.py; engine.py:252-261):
+        #: payloads held against their packed slices and encode-time wire
+        #: folds re-verified before the collective consumes the rows (the
+        #: JAX engine's payload digests are taken at submit), a multi-process
+        #: bucket's verdict agreed in a one-element MIN vote; None when
+        #: HOROVOD_INTEGRITY=0
+        self.integrity = None
+        if self.config.integrity:
+            self.integrity = integrity_mod.IntegrityChecker(
+                evict_after=self.config.integrity_evict_after)
+        #: the engine-side Bayesian autotuner (engine.py:180-213): per
+        #: process and only without a controller (a multi-process job's
+        #: fusion is the coordinator's, which tunes it itself)
+        self.autotuner = None
+        if self.config.autotune and controller is None:
+            from .autotune import ParameterManager
+            # warm-start cache key: slot counts per host, or flat<N>
+            if topology is not None and topology.host_of_rank:
+                counts = {}
+                for h in topology.host_of_rank:
+                    counts[h] = counts.get(h, 0) + 1
+                topo_fp = "h" + "-".join(
+                    str(counts[h]) for h in sorted(counts))
+            else:
+                topo_fp = f"flat{self.global_size}"
+            self.autotuner = ParameterManager(
+                self.config,
+                warmup_samples=self.config.autotune_warmup_samples,
+                steps_per_sample=self.config.autotune_steps_per_sample,
+                max_samples=self.config.autotune_max_samples,
+                log_path=self.config.autotune_log,
+                tune_sharded=bool(self.config.sharded_optimizer),
+                tune_overlap=bool(self.config.overlap_autotune),
+                tune_moe=self.config.moe_experts > 0,
+                cache_path=self.config.autotune_cache,
+                topo_fp=topo_fp, world_size=self.global_size)
+        #: the first fusion bucket's signature keys the warm-start cache
+        self._autotune_sig_noted = False
         self._bypass = None
         self._vote_group = vote_group
         self._vote_ex = None
@@ -1332,6 +1371,16 @@ class Engine:
         except Exception as exc:  # noqa: BLE001 — coordinator death
             self.abort(exc)
             return
+        tuned = getattr(self.controller, "tuned", None)
+        if tuned:
+            # the coordinator-side autotuner's broadcast (engine.py:
+            # 1365-1373; reference SynchronizeParameters): the loop
+            # re-reads the cycle time every iteration
+            if "cycle_time_ms" in tuned:
+                self.config.cycle_time_ms = tuned["cycle_time_ms"]
+            if "pack_mt_threshold_bytes" in tuned:
+                self.config.pack_mt_threshold_bytes = \
+                    tuned["pack_mt_threshold_bytes"]
         for resp in responses:
             self._apply_response(resp)
         if self._bypass is not None and not self._bypass.active:
@@ -2121,10 +2170,20 @@ class Engine:
         wire = self._wire_for(req, dtype, op)
         algo, inner = self._algo_plan(ps, req, op)
         self._m_algo.labels(algorithm=algo).inc()
+        # under integrity or chaos the rows are packed as byte copies of
+        # the payloads (the JAX engine's slabs): the grad site flips them
+        # and each payload is held against its packed slice at the
+        # verdict; the pre-scale applies after the verdict, the 16-bit
+        # cast (B1) after the grad site
+        raw = self.integrity is not None or self.chaos is not None
+        ictx = integrity_mod.BucketWatch(
+            f"{req.tensor_name}+{len(layout) - 1}") \
+            if self.integrity is not None else None
         if algo != "flat":
             results = self._run_allreduce_2d(ps, bucket, layout, total,
-                                             dtype, wire, inner)
-            self._finish_allreduce_bucket(ps, bucket, results)
+                                             dtype, wire, inner, raw, ictx)
+            self._finish_allreduce_bucket(ps, bucket, results, layout,
+                                          total, dtype)
             return
         spans = self._spans_hosts(ps)
         hop = "cross" if spans else "inner"
@@ -2133,8 +2192,13 @@ class Engine:
             self._account_hop(hop, None, nbytes)
             red_op, post_f, scaled = dist_ops.allreduce_plan(
                 op, dtype, pre, post, ps.size)
-            rows = self._pack_rows(ps, bucket, layout, total, dtype, pre,
-                                   scaled)
+            rows = self._pack_rows(ps, bucket, layout, total, dtype,
+                                   1.0 if raw else pre, scaled and not raw)
+            self._chaos_site("grad", rows)
+            self._chaos_site("wire", rows)
+            self._integrity_check(ps, bucket, layout, rows, ictx)
+            if raw:
+                self._prescale_rows(rows, pre, scaled)
             ys = ps.executor.reduce(rows, red_op)
             results = self._unpack_rows(
                 ps, bucket, layout, ys, dtype, post_f,
@@ -2144,26 +2208,39 @@ class Engine:
             self.account_wire(nbytes, total * 2, total * 2 if spans else 0,
                               wire=wire)
             self._account_hop(hop, wire, total * 2)
-            if dtype == torch.float64:
-                rows = [row.to(wdt) for row in self._pack_rows(
-                    ps, bucket, layout, total, dtype, 1.0)]
+            if dtype == torch.float64 or raw:
+                rows = self._pack_rows(ps, bucket, layout, total, dtype, 1.0)
+                self._chaos_site("grad", rows)
+                wrows = [cuda_kernels.cast(row, wdt) for row in rows]
             else:
-                rows = self._pack_rows(ps, bucket, layout, total, wdt, 1.0)
-            ys = ps.executor.allreduce(rows, op, pre, post)
+                rows = wrows = self._pack_rows(ps, bucket, layout, total,
+                                               wdt, 1.0)
+            if ictx is not None:
+                ictx.watch("engine", hop, wire, wrows, ps.local_ranks)
+            self._chaos_site("wire", wrows)
+            self._integrity_check(ps, bucket, layout, rows, ictx)
+            ys = ps.executor.allreduce(wrows, op, pre, post)
             results = self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
         else:
             rows = self._pack_rows(ps, bucket, layout, total, dtype, 1.0)
+            self._chaos_site("grad", rows)
             q_rows, s_rows = self._encode_quantized_rows(rows, nbytes, wire)
             self._account_hop(hop, wire, q_rows[0].numel()
                               + s_rows[0].numel() * qz.SCALE_BYTES)
+            if ictx is not None:
+                ictx.watch("engine", hop, wire, list(zip(q_rows, s_rows)),
+                           ps.local_ranks)
+            self._chaos_site("wire", q_rows + s_rows)
+            self._integrity_check(ps, bucket, layout, rows, ictx)
             ys = ps.executor.allreduce_quantized(
                 q_rows, s_rows, op, pre, post,
                 nbits=4 if wire == "int4" else 8, n_elems=total)
             results = self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
-        self._finish_allreduce_bucket(ps, bucket, results)
+        self._finish_allreduce_bucket(ps, bucket, results, layout, total,
+                                      dtype)
 
     def _run_allreduce_2d(self, ps, bucket, layout, total, dtype, wire,
-                          inner):
+                          inner, raw=False, ictx=None):
         """A hierarchical or torus bucket over the wire pair
         (``_dispatch_allreduce_2d``, engine.py:2400-2456): B1 packs each
         rank's members with the pre-scale, the executor's
@@ -2173,7 +2250,10 @@ class Engine:
         post-scales the shard before it gathers back; B1 unpacks.  Only
         the shard crosses the outer hop, at the outer wire's width; its
         bytes count as cross bytes where the set spans hosts, and both
-        hops' bytes count in ``hop_wire_bytes``."""
+        hops' bytes count in ``hop_wire_bytes``.  The codec runs inside
+        the executor's decomposition, so the rows it is handed are the
+        host-visible wire: both chaos sites flip them, and the payload
+        folds catch the flip (engine.py:2414-2422)."""
         req = next(iter(bucket[0].subs.values())).request
         itemsize = dtype.itemsize
         m = -(-total // inner)
@@ -2194,16 +2274,183 @@ class Engine:
                           cross if self._spans_hosts(ps) else 0, wire=wire)
         self._account_hop("cross", wire, cross)
         rows = self._pack_rows(ps, bucket, layout, total, dtype,
-                               req.prescale_factor)
+                               1.0 if raw else req.prescale_factor)
+        self._chaos_site("grad", rows)
+        self._chaos_site("wire", rows)
+        self._integrity_check(ps, bucket, layout, rows, ictx)
+        if raw:
+            self._prescale_rows(rows, req.prescale_factor, False)
         ys = ps.executor.allreduce_2d(
             rows, req.reduce_op, 1.0, req.postscale_factor, inner,
             inner_wire=inner_wire, outer_wire=wire)
         return self._unpack_rows(ps, bucket, layout, ys, dtype, 1.0)
 
-    def _finish_allreduce_bucket(self, ps, bucket, results):
+    # -- integrity (engine.py:2083-2202) ------------------------------------
+
+    def _chaos_site(self, site, bufs):
+        """The chaos corruption hook of one encode seam (a no-op without
+        a fault plan)."""
+        if self.chaos is not None:
+            self.chaos.corrupt_bucket(site, bufs)
+
+    @staticmethod
+    def _prescale_rows(rows, factor, scaled):
+        """The pre-scale of rows packed as byte copies, in place: B1 on
+        floats, the integer rule otherwise."""
+        if factor == 1.0 and not scaled:
+            return
+        for row in rows:
+            if dist_ops.is_float(row.dtype):
+                cuda_kernels.scale_(row, factor)
+            elif scaled:
+                row.copy_(dist_ops.int_prescale(row, factor))
+
+    def _integrity_check(self, ps, bucket, layout, rows, ictx):
+        """Scan and gate one bucket before the collective consumes its
+        rows (a no-op with integrity off)."""
+        if self.integrity is None:
+            return
+        self._integrity_gate(ps, *self._integrity_scan(
+            ps, bucket, layout, rows, ictx))
+
+    def _integrity_scan(self, ps, bucket, layout, rows, ictx):
+        """Verification of one bucket (engine.py:2083-2110): every wire
+        watch the dispatch registered, and every payload against its
+        packed slice of the rank's row, folded in one launch and compared
+        on the device, with one read of the mismatch flags.  The JAX
+        engine digests a payload at submit; here its fold joins the
+        bucket's one launch, so the check spans the pack to the verdict:
+        it sees a packed row changed after the pack (the chaos grad site)
+        and a pack that wrote wrong bytes, but not a payload written
+        between its submit and the pack, which is packed as written
+        (ROADMAP C; a fold a submission on the rank threads cost x
+        1.17-1.19 of the eager step).  The message is the JAX engine's.
+        Returns ``(bad_rank, message)`` for the lowest implicated global
+        rank, or ``(None, None)``: raising is the gate's job, after the
+        vote."""
+        check = integrity_mod.FoldCheck()
+        if ictx is not None:
+            ictx.queue(check)
+        for row_i, r in enumerate(ps.local_ranks):
+            if row_i >= len(rows):
+                continue
+            buf = rows[row_i]
+            per_sub = {}
+            for entry, i, off, size, _shape in layout:
+                sub = entry.subs.get(r)
+                if sub is not None:
+                    pa, pb = per_sub.setdefault(id(sub), (sub, [], []))[1:]
+                    pa.append(sub.payloads[i].reshape(-1))
+                    pb.append(buf[off:off + size])
+            for sub, pa, pb in per_sub.values():
+                check.add_pair(pa, pb, ("payload", r, sub))
+        flagged = check.run()
+        bad, where = ictx.verdict(
+            [t for t, _idx in flagged if t[0] != "payload"]) \
+            if ictx is not None else (None, None)
+        for (kind, *rest), idx in flagged:
+            if kind != "payload":
+                continue
+            r, sub = rest
+            if bad is not None and r >= bad:
+                continue
+            bad = r
+            where = (f"payload checksum mismatch in bucket "
+                     f"{ictx.label if ictx else '?'!r}: tensor "
+                     f"{sub.names[idx[0]]!r} of global rank {r} corrupted "
+                     f"between submit and encode")
+        return bad, where
+
+    def _integrity_vote(self, ps, bad_rank):
+        """The implicated-rank agreement (engine.py:2112-2124): a
+        one-element MIN reduction over the set's executor, every rank
+        voting its lowest locally-detected corrupt rank (OK_VOTE when
+        clean), so every process reads the same verdict."""
+        vote = integrity_mod.OK_VOTE if bad_rank is None \
+            else float(bad_rank)
+        rows = [torch.full((1,), vote, dtype=torch.float32,
+                           device=self.device) for _ in ps.local_ranks]
+        out = ps.executor.reduce(rows, ReduceOp.MIN)
+        v = float(out[0][0])
+        return None if v >= integrity_mod.OK_VOTE else int(v)
+
+    def _integrity_gate(self, ps, bad, where):
+        """Per-bucket verdict (engine.py:2126-2163): multi-process buckets
+        vote first, so a detection on any process quarantines the step on
+        all of them before any rank's optimizer applies it."""
+        voted = bad
+        if self.multiproc:
+            voted = self._integrity_vote(ps, bad)
+            if voted is not None and voted != bad:
+                where = None
+        if voted is None:
+            telemetry.count_integrity_check("ok", "engine")
+            return
+        telemetry.count_integrity_check("corrupt", "engine")
+        evict = self.integrity.record_detection(voted) \
+            and voted in ps.local_ranks
+        self.quarantine_step(
+            integrity_mod.WireIntegrityError.reason, rank=voted)
+        msg = where or (
+            f"a peer process detected wire corruption attributed to "
+            f"global rank {voted}")
+        logger.error(
+            "integrity: %s — quarantining the step and rolling back "
+            "to the last commit", msg)
+        if evict:
+            raise integrity_mod.HostEvictionError(
+                f"integrity: global rank {voted} implicated in "
+                f"{self.integrity.detections.get(voted, 0)} "
+                f"detections (HOROVOD_INTEGRITY_EVICT_AFTER="
+                f"{self.integrity.evict_after}) — exiting so the "
+                f"driver's blacklist verdict evicts this host; "
+                f"last detection: {msg}", rank=voted)
+        raise integrity_mod.WireIntegrityError(msg, rank=voted,
+                                               site="engine")
+
+    def quarantine_step(self, reason, rank=None):
+        """Step-quarantine hygiene (engine.py:2165-2202): count the
+        rollback, poison or disarm the negotiation bypass, drop the
+        autotuner's in-flight sample, clear the compiled path's and the
+        alltoall's error-feedback residuals and every registered holder's
+        wire state, so no stale step state seeds the replay."""
+        telemetry.count_integrity_rollback(reason)
+        logger.warning(
+            "integrity: step quarantined (%s%s)", reason,
+            f", implicated rank {rank}" if rank is not None else "")
+        bp = self._bypass
+        if bp is not None:
+            if bp.active:
+                bp.poison("integrity")
+            else:
+                bp.disarm()
+        if self.autotuner is not None:
+            self.autotuner.abort_sample()
+        try:
+            from ..ops.compiled import reset_ef_state
+            reset_ef_state()
+        except Exception:  # noqa: BLE001 — hygiene must not mask detection
+            logger.exception("integrity: compiled EF reset failed")
+        self._a2a_ef.clear()
+        integrity_mod.reset_registered_wire_state()
+
+    def _finish_allreduce_bucket(self, ps, bucket, results, layout, total,
+                                 dtype):
         """Hand each local submission its outputs, after the engine
-        stream's work."""
+        stream's work; the autotuner scores the bucket's bytes
+        (engine.py:2055-2067)."""
         self.allreduce_buckets += 1
+        if self.autotuner is not None:
+            if not self._autotune_sig_noted:
+                # the first bucket's identity keys the warm-start cache
+                self._autotune_sig_noted = True
+                import hashlib
+                parts = ",".join(sorted(
+                    f"{e.key}:{s}" for e, _i, _o, _sz, s in layout))
+                dt = str(dtype).replace("torch.", "")
+                self.autotuner.note_bucket_signature(hashlib.md5(
+                    f"{dt}|{parts}".encode()).hexdigest()[:12])
+            self.autotuner.record_bytes(total * dtype.itemsize)
         done = self._done_event()
         for entry in bucket:
             for r, sub in self._local_subs(ps, entry).items():
@@ -2219,6 +2466,10 @@ class Engine:
         first = next(iter(subs.values()))
         results = {r: [] for r in subs}
         dim0s = self._global_dim0s(ps, entry, aux, len(first.payloads))
+        ictx = integrity_mod.BucketWatch(
+            f"{first.request.tensor_name}/ag") \
+            if self.integrity is not None else None
+        plans = []
         for i, ref in enumerate(first.payloads):
             dim0 = dim0s[i]
             rest = tuple(ref.shape[1:])
@@ -2232,6 +2483,17 @@ class Engine:
                                   device=self.device)
                 buf[:p.numel()] = p
                 rows.append(buf)
+            # the sharded updater's parameter wire rides this path: the
+            # gathered rows are watched like a gradient wire
+            # (engine.py:2482-2524)
+            if ictx is not None:
+                ictx.watch("engine", "gather", None, rows, list(subs))
+            self._chaos_site("grad", rows)
+            self._chaos_site("wire", rows)
+            plans.append((rows, dim0, rest))
+        if ictx is not None:
+            self._integrity_gate(ps, *ictx.scan())
+        for rows, dim0, rest in plans:
             for r, g in zip(subs, ps.executor.allgather(rows, dim0, rest)):
                 results[r].append(g)
         done = self._done_event()
@@ -2272,6 +2534,15 @@ class Engine:
             flat = torch.cat(parts) if parts else buf[:0]
             buf[:flat.numel()] = flat
             rows.append(buf)
+        if self.integrity is not None:
+            ictx = integrity_mod.BucketWatch(
+                f"{next(iter(bucket[0].subs.values())).request.tensor_name}"
+                f"+{len(bucket) - 1}/ag")
+            ictx.watch("engine", "gather", None, rows, local)
+        self._chaos_site("grad", rows)
+        self._chaos_site("wire", rows)
+        if self.integrity is not None:
+            self._integrity_gate(ps, *ictx.scan())
         gathered = ps.executor.allgather(rows, totals, ())
         self._m_fused_ag.inc()
         starts = [sum(totals[:pos]) for pos in range(R)]
@@ -2390,6 +2661,15 @@ class Engine:
                   default=0)
         if wire in ("int8", "int4") and seg == 0:
             wire = None
+        # the exchange's rows are watched before the chaos sites, the
+        # encoded slots after the encode, and the bucket's one verdict
+        # comes before the exchange (engine.py:2732-2837)
+        hop = "cross" if self._spans_hosts(ps) else "inner"
+        ictx = None
+        if self.integrity is not None:
+            ictx = integrity_mod.BucketWatch(f"{req.tensor_name}/a2a")
+            ictx.watch("engine", hop, None, rows, local_ranks)
+        self._chaos_site("grad", rows)
         if wire in ("int8", "int4"):
             seg_pad = -(-seg // qz.BLOCK) * qz.BLOCK
             q_rows, s_rows = [], []
@@ -2405,6 +2685,12 @@ class Engine:
                                                     + s_rows[0].numel()
                                                     * qz.SCALE_BYTES) // R)
             self._m_quantized.inc()
+            if ictx is not None:
+                ictx.watch("engine", hop, wire, list(zip(q_rows, s_rows)),
+                           local_ranks)
+            self._chaos_site("wire", q_rows + s_rows)
+            if ictx is not None:
+                self._integrity_gate(ps, *ictx.scan())
             q_res, s_res = ps.executor.alltoall_codes(q_rows, s_rows)
             bits = 4 if wire == "int4" else 8
             flat_recv = []
@@ -2419,11 +2705,19 @@ class Engine:
             wdt = qz.WIRE_TORCH_DTYPES[wire]
             self._account_alltoall(ps, local_ranks[0], comb, itemsize,
                                    wire, lambda n: n * 2)
-            flat_recv, _ = ps.executor.alltoall(
-                [row.to(wdt) for row in rows], comb)
+            wrows = [row.to(wdt) for row in rows]
+            if ictx is not None:
+                ictx.watch("engine", hop, wire, wrows, local_ranks)
+            self._chaos_site("wire", wrows)
+            if ictx is not None:
+                self._integrity_gate(ps, *ictx.scan())
+            flat_recv, _ = ps.executor.alltoall(wrows, comb)
         else:
             self._account_alltoall(ps, local_ranks[0], comb, itemsize,
                                    None, lambda n: n * itemsize)
+            self._chaos_site("wire", rows)
+            if ictx is not None:
+                self._integrity_gate(ps, *ictx.scan())
             flat_recv, _ = ps.executor.alltoall(rows, comb)
         self._m_a2a_runs.labels(path="engine", wire=wire or "f32").inc()
         # de-interleave: per source, the bucket's segments arrive in entry
@@ -2525,7 +2819,15 @@ class Engine:
         req = first.request
         op, pre, post = req.reduce_op, req.prescale_factor, \
             req.postscale_factor
-        results = {r: [] for r in subs}
+        raw = self.integrity is not None or self.chaos is not None
+        ictx = integrity_mod.BucketWatch(f"{req.tensor_name}/rs") \
+            if self.integrity is not None else None
+        local = list(subs)
+        hop = "cross" if self._spans_hosts(ps) else "inner"
+        # every payload's rows are built, watched and passed through the
+        # chaos sites first, then the entry's one verdict, then the
+        # collectives (engine.py:2877-2959)
+        plans = []
         for i, ref in enumerate(first.payloads):
             dtype = ref.dtype
             d0 = int(ref.shape[0]) if ref.dim() else 1
@@ -2534,30 +2836,61 @@ class Engine:
             chunks = ps.executor.chunk_sizes(d0, ps.size)
             nbytes = ps.size * max(chunks) * rest_n * dtype.itemsize
             wire = self._wire_for(req, dtype, op)
+            is_f = dist_ops.is_float(dtype)
+            if raw or wire in ("int8", "int4") or (
+                    wire is not None and dtype == torch.float64):
+                rows = self._scatter_rows(subs, i, chunks, rest_n, dtype, 1.0)
+                if ictx is not None:
+                    ictx.watch("engine", hop, None, rows, local)
+                self._chaos_site("grad", rows)
             if wire is None:
+                # floats take the pre-scale in the pack (B1), after the
+                # verdict when the rows are raw; integers in the executor
                 self.account_wire(nbytes, nbytes)
-                is_f = dist_ops.is_float(dtype)
-                rows = self._scatter_rows(subs, i, chunks, rest_n, dtype,
-                                          pre if is_f else 1.0)
-                outs = ps.executor.reducescatter(
-                    rows, d0, rest, op, 1.0 if is_f else pre, post)
+                if raw:
+                    self._chaos_site("wire", rows)
+                else:
+                    rows = self._scatter_rows(subs, i, chunks, rest_n, dtype,
+                                              pre if is_f else 1.0)
+                plans.append((i, None, rows, pre if raw and is_f else 1.0,
+                              d0, rest, 1.0 if is_f else pre, dtype))
             elif wire in qz.WIRE_TORCH_DTYPES:
                 wdt = qz.WIRE_TORCH_DTYPES[wire]
                 self.account_wire(nbytes, nbytes // dtype.itemsize * 2)
-                if dtype == torch.float64:
-                    rows = [row.to(wdt) for row in self._scatter_rows(
-                        subs, i, chunks, rest_n, dtype, 1.0)]
+                if raw or dtype == torch.float64:
+                    wrows = [cuda_kernels.cast(row, wdt) for row in rows]
                 else:
-                    rows = self._scatter_rows(subs, i, chunks, rest_n, wdt,
-                                              1.0)
+                    # the pack casts straight to the wire dtype (B1)
+                    wrows = self._scatter_rows(subs, i, chunks, rest_n, wdt,
+                                               1.0)
+                if ictx is not None:
+                    ictx.watch("engine", hop, wire, wrows, local)
+                self._chaos_site("wire", wrows)
+                plans.append((i, wire, wrows, 1.0, d0, rest, pre, dtype))
+            else:
+                q_rows, s_rows = self._encode_quantized_rows(rows, nbytes,
+                                                             wire)
+                if ictx is not None:
+                    ictx.watch("engine", hop, wire, list(zip(q_rows, s_rows)),
+                               local)
+                self._chaos_site("wire", q_rows + s_rows)
+                plans.append((i, wire, (q_rows, s_rows), 1.0, d0, rest, pre,
+                              dtype))
+        if ictx is not None:
+            self._integrity_gate(ps, *ictx.scan())
+        results = {r: [] for r in subs}
+        for i, wire, rows, scale, d0, rest, factor, dtype in plans:
+            if wire is None:
+                if scale != 1.0:
+                    self._prescale_rows(rows, scale, False)
+                outs = ps.executor.reducescatter(rows, d0, rest, op, factor,
+                                                 post)
+            elif wire in qz.WIRE_TORCH_DTYPES:
                 outs = [cuda_kernels.cast(y, dtype) for y in
                         ps.executor.reducescatter(rows, d0, rest, op, pre,
                                                   post)]
             else:
-                rows = self._scatter_rows(subs, i, chunks, rest_n, dtype,
-                                          1.0)
-                q_rows, s_rows = self._encode_quantized_rows(rows, nbytes,
-                                                             wire)
+                q_rows, s_rows = rows
                 outs = [cuda_kernels.cast(y, dtype) for y in
                         ps.executor.reducescatter_quantized(
                             q_rows, s_rows, d0, rest, op, pre, post,
@@ -2644,3 +2977,5 @@ class Engine:
         for stream in (self.stream, self.compiled_stream):
             if stream is not None:
                 stream.synchronize()
+        if self.autotuner is not None:
+            self.autotuner.close()

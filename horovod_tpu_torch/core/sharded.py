@@ -271,9 +271,9 @@ class ShardedUpdater:
     ``{"shard": bytes this rank holds, "full": what the dense optimizer
     would hold}``, also exported as the ``horovod_optimizer_state_bytes``
     gauge; each gradient reducescatter round counts in
-    ``horovod_sharded_update_runs_total``.  The JAX updater also
-    registers with the step-integrity quarantine, which is not ported
-    either (ROADMAP A14)."""
+    ``horovod_sharded_update_runs_total``.  The updater registers with
+    the step-integrity quarantine, which resets both wires' residuals
+    (sharded.py:286-289 of the JAX package)."""
 
     def __init__(self, plan, process_set=None, op=None, grad_wire=None,
                  param_wire=None, name="shard"):
@@ -291,6 +291,8 @@ class ShardedUpdater:
         self._param_residuals = {}
         self._lock = threading.Lock()
         self.state_bytes = {"shard": 0, "full": 0}
+        from .integrity import register_wire_state
+        register_wire_state(self)
 
     def _ps(self):
         return self.process_set if self.process_set is not None else 0

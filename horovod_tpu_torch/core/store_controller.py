@@ -89,6 +89,9 @@ class StoreController:
         self._lock = threading.Lock()
         self._jid = 0         # join-request id (idempotent retries)
         self._rid = 0         # ready-report id (idempotent retries)
+        #: the coordinator-side autotuner's parameters, last seen in a
+        #: poll reply (store_controller.py:82-85 of the JAX package)
+        self.tuned = None
         # session id: a NEW controller against the SAME coordinator
         # (engine shutdown + re-init without an elastic round reset)
         # must not have its reports deduplicated against the previous
@@ -343,6 +346,8 @@ class StoreController:
             timeout=(self.poll_wait if wait is None else wait) + 30)
         responses = out.get("responses", [])
         self._cursor = out.get("cursor", self._cursor)
+        if "tuned" in out:
+            self.tuned = out["tuned"]
         for j, r in enumerate(responses):
             if r.get("kind") == "bypass_arm":
                 # the arm record is the coordinated mode switch: STOP

@@ -68,11 +68,17 @@ The reducer and the sharded step decompose per hop under
 inner (intra-host) and an outer (inter-host) hop, each with its own
 wire, over the executor's 2-D grid (``MeshExecutor.allreduce_2d``).
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP.md
-item: wire integrity digests (A14).
+The reducer's buckets and the alltoall carry the integrity digests
+(compiled.py:1135-1205 of the JAX package): the packed buffers are
+folded after the chaos grad site and held against their folds after the
+wire site, before the program consumes them; a rank whose own buffers
+changed raises at ``result()``, with no vote on this path and no in-place
+replay (``quarantine=False``).  The compiled train step keeps no digests:
+its reduction lives inside the captured graph.
 """
 
 import contextlib
+import logging
 import math
 import threading
 import time
@@ -95,12 +101,15 @@ from ..core.sharded import (
     overlap_bucket_splits, overlap_segment_bounds, torch_dtype,
 )
 from . import cuda_kernels as K
+from . import digest_kernels
 from .adasum import adasum_reduce
 from . import quantize as qz
 from . import quantize_kernels
 from .api import dtype_name
 from .dist_ops import is_float
 from ..utils import profiler
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 __all__ = [
     "CompiledAlltoall", "CompiledGroupedAllreduce", "CompiledPredict",
@@ -722,6 +731,10 @@ class CompiledGroupedAllreduce:
         # (skey, pos, buf_idx) -> the rank's f32 residual: of its whole
         # buffer (flat), of its 1/inner shard (decomposed)
         self._residuals = {}
+        # a step quarantine resets every registered reducer's residuals
+        # (compiled.py:517-521 of the JAX package)
+        from ..core.integrity import register_wire_state
+        register_wire_state(self)
         #: wire accounting of the most recent call; the cross bytes are
         #: those over the slow (outer) hop
         self.last_logical_bytes = 0
@@ -1059,6 +1072,62 @@ class CompiledGroupedAllreduce:
         with self._lock:
             self._residuals.clear()
 
+    def _integrity_arm(self, eng, bufs, primary=True):
+        """Encode-site integrity of the compiled path (compiled.py:
+        1135-1158 of the JAX package): the chaos grad site, the folds of
+        the buffers the program will consume (one launch), the wire site.
+        The chaos sites fire on the primary (lowest local position) rank
+        thread only, so which thread's buffers are "bucket n" never
+        depends on the scheduler.  Returns the folds, or None with
+        integrity off."""
+        inj = eng.chaos if primary else None
+        if inj is not None:
+            inj.corrupt_bucket("grad", bufs)
+        fps = None
+        if eng.integrity is not None:
+            fps = digest_kernels.fold_segments([b.reshape(-1) for b in bufs])
+        if inj is not None:
+            inj.corrupt_bucket("wire", bufs)
+        return fps
+
+    def _integrity_verify(self, eng, ps, pos, bad):
+        """This rank's verdict (compiled.py:1160-1205 of the JAX package):
+        no vote on this path, so a detection raises locally with
+        ``quarantine=False`` -- the peers are still stepping, and the
+        elastic loop's full reset, not an in-place replay, brings every
+        process back together."""
+        from ..core import integrity as integrity_mod
+
+        if not bad:
+            telemetry.count_integrity_check("ok", "compiled")
+            return
+        telemetry.count_integrity_check("corrupt", "compiled")
+        ranks = getattr(ps, "ranks", [])
+        rank = ranks[pos] if pos is not None and pos < len(ranks) else -1
+        # tainted residuals must not survive into the replay
+        self.reset_wire_state()
+        evict = False
+        if eng.integrity is not None:
+            evict = eng.integrity.record_detection(rank)
+            eng.quarantine_step(
+                integrity_mod.WireIntegrityError.reason, rank=rank)
+        msg = (f"wire checksum mismatch in compiled bucket "
+               f"{self.name or 'reduce'!r} (site compiled, wire "
+               f"{self.wire_dtype or 'f32'}): global rank {rank}'s "
+               f"packed payload changed between encode and decode")
+        logger.error(
+            "integrity: %s — quarantining the step and rolling back "
+            "to the last commit", msg)
+        if evict:
+            raise integrity_mod.HostEvictionError(
+                f"integrity: global rank {rank} crossed the eviction "
+                f"threshold on the compiled path; last detection: "
+                f"{msg}", rank=rank)
+        err = integrity_mod.WireIntegrityError(msg, rank=rank,
+                                               site="compiled")
+        err.quarantine = False
+        raise err
+
     def stream(self, specs):
         """Open a bucket-granular dispatch stream: declare the signature
         up front (``specs``: tensors or ``(shape, dtype)`` templates in
@@ -1113,11 +1182,10 @@ class _BucketStream:
         self.sig = tuple(sig)
         self.n = len(sig)
         eng, ps = _ps_state(red.process_set)
-        if eng.config.integrity:
-            raise NotImplementedError(
-                "wire integrity digests on the compiled path are not "
-                "ported yet (ROADMAP.md A14); unset HOROVOD_INTEGRITY")
         self.eng, self.ps = eng, ps
+        #: per launched bucket, whether integrity checked it and whether
+        #: this rank's buffers changed (raised at result())
+        self._verdicts = []
         ex = ps.compiled_executor
         self.ex = ex
         self.device = eng.device
@@ -1270,6 +1338,11 @@ class _BucketStream:
                     bufs = red._apply_residuals(skey, self.pos, bufs, mp)
                 else:
                     res = red._hop_residuals(skey, self.pos, mp, hint)
+            fps = red._integrity_arm(
+                eng, bufs, primary=(self.pos == ex.local_positions[0]))
+            self._verdicts.append(
+                (fps is not None, fps is not None
+                 and _integrity_changed(bufs, fps)))
             value = ((bsig, k), bufs, res)
             if self.rdv is None:
                 outs = launch({self.pos: value})
@@ -1310,6 +1383,9 @@ class _BucketStream:
         # (compiled.py:1456-1471): ordering the caller's stream after the
         # buckets never blocks the host, so on the card the exposed
         # remainder is device time, which only a profile shows
+        for checked, bad in self._verdicts:
+            if checked:
+                red._integrity_verify(self.eng, self.ps, self.pos, bad)
         t0 = time.perf_counter()
         results = {}
         for res, done in self._inflight:
@@ -1320,6 +1396,23 @@ class _BucketStream:
             "grouped" if self.bucket_bytes <= 0 else "bucketized",
             time.perf_counter() - t0)
         return [results[i] for i in range(self.n)]
+
+
+def _integrity_changed(bufs, fps):
+    """Whether any of ``bufs`` no longer matches its fold (one launch, one
+    read of the flags)."""
+    from ..core.integrity import FoldCheck
+    check = FoldCheck()
+    check.add([b.reshape(-1) for b in bufs], fps, 0)
+    return bool(check.run())
+
+
+def reset_ef_state():
+    """Drop every compiled-path error-feedback residual held outside the
+    reducers (the compiled alltoall's; compiled.py:244-249 of the JAX
+    package): a step quarantine calls it."""
+    with _A2A_EF_LOCK:
+        _A2A_EF.clear()
 
 
 # error-feedback residuals of the compiled alltoall, one per (executor,
@@ -1379,6 +1472,8 @@ class CompiledAlltoall:
         self._ef_keys = set()
         self._ex = None
         self._lock = threading.Lock()
+        from ..core.integrity import register_wire_state
+        register_wire_state(self)
 
     def _tag(self):
         return ("a2a", self.name, self.wire_dtype, self.wire_inner,
@@ -1491,10 +1586,6 @@ class CompiledAlltoall:
         rank's received tensor (the exchange is eager and the caller's
         stream is ordered after it on return)."""
         eng, ps = _ps_state(self.process_set)
-        if eng.config.integrity:
-            raise NotImplementedError(
-                "wire integrity digests on the compiled path are not "
-                "ported yet (ROADMAP.md A14); unset HOROVOD_INTEGRITY")
         if torch.is_tensor(array):
             if array.device != eng.device:
                 raise ValueError(f"tensor is on {array.device} but "
@@ -1522,7 +1613,8 @@ class CompiledAlltoall:
             buf = torch.zeros(n, dtype=a.dtype, device=a.device)
             buf.view(R, m)[:, :m_exact] = flat.view(R, m_exact)
         else:
-            buf = flat
+            # a chaos flip must never reach the caller's own tensor
+            buf = flat.clone() if eng.chaos is not None else flat
         sig = (n, dtype_name(a.dtype))
         prog = self._program(ex, sig)
         n_local = len(ex.local_positions)
@@ -1532,6 +1624,9 @@ class CompiledAlltoall:
             raise ValueError(
                 "unbound caller: compiled collectives need a rank context "
                 "(call inside hvd.run)")
+        fps = self._integrity_arm(
+            eng, [buf], primary=(pos == ex.local_positions[0]))
+        bad = fps is not None and _integrity_changed([buf], fps)
         tag = self._tag()
         ef_base = ("a2aef", _ex_uid(ex), tag, sig) \
             if self.error_feedback else None
@@ -1594,23 +1689,36 @@ class CompiledAlltoall:
             out.record_stream(cur)
         if m != m_exact:
             out = out.view(R, m)[:, :m_exact]
-        return _A2AResult(out.reshape((R * (a.shape[0] // R),) + rest))
+        return _A2AResult(out.reshape((R * (a.shape[0] // R),) + rest),
+                          (self, eng, ps, pos, bad) if fps is not None
+                          else None)
 
     def __call__(self, array):
         """The synchronous exchange (``start(array).result()``)."""
         return self.start(array).result()
+
+    # the grouped reducer's encode and decode sites (compiled.py:1905-1909
+    # of the JAX package): digest around the chaos sites, verify at
+    # result(), raise locally
+    _integrity_arm = CompiledGroupedAllreduce._integrity_arm
+    _integrity_verify = CompiledGroupedAllreduce._integrity_verify
 
 
 class _A2AResult:
     """A finished compiled exchange: ``result()`` is this rank's received
     tensor, ordered on the caller's stream."""
 
-    __slots__ = ("_out",)
+    __slots__ = ("_out", "_check")
 
-    def __init__(self, out):
+    def __init__(self, out, check=None):
         self._out = out
+        self._check = check
 
     def result(self):
+        if self._check is not None:
+            a2a, eng, ps, pos, bad = self._check
+            self._check = None
+            a2a._integrity_verify(eng, ps, pos, bad)
         return self._out
 
 

@@ -193,6 +193,16 @@ def fused_scale_cast(x, factor, out_dtype=None):
     return out
 
 
+def scale_(x, factor):
+    """``x = dtype(f32(x) * factor)`` in place, one launch (counted as
+    ``fused_scale_cast``): each element is read and written by the same
+    thread."""
+    flat = x.view(-1)
+    if flat.numel():
+        _launch([(flat, flat)], factor, "fused_scale_cast")
+    return x
+
+
 def cast(x, dtype):
     """``dtype(x)``, and ``x`` itself where it is of ``dtype`` already:
     through the kernel between the float dtypes it takes, a plain cast

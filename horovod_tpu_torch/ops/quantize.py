@@ -61,6 +61,13 @@ WIRE_PAIR_CHOICES = (
     ("bf16", "int4"),
 )
 
+
+def wire_pair_label(inner, outer):
+    """A pair's spelling, ``'inner:outer'`` with f32 for full width (the
+    autotune CSV and the ``horovod_autotune_best_config`` label;
+    quantize.py:148-151 of the JAX package)."""
+    return f"{inner or 'f32'}:{outer or 'f32'}"
+
 #: torch dtype of each 16-bit wire
 WIRE_TORCH_DTYPES = {"fp16": torch.float16, "bf16": torch.bfloat16}
 

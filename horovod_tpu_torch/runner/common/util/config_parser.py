@@ -24,8 +24,8 @@ from ...config_parser import (  # noqa: F401
 )
 from .env import LOG_LEVEL_STR as LOG_LEVELS  # noqa: F401
 
-# autotune sampling knobs (the JAX package's core/autotune.py reads
-# these; the port's autotuner is ROADMAP.md A14)
+# autotune sampling knobs (core/autotune.py reads them through
+# common/env.Config)
 HOROVOD_AUTOTUNE_WARMUP_SAMPLES = "HOROVOD_AUTOTUNE_WARMUP_SAMPLES"
 HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE = "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"
 HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = \

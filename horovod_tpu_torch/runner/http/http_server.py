@@ -49,7 +49,13 @@ worker for its flight-recorder ring and serves the clock-aligned merge;
 unauthenticated, as in the JAX package: a Prometheus scraper cannot
 sign, and the payload is read-only.
 
-Not ported (ROADMAP.md): the coordinator-side autotuner (A14).
+The coordinator-side autotuner (http_server.py:460-491 of the JAX
+package; ``horovodrun --autotune``): fusing is this server's job, so it
+applies the tuned fusion threshold itself, and the tuned cycle time rides
+back to every worker in poll replies; the current best configuration is
+journaled, so a restarted coordinator resumes it.  It tunes neither the
+wire nor the algorithm (workers that applied a new default at different
+cycles would fail the cross-process check).
 """
 
 import hashlib
@@ -80,19 +86,18 @@ def coordinator_kwargs(env=None):
     mapping (default: os.environ): the response-cache capacity, the
     stall-inspector warning time (so the coordinator's global stall
     attribution fires on the workers' clock), the heartbeat interval
-    and window, and the journal path.  ``HOROVOD_AUTOTUNE`` is refused
-    (ROADMAP.md A14)."""
+    and window, the journal path, and the autotuner's switch, log and
+    seed cycle time (``autotune_kwargs``, http_server.py:54-70 of the JAX
+    package)."""
     env = os.environ if env is None else env
 
     def on(name):
         return str(env.get(name, "")).strip().lower() \
             in ("1", "true", "yes", "on")
 
-    if on("HOROVOD_AUTOTUNE"):
-        raise NotImplementedError(
-            "HOROVOD_AUTOTUNE: the autotuner is not ported yet "
-            "(ROADMAP.md A14)")
-    kwargs = {}
+    kwargs = {"autotune": on("HOROVOD_AUTOTUNE"),
+              "autotune_log": env.get("HOROVOD_AUTOTUNE_LOG") or None,
+              "cycle_time_ms": float(env.get("HOROVOD_CYCLE_TIME") or 1.0)}
     cap = env.get("HOROVOD_CACHE_CAPACITY")
     if cap is not None and str(cap).strip() != "":
         # 0 = response cache disabled (--disable-cache)
@@ -428,11 +433,8 @@ class Coordinator:
                  stall_warning_secs: float = 60.0,
                  heartbeat_secs: float = 5.0,
                  heartbeat_window: float = 0.0,
-                 journal=None):
-        if autotune:
-            raise NotImplementedError(
-                "the coordinator-side autotuner is not ported yet "
-                "(ROADMAP.md A14)")
+                 journal=None, autotune_log=None,
+                 cycle_time_ms: float = 1.0):
         self.world_size = world_size
         self.fusion_threshold = fusion_threshold_bytes
         self.cache_capacity = cache_capacity
@@ -445,6 +447,21 @@ class Coordinator:
         # transitions so restore_journal can rebuild this object.
         self.coord_epoch = 1
         self._journal = journal
+        # the coordinator-side autotuner: both tunables are seeded from
+        # the configured values, so the first broadcast changes nothing
+        self._autotuner = None
+        self._last_tuned_journaled = None
+        if autotune:
+            import types
+            from ...core.autotune import ParameterManager
+            self._tuned_params = types.SimpleNamespace(
+                fusion_threshold_bytes=fusion_threshold_bytes,
+                cycle_time_ms=cycle_time_ms,
+                pack_mt_threshold_bytes=8 << 20,
+                cache_capacity=cache_capacity)
+            self._autotuner = ParameterManager(
+                self._tuned_params, log_path=autotune_log,
+                tune_wire=False, tune_algorithm=False)
         self._replaying = False
         self._store = None              # attach_store (KV for snapshots)
         self._journal_replayed = {}     # record kind -> replay count
@@ -1081,6 +1098,11 @@ class Coordinator:
                    "cursor": self._log_base + len(self._log),
                    "epoch": self.coord_epoch,
                    "agg_epoch": self._agg_epoch.get(agg, 0)}
+            if self._autotuner is not None:
+                out["tuned"] = {
+                    "cycle_time_ms": self._tuned_params.cycle_time_ms,
+                    "pack_mt_threshold_bytes":
+                        self._tuned_params.pack_mt_threshold_bytes}
             return out
 
     # -- journal restore + compaction ----------------------------------------
@@ -1167,6 +1189,10 @@ class Coordinator:
         elif kind == "kvdel":
             if self._store is not None:
                 self._store.restore(rec["key"], None)
+        elif kind == "tuned":
+            if self._autotuner is not None:
+                for name, val in rec.get("p", {}).items():
+                    setattr(self._tuned_params, name, val)
         elif kind == "snap":
             self._restore_snapshot_locked(rec["s"])
 
@@ -1227,6 +1253,9 @@ class Coordinator:
             for p in self._agg_procs[agg]:
                 self._proc_via_agg.setdefault(p, agg)
         self._bypass_armed_fp = s.get("bypass_fp")
+        if self._autotuner is not None and s.get("tuned"):
+            for name, val in s["tuned"].items():
+                setattr(self._tuned_params, name, val)
         if self._store is not None:
             for key, val in s.get("kv", {}).items():
                 self._store.restore(key, journal_mod._unb64(val))
@@ -1268,7 +1297,8 @@ class Coordinator:
                       sorted(self._agg_procs.get(agg, []))]
                      for agg, sid in sorted(self._agg_sid.items())],
             "bypass_fp": self._bypass_armed_fp,
-            "kv": kv, "tuned": None,
+            "kv": kv, "tuned": dict(vars(self._tuned_params))
+            if self._autotuner is not None else None,
         }
 
     def _maybe_compact_locked(self):
@@ -1278,6 +1308,16 @@ class Coordinator:
         if self._journal is None or not self._journal.needs_compaction():
             return
         self._journal.compact(self._journal_snapshot_locked())
+
+    def _journal_tuned_locked(self):
+        """Journal the autotuner's current configuration when it changes
+        (clocked by the fusion pass)."""
+        if self._journal is None or self._autotuner is None:
+            return
+        params = dict(vars(self._tuned_params))
+        if params != self._last_tuned_journaled:
+            self._last_tuned_journaled = params
+            self._j({"k": "tuned", "p": params})
 
     def _scan_heartbeats(self):
         """Declare procs whose beats stopped for the window dead and
@@ -1706,7 +1746,19 @@ class Coordinator:
             nonlocal bucket, bucket_bytes, sig
             if bucket:
                 self._log_append(self._batch_response(bucket))
+                if self._autotuner is not None:
+                    # the emission rate tracks collective throughput:
+                    # workers re-report only after executing the previous
+                    # responses (http_server.py:1745-1754)
+                    self._autotuner.record_bytes(bucket_bytes)
                 bucket, bucket_bytes, sig = [], 0, None
+
+        if self._autotuner is not None:
+            self.fusion_threshold = \
+                self._tuned_params.fusion_threshold_bytes
+            self.cache_capacity = self._tuned_params.cache_capacity
+            # a restarted coordinator must not re-learn from scratch
+            self._journal_tuned_locked()
 
         for meta in ready:
             if meta["type"] not in ("ALLREDUCE", "ADASUM",
@@ -1930,9 +1982,16 @@ class Coordinator:
             resp = self._log[max(0, cursor - self._log_base):]
             # poll replies carry the epoch: the worker adopts it on
             # first contact and fences every later verb with it
-            return {"responses": resp,
-                    "cursor": self._log_base + len(self._log),
-                    "epoch": self.coord_epoch}
+            out = {"responses": resp,
+                   "cursor": self._log_base + len(self._log),
+                   "epoch": self.coord_epoch}
+            if self._autotuner is not None:
+                # the coordinator-side tuner's broadcast
+                out["tuned"] = {
+                    "cycle_time_ms": self._tuned_params.cycle_time_ms,
+                    "pack_mt_threshold_bytes":
+                        self._tuned_params.pack_mt_threshold_bytes}
+            return out
 
     def _gc_log(self):
         """Drop log entries every process has polled past.  Must hold
@@ -2006,14 +2065,17 @@ class RendezvousServer:
                  heartbeat_secs: float = 5.0,
                  heartbeat_window: float = 0.0,
                  journal_path: str = None,
-                 journal_replay: bool = False):
+                 journal_replay: bool = False,
+                 autotune_log: str = None,
+                 cycle_time_ms: float = 1.0):
         self._coord_kwargs = dict(
             world_size=world_size,
             fusion_threshold_bytes=fusion_threshold_bytes,
             cache_capacity=cache_capacity, autotune=autotune,
             stall_warning_secs=stall_warning_secs,
             heartbeat_secs=heartbeat_secs,
-            heartbeat_window=heartbeat_window)
+            heartbeat_window=heartbeat_window,
+            autotune_log=autotune_log, cycle_time_ms=cycle_time_ms)
         self._journal_path = journal_path
         self.secret = secret
         self._httpd = None

@@ -14,8 +14,9 @@ re-forms the job when a worker dies or discovery changes.  ``--mpi`` and
 ``--gloo`` are accepted and change nothing, as in the JAX package.  The
 parser is the JAX package's, flag for flag; the flags of features the
 port has not ported yet are refused with the ROADMAP.md item that ports
-them (the fleet: A17; autotune: A14; pipelining: A15; serving: A16).
-The tracing and telemetry flags (``--timeline-filename``,
+them (the fleet: A17; pipelining: A15; serving: A16).  The six
+``--autotune*`` flags reach the workers' env, and ``--autotune`` turns on
+the coordinator-side tuner.  The tracing and telemetry flags (``--timeline-filename``,
 ``--timeline-mark-cycles``, ``--trace-ring-events``, ``--trace-dump-dir``,
 ``--trace-clock-sync-seconds``, ``--metrics-port``,
 ``--metrics-push-seconds``) reach the workers' env.
@@ -32,10 +33,6 @@ from .hosts import parse_host_files
 #: ported; a run that sets one is refused
 _UNPORTED_FLAGS = (
     ("fleet_spec", "A17"),
-    ("autotune", "A14"), ("autotune_log_file", "A14"),
-    ("autotune_warmup_samples", "A14"), ("autotune_steps_per_sample", "A14"),
-    ("autotune_bayes_opt_max_samples", "A14"),
-    ("autotune_cache_file", "A14"),
     ("pipeline_stages", "A15"), ("num_microbatches", "A15"),
     ("pipeline_schedule", "A15"), ("pipeline_chunks", "A15"),
     ("serve", "A16"), ("serve_port", "A16"), ("serve_max_batch_size", "A16"),

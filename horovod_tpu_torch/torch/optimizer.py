@@ -38,7 +38,7 @@ from ..core.sharded import ShardedUpdater, ShardPlan, compression_wire
 from ..ops import api
 from ..ops import cuda_kernels
 from ..ops import quantize_kernels
-from ..ops.api import Average, Sum
+from ..ops.api import Average, ReduceOp, Sum
 from .compression import Compression
 
 
@@ -59,6 +59,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         # residuals (one optimizer, and so one set, per rank)
         self._wire_dtype = getattr(compression, "wire", None)
         self._residuals = {}
+        # a step quarantine (core/integrity.py) resets these residuals
+        # too: the in-place rollback never reaches the elastic reset
+        # (optimizer.py:44-47 of the JAX package)
+        from ..core.integrity import register_wire_state
+        register_wire_state(self)
         self.op = op
         self.gradient_predivide_factor = gradient_predivide_factor
         self.sparse_as_dense = sparse_as_dense
@@ -333,30 +338,48 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     self._handles[p] = self._allreduce_grad_async(p)
             for pending in self._group_pending.values():
                 pending.clear()
-            group_results = {}
-            for p, (handle, ctx) in list(self._handles.items()):
-                if ctx == ("sparse",):
-                    with torch.no_grad():
-                        p.grad = handle()   # the callable completes it
-                    self._allreduce_delay[p] = self.backward_passes_per_step
-                    continue
-                if isinstance(ctx, tuple) and ctx and ctx[0] == "group":
-                    _, gi, comp_ctx = ctx
-                    if gi not in group_results:
-                        group_results[gi] = api.synchronize(handle)
-                    idx = [id(q) for q in self._groups[gi]].index(id(p))
-                    out = self._compression.decompress(
-                        group_results[gi][idx], comp_ctx)
-                else:
-                    out = self._compression.decompress(
-                        api.synchronize(handle), ctx)
-                if p.grad.is_sparse:
-                    # sparse_as_dense: the dense result replaces it
-                    p.grad = out.view_as(p)
-                elif out is not p.grad:
-                    with torch.no_grad():
-                        p.grad.copy_(out.view_as(p.grad))
-                self._allreduce_delay[p] = self.backward_passes_per_step
+            try:
+                group_results = {}
+                for p, (handle, ctx) in list(self._handles.items()):
+                    if ctx == ("sparse",):
+                        with torch.no_grad():
+                            p.grad = handle()   # the callable completes it
+                        self._allreduce_delay[p] = \
+                            self.backward_passes_per_step
+                        continue
+                    if isinstance(ctx, tuple) and ctx and \
+                            ctx[0] == "group":
+                        _, gi, comp_ctx = ctx
+                        if gi not in group_results:
+                            group_results[gi] = api.synchronize(handle)
+                        idx = [id(q) for q in
+                               self._groups[gi]].index(id(p))
+                        out = self._compression.decompress(
+                            group_results[gi][idx], comp_ctx)
+                    else:
+                        out = self._compression.decompress(
+                            api.synchronize(handle), ctx)
+                    if p.grad.is_sparse:
+                        # sparse_as_dense: the dense result replaces it
+                        p.grad = out.view_as(p)
+                    elif out is not p.grad:
+                        with torch.no_grad():
+                            p.grad.copy_(out.view_as(p.grad))
+                    self._allreduce_delay[p] = \
+                        self.backward_passes_per_step
+            except BaseException:
+                # a failed collective (an integrity verdict, a dead peer)
+                # leaves no handle behind: the others are waited for, so
+                # none writes into a gradient after the elastic loop has
+                # restored the commit, and the replay starts clean
+                for handle, ctx in self._handles.values():
+                    if ctx != ("sparse",):
+                        try:
+                            api.synchronize(handle)
+                        except Exception:  # noqa: BLE001 — same failure
+                            pass
+                self._handles.clear()
+                raise
             self._handles.clear()
 
     @contextmanager
@@ -521,10 +544,28 @@ class _ShardedDistributedOptimizer(torch.optim.Optimizer):
         return 1.0, 1.0
 
     def _maybe_reshard(self):
-        """In the JAX package the autotuner flips ``shard_layout`` between
-        steps and every rank re-shards in the same step.  The engine has
-        no autotuner (not ported, ROADMAP A14): nothing flips the layout,
-        so this is a no-op until it lands."""
+        """The autotuner's shard-layout dimension flips
+        ``config.shard_layout`` between steps (optimizer.py:530-553 of
+        the JAX package).  The flip is coordinated by a one-element MIN
+        vote, so every rank re-shards in the same step or none does, and
+        the re-shard is deterministic: the full state gathered exactly,
+        re-sliced under the new plan, the error-feedback residuals
+        dropped."""
+        eng = basics.engine()
+        if eng.autotuner is None:
+            return
+        want = getattr(eng.config, "shard_layout",
+                       self._updater.plan.layout)
+        flag = 1.0 if want != self._updater.plan.layout else 0.0
+        out = api.allreduce(
+            torch.tensor([flag], dtype=torch.float32, device=eng.device),
+            op=ReduceOp.MIN, name="shardopt.reshard",
+            process_set=self.process_set)
+        if float(out[0]) >= 0.5:
+            state = self._gather_full_state()
+            self._build(layout=want)
+            self._load_full_state(state)
+            self._updater.reset_wire_state()
 
     def _grads(self):
         grads = {}

@@ -699,7 +699,8 @@ def _outcome(call):
     "sharded", "step_wire", "step_hint", "adasum", "algorithm",
     "topology_hint", "alltoall", "alltoall_fn", "integrity"])
 def test_not_ported_raises_naming_its_item(case, monkeypatch):
-    """Wire integrity digests stay refused, naming ROADMAP.md A14.  The
+    """Wire integrity digests run on the compiled path (ROADMAP.md A14,
+    ported): HOROVOD_INTEGRITY=1 counts a clean check per rank.  The
     2-D surface (ROADMAP.md A8) is ported: each call has the JAX
     package's outcome, constructed or refused with its ValueError (a hint
     that is no TopologyHint).  ``compiled_alltoall`` with a tuple hint is
@@ -729,14 +730,20 @@ def test_not_ported_raises_naming_its_item(case, monkeypatch):
                 topology_hint=("dp", "tp")),
         }
     if case == "integrity":
+        # ported (ROADMAP.md A14): the digests run, and every rank's
+        # bucket counts one clean check at the compiled site
+        from horovod_tpu_torch import telemetry as ttel
         monkeypatch.setenv("HOROVOD_INTEGRITY", "1")
-        with pytest.raises((NotImplementedError, RuntimeError)) as ei:
-            trun(lambda: thvd.compiled_allreduce(torch.ones(2)), 2)
-        err = ei.value
-        while not isinstance(err, NotImplementedError) and err.__cause__:
-            err = err.__cause__
-        assert isinstance(err, NotImplementedError)
-        assert "ROADMAP.md A14" in str(err)
+
+        def fn():
+            out = thvd.compiled_allreduce(torch.ones(2))
+            thvd.barrier()
+            return out, ttel.counter_total(
+                ttel.INTEGRITY_CHECKS_FAMILY, result="ok", site="compiled")
+        res = trun(fn, 2)
+        for out, ok in res:
+            assert torch.equal(out, torch.ones(2))
+            assert ok == 2
         return
     got = _outcome(calls(thvd, sgd(0.1))[case])
     want = _outcome(calls(jhvd, optax.sgd(0.1))[case])

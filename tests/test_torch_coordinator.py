@@ -350,10 +350,23 @@ def test_journal_records_the_log(tmp_path):
 
 
 def test_autotune_refused():
-    with pytest.raises(NotImplementedError, match="A14"):
-        torch_http.Coordinator(world_size=1, autotune=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        torch_http.coordinator_kwargs({"HOROVOD_AUTOTUNE": "1"})
+    """The coordinator-side autotuner is ported (ROADMAP.md A14): its
+    settings are the JAX launcher's, and a coordinator tunes; what stays
+    refused is the tuner's pipeline dimension (ROADMAP.md A15)."""
+    import types
+    from horovod_tpu_torch.core.autotune import ParameterManager
+    env = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_LOG": "a.csv",
+           "HOROVOD_CYCLE_TIME": "2.5"}
+    got = torch_http.coordinator_kwargs(env)
+    want = jax_http.autotune_kwargs(env)
+    for k in ("autotune", "autotune_log", "cycle_time_ms"):
+        assert got[k] == want[k]
+    c = torch_http.Coordinator(world_size=1, autotune=True)
+    assert c._autotuner is not None and not c._autotuner.tune_wire
+    with pytest.raises(NotImplementedError, match="A15"):
+        ParameterManager(types.SimpleNamespace(
+            fusion_threshold_bytes=1 << 20, cycle_time_ms=1.0),
+            tune_pipeline=True)
 
 
 def _vote(proc, fp, **kw):

@@ -186,7 +186,18 @@ def test_cli_refuses_unported_flags(argv, item):
     flags (tests/test_torch_elastic_jobs.py), and the chaos, journal and
     aggregator-tier flags (tests/test_torch_chaos.py) are ported: a fault
     plan is refused only where it names a kind whose consumer is not
-    ported."""
+    ported.  The autotune flags (A14) are ported: they reach the env the
+    JAX launcher's reach."""
+    if item == "A14":
+        full = argv + ["--", "python", "t.py"]
+        env, ref_env = {}, {}
+        torch_config.set_env_from_args(env, torch_launch.parse_args(full))
+        jax_config.set_env_from_args(ref_env, jax_launch.parse_args(full))
+        keys = {k for k in ref_env if k.startswith("HOROVOD_AUTOTUNE")}
+        assert keys
+        assert {k: env.get(k) for k in keys} == \
+            {k: ref_env[k] for k in keys}
+        return
     with pytest.raises(NotImplementedError, match=item):
         torch_launch.run_commandline(argv + ["--", "python", "t.py"])
 
@@ -276,8 +287,8 @@ def test_refusals_outside_the_cli(monkeypatch):
     """What the launcher still refuses: an np that the rank threads per
     process do not divide, or that is over the slots of ``-H`` (as the
     JAX package's launcher), and a fault plan that names a kind whose
-    consumer is not ported (the integrity flips, A14; the fleet's host
-    revocation, A17), in an elastic job too.
+    consumer is not ported (the fleet's host revocation, A17), in an
+    elastic job too; the integrity flips (A14) are ported and pass.
     Workers on remote hosts (tests/test_torch_remote.py) and elastic runs
     (tests/test_torch_elastic_jobs.py) are ported: the elastic handoff
     adds what the JAX package's adds."""
@@ -286,11 +297,12 @@ def test_refusals_outside_the_cli(monkeypatch):
     with pytest.raises(ValueError, match="exceeds"):
         torch_proc_run.launch_procs(["true"], np=4, ranks_per_proc="host",
                                     hosts="localhost:2,127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="A14"):
-        torch_config.set_env_from_args(
-            {}, argparse.Namespace(fault_plan=json.dumps(
-                {"events": [{"kind": "bitflip_wire", "proc": 0,
-                             "after_buckets": 2}]})))
+    flips = json.dumps({"events": [{"kind": "bitflip_wire", "proc": 0,
+                                    "after_buckets": 2}]})
+    env = {}
+    torch_config.set_env_from_args(
+        env, argparse.Namespace(fault_plan=flips))
+    assert env["HOROVOD_FAULT_PLAN"] == flips
     from horovod_tpu_torch.runner.elastic.discovery import FixedHosts
     from horovod_tpu_torch.runner.elastic.settings import ElasticSettings
     settings = ElasticSettings(
@@ -402,9 +414,9 @@ def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
     """What stays refused on a multi-process engine: a hint that is no
     TopologyHint (a ValueError, as in the JAX package), Adasum with the
     sharded step (a ValueError, as in the JAX package; the dense Adasum
-    step is ported), integrity digests (A14).  The 2-D decompositions
-    run (at one rank the policy degrades to flat; a hint that does not
-    factor the set is a ValueError)."""
+    step is ported).  The integrity digests (A14) and the 2-D
+    decompositions run (at one rank the policy degrades to flat; a hint
+    that does not factor the set is a ValueError)."""
     def step():
         return hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(),
@@ -421,12 +433,16 @@ def test_compiled_entry_points_refuse_a_multiproc_engine(world_of_one,
         hvd.make_compiled_train_step(
             lambda params, batch: params["w"].sum(), sgd(0.1),
             op=hvd.Adasum, sharded=True)
-    monkeypatch.setattr(world_of_one.config, "integrity", True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        hvd.CompiledGroupedAllreduce(force_program=True)([torch.ones(4)])
-    with pytest.raises(NotImplementedError, match="A14"):
-        hvd.CompiledAlltoall(force_program=True)(torch.ones(4))
-    monkeypatch.setattr(world_of_one.config, "integrity", False)
+    from horovod_tpu_torch import telemetry as ttel
+    assert world_of_one.integrity is not None
+    ok0 = ttel.counter_total(ttel.INTEGRITY_CHECKS_FAMILY, result="ok",
+                             site="compiled")
+    assert torch.equal(hvd.CompiledGroupedAllreduce(force_program=True)(
+        [torch.ones(4)])[0], torch.ones(4))
+    assert torch.equal(hvd.CompiledAlltoall(force_program=True)(
+        torch.ones(4)), torch.ones(4))
+    assert ttel.counter_total(ttel.INTEGRITY_CHECKS_FAMILY, result="ok",
+                              site="compiled") == ok0 + 2
     # several rank threads per process are ported (tests/
     # test_torch_hybrid.py), and so are the 2-D decompositions (tests/
     # test_torch_allreduce_2d_multiprocess.py)
